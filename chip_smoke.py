@@ -1,0 +1,345 @@
+"""Drive igneous_tpu_torch's downsample path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, each reported on its own line:
+  1. build: compile the kernel source (csrc/pooling.cu) with nvcc;
+  2. kernels: each CUDA kernel against its plain PyTorch version on the
+     card, bit for bit, at the main path's shapes, with its time (median
+     of CUDA-event timings after warm-up), its bound and the plain time;
+  3. e2e: four file:// layers through Volume.from_numpy ->
+     create_downsampling_tasks -> LocalTaskQueue -> DownsampleTask, every
+     produced mip read back and compared with the plain pyramid computed
+     on the card; the kernels' launch counts are set to 0 just before and
+     read just after, and each kernel must have launched;
+  4. the card's name and power limit, the kernels line, and the result.
+
+Exits non-zero, printing no result, without a CUDA device or without the
+package beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+# 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost (Hopper white paper)
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# integer operations per output voxel: 4 loads' sum, round, shift (average);
+# 6 compares, 4 counts, 3 score selects (mode)
+OPS_PER_OUTPUT = {"average": 5, "mode": 16}
+TOLERANCE = 0  # the pooling contract is bitwise
+
+
+def fail(msg: str) -> None:
+  print(f"FAIL: {msg}", file=sys.stderr)
+  sys.exit(1)
+
+
+def card_line() -> str:
+  proc = subprocess.run(
+    ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+    capture_output=True, text=True, timeout=60,
+  )
+  return proc.stdout.strip().splitlines()[0] if proc.returncode == 0 else "not read"
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+  import torch
+
+  for _ in range(warmup):
+    fn()
+  torch.cuda.synchronize()
+  times = []
+  for _ in range(reps):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    times.append(start.elapsed_time(end))
+  return float(np.median(times))
+
+
+def max_abs_err(outs, refs) -> float:
+  import torch
+
+  from igneous_tpu_torch.ops.cuda_pooling import SIGNED_VIEW
+
+  err = 0.0
+  for o, r in zip(outs, refs):
+    if o.shape != r.shape:
+      return float("inf")
+    signed = SIGNED_VIEW.get(o.dtype, o.dtype)
+    if not torch.equal(o.view(signed), r.view(signed)):
+      a = o.cpu().numpy().astype(np.float64)
+      b = r.cpu().numpy().astype(np.float64)
+      err = max(err, float(np.abs(a - b).max()))
+  return err
+
+
+def bound(method: str, x, outs):
+  """(ms, "bytes" or "operations"): the least time for the work, the larger
+  of each input byte read once and each output byte written once over the
+  memory rate, and the integer operations over the INT32 rate."""
+  nbytes = x.numel() * x.element_size() + sum(o.numel() * o.element_size() for o in outs)
+  ops = OPS_PER_OUTPUT[method] * sum(o.numel() for o in outs)
+  bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT32_OPS_PER_S
+  return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def kernel_phase(cp, torch, dev):
+  """Each kernel against its plain version at the main path's shapes."""
+  g = torch.Generator(device=dev).manual_seed(0)
+  cases = []
+
+  def run(name, kernel, plain, x, method, label):
+    outs = kernel()
+    refs = plain()
+    torch.cuda.synchronize()
+    outs = outs if isinstance(outs, list) else [outs]
+    refs = refs if isinstance(refs, list) else [refs]
+    err = max_abs_err(outs, refs)
+    del refs
+    bound_ms, bound_by = bound(method, x, outs)
+    case = {
+      "kernel": name, "case": label, "max_abs_err": err,
+      "ms": cuda_ms(kernel, reps=20),
+      "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+      "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    print("kernel " + json.dumps(case), flush=True)
+    if err > TOLERANCE:
+      fail(f"{name} {label}: max abs err {err} against its plain version")
+    cases.append(case)
+
+  # fused walk: uint8 image, 5 levels (the image layer's task)
+  x = torch.randint(0, 256, (1, 64, 4096, 4096), dtype=torch.uint8, device=dev, generator=g)
+  run("pyramid2x2x1", lambda: cp.pyramid2x2x1(x, 5, "average"),
+      lambda: cp.pyramid2x2x1_plain(x, 5, "average"), x, "average",
+      "uint8 average L=5 (1,64,4096,4096)")
+  del x
+  # fused walk: uint64 labels above 2^32, 4 levels (the segmentation task)
+  lab = torch.randint(0, 3, (1, 64, 2048, 2048), dtype=torch.int64, device=dev, generator=g)
+  x = (lab * (2**33 + 7) + 2**40).view(torch.uint64)
+  del lab
+  run("pyramid2x2x1", lambda: cp.pyramid2x2x1(x, 4, "mode"),
+      lambda: cp.pyramid2x2x1_plain(x, 4, "mode"), x, "mode",
+      "uint64 mode L=4 (1,64,2048,2048)")
+  del x
+  # fused walk: int16 with negative sums (floor, not truncation)
+  x = torch.randint(-32768, 32768, (1, 64, 2048, 2048), dtype=torch.int16, device=dev, generator=g)
+  run("pyramid2x2x1", lambda: cp.pyramid2x2x1(x, 4, "average"),
+      lambda: cp.pyramid2x2x1_plain(x, 4, "average"), x, "average",
+      "int16 average L=4 (1,64,2048,2048)")
+  del x
+  # single step on a ragged plane (odd extents at deeper levels)
+  x = torch.randint(0, 256, (1, 64, 1000, 1000), dtype=torch.uint8, device=dev, generator=g)
+  run("pool2x2x1", lambda: cp.pool2x2x1(x, "average"),
+      lambda: cp.pool2x2x1_plain(x, "average"), x, "average",
+      "uint8 average (1,64,1000,1000)")
+  y = cp.pool2x2x1(cp.pool2x2x1(cp.pool2x2x1(x, "average"), "average"), "average")
+  run("pool2x2x1", lambda: cp.pool2x2x1(y, "average"),
+      lambda: cp.pool2x2x1_plain(y, "average"), y, "average",
+      "uint8 average odd (1,64,125,125)")
+  del x, y
+  lab = torch.randint(0, 3, (1, 64, 1000, 1000), dtype=torch.int64, device=dev, generator=g)
+  x = (lab * 65537 + 2**31).to(torch.uint32)
+  del lab
+  run("pool2x2x1", lambda: cp.pool2x2x1(x, "mode"),
+      lambda: cp.pool2x2x1_plain(x, "mode"), x, "mode",
+      "uint32 mode (1,64,1000,1000)")
+  del x
+  torch.cuda.empty_cache()
+  return cases
+
+
+def smooth_image(shape, rng, torch, dev) -> np.ndarray:
+  """A spatially correlated uint8 surrogate of EM imagery, (x, y, z) in
+  Fortran order: grey 128 plus three octaves of trilinearly interpolated
+  value noise (cells of 64, 16 and 4 voxels in x and y; 16, 8 and 4 in z)
+  and voxel noise of standard deviation 4, clipped to 0..255. Made on the
+  card from ``rng``; unlike uniform noise, gzip compresses it."""
+  import torch.nn.functional as F
+
+  X, Y, Z = shape
+  acc = torch.full((1, 1, Z, Y, X), 128.0, device=dev)
+  for cxy, cz, amp in ((64, 16, 40.0), (16, 8, 20.0), (4, 4, 10.0)):
+    coarse = rng.standard_normal((Z // cz + 1, Y // cxy + 1, X // cxy + 1), dtype=np.float32)
+    acc += amp * F.interpolate(
+      torch.from_numpy(coarse).to(dev)[None, None], size=(Z, Y, X),
+      mode="trilinear", align_corners=True,
+    )
+  g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+  acc += 4.0 * torch.randn(acc.shape, device=dev, generator=g)
+  img = acc.clamp_(0, 255).round_().to(torch.uint8)[0, 0].cpu().numpy()
+  del acc
+  torch.cuda.empty_cache()
+  return img.transpose(2, 1, 0)  # (z, y, x) C order is (x, y, z) F order
+
+
+def layer_data(kind: str, rng, torch, dev) -> np.ndarray:
+  if kind == "segmentation":
+    # labels above 2^32 in 3x3 blocks: odd blocks straddle the 2x2 windows,
+    # so the votes see 2-2 ties
+    blocks = rng.integers(0, 6, (683, 683, 64), dtype=np.int64).astype(np.uint64)
+    blocks = blocks * np.uint64(2**33 + 7) + np.uint64(2**40)
+    img = np.repeat(np.repeat(blocks, 3, axis=0), 3, axis=1)[:2048, :2048]
+    return np.asfortranarray(img)
+  if kind == "smooth":
+    return smooth_image((4096, 4096, 64), rng, torch, dev)
+  # uniform noise: incompressible, the worst case for gzip
+  shape = (4096, 4096, 64) if kind == "image" else (1000, 1000, 64)
+  return np.asfortranarray(rng.integers(0, 256, shape, dtype=np.uint8))
+
+
+LAYERS = [
+  # name, data kind, chunk size, num_mips, expected kernel
+  ("image", "image", (128, 128, 64), 5, "pyramid2x2x1"),
+  ("segmentation", "segmentation", (128, 128, 64), 4, "pyramid2x2x1"),
+  ("ragged_image", "ragged", (64, 64, 64), 5, "pool2x2x1"),
+  ("smooth_image", "smooth", (128, 128, 64), 5, "pyramid2x2x1"),
+]
+
+
+def written_ratio(root: str, name: str, vol, num_mips: int) -> float:
+  """Raw bytes of mips 1..num_mips over the bytes their chunk files take."""
+  import os
+
+  raw = stored = 0
+  for mip in range(1, num_mips + 1):
+    raw += int(np.prod(vol.meta.volume_size(mip))) * vol.dtype.itemsize
+    d = os.path.join(root, name, vol.meta.key(mip))
+    stored += sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+  return raw / stored
+
+
+def e2e_phase(root, cp, torch, dev):
+  from igneous_tpu_torch import Volume, telemetry
+  from igneous_tpu_torch.ops import pooling
+  from igneous_tpu_torch.queues import LocalTaskQueue
+  from igneous_tpu_torch.task_creation import create_downsampling_tasks
+
+  rng = np.random.default_rng(1)
+  datas = {}
+  for name, kind, chunk, num_mips, _ in LAYERS:
+    t0 = time.perf_counter()
+    datas[name] = layer_data(kind, rng, torch, dev)
+    # mip 0 goes in uncompressed to save host time; the tasks keep gzip
+    Volume.from_numpy(
+      datas[name], f"file://{root}/{name}", resolution=(8, 8, 40),
+      chunk_size=chunk, compress=None,
+    )
+    print(f"ingest {name}: {datas[name].shape} {datas[name].dtype} "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+  for key in cp.LAUNCHES:
+    cp.LAUNCHES[key] = 0
+  for name, _kind, _chunk, num_mips, expect in LAYERS:
+    path = f"file://{root}/{name}"
+    before = dict(cp.LAUNCHES)
+    tasks = create_downsampling_tasks(path, mip=0, num_mips=num_mips)
+    if len(tasks) != 1:
+      fail(f"{name}: expected one task, planned {len(tasks)}")
+    telemetry.reset()
+    t0 = time.perf_counter()
+    LocalTaskQueue(parallel=1).insert(tasks)
+    wall = time.perf_counter() - t0
+    stages = {k: round(v["seconds"], 4) for k, v in telemetry.snapshot().items()}
+    launched = {k: cp.LAUNCHES[k] - before[k] for k in cp.LAUNCHES}
+    ratio = written_ratio(root, name, Volume(path), num_mips)
+    print(f"e2e {name}: task wall {wall:.3f} s, stages (s) {json.dumps(stages)}, "
+          f"launches {json.dumps(launched)}, gzip ratio {ratio:.3f}", flush=True)
+    if launched[expect] < 1:
+      fail(f"{name}: the {expect} kernel was not launched")
+  main_launches = dict(cp.LAUNCHES)
+  for key, n in main_launches.items():
+    if n < 1:
+      fail(f"e2e: kernel {key} was launched no time on the main path")
+
+  # read every produced mip back; compare with the plain pyramid on the card
+  for name, _kind, _chunk, num_mips, _ in LAYERS:
+    path = f"file://{root}/{name}"
+    vol = Volume(path)
+    if vol.meta.num_mips != num_mips + 1:
+      fail(f"{name}: {vol.meta.num_mips} scales, expected {num_mips + 1}")
+    method = pooling.method_for_layer(vol.layer_type)
+    x = torch.from_numpy(datas[name].transpose(2, 1, 0)).to(dev)[None]
+    refs = cp.pyramid2x2x1_plain(x, num_mips, method)
+    for mip, ref in enumerate(refs, start=1):
+      got = Volume(path, mip=mip)
+      got = got.download(got.mip_bounds(mip))[..., 0]
+      want = ref[0].cpu().numpy().transpose(2, 1, 0)
+      if got.shape != want.shape or not np.array_equal(got, want):
+        fail(f"{name} mip {mip}: read back differs from the plain pyramid")
+    del x, refs
+    torch.cuda.empty_cache()
+    print(f"e2e {name}: {num_mips} mips read back, equal to the plain pyramid", flush=True)
+  return main_launches
+
+
+def main() -> int:
+  try:
+    import torch
+  except ImportError:
+    fail("torch is not installed")
+  if not torch.cuda.is_available():
+    fail("no CUDA device: chip_smoke drives the port on the GPU only")
+  try:
+    from igneous_tpu_torch import set_device
+    from igneous_tpu_torch.ops import _build, cuda_pooling as cp
+  except ImportError as e:
+    fail(f"igneous_tpu_torch is not importable here ({e}); run from the repo root")
+
+  t_all = time.perf_counter()
+  dev = set_device("cuda")
+  print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}", flush=True)
+
+  t0 = time.perf_counter()
+  _build.build("pooling")
+  log = _build.BUILD_LOG["pooling"]
+  print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {log['seconds']:.1f} s)", flush=True)
+  for line in log["ptxas"].splitlines():
+    if "Used" in line or "spill" in line:
+      print(f"ptxas pooling: {line.strip()}")
+
+  cases = kernel_phase(cp, torch, dev)
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+    launches = e2e_phase(root, cp, torch, dev)
+
+  kernels = []
+  replaces = {
+    "pyramid2x2x1": "igneous_tpu/ops/pallas_pooling.py:114",
+    "pool2x2x1": "igneous_tpu/ops/pallas_pooling.py:95",
+  }
+  for name in ("pyramid2x2x1", "pool2x2x1"):
+    first = next(c for c in cases if c["kernel"] == name)  # the main-path case
+    kernels.append({
+      "name": name, "route": "cuda",
+      "source": "igneous_tpu_torch/csrc/pooling.cu",
+      "replaces": replaces[name], "launches": launches[name],
+      "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == name),
+      "ms": first["ms"], "plain_ms": first["plain_ms"],
+      "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+      "library_ms": None, "case": first["case"],
+    })
+  print(f"wall: {time.perf_counter() - t_all:.1f} s")
+  print(card_line())
+  print(json.dumps({"kernels": kernels}))
+  print(json.dumps({"ok": True, "device": {
+    "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+    "count": torch.cuda.device_count(),
+  }}))
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())
