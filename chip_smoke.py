@@ -1,18 +1,28 @@
-"""Drive igneous_tpu_torch's downsample path on one NVIDIA GPU and check it.
+"""Drive igneous_tpu_torch's downsample and connected-components paths on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each reported on its own line:
-  1. build: compile the kernel source (csrc/pooling.cu) with nvcc;
+  1. build: compile the kernel sources (csrc/pooling.cu, csrc/ccl.cu) with
+     nvcc, one process per source, started together;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, bit for bit, at the main path's shapes, with its time (median
+     card, bit for bit, at the main paths' shapes, with its time (median
      of CUDA-event timings after warm-up), its bound and the plain time;
-  3. e2e: four file:// layers through Volume.from_numpy ->
+     tile_resolve also runs twice and must give the same output both times;
+  3. e2e downsample: four file:// layers through Volume.from_numpy ->
      create_downsampling_tasks -> LocalTaskQueue -> DownsampleTask, every
      produced mip read back and compared with the plain pyramid computed
      on the card; the kernels' launch counts are set to 0 just before and
      read just after, and each kernel must have launched;
-  4. the card's name and power limit, the kernels line, and the result.
+  4. e2e ccl: two file:// layers through ccl_auto (the four passes on a
+     LocalTaskQueue, task shape 448^3, raw destination), with the wall time
+     of every pass and the stage split of its tasks; the launch counts are
+     set to 0 just before each layer and read just after, tile_resolve must
+     have launched at least once per task in each recomputing pass, and
+     the destination must be the same partition as scipy.ndimage.label's
+     (6-connected, per label), with max_label its component count;
+  5. the card's name and power limit, the kernels line, and the result.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside it.
@@ -25,6 +35,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -34,7 +45,10 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # integer operations per output voxel: 4 loads' sum, round, shift (average);
 # 6 compares, 4 counts, 3 score selects (mode)
 OPS_PER_OUTPUT = {"average": 5, "mode": 16}
-TOLERANCE = 0  # the pooling contract is bitwise
+TOLERANCE = 0  # the pooling and CCL contracts are bitwise
+CCL_CUTOUT = 449  # the default CCL task's cutout: 448^3 plus the overlap
+CCL_TASK_SHAPE = (448, 448, 448)
+CCL_TILE_SWEEP = [(8, 16, 64), (16, 16, 32), (8, 16, 32)]
 
 
 def fail(msg: str) -> None:
@@ -285,6 +299,247 @@ def e2e_phase(root, cp, torch, dev):
   return main_launches
 
 
+# ---------------------------------------------------------------------------
+# connected components
+
+
+def serpentine(n: int, torch, dev):
+  """(z, y, x) int32 n^3: one tube that winds through every tile. Even z
+  planes hold strips 7 voxels wide in x, each a row-by-row serpentine along
+  y (a turn every two rows), joined by the full last row; odd z planes
+  join consecutive even planes at one voxel."""
+  y = torch.arange(n, device=dev).view(n, 1)
+  x = torch.arange(n, device=dev).view(1, n)
+  pos = x % 8
+  turn_x = torch.where((y // 2) % 2 == 0, 6, 0)
+  plane = ((y % 2 == 0) & (pos < 7)) | ((y % 2 == 1) & (pos == turn_x)) | (y == n - 1)
+  vol = torch.zeros((n, n, n), dtype=torch.int32, device=dev)
+  vol[0::2] = plane.to(torch.int32)
+  vol[1::2, n - 1, 0] = 1
+  return vol
+
+
+def ccl_kernel_phase(cc, ccl_ops, torch, dev):
+  """tile_resolve against tile_resolve_plain at the default task's 449^3
+  cutout, tiled with the CUDA default tile: four cases."""
+  n = CCL_CUTOUT
+  tile = ccl_ops._tile_shape(dev)
+  rng = np.random.default_rng(1)
+  mask = smooth_image((n, n, n), rng, torch, dev) >= 128  # (x, y, z)
+  mask = torch.from_numpy(np.ascontiguousarray(mask.transpose(2, 1, 0))).to(dev)
+  g = torch.Generator(device=dev).manual_seed(2)
+  dense = torch.randint(1, 4, (n, n, n), dtype=torch.int32, device=dev, generator=g)
+  inputs = [
+    ("mask of the smooth image >= 128", mask.to(torch.int32), 6),
+    ("dense multilabel, 3 labels", dense, 6),
+    ("serpentine tube", serpentine(n, torch, dev), 6),
+    ("dense multilabel, 3 labels, connectivity 26", dense, 26),
+  ]
+  cases = []
+  for label, vol, conn in inputs:
+    labt = ccl_ops.to_tiles(vol, tile)[0]
+    first = cc.tile_resolve(labt, conn)
+    second = cc.tile_resolve(labt, conn)
+    plain = cc.tile_resolve_plain(labt, conn)
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+      fail(f"tile_resolve {label}: two runs gave different outputs")
+    err = 0.0 if torch.equal(first, plain) else float(
+      (first.to(torch.int64) - plain.to(torch.int64)).abs().max()
+    )
+    del first, second, plain
+    nbytes = 2 * labt.numel() * labt.element_size()
+    # one label comparison per neighbour pair: half the neighbourhood
+    ops = labt.numel() * len(cc.neighbor_offsets(conn)) // 2
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT32_OPS_PER_S
+    case = {
+      "kernel": "tile_resolve", "case": f"{label}, {n}^3, tiles {list(labt.shape)}",
+      "max_abs_err": err,
+      "ms": cuda_ms(lambda: cc.tile_resolve(labt, conn), reps=20),
+      "plain_ms": cuda_ms(lambda: cc.tile_resolve_plain(labt, conn), reps=3, warmup=1),
+      "bound_ms": max(bytes_ms, ops_ms),
+      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+      "library": "none",
+    }
+    print("kernel " + json.dumps(case), flush=True)
+    print("library: none (PyTorch has no connected-components call)", flush=True)
+    if err > TOLERANCE:
+      fail(f"tile_resolve {label}: max abs err {err} against its plain version")
+    cases.append(case)
+  # tile sweep on the main path's case: kernel time, and the share of
+  # voxel pairs that straddle a tile face (what the host merge handles)
+  for sweep in CCL_TILE_SWEEP:
+    labt = ccl_ops.to_tiles(inputs[0][1], sweep)[0]
+    faces = sum(1 / t for t in sweep)
+    print(f"tile sweep {list(sweep)}: {cuda_ms(lambda: cc.tile_resolve(labt, 6), reps=20):.3f} ms, "
+          f"face pairs {faces:.3f} a voxel{' (default)' if tuple(sweep) == tuple(tile) else ''}",
+          flush=True)
+  del inputs, mask, dense, labt
+  torch.cuda.empty_cache()
+  return cases
+
+
+def blobs(shape, n_labels: int, n_blobs: int, rng, torch, dev) -> np.ndarray:
+  """(x, y, z) uint64 Fortran-ordered: background 0 and ``n_blobs`` balls
+  (radius 8..32) painted with ``n_labels`` labels above 2^32, so one label
+  recurs in places that do not touch. Painted on the card from ``rng``."""
+  X, Y, Z = shape
+  vol = torch.zeros((Z, Y, X), dtype=torch.int64, device=dev)
+  values = 2**32 + 7919 * (1 + rng.permutation(10 * n_labels)[:n_labels])
+  for _ in range(n_blobs):
+    r = int(rng.integers(8, 33))
+    cz, cy, cx = (int(rng.integers(0, s)) for s in (Z, Y, X))
+    z0, y0, x0 = max(cz - r, 0), max(cy - r, 0), max(cx - r, 0)
+    z1, y1, x1 = min(cz + r + 1, Z), min(cy + r + 1, Y), min(cx + r + 1, X)
+    zz = torch.arange(z0, z1, device=dev).view(-1, 1, 1) - cz
+    yy = torch.arange(y0, y1, device=dev).view(1, -1, 1) - cy
+    xx = torch.arange(x0, x1, device=dev).view(1, 1, -1) - cx
+    ball = zz * zz + yy * yy + xx * xx <= r * r
+    box = vol[z0:z1, y0:y1, x0:x1]
+    box[ball] = int(values[int(rng.integers(n_labels))])
+  out = vol.cpu().numpy().view(np.uint64).transpose(2, 1, 0)
+  del vol
+  torch.cuda.empty_cache()
+  return out
+
+
+CCL_LAYERS = [
+  # name, shape (x, y, z), dtype, ccl_auto options
+  ("ccl_mask", (896, 896, 448), "uint8", {"threshold_gte": 128}),
+  ("ccl_segmentation", (896, 448, 448), "uint64", {}),
+]
+
+
+def oracle(data: np.ndarray, kw: dict, torch, dev):
+  """scipy.ndimage.label, 6-connected: of the thresholded image, or of each
+  label of a segmentation, on the (z, y, x) view (C-contiguous, as the
+  arrays are Fortran-ordered (x, y, z)). Returns (components, an int64
+  (z, y, x) tensor on the card, and their count)."""
+  from scipy import ndimage
+
+  s6 = ndimage.generate_binary_structure(3, 1)
+  zyx = data.transpose(2, 1, 0)
+  if "threshold_gte" in kw:
+    exp, n = ndimage.label(zyx >= kw["threshold_gte"], structure=s6)
+    return torch.from_numpy(exp).to(dev).to(torch.int64), n
+  seg = torch.from_numpy(zyx.view(np.int64)).to(dev)  # labels are below 2^63
+  exp = torch.zeros(seg.shape, dtype=torch.int64, device=dev)
+  total = 0
+  for v in torch.unique(seg[seg != 0]).tolist():
+    m, k = ndimage.label((seg == v).cpu().numpy(), structure=s6)
+    m = torch.from_numpy(m).to(dev).to(torch.int64)
+    exp = torch.where(m > 0, m + total, exp)
+    total += k
+  return exp, total
+
+
+def same_partition(out: np.ndarray, exp, torch, dev) -> bool:
+  """True when ``out`` ((x, y, z) uint16 or uint32, Fortran-ordered) and
+  ``exp`` (its (z, y, x) oracle on the card) have the same background and a
+  bijection between their component ids (checked on the card)."""
+  signed = {2: np.int16, 4: np.int32}[out.dtype.itemsize]
+  a = torch.from_numpy(out.transpose(2, 1, 0).view(signed)).to(dev).to(torch.int64)
+  a &= (1 << (8 * out.dtype.itemsize)) - 1
+  fg = a != 0
+  if not torch.equal(fg, exp != 0):
+    return False
+  a, b = a[fg], exp[fg]
+  for x, y in ((a, b), (b, a)):
+    m = torch.full((int(x.max()) + 1,), -1, dtype=torch.int64, device=dev)
+    m[x] = y
+    if not torch.equal(m[x], y):
+      return False
+  return True
+
+
+class TimedQueue:
+  """A LocalTaskQueue that records, for each insert (each pass of
+  ccl_auto), its start and end on the host clock, its task count and the
+  telemetry stages of its tasks."""
+
+  def __init__(self):
+    from igneous_tpu_torch.queues import LocalTaskQueue
+
+    self.queue = LocalTaskQueue(parallel=1)
+    self.passes = []
+
+  def insert(self, tasks):
+    from igneous_tpu_torch import telemetry
+
+    tasks = list(tasks)
+    telemetry.reset()
+    t0 = time.perf_counter()
+    self.queue.insert(tasks)
+    t1 = time.perf_counter()
+    self.passes.append({
+      "start": t0, "end": t1, "tasks": len(tasks),
+      "stages": {k: round(v["seconds"], 4) for k, v in telemetry.snapshot().items()},
+    })
+
+
+def ccl_e2e_phase(root, cc, cp, torch, dev):
+  """Each CCL layer through ccl_auto; returns tile_resolve's launches."""
+  from igneous_tpu_torch import Volume
+  from igneous_tpu_torch.task_creation import ccl_auto
+
+  rng = np.random.default_rng(1)
+  launches = 0
+  for name, shape, dtype, kw in CCL_LAYERS:
+    t0 = time.perf_counter()
+    if dtype == "uint8":
+      data = smooth_image(shape, rng, torch, dev)
+    else:
+      data = blobs(shape, 16, 1500, rng, torch, dev)
+    src, dest = f"file://{root}/{name}", f"file://{root}/{name}_out"
+    Volume.from_numpy(data, src, resolution=(8, 8, 40), chunk_size=(64, 64, 64),
+                      compress=None)
+    print(f"ingest {name}: {data.shape} {data.dtype} "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    queue = TimedQueue()
+    for counts in (cc.LAUNCHES, cp.LAUNCHES):
+      for key in counts:
+        counts[key] = 0
+    t0 = time.perf_counter()
+    max_label = ccl_auto(src, dest, shape=CCL_TASK_SHAPE, queue=queue,
+                         encoding="raw", **kw)
+    wall = time.perf_counter() - t0
+    launched = cc.LAUNCHES["tile_resolve"]
+    p1, p2, p4 = queue.passes
+    walls = {
+      "faces": p1["end"] - p1["start"], "links": p2["end"] - p2["start"],
+      "calc-labels": p4["start"] - p2["end"], "relabel": p4["end"] - p4["start"],
+      "clean": t0 + wall - p4["end"],
+    }
+    print(f"e2e {name}: ccl_auto {wall:.3f} s, {p1['tasks']} tasks, "
+          f"max_label {max_label}, tile_resolve launches {launched}, "
+          f"pass walls (s) {json.dumps({k: round(v, 3) for k, v in walls.items()})}",
+          flush=True)
+    for pname, p in zip(("faces", "links", "relabel"), queue.passes):
+      print(f"e2e {name} {pname}: stages over {p['tasks']} tasks (s) "
+            f"{json.dumps(p['stages'])}", flush=True)
+    if any(cp.LAUNCHES.values()):
+      fail(f"{name}: the pooling kernels ran on the CCL path")
+    if launched < 3 * p1["tasks"]:
+      fail(f"{name}: tile_resolve launched {launched} times for "
+           f"{p1['tasks']} tasks in 3 recomputing passes")
+    launches += launched
+
+    t0 = time.perf_counter()
+    exp, n = oracle(data, kw, torch, dev)
+    vol = Volume(dest)
+    out = vol.download(vol.mip_bounds(0))[..., 0]
+    ok = same_partition(out, exp, torch, dev)
+    print(f"e2e {name}: oracle {n} components, same partition {ok}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not ok or max_label != n:
+      fail(f"{name}: destination differs from scipy.ndimage.label "
+           f"(max_label {max_label}, oracle {n}, same partition {ok})")
+    del data, exp, out
+    torch.cuda.empty_cache()
+  return launches
+
+
 def main() -> int:
   try:
     import torch
@@ -294,7 +549,8 @@ def main() -> int:
     fail("no CUDA device: chip_smoke drives the port on the GPU only")
   try:
     from igneous_tpu_torch import set_device
-    from igneous_tpu_torch.ops import _build, cuda_pooling as cp
+    from igneous_tpu_torch.ops import _build, ccl as ccl_ops
+    from igneous_tpu_torch.ops import cuda_ccl as cc, cuda_pooling as cp
   except ImportError as e:
     fail(f"igneous_tpu_torch is not importable here ({e}); run from the repo root")
 
@@ -304,16 +560,23 @@ def main() -> int:
         f"python {sys.version.split()[0]}", flush=True)
 
   t0 = time.perf_counter()
-  _build.build("pooling")
-  log = _build.BUILD_LOG["pooling"]
-  print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {log['seconds']:.1f} s)", flush=True)
-  for line in log["ptxas"].splitlines():
-    if "Used" in line or "spill" in line:
-      print(f"ptxas pooling: {line.strip()}")
+  sources = ("pooling", "ccl")
+  with ThreadPoolExecutor(len(sources)) as pool:
+    list(pool.map(_build.build, sources))  # one nvcc per source, together
+  print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+  for name in sources:
+    log = _build.BUILD_LOG[name]
+    print(f"build {name}: nvcc {log['seconds']:.1f} s", flush=True)
+    for line in log["ptxas"].splitlines():
+      if "Used" in line or "spill" in line:
+        print(f"ptxas {name}: {line.strip()}")
 
   cases = kernel_phase(cp, torch, dev)
+  ccl_cases = ccl_kernel_phase(cc, ccl_ops, torch, dev)
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches = e2e_phase(root, cp, torch, dev)
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+    launches["tile_resolve"] = ccl_e2e_phase(root, cc, cp, torch, dev)
 
   kernels = []
   replaces = {
@@ -331,6 +594,17 @@ def main() -> int:
       "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
       "library_ms": None, "case": first["case"],
     })
+  first = ccl_cases[0]  # the main path's mask case
+  kernels.append({
+    "name": "tile_resolve", "route": "cuda",
+    "source": "igneous_tpu_torch/csrc/ccl.cu",
+    "replaces": "igneous_tpu/ops/pallas_ccl.py:118",
+    "launches": launches["tile_resolve"],
+    "max_abs_err": max(c["max_abs_err"] for c in ccl_cases),
+    "ms": first["ms"], "plain_ms": first["plain_ms"],
+    "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+    "library_ms": None, "case": first["case"],
+  })
   print(f"wall: {time.perf_counter() - t_all:.1f} s")
   print(card_line())
   print(json.dumps({"kernels": kernels}))

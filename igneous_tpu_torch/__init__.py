@@ -1,10 +1,16 @@
 """igneous_tpu_torch: the PyTorch/CUDA port of igneous_tpu.
 
-It runs Igneous's downsample path (create_downsampling_tasks →
-LocalTaskQueue → DownsampleTask → the 2x2x1 pooling pyramid) on an NVIDIA
-GPU, with hand-written CUDA kernels for the pooling pyramid. It imports
-torch, numpy and the standard library, never jax or igneous_tpu, and
-reads and writes the same Precomputed layers and task payloads.
+It runs two of Igneous's paths on an NVIDIA GPU, each with hand-written
+CUDA kernels:
+  - downsampling: create_downsampling_tasks → LocalTaskQueue →
+    DownsampleTask → the 2x2x1 pooling pyramid (``csrc/pooling.cu``);
+  - whole-image connected components: ccl_auto → the four passes
+    CCLFacesTask, CCLEquivalancesTask, create_relabeling, RelabelCCLTask →
+    ops.ccl.connected_components → the block-local tile resolve
+    (``csrc/ccl.cu``).
+It imports torch, numpy, scipy and the standard library, never jax or
+igneous_tpu, and reads and writes the same Precomputed layers, scratch
+files and task payloads.
 
 The device defaults to CUDA; ``set_device("cpu")`` or
 ``IGNEOUS_TORCH_DEVICE=cpu`` asks for the CPU, where the kernels' plain

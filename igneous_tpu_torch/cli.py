@@ -1,9 +1,11 @@
-"""The port's command line: ``python -m igneous_tpu_torch image downsample``.
+"""The port's command line: ``python -m igneous_tpu_torch image downsample``
+and ``python -m igneous_tpu_torch image ccl {faces,links,calc-labels,
+relabel,clean,auto}``.
 
-A minimal counterpart of ``igneous-tpu image downsample``
-(``igneous_tpu/cli.py``), with the same option names. Tasks run in a
-``LocalTaskQueue`` on the port's device (cuda; ``IGNEOUS_TORCH_DEVICE=cpu``
-asks for the CPU).
+A minimal counterpart of ``igneous-tpu image downsample`` and
+``igneous-tpu image ccl`` (``igneous_tpu/cli.py``), with the same option
+names. Tasks run in a ``LocalTaskQueue`` on the port's device (cuda;
+``IGNEOUS_TORCH_DEVICE=cpu`` asks for the CPU).
 """
 
 from __future__ import annotations
@@ -40,11 +42,99 @@ def build_parser() -> argparse.ArgumentParser:
   ds.add_argument("--bg-color", type=int, default=0)
   ds.add_argument("--memory", dest="memory_target", type=int, default=int(3.5e9))
   ds.add_argument("--method", dest="downsample_method", default="auto")
+  _add_ccl(image.add_parser(
+    "ccl", help="Whole-image connected components labeling (4-pass)."
+  ).add_subparsers(dest="ccl_command", required=True))
   return parser
+
+
+def _ccl_opts(cmd) -> None:
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--shape", type=_tuple3, default=(448, 448, 448))
+  cmd.add_argument("--threshold-gte", type=float, default=None)
+  cmd.add_argument("--threshold-lte", type=float, default=None)
+  cmd.add_argument("--fill-missing", action="store_true")
+  cmd.add_argument("--dust", dest="dust_threshold", type=int, default=0,
+                   help="Delete objects smaller than this many voxels "
+                        "within a cutout.")
+
+
+def _dest_opts(cmd) -> None:
+  cmd.add_argument("--encoding", default="compressed_segmentation",
+                   help="Destination encoding; the port writes raw only.")
+  cmd.add_argument("--chunk-size", type=_tuple3, default=None,
+                   help="Chunk size of the destination layer.")
+
+
+def _add_ccl(ccl) -> None:
+  for name, help_ in (("faces", "Pass 1: store each task's back faces."),
+                      ("links", "Pass 2: link the faces of adjacent tasks.")):
+    cmd = ccl.add_parser(name, help=help_)
+    cmd.add_argument("path")
+    _ccl_opts(cmd)
+  cmd = ccl.add_parser("calc-labels", help="Single-machine global union-find (pass 3).")
+  cmd.add_argument("path")
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--shape", type=_tuple3, default=(448, 448, 448),
+                   help="Accepted for parity; the stored equivalence files "
+                        "already determine the task grid.")
+  cmd = ccl.add_parser("relabel", help="Pass 4: write the destination layer.")
+  cmd.add_argument("path")
+  cmd.add_argument("dest")
+  _ccl_opts(cmd)
+  _dest_opts(cmd)
+  cmd = ccl.add_parser("clean", help="Delete the scratch files.")
+  cmd.add_argument("path")
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd = ccl.add_parser("auto", help="All four passes locally.")
+  cmd.add_argument("path")
+  cmd.add_argument("dest")
+  _ccl_opts(cmd)
+  _dest_opts(cmd)
+  cmd.add_argument("--clean", dest="clean", action="store_true", default=True,
+                   help="Delete scratch files afterwards (default).")
+  cmd.add_argument("--no-clean", dest="clean", action="store_false")
+
+
+def _run_ccl(args) -> int:
+  from . import task_creation as tc
+  from .queues import LocalTaskQueue
+
+  queue = LocalTaskQueue(parallel=args.parallel)
+  cmd = args.ccl_command
+  if cmd == "calc-labels":
+    print(f"max_label: {tc.create_relabeling(args.path, args.mip, args.shape)}")
+    return 0
+  if cmd == "clean":
+    tc.clean_ccl_files(args.path, args.mip)
+    return 0
+  kw = dict(
+    fill_missing=args.fill_missing, threshold_gte=args.threshold_gte,
+    threshold_lte=args.threshold_lte, dust_threshold=args.dust_threshold,
+  )
+  if cmd == "faces":
+    queue.insert(tc.create_ccl_face_tasks(args.path, args.mip, args.shape, **kw))
+  elif cmd == "links":
+    queue.insert(tc.create_ccl_equivalence_tasks(args.path, args.mip, args.shape, **kw))
+  elif cmd == "relabel":
+    queue.insert(tc.create_ccl_relabel_tasks(
+      args.path, args.dest, args.mip, args.shape, encoding=args.encoding,
+      chunk_size=args.chunk_size, **kw,
+    ))
+  else:
+    max_label = tc.ccl_auto(
+      args.path, args.dest, mip=args.mip, shape=args.shape, queue=queue,
+      encoding=args.encoding, chunk_size=args.chunk_size, clean=args.clean,
+      **kw,
+    )
+    print(f"components: {max_label}")
+  return 0
 
 
 def main(argv: Optional[List[str]] = None) -> int:
   args = build_parser().parse_args(argv)
+  if args.command == "ccl":
+    return _run_ccl(args)
   from .queues import LocalTaskQueue
   from .task_creation import create_downsampling_tasks
 

@@ -1,9 +1,10 @@
 """Object storage for the port: ``file://`` and ``mem://`` with gzip.
 
 The port's own copy of ``igneous_tpu/storage.py``, trimmed to what the
-downsample path uses. It keeps the CloudFiles file layout: an object
-compressed with gzip is stored under ``<key>.gz`` and read under ``<key>``.
-Gzip is written with ``mtime=0``, so a chunk written by either package is
+downsample and connected-components paths use. It keeps the CloudFiles
+file layout: an object compressed with gzip is stored under ``<key>.gz``
+and read, listed and deleted under ``<key>``. Gzip is written with
+``mtime=0``, so a chunk or scratch file written by either package is
 byte-identical. gs://, s3:// and http(s)://, zstd, integrity manifests and
 trace hooks are not ported yet (ROADMAP.md).
 """
@@ -14,7 +15,7 @@ import gzip
 import json
 import os
 import threading
-from typing import Dict, Iterable, Optional, Tuple, Union
+from typing import Dict, Iterable, Iterator, Optional, Tuple, Union
 
 from .lib import jsonify
 
@@ -29,6 +30,23 @@ def compress_bytes(data: bytes, method) -> bytes:
     # mtime=0: re-running a task writes byte-identical objects
     return gzip.compress(data, compresslevel=6, mtime=0)
   raise ValueError(f"Unsupported compression: {method} (the port writes gzip or none)")
+
+
+def scratch_gzip_level(default: int) -> int:
+  """Gzip level of scratch files that callers compress themselves (the CCL
+  face planes): ``IGNEOUS_SCRATCH_COMPRESS=gzip-N`` picks N, ``gzip`` picks
+  6; unset, or any other method, keeps ``default``."""
+  val = os.environ.get("IGNEOUS_SCRATCH_COMPRESS", "").strip().lower()
+  if val == "gzip":
+    return 6
+  if val.startswith("gzip-") and val[5:] in "123456789" and len(val) == 6:
+    return int(val[5:])
+  if val in ("", "none", "raw", "0", "off", "zstd"):
+    return default
+  raise ValueError(
+    f"IGNEOUS_SCRATCH_COMPRESS={val!r} unsupported: use "
+    "gzip-1..gzip-9, gzip, zstd, or none"
+  )
 
 
 def decompress_bytes(data: bytes, method) -> bytes:
@@ -84,6 +102,20 @@ class _FileBackend:
     except FileNotFoundError:
       pass
 
+  def list(self, prefix: str = "") -> Iterator[str]:
+    # prefix is a path prefix, not necessarily a directory
+    directory = os.path.dirname(prefix)
+    scandir = os.path.join(self.root, directory) if directory else self.root
+    if not os.path.isdir(scandir):
+      return
+    for dirpath, _dirnames, filenames in os.walk(scandir):
+      rel = os.path.relpath(dirpath, self.root)
+      rel = "" if rel == "." else rel + "/"
+      for fname in sorted(filenames):
+        key = rel + fname
+        if key.startswith(prefix):
+          yield key
+
 _MEM_BUCKETS: Dict[str, Dict[str, bytes]] = {}
 _MEM_LOCK = threading.Lock()
 
@@ -106,6 +138,11 @@ class _MemBackend:
   def delete(self, key: str):
     with _MEM_LOCK:
       self.files.pop(key, None)
+
+  def list(self, prefix: str = "") -> Iterator[str]:
+    with _MEM_LOCK:
+      keys = sorted(self.files)
+    return (k for k in keys if k.startswith(prefix))
 
 class CloudFiles:
   """get/put/list/delete against a storage root, with compression handling."""
@@ -151,6 +188,18 @@ class CloudFiles:
   def get_json(self, key: str):
     data = self.get(key)
     return None if data is None else json.loads(data.decode("utf8"))
+
+  def list(self, prefix: str = "") -> Iterator[str]:
+    """Keys under ``prefix``, each once, with the compression extension
+    taken off (``<key>.gz`` lists as ``<key>``)."""
+    seen = set()
+    for key in self.backend.list(prefix):
+      ext = os.path.splitext(key)[1]
+      if ext in _EXT_TO_COMPRESSION:
+        key = key[: -len(ext)]
+      if key not in seen:
+        seen.add(key)
+        yield key
 
   def delete(self, keys: Union[str, Iterable[str]]):
     for k in [keys] if isinstance(keys, str) else list(keys):

@@ -1,3 +1,11 @@
 """Task factories of the port."""
 
+from .ccl import (
+  ccl_auto,
+  clean_ccl_files,
+  create_ccl_equivalence_tasks,
+  create_ccl_face_tasks,
+  create_ccl_relabel_tasks,
+  create_relabeling,
+)
 from .image import create_downsampling_tasks

@@ -1,17 +1,32 @@
 """Factory commons: grid decomposition and bounds resolution.
 
 The port's copy of the parts of ``igneous_tpu/task_creation/common.py``
-that the downsample factory uses.
+that the downsample and CCL factories use.
 """
 
 from __future__ import annotations
 
+import subprocess
 from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
 from ..lib import Bbox, Vec, ceil_div
 from ..volume import Volume
+
+
+def operator_contact() -> str:
+  """git email for provenance records (best effort)."""
+  try:
+    return (
+      subprocess.check_output(
+        ["git", "config", "user.email"], stderr=subprocess.DEVNULL
+      )
+      .decode("utf8")
+      .strip()
+    )
+  except Exception:
+    return ""
 
 
 def get_bounds(

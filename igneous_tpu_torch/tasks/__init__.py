@@ -1,3 +1,9 @@
 """The port's tasks; importing this package registers them."""
 
+from .ccl import (
+  CCLEquivalancesTask,
+  CCLFacesTask,
+  RelabelCCLTask,
+  create_relabeling,
+)
 from .image import DownsampleTask, TransferTask, downsample_and_upload

@@ -1,8 +1,9 @@
 """Wall-clock stage timers for one process.
 
-The downsample path times its stages (download, h2d, kernel, d2h, upload)
-here so a caller can split a task's wall time. ``stage`` only reads the
-host clock; the device stages synchronise where they end (ops.pooling).
+The downsample path (download, h2d, kernel, d2h, upload) and the CCL path
+(tasks.ccl, ops.ccl) time their stages here so a caller can split a task's
+wall time. ``stage`` only reads the host clock; the device stages
+synchronise where they end (ops.pooling, ops.ccl).
 """
 
 from __future__ import annotations

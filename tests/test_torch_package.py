@@ -44,6 +44,9 @@ class Block:
 sys.meta_path.insert(0, Block())
 import igneous_tpu_torch, igneous_tpu_torch.cli, igneous_tpu_torch.tasks
 import igneous_tpu_torch.task_creation, igneous_tpu_torch.ops.pooling
+import igneous_tpu_torch.ops.ccl, igneous_tpu_torch.ops.cuda_ccl
+import igneous_tpu_torch.ops.remap, igneous_tpu_torch.tasks.ccl
+import igneous_tpu_torch.task_creation.ccl
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'igneous_tpu')]
 assert not bad, bad
 print('IMPORTED')
