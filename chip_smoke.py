@@ -7,9 +7,13 @@ Phases, each reported on its own line:
   1. build: compile the kernel sources (csrc/pooling.cu, csrc/ccl.cu) with
      nvcc, one process per source, started together;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, bit for bit, at the main paths' shapes, with its time (median
-     of CUDA-event timings after warm-up), its bound and the plain time;
-     tile_resolve also runs twice and must give the same output both times;
+     card, bit for bit, at the main paths' shapes, with its time (device
+     time: calls captured in a CUDA graph and replayed between CUDA
+     events), its time for one call from the host, its bound and the plain
+     time; pool2x2x1 at every element width on its vector and element-wise
+     paths; tile_resolve on five cases at connectivity 6, 18 and 26, on
+     every tile of the sweep and on an odd tile (the runtime-shape
+     instance), each run twice with the same output both times;
   3. e2e downsample: four file:// layers through Volume.from_numpy ->
      create_downsampling_tasks -> LocalTaskQueue -> DownsampleTask, every
      produced mip read back and compared with the plain pyramid computed
@@ -26,6 +30,13 @@ Phases, each reported on its own line:
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside it.
+
+    python3 chip_smoke.py --baseline NAME=DIR [--baseline NAME=DIR ...]
+
+times the kernels of other copies of the package (an earlier commit's, say:
+``git archive <commit> igneous_tpu_torch | tar -x -C DIR0`` makes
+DIR0/igneous_tpu_torch) against this checkout's, in turns on the same card,
+and runs phases 1 and 2 only.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ TOLERANCE = 0  # the pooling and CCL contracts are bitwise
 CCL_CUTOUT = 449  # the default CCL task's cutout: 448^3 plus the overlap
 CCL_TASK_SHAPE = (448, 448, 448)
 CCL_TILE_SWEEP = [(8, 16, 64), (16, 16, 32), (8, 16, 32)]
+CCL_ODD_TILE = (3, 5, 7)
 
 
 def fail(msg: str) -> None:
@@ -82,6 +94,30 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
   return float(np.median(times))
 
 
+def device_ms(fn, reps: int = 10, batch: int = 10) -> float:
+  """Device time of one call of ``fn`` (a kernel wrapper): ``batch`` calls
+  captured in a CUDA graph and replayed ``reps`` times between CUDA events;
+  the median over the replays, divided by ``batch``. Unlike ``cuda_ms``
+  this leaves out the host's time to launch, which for a kernel of tens of
+  microseconds is as long as the kernel."""
+  import torch
+
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    for _ in range(2):
+      fn()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    for _ in range(batch):
+      fn()
+  ms = cuda_ms(graph.replay, reps, warmup=1) / batch
+  del graph
+  torch.cuda.empty_cache()
+  return ms
+
+
 def max_abs_err(outs, refs) -> float:
   import torch
 
@@ -109,12 +145,68 @@ def bound(method: str, x, outs):
   return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def kernel_phase(cp, torch, dev):
-  """Each kernel against its plain version at the main path's shapes."""
+def against(fn, others, reps: int = 10):
+  """Times ``fn`` against each (name, other) of ``others``, the same
+  function from another copy of the package, in turns (other, fn, fn,
+  other) on this card with ``device_ms``; returns one record per other,
+  with the means of both pairs and whether the two outputs are equal."""
+  import torch
+
+  records = []
+  for name, other in others:
+    o1 = device_ms(other, reps)
+    c1 = device_ms(fn, reps)
+    c2 = device_ms(fn, reps)
+    o2 = device_ms(other, reps)
+    a, b = fn(), other()
+    a = a if isinstance(a, list) else [a]
+    b = b if isinstance(b, list) else [b]
+    equal = all(
+      torch.equal(x.view(torch.uint8), y.view(torch.uint8)) for x, y in zip(a, b)
+    )
+    records.append({"against": name, "ms": (c1 + c2) / 2,
+                    "other_ms": (o1 + o2) / 2, "equal": equal})
+  return records
+
+
+def pool_input(dtype: str, shape, g, torch, dev):
+  """Seeded test data: uint8 noise, int16 noise with negative sums, uint32
+  labels above 2^31 and uint64 labels above 2^32, three labels each."""
+  if dtype == "uint8":
+    return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=g)
+  if dtype == "int16":
+    return torch.randint(-32768, 32768, shape, dtype=torch.int16, device=dev, generator=g)
+  lab = torch.randint(0, 3, shape, dtype=torch.int64, device=dev, generator=g)
+  if dtype == "uint32":
+    return (lab * 65537 + 2**31).to(torch.uint32)
+  return (lab * (2**33 + 7) + 2**40).view(torch.uint64)
+
+
+# the single step: (dtype, method, plane); every element width on a vector
+# path (even widths) and on the element-wise path (odd widths), and the
+# 4-byte chunks of a 500 plane (the ragged task's second level)
+POOL_CASES = [
+  ("uint8", "average", (1000, 1000)),  # the ragged task's first level
+  ("uint8", "average", (125, 125)),
+  ("uint32", "mode", (1000, 1000)),
+  ("uint8", "average", (999, 999)),
+  ("uint8", "average", (500, 500)),
+  ("int16", "average", (1000, 1000)),
+  ("int16", "average", (999, 999)),
+  ("uint32", "mode", (999, 999)),
+  ("uint64", "mode", (1000, 1000)),
+  ("uint64", "mode", (999, 999)),
+]
+
+
+def kernel_phase(cp, torch, dev, others=()):
+  """Each pooling kernel against its plain version at the main path's
+  shapes and at every element width; ``others`` are (name, cuda_pooling
+  of another copy of the package) to time against."""
   g = torch.Generator(device=dev).manual_seed(0)
   cases = []
 
-  def run(name, kernel, plain, x, method, label):
+  def run(name, kernel, plain, x, method, label, other_fns=()):
     outs = kernel()
     refs = plain()
     torch.cuda.synchronize()
@@ -125,52 +217,46 @@ def kernel_phase(cp, torch, dev):
     bound_ms, bound_by = bound(method, x, outs)
     case = {
       "kernel": name, "case": label, "max_abs_err": err,
-      "ms": cuda_ms(kernel, reps=20),
+      "ms": device_ms(kernel),
+      "call_ms": cuda_ms(kernel, reps=20),
       "plain_ms": cuda_ms(plain, reps=3, warmup=1),
       "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    if other_fns:
+      case["against"] = against(kernel, other_fns)
     print("kernel " + json.dumps(case), flush=True)
     if err > TOLERANCE:
       fail(f"{name} {label}: max abs err {err} against its plain version")
+    if not all(r["equal"] for r in case.get("against", ())):
+      fail(f"{name} {label}: differs from the other copy's kernel")
     cases.append(case)
 
   # fused walk: uint8 image, 5 levels (the image layer's task)
-  x = torch.randint(0, 256, (1, 64, 4096, 4096), dtype=torch.uint8, device=dev, generator=g)
+  x = pool_input("uint8", (1, 64, 4096, 4096), g, torch, dev)
   run("pyramid2x2x1", lambda: cp.pyramid2x2x1(x, 5, "average"),
       lambda: cp.pyramid2x2x1_plain(x, 5, "average"), x, "average",
       "uint8 average L=5 (1,64,4096,4096)")
   del x
   # fused walk: uint64 labels above 2^32, 4 levels (the segmentation task)
-  lab = torch.randint(0, 3, (1, 64, 2048, 2048), dtype=torch.int64, device=dev, generator=g)
-  x = (lab * (2**33 + 7) + 2**40).view(torch.uint64)
-  del lab
+  x = pool_input("uint64", (1, 64, 2048, 2048), g, torch, dev)
   run("pyramid2x2x1", lambda: cp.pyramid2x2x1(x, 4, "mode"),
       lambda: cp.pyramid2x2x1_plain(x, 4, "mode"), x, "mode",
       "uint64 mode L=4 (1,64,2048,2048)")
   del x
   # fused walk: int16 with negative sums (floor, not truncation)
-  x = torch.randint(-32768, 32768, (1, 64, 2048, 2048), dtype=torch.int16, device=dev, generator=g)
+  x = pool_input("int16", (1, 64, 2048, 2048), g, torch, dev)
   run("pyramid2x2x1", lambda: cp.pyramid2x2x1(x, 4, "average"),
       lambda: cp.pyramid2x2x1_plain(x, 4, "average"), x, "average",
       "int16 average L=4 (1,64,2048,2048)")
   del x
-  # single step on a ragged plane (odd extents at deeper levels)
-  x = torch.randint(0, 256, (1, 64, 1000, 1000), dtype=torch.uint8, device=dev, generator=g)
-  run("pool2x2x1", lambda: cp.pool2x2x1(x, "average"),
-      lambda: cp.pool2x2x1_plain(x, "average"), x, "average",
-      "uint8 average (1,64,1000,1000)")
-  y = cp.pool2x2x1(cp.pool2x2x1(cp.pool2x2x1(x, "average"), "average"), "average")
-  run("pool2x2x1", lambda: cp.pool2x2x1(y, "average"),
-      lambda: cp.pool2x2x1_plain(y, "average"), y, "average",
-      "uint8 average odd (1,64,125,125)")
-  del x, y
-  lab = torch.randint(0, 3, (1, 64, 1000, 1000), dtype=torch.int64, device=dev, generator=g)
-  x = (lab * 65537 + 2**31).to(torch.uint32)
-  del lab
-  run("pool2x2x1", lambda: cp.pool2x2x1(x, "mode"),
-      lambda: cp.pool2x2x1_plain(x, "mode"), x, "mode",
-      "uint32 mode (1,64,1000,1000)")
-  del x
+  for dtype, method, (Y, X) in POOL_CASES:
+    x = pool_input(dtype, (1, 64, Y, X), g, torch, dev)
+    vec = cp.row_vector_bytes(X, x.element_size(), x.data_ptr(), 0)
+    other_fns = [(n, (lambda m=m: m.pool2x2x1(x, method))) for n, m in others]
+    run("pool2x2x1", lambda: cp.pool2x2x1(x, method),
+        lambda: cp.pool2x2x1_plain(x, method), x, method,
+        f"{dtype} {method} (1,64,{Y},{X}), {vec or 'element'}-byte chunks", other_fns)
+    del x
   torch.cuda.empty_cache()
   return cases
 
@@ -319,61 +405,92 @@ def serpentine(n: int, torch, dev):
   return vol
 
 
-def ccl_kernel_phase(cc, ccl_ops, torch, dev):
+def ccl_kernel_phase(cc, ccl_ops, torch, dev, others=()):
   """tile_resolve against tile_resolve_plain at the default task's 449^3
-  cutout, tiled with the CUDA default tile: four cases."""
+  cutout: five cases in the CUDA default tile, then every tile of the
+  sweep and an odd tile at connectivity 6 and 26. Each check runs the
+  kernel twice and needs the same output both times and bit for bit the
+  plain version's. ``others`` are (name, cuda_ccl of another copy of the
+  package) to time the five cases against."""
   n = CCL_CUTOUT
   tile = ccl_ops._tile_shape(dev)
   rng = np.random.default_rng(1)
   mask = smooth_image((n, n, n), rng, torch, dev) >= 128  # (x, y, z)
-  mask = torch.from_numpy(np.ascontiguousarray(mask.transpose(2, 1, 0))).to(dev)
+  mask = torch.from_numpy(np.ascontiguousarray(mask.transpose(2, 1, 0))).to(dev).to(torch.int32)
   g = torch.Generator(device=dev).manual_seed(2)
   dense = torch.randint(1, 4, (n, n, n), dtype=torch.int32, device=dev, generator=g)
   inputs = [
-    ("mask of the smooth image >= 128", mask.to(torch.int32), 6),
+    ("mask of the smooth image >= 128", mask, 6),
     ("dense multilabel, 3 labels", dense, 6),
     ("serpentine tube", serpentine(n, torch, dev), 6),
     ("dense multilabel, 3 labels, connectivity 26", dense, 26),
+    ("dense multilabel, 3 labels, connectivity 18", dense, 18),
   ]
-  cases = []
-  for label, vol, conn in inputs:
-    labt = ccl_ops.to_tiles(vol, tile)[0]
+
+  def check(label, labt, conn):
+    """The kernel twice and its plain version: max abs err, plain ms."""
     first = cc.tile_resolve(labt, conn)
     second = cc.tile_resolve(labt, conn)
+    t0 = time.perf_counter()
     plain = cc.tile_resolve_plain(labt, conn)
     torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
     if not torch.equal(first, second):
       fail(f"tile_resolve {label}: two runs gave different outputs")
     err = 0.0 if torch.equal(first, plain) else float(
       (first.to(torch.int64) - plain.to(torch.int64)).abs().max()
     )
-    del first, second, plain
+    if err > TOLERANCE:
+      fail(f"tile_resolve {label}: max abs err {err} against its plain version")
+    return err, plain_s
+
+  def instance(labt):
+    return "fixed" if cc.fixed_instance(labt.shape[1:], labt.data_ptr()) else "runtime"
+
+  cases = []
+  for label, vol, conn in inputs:
+    labt = ccl_ops.to_tiles(vol, tile)[0]
+    err, _ = check(label, labt, conn)
     nbytes = 2 * labt.numel() * labt.element_size()
     # one label comparison per neighbour pair: half the neighbourhood
     ops = labt.numel() * len(cc.neighbor_offsets(conn)) // 2
     bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT32_OPS_PER_S
+    fn = lambda: cc.tile_resolve(labt, conn)  # noqa: E731
     case = {
-      "kernel": "tile_resolve", "case": f"{label}, {n}^3, tiles {list(labt.shape)}",
+      "kernel": "tile_resolve",
+      "case": f"{label}, {n}^3, tiles {list(labt.shape)}, {instance(labt)} instance",
       "max_abs_err": err,
-      "ms": cuda_ms(lambda: cc.tile_resolve(labt, conn), reps=20),
+      "ms": device_ms(fn),
+      "call_ms": cuda_ms(fn, reps=20),
       "plain_ms": cuda_ms(lambda: cc.tile_resolve_plain(labt, conn), reps=3, warmup=1),
       "bound_ms": max(bytes_ms, ops_ms),
       "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
       "library": "none",
     }
+    if others:
+      case["against"] = against(fn, [(k, lambda m=m: m.tile_resolve(labt, conn)) for k, m in others])
+      if not all(r["equal"] for r in case["against"]):
+        fail(f"tile_resolve {label}: differs from the other copy's kernel")
     print("kernel " + json.dumps(case), flush=True)
     print("library: none (PyTorch has no connected-components call)", flush=True)
-    if err > TOLERANCE:
-      fail(f"tile_resolve {label}: max abs err {err} against its plain version")
     cases.append(case)
-  # tile sweep on the main path's case: kernel time, and the share of
-  # voxel pairs that straddle a tile face (what the host merge handles)
-  for sweep in CCL_TILE_SWEEP:
-    labt = ccl_ops.to_tiles(inputs[0][1], sweep)[0]
-    faces = sum(1 / t for t in sweep)
-    print(f"tile sweep {list(sweep)}: {cuda_ms(lambda: cc.tile_resolve(labt, 6), reps=20):.3f} ms, "
-          f"face pairs {faces:.3f} a voxel{' (default)' if tuple(sweep) == tuple(tile) else ''}",
-          flush=True)
+  # every tile of the sweep, and an odd tile (the runtime-shape instance,
+  # plain loads), checked on the mask at 6 and on dense labels at 26; the
+  # time on the mask, and the share of voxel pairs that straddle a tile
+  # face (what the host merge handles)
+  for sweep in CCL_TILE_SWEEP + [CCL_ODD_TILE]:
+    line = {"tile": list(sweep), "default": tuple(sweep) == tuple(tile),
+            "face_pairs_a_voxel": sum(1 / t for t in sweep)}
+    for label, vol, conn in (inputs[0], inputs[3]):
+      labt = ccl_ops.to_tiles(vol, sweep)[0]
+      line["instance"] = instance(labt)
+      line[f"plain_s_{conn}"] = check(f"{label}, tile {list(sweep)}", labt, conn)[1]
+      fn = lambda: cc.tile_resolve(labt, conn)  # noqa: E731
+      line[f"ms_{conn}"] = device_ms(fn)
+      if others:
+        line[f"against_{conn}"] = against(
+          fn, [(k, lambda m=m: m.tile_resolve(labt, conn)) for k, m in others], reps=5)
+    print("tile sweep " + json.dumps(line), flush=True)
   del inputs, mask, dense, labt
   torch.cuda.empty_cache()
   return cases
@@ -540,7 +657,39 @@ def ccl_e2e_phase(root, cc, cp, torch, dev):
   return launches
 
 
+def load_copy(alias: str, path: str):
+  """Import another copy of the igneous_tpu_torch package (a directory,
+  for example one unpacked from an earlier commit with ``git archive``)
+  under the name ``alias``; returns its (_build, cuda_ccl, cuda_pooling).
+  Its kernels build from its own csrc/ into its own build/."""
+  import importlib
+  import importlib.util
+  import os
+
+  spec = importlib.util.spec_from_file_location(
+    alias, os.path.join(path, "__init__.py"), submodule_search_locations=[path]
+  )
+  if spec is None:
+    fail(f"--baseline {alias}={path}: no package there")
+  pkg = importlib.util.module_from_spec(spec)
+  sys.modules[alias] = pkg
+  spec.loader.exec_module(pkg)
+  return tuple(importlib.import_module(f"{alias}.ops.{m}")
+               for m in ("_build", "cuda_ccl", "cuda_pooling"))
+
+
 def main() -> int:
+  import argparse
+
+  parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+  parser.add_argument(
+    "--baseline", action="append", default=[], metavar="NAME=DIR",
+    help="time the kernels of another copy of the package (DIR holds its "
+         "__init__.py) against this checkout's, in turns on the same card, "
+         "and check that their outputs agree; runs the build and kernel "
+         "phases only and prints no result line",
+  )
+  args = parser.parse_args()
   try:
     import torch
   except ImportError:
@@ -559,10 +708,14 @@ def main() -> int:
   print(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}", flush=True)
 
+  copies = [(spec.split("=", 1)[0], load_copy(*spec.split("=", 1)))
+            for spec in args.baseline]
   t0 = time.perf_counter()
   sources = ("pooling", "ccl")
-  with ThreadPoolExecutor(len(sources)) as pool:
-    list(pool.map(_build.build, sources))  # one nvcc per source, together
+  builds = [(b, name) for b in [_build] + [c[0] for _, c in copies] for name in sources]
+  with ThreadPoolExecutor(len(builds)) as pool:
+    # one nvcc per source, together
+    list(pool.map(lambda job: job[0].build(job[1]), builds))
   print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
   for name in sources:
     log = _build.BUILD_LOG[name]
@@ -571,8 +724,13 @@ def main() -> int:
       if "Used" in line or "spill" in line:
         print(f"ptxas {name}: {line.strip()}")
 
-  cases = kernel_phase(cp, torch, dev)
-  ccl_cases = ccl_kernel_phase(cc, ccl_ops, torch, dev)
+  cases = kernel_phase(cp, torch, dev, [(k, c[2]) for k, c in copies])
+  ccl_cases = ccl_kernel_phase(cc, ccl_ops, torch, dev, [(k, c[1]) for k, c in copies])
+  if copies:
+    print(f"wall: {time.perf_counter() - t_all:.1f} s")
+    print(card_line())
+    print("compared with " + ", ".join(args.baseline) + "; e2e phases not run")
+    return 0
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches = e2e_phase(root, cp, torch, dev)
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:

@@ -66,28 +66,65 @@ struct ModeOp {
 // bodies _avg_kernel / _mode_kernel). The TPU version pads the input on the
 // host (edge-replicate) to tile multiples; here a read past an odd edge is
 // clamped to the last row or column, which for factor 2 is exactly that
-// padding. One thread per output voxel of a row; grid.x covers a row of
-// outputs and grid.y, sized to fill the card once, strides over the P*OY
-// output rows, so each thread walks many rows. Memory-bound: each input
-// byte is read once (the 2x2 windows do not overlap) and each output
-// written once.
-template <typename T, typename Op>
+// padding. Memory-bound: each input byte is read once (the 2x2 windows do
+// not overlap) and each output written once.
+//
+// The first version gave each thread one output voxel a row: four one-
+// element loads, one one-element store and a 64-bit division a row, which
+// kept it near a third of its bound on uint8. Here each thread takes a
+// chunk of V bytes of both input rows of its windows with one vector load
+// each, and writes the V/2 bytes of outputs with one vector store (the
+// model is the fused walk's level 1). V is 16, 8 or 4, the widest that the
+// row length in bytes and the pointers allow (the wrapper picks it); V = 0
+// is the element-wise path of the same kernel for rows that allow none,
+// odd widths among them, one output a thread with the edge clamped. Rows
+// are indexed in 32 bits and only the row's base offset is 64-bit; an
+// even Y needs no division at all (output row r reads input rows 2r and
+// 2r+1). Blocks are (bx, by) threads, bx the chunks of a row rounded up
+// to a power of two (at most kThreads), by = kThreads / bx rows; grid.x
+// covers a row and grid.y, sized to fill the card once, strides over the
+// P*OY output rows.
+template <int B>
+struct Bytes;  // an unsigned word of B bytes
+template <> struct Bytes<16> { using T = uint4; };
+template <> struct Bytes<8> { using T = uint2; };
+template <> struct Bytes<4> { using T = uint32_t; };
+template <> struct Bytes<2> { using T = uint16_t; };
+
+template <typename T, typename Op, int V>
 __global__ void __launch_bounds__(kThreads)
-pool2x2x1_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t P,
-                 int64_t Y, int64_t X, int64_t OY, int64_t OX) {
-  const int64_t ox = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (ox >= OX) return;
-  const int64_t x0 = 2 * ox;
-  const int64_t x1 = min(x0 + 1, X - 1);
+pool2x2x1_kernel(const T* __restrict__ in, T* __restrict__ out, int rows,
+                 int Y, int X, int OY, int OX, int chunks) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= chunks) return;
+  const int stride = gridDim.y * blockDim.y;
 #pragma unroll 4
-  for (int64_t row = blockIdx.y; row < P * OY; row += gridDim.y) {
-    const int64_t p = row / OY;
-    const int64_t oy = row - p * OY;
-    const int64_t y0 = 2 * oy;
-    const int64_t y1 = min(y0 + 1, Y - 1);
-    const T* r0 = in + (p * Y + y0) * X;
-    const T* r1 = in + (p * Y + y1) * X;
-    out[row * OX + ox] = Op::pool(r0[x0], r0[x1], r1[x0], r1[x1]);
+  for (int row = blockIdx.y * blockDim.y + threadIdx.y; row < rows;
+       row += stride) {
+    int64_t y0 = 2 * (int64_t)row, y1 = y0 + 1;  // input rows, over all planes
+    if (Y & 1) {
+      const int p = row / OY, oy = row - p * OY;
+      y0 = (int64_t)p * Y + 2 * oy;
+      y1 = 2 * oy + 1 < Y ? y0 + 1 : y0;
+    }
+    const T* r0 = in + y0 * X;
+    const T* r1 = in + y1 * X;
+    if constexpr (V > 0) {
+      constexpr int per = V / sizeof(T), half = per / 2;
+      using In = typename Bytes<V>::T;
+      using Out = typename Bytes<V / 2>::T;
+      union { In u; T v[per]; } a, b;
+      a.u = reinterpret_cast<const In*>(r0)[c];
+      b.u = reinterpret_cast<const In*>(r1)[c];
+      union { Out u; T v[half]; } o;
+#pragma unroll
+      for (int k = 0; k < half; ++k)
+        o.v[k] = Op::pool(a.v[2 * k], a.v[2 * k + 1], b.v[2 * k], b.v[2 * k + 1]);
+      reinterpret_cast<Out*>(out + (int64_t)row * OX)[c] = o.u;
+    } else {
+      const int x0 = 2 * c, x1 = min(x0 + 1, X - 1);
+      out[(int64_t)row * OX + c] = Op::pool(r0[x0], r0[x1], r1[x0], r1[x1]);
+    }
   }
 }
 
@@ -220,23 +257,52 @@ cudaError_t resident_blocks(const void* kernel, size_t smem, int64_t* out) {
   return err;
 }
 
-template <typename T, typename Op>
-cudaError_t launch_pool(const void* in, void* out, int64_t P, int64_t Y,
-                        int64_t X, cudaStream_t stream) {
+template <typename T, typename Op, int V>
+cudaError_t launch_pool_v(const void* in, void* out, int64_t P, int64_t Y,
+                          int64_t X, cudaStream_t stream) {
   const int64_t OY = (Y + 1) / 2, OX = (X + 1) / 2;
-  if (P * OY * OX == 0) return cudaSuccess;
   const int64_t rows = P * OY;
-  const int64_t gx = (OX + kThreads - 1) / kThreads;
+  const int64_t chunks = V > 0 ? X * (int64_t)sizeof(T) / V : OX;
+  if (rows > 0x7fffffffLL || Y > 0x7fffffffLL || X > 0x7fffffffLL)
+    return cudaErrorInvalidValue;  // rows and columns are indexed in 32 bits
+  if (V > 0 && (X * (int64_t)sizeof(T)) % V != 0) return cudaErrorInvalidValue;
+  if (rows * OX == 0) return cudaSuccess;
+  int bx = 1;
+  while (bx < chunks && bx < kThreads) bx *= 2;
+  const int by = kThreads / bx;
+  const int64_t gx = (chunks + bx - 1) / bx;
   int64_t resident = 0;
   cudaError_t err = resident_blocks(
-      reinterpret_cast<const void*>(&pool2x2x1_kernel<T, Op>), 0, &resident);
+      reinterpret_cast<const void*>(&pool2x2x1_kernel<T, Op, V>), 0, &resident);
   if (err != cudaSuccess) return err;
   int64_t gy = resident / gx;
-  gy = gy < 1 ? 1 : (gy > rows ? rows : (gy > 65535 ? 65535 : gy));
-  dim3 grid((unsigned)gx, (unsigned)gy);
-  pool2x2x1_kernel<T, Op><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), P, Y, X, OY, OX);
+  const int64_t need = (rows + by - 1) / by;
+  gy = gy < 1 ? 1 : (gy > need ? need : (gy > 65535 ? 65535 : gy));
+  pool2x2x1_kernel<T, Op, V><<<dim3((unsigned)gx, (unsigned)gy),
+                               dim3(bx, by), 0, stream>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), (int)rows, (int)Y,
+      (int)X, (int)OY, (int)OX, (int)chunks);
   return cudaGetLastError();
+}
+
+// vec: the bytes of a row each thread reads at once, 16, 8 or 4 (at least
+// two elements), or 0 for the element-wise path.
+template <typename T, typename Op>
+cudaError_t launch_pool(const void* in, void* out, int64_t P, int64_t Y,
+                        int64_t X, int vec, cudaStream_t stream) {
+  switch (vec) {
+    case 0: return launch_pool_v<T, Op, 0>(in, out, P, Y, X, stream);
+    case 4:
+      if constexpr (sizeof(T) <= 2)
+        return launch_pool_v<T, Op, 4>(in, out, P, Y, X, stream);
+      break;
+    case 8:
+      if constexpr (sizeof(T) <= 4)
+        return launch_pool_v<T, Op, 8>(in, out, P, Y, X, stream);
+      break;
+    case 16: return launch_pool_v<T, Op, 16>(in, out, P, Y, X, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, typename Op>
@@ -279,24 +345,27 @@ const char* igt_error_string(int err) {
 
 // method: 0 average, 1 mode. dtype: 0 u8, 1 i8, 2 u16, 3 i16, 4 u32, 5 u64
 // (mode compares words, so signed 32/64-bit labels pass as u32/u64).
+// vec: see launch_pool.
 int igt_pool2x2x1(int method, int dtype, const void* in, void* out, int64_t P,
-                  int64_t Y, int64_t X, void* stream) {
+                  int64_t Y, int64_t X, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define IGT_POOL(T, OP) launch_pool<T, OP<T>>(in, out, P, Y, X, vec, s)
   if (method == kAverage) {
     switch (dtype) {
-      case kU8: return launch_pool<uint8_t, AvgOp<uint8_t>>(in, out, P, Y, X, s);
-      case kI8: return launch_pool<int8_t, AvgOp<int8_t>>(in, out, P, Y, X, s);
-      case kU16: return launch_pool<uint16_t, AvgOp<uint16_t>>(in, out, P, Y, X, s);
-      case kI16: return launch_pool<int16_t, AvgOp<int16_t>>(in, out, P, Y, X, s);
+      case kU8: return IGT_POOL(uint8_t, AvgOp);
+      case kI8: return IGT_POOL(int8_t, AvgOp);
+      case kU16: return IGT_POOL(uint16_t, AvgOp);
+      case kI16: return IGT_POOL(int16_t, AvgOp);
     }
   } else if (method == kMode) {
     switch (dtype) {
-      case kU8: case kI8: return launch_pool<uint8_t, ModeOp<uint8_t>>(in, out, P, Y, X, s);
-      case kU16: case kI16: return launch_pool<uint16_t, ModeOp<uint16_t>>(in, out, P, Y, X, s);
-      case kU32: return launch_pool<uint32_t, ModeOp<uint32_t>>(in, out, P, Y, X, s);
-      case kU64: return launch_pool<uint64_t, ModeOp<uint64_t>>(in, out, P, Y, X, s);
+      case kU8: case kI8: return IGT_POOL(uint8_t, ModeOp);
+      case kU16: case kI16: return IGT_POOL(uint16_t, ModeOp);
+      case kU32: return IGT_POOL(uint32_t, ModeOp);
+      case kU64: return IGT_POOL(uint64_t, ModeOp);
     }
   }
+#undef IGT_POOL
   return cudaErrorInvalidValue;
 }
 

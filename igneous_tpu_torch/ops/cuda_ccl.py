@@ -27,6 +27,9 @@ LAUNCHES = {"tile_resolve": 0}
 
 SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 SMEM_PER_VOXEL = 8  # the kernel keeps an int32 label and an int32 parent
+# tile shapes with a kernel instance compiled for them (csrc/ccl.cu,
+# dispatch): the CUDA default and the other shapes of chip_smoke.py's sweep
+FIXED_TILES = ((16, 16, 32), (8, 16, 64), (8, 16, 32))
 _BIG = torch.iinfo(torch.int32).max
 
 
@@ -54,6 +57,14 @@ def fits_shared_memory(tile) -> bool:
   """True when one (tz, ty, tx) tile fits one block's shared memory."""
   tz, ty, tx = tile
   return SMEM_PER_VOXEL * tz * ty * tx <= SMEM_LIMIT
+
+
+def fixed_instance(tile, *ptrs: int) -> bool:
+  """True when the kernel instance compiled for ``tile`` runs: the tile is
+  one of ``FIXED_TILES`` and every pointer is 16-byte aligned (its loads
+  and stores move 16 bytes a thread). Any other tile or pointer takes the
+  instance with runtime extents."""
+  return tuple(tile) in FIXED_TILES and all(p % 16 == 0 for p in ptrs)
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +164,7 @@ def _lib():
     lib = _build.load("ccl")
     lib.igt_tile_resolve.argtypes = [
       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.igt_tile_resolve.restype = ctypes.c_int
     lib.igt_error_string.argtypes = [ctypes.c_int]
@@ -183,8 +194,10 @@ def tile_resolve(labt: torch.Tensor, connectivity: int = 6) -> torch.Tensor:
     return out
   with torch.cuda.device(labt.device):
     stream = torch.cuda.current_stream(labt.device).cuda_stream
+    fixed = fixed_instance((tz, ty, tx), labt.data_ptr(), out.data_ptr())
     rc = _lib().igt_tile_resolve(
-      labt.data_ptr(), out.data_ptr(), T, tz, ty, tx, connectivity, stream
+      labt.data_ptr(), out.data_ptr(), T, tz, ty, tx, connectivity, int(fixed),
+      stream,
     )
   if rc != 0:
     msg = _lib().igt_error_string(rc).decode()

@@ -51,6 +51,19 @@ def supports(method: str, dtype: torch.dtype) -> bool:
   return False
 
 
+def row_vector_bytes(width: int, itemsize: int, in_ptr: int, out_ptr: int) -> int:
+  """Bytes of each input row that one ``pool2x2x1`` thread reads at once:
+  the widest of 16, 8 and 4 that holds two elements or more, divides the
+  row's length in bytes and aligns both pointers (the input to it, the
+  output to half of it); 0, the element-wise path, where none does (odd
+  widths among them)."""
+  for v in (16, 8, 4):
+    if (v >= 2 * itemsize and (width * itemsize) % v == 0
+        and in_ptr % v == 0 and out_ptr % (v // 2) == 0):
+      return v
+  return 0
+
+
 def fused_aligned(shape, levels: int) -> bool:
   """The fused walk runs when y and x are multiples of 2**levels: then no
   level's extent goes odd and one read of the input serves every level.
@@ -159,7 +172,8 @@ def _lib():
     lib = _build.load("pooling")
     lib.igt_pool2x2x1.argtypes = [
       ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-      ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+      ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+      ctypes.c_void_p,
     ]
     lib.igt_pool2x2x1.restype = ctypes.c_int
     lib.igt_pyramid2x2x1.argtypes = [
@@ -204,8 +218,10 @@ def pool2x2x1(x: torch.Tensor, method: str = "average") -> torch.Tensor:
     return out
   with torch.cuda.device(x.device):
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    vec = row_vector_bytes(X, x.element_size(), x.data_ptr(), out.data_ptr())
     rc = _lib().igt_pool2x2x1(
-      _METHOD_CODES[method], code, x.data_ptr(), out.data_ptr(), P, Y, X, stream
+      _METHOD_CODES[method], code, x.data_ptr(), out.data_ptr(), P, Y, X, vec,
+      stream,
     )
   _raise_on(rc, "pool2x2x1")
   LAUNCHES["pool2x2x1"] += 1

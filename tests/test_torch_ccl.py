@@ -265,6 +265,32 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dtype, connectivity, shap
     cuda_ccl.tile_resolve(torch.zeros(shape, dtype=dtype), connectivity)
 
 
+def test_wrapper_shared_memory_limit():
+  """A tile fits while its labels and parents (8 bytes a voxel) fit one
+  block's 232,448 bytes; every tile with a compiled instance fits."""
+  assert cuda_ccl.fits_shared_memory((1, 1, 232448 // 8))
+  assert not cuda_ccl.fits_shared_memory((1, 1, 232448 // 8 + 1))
+  assert not cuda_ccl.fits_shared_memory((32, 32, 32))
+  assert all(cuda_ccl.fits_shared_memory(t) for t in cuda_ccl.FIXED_TILES)
+  assert ccl._DEFAULT_TILE_CUDA in cuda_ccl.FIXED_TILES
+
+
+@pytest.mark.parametrize("tile, ptrs, fixed", [
+  ((16, 16, 32), (0, 4096), True),
+  ((8, 16, 64), (256, 512), True),
+  ((8, 16, 32), (16, 32), True),
+  ((16, 16, 32), (4, 0), False),  # an input that is not 16-byte aligned
+  ((16, 16, 32), (0, 8), False),  # an output that is not
+  ((3, 5, 7), (0, 0), False),  # a shape without a compiled instance
+  ((16, 32, 16), (0, 0), False),
+])
+def test_wrapper_picks_the_kernel_instance(tile, ptrs, fixed):
+  """The instance compiled for the tile shape runs only on 16-byte aligned
+  tensors (its loads and stores move 16 bytes a thread); any other shape
+  or pointer takes the runtime-shape instance."""
+  assert cuda_ccl.fixed_instance(tile, *ptrs) is fixed
+
+
 def test_wrapper_never_falls_back_for_a_device_tensor():
   """Only a CPU tensor takes the plain version: any other device either
   launches the kernel or raises."""

@@ -46,7 +46,7 @@ import igneous_tpu_torch, igneous_tpu_torch.cli, igneous_tpu_torch.tasks
 import igneous_tpu_torch.task_creation, igneous_tpu_torch.ops.pooling
 import igneous_tpu_torch.ops.ccl, igneous_tpu_torch.ops.cuda_ccl
 import igneous_tpu_torch.ops.remap, igneous_tpu_torch.tasks.ccl
-import igneous_tpu_torch.task_creation.ccl
+import igneous_tpu_torch.task_creation.ccl, igneous_tpu_torch.tools.ccl_stage_costs
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'igneous_tpu')]
 assert not bad, bad
 print('IMPORTED')

@@ -104,6 +104,29 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(method, dtype, exc):
     cuda_pooling.pyramid2x2x1(x, 2, method)
 
 
+@pytest.mark.parametrize("width, itemsize, in_ptr, out_ptr, vec", [
+  (1000, 1, 0, 0, 8),  # the ragged task's first level: 1000 bytes a row
+  (500, 1, 0, 0, 4),
+  (999, 1, 0, 0, 0),  # odd widths take the element-wise path
+  (1000, 2, 0, 0, 16),
+  (999, 2, 0, 0, 0),
+  (1000, 4, 0, 0, 16),
+  (1000, 8, 0, 0, 16),  # 16 bytes hold two 64-bit elements, 8 do not
+  (2, 8, 0, 0, 16),
+  (1, 8, 0, 0, 0),
+  (1000, 1, 8, 0, 8),  # the input aligned to 8 bytes only
+  (1000, 1, 4, 0, 4),
+  (1000, 1, 1, 0, 0),
+  (1000, 2, 0, 4, 8),  # the output aligned to 4 bytes only
+  (1000, 2, 0, 2, 4),
+])
+def test_pool_row_vector_bytes(width, itemsize, in_ptr, out_ptr, vec):
+  """The widest chunk of a row that one pool2x2x1 thread reads with one
+  load: at least two elements, dividing the row's bytes, with the input
+  aligned to it and the output to half of it."""
+  assert cuda_pooling.row_vector_bytes(width, itemsize, in_ptr, out_ptr) == vec
+
+
 def test_wrappers_never_fall_back_for_a_device_tensor():
   """Only a CPU tensor takes the plain version: any other device either
   launches the kernel or raises."""
