@@ -1,11 +1,12 @@
-"""Drive igneous_tpu_torch's downsample and connected-components paths on
-one NVIDIA GPU and check them.
+"""Drive igneous_tpu_torch's downsample, connected-components and meshing
+paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each reported on its own line:
   1. build: compile the kernel sources (csrc/pooling.cu, csrc/ccl.cu) with
-     nvcc, one process per source, started together;
+     nvcc and the mesh simplifier (csrc/simplify.cpp) with g++, one process
+     per source, started together;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, bit for bit, at the main paths' shapes, with its time (device
      time: calls captured in a CUDA graph and replayed between CUDA
@@ -26,7 +27,22 @@ Phases, each reported on its own line:
      have launched at least once per task in each recomputing pass, and
      the destination must be the same partition as scipy.ndimage.label's
      (6-connected, per label), with max_label its component count;
-  5. the card's name and power limit, the kernels line, and the result.
+  5. e2e mesh: a 896x448x448 uint64 Voronoi segmentation (1000 seeds, ids
+     above 2^32 and 2^63, membrane gaps) through create_meshing_tasks ->
+     LocalTaskQueue -> MeshTask (two 448^3 tasks, simplification 100 with
+     error 40, spatial index, gzip; 8 simplification threads) and
+     create_mesh_manifest_tasks; each task's wall, stage split and
+     label and face counts, the merge's wall; every fragment listed in
+     exactly one manifest and every listed fragment present; the first
+     task's labels, boxes and dense ids, and 64 of its labels (from seed
+     1) plus its largest meshed on the card and on the CPU, byte for byte
+     equal, unsimplified and simplified, and equal to the written
+     fragments; the launch counts are set to 0 before and none of the
+     kernels may launch; the device programs of the path (the XLA
+     programs X1-X3 the port runs as torch ops) timed at the first
+     task's largest count pass against their bytes bound;
+  6. the card's name and power limit, the programs line, the kernels
+     line, and the result.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside it.
@@ -521,8 +537,10 @@ def blobs(shape, n_labels: int, n_blobs: int, rng, torch, dev) -> np.ndarray:
 
 
 CCL_LAYERS = [
-  # name, shape (x, y, z), dtype, ccl_auto options
-  ("ccl_mask", (896, 896, 448), "uint8", {"threshold_gte": 128}),
+  # name, shape (x, y, z), dtype, ccl_auto options; the mask layer runs at
+  # half its depth (4 tasks of 448x448x224) so that the whole script,
+  # mesh phase included, stays near half its time limit
+  ("ccl_mask", (896, 896, 224), "uint8", {"threshold_gte": 128}),
   ("ccl_segmentation", (896, 448, 448), "uint64", {}),
 ]
 
@@ -657,6 +675,281 @@ def ccl_e2e_phase(root, cc, cp, torch, dev):
   return launches
 
 
+# ---------------------------------------------------------------------------
+# meshing
+
+MESH_SHAPE = (896, 448, 448)  # (x, y, z): two tasks of the default 448^3
+MESH_SEEDS = 1000
+MESH_SAMPLE = 64  # labels of the first task held card against CPU, + its largest
+# threads for the per-label simplification inside each task (the forge's
+# --simplify-parallel; its output does not depend on it): at the default 1
+# the host's QEM collapse takes 93% of a 179-201 s task, and the phase would
+# not fit half the run's time limit beside the others;
+# --mesh-simplify-threads 1 runs the forge with every default
+MESH_SIMPLIFY_THREADS = 8
+# the XLA device programs of the mesh path that the port runs as torch ops
+MESH_PROGRAMS = {
+  "X1 mc_count": "igneous_tpu/ops/mesh.py:543",
+  "X2 mc_emit": "igneous_tpu/ops/mesh.py:613",
+  "X3 mt_count": "igneous_tpu/ops/mesh.py:126",
+}
+
+
+def voronoi_segmentation(shape, n_seeds: int, rng, torch, dev) -> np.ndarray:
+  """(x, y, z) uint64 Fortran-ordered: the Voronoi partition (in voxel
+  distances) of ``n_seeds`` random seeds, with ids above 2^32, eight of
+  them at or above 2^63, and every voxel with a 6-neighbour of another
+  label set to 0, like the membrane gaps of an EM segmentation. Made on
+  the card from ``rng``."""
+  X, Y, Z = shape
+  seeds = torch.from_numpy(rng.random((n_seeds, 3)) * np.array([X, Y, Z])).to(dev, torch.float32)
+  ids = (2**32 + 7919 * (1 + rng.permutation(10 * n_seeds)[:n_seeds])).astype(np.uint64)
+  ids[rng.choice(n_seeds, 8, replace=False)] |= np.uint64(2**63)
+  ids = torch.from_numpy(ids.view(np.int64)).to(dev)
+  yy, xx = torch.meshgrid(torch.arange(Y, device=dev), torch.arange(X, device=dev), indexing="ij")
+  pts = torch.stack([xx.reshape(-1), yy.reshape(-1), torch.zeros_like(xx).reshape(-1)], 1)
+  pts = pts.to(torch.float32)
+  seg = torch.empty((Z, Y, X), dtype=torch.int64, device=dev)
+  for z in range(Z):
+    pts[:, 2] = z
+    seg[z] = ids[torch.cdist(pts, seeds).argmin(1)].view(Y, X)
+  edge = torch.zeros(seg.shape, dtype=torch.bool, device=dev)
+  for d in range(3):
+    n = seg.shape[d]
+    diff = seg.narrow(d, 1, n - 1) != seg.narrow(d, 0, n - 1)
+    edge.narrow(d, 1, n - 1).logical_or_(diff)
+    edge.narrow(d, 0, n - 1).logical_or_(diff)
+  seg.masked_fill_(edge, 0)
+  out = seg.cpu().numpy().view(np.uint64).transpose(2, 1, 0)
+  del seg, edge, diff
+  if dev.type == "cuda":
+    torch.cuda.empty_cache()
+  return out
+
+
+def check_manifests(path: str) -> int:
+  """Every fragment in the mesh directory is listed in exactly one
+  manifest, its label's, and every listed fragment exists. Returns the
+  fragment count."""
+  from igneous_tpu_torch import CloudFiles, Volume
+
+  mdir = Volume(path).info["mesh"]
+  cf = CloudFiles(path)
+  names = [k.split("/")[-1] for k in cf.list(f"{mdir}/")]
+  frags = {n for n in names if n.count(":") == 2}
+  listed = []
+  for manifest in (n for n in names if n.count(":") == 1):
+    label = manifest.split(":")[0]
+    doc = cf.get_json(f"{mdir}/{manifest}")
+    for name in doc["fragments"]:
+      if name.split(":")[0] != label:
+        fail(f"mesh: manifest {manifest} lists another label's fragment {name}")
+    listed += doc["fragments"]
+  if len(listed) != len(set(listed)) or set(listed) != frags:
+    fail(f"mesh: {len(frags)} fragments, {len(listed)} manifest entries "
+         f"({len(set(listed))} distinct, {len(set(listed) - frags)} missing)")
+  return len(frags)
+
+
+def mesh_card_against_cpu(task, path: str, sample: int, torch, dev):
+  """The first task's label work and ``sample`` of its labels (from seed
+  1) plus its largest, on the card and on the CPU: equal jobs and dense
+  labels, and byte for byte the same unsimplified and simplified meshes,
+  equal to the fragments the run wrote. Returns the card's context."""
+  from igneous_tpu_torch import CloudFiles, Volume, set_device
+  from igneous_tpu_torch.mesh_io import Mesh, simplify
+  from igneous_tpu_torch.ops.mesh import marching_cubes_batch
+  from igneous_tpu_torch.tasks import MeshTask
+
+  t0 = time.perf_counter()
+  card = task.prepare_jobs()
+  set_device("cpu")
+  try:
+    cpu = task.prepare_jobs()
+  finally:
+    set_device(dev)
+  if card["jobs"] != cpu["jobs"]:
+    fail("mesh: the card's labels, boxes or dense ids differ from the CPU's")
+  if not torch.equal(card["dense"].cpu(), cpu["dense"]):
+    fail("mesh: the card's dense renumbering differs from the CPU's")
+  jobs = card["jobs"]
+  voxels = torch.bincount(card["dense"].view(-1)).cpu().numpy()
+  largest = max(range(len(jobs)), key=lambda j: int(voxels[jobs[j][2]]))
+  pick = np.random.default_rng(1).choice(len(jobs), min(sample, len(jobs)), replace=False)
+  group = [jobs[j] for j in sorted(set(pick.tolist()) | {largest})]
+  mdir = Volume(path).info["mesh"]
+  cf = CloudFiles(path)
+  meshes = []
+  for g0 in range(0, len(group), MeshTask.MESH_BATCH):
+    grp = group[g0 : g0 + MeshTask.MESH_BATCH]
+    res = [
+      marching_cubes_batch(MeshTask.group_masks(ctx, grp), anisotropy=ctx["resolution"],
+                           offsets=MeshTask.group_offsets(ctx, grp))
+      for ctx in (card, cpu)
+    ]
+    for (label, _, _), (v, f), (cv, cf_) in zip(grp, *res):
+      if v.dtype != cv.dtype or f.dtype != cf_.dtype or not (
+        np.array_equal(v, cv) and np.array_equal(f, cf_)
+      ):
+        fail(f"mesh: label {label}: the card's mesh differs from the CPU's")
+      meshes.append((label, Mesh(v, f)))
+
+  def simplified_as_written(item):
+    # equal inputs to the same host code: one simplification serves both
+    label, mesh = item
+    small = simplify(mesh, task.simplification_factor, task.max_simplification_error)
+    written = cf.get(f"{mdir}/{label}:0:{card['core'].to_filename()}")
+    return written is not None and Mesh.from_precomputed(written) == small
+
+  with ThreadPoolExecutor(MESH_SIMPLIFY_THREADS) as pool:
+    same = list(pool.map(simplified_as_written, meshes))
+  for (label, _), ok in zip(meshes, same):
+    if not ok:
+      fail(f"mesh: label {label}: the written fragment differs from the card's mesh")
+  faces = sum(len(m.faces) for _, m in meshes)
+  big = jobs[largest]
+  print(f"e2e mesh check: task 0, {len(group)} of {len(jobs)} labels (the largest, "
+        f"{big[0]}, {int(voxels[big[2]])} voxels): card and CPU equal byte for byte "
+        f"(jobs, dense ids, {faces} faces unsimplified, the simplified meshes, the "
+        f"written fragments) {time.perf_counter() - t0:.1f} s", flush=True)
+  return card
+
+
+def profiled_device_ms(fn, torch, reps: int = 5) -> float:
+  """Kernel time on the card per call of ``fn`` (a sequence of torch ops),
+  summed from a torch.profiler trace; fails where the trace shows none."""
+  from torch.profiler import ProfilerActivity, profile
+
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+  us = traced_device_us(prof)
+  if not us > 0:
+    fail("profiler: the trace shows no kernel time on the card")
+  return us / 1e3 / reps
+
+
+def traced_device_us(prof) -> float:
+  """Microseconds of kernels and copies on the card in a profiler trace."""
+  return sum(
+    getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    for e in prof.key_averages()
+  )
+
+
+def mesh_programs(ctx, passes_per_task, torch, dev):
+  """X1-X3 at the first task's largest count pass (the bucket batch with
+  the most voxels): time per call between CUDA events, kernel time from
+  the profiler, and the bytes bound (input and output bytes once)."""
+  from igneous_tpu_torch.ops import mesh as mesh_ops
+  from igneous_tpu_torch.tasks import MeshTask
+
+  best = None
+  jobs = ctx["jobs"]
+  for g0 in range(0, len(jobs), MeshTask.MESH_BATCH):
+    masks = MeshTask.group_masks(ctx, jobs[g0 : g0 + MeshTask.MESH_BATCH])
+    buckets = {}
+    for i in range(len(masks)):
+      buckets.setdefault(mesh_ops._bucket_shape(masks.shape(i)), []).append(i)
+    for bucket, idxs in buckets.items():
+      size = len(idxs) * int(np.prod(bucket))
+      if best is None or size > best[0]:
+        best = (size, masks, bucket, idxs)
+  _, masks, (bx, by, bz), idxs = best
+  batch = torch.empty((len(idxs), bz, by, bx), dtype=torch.uint8, device=dev)
+  for k, i in enumerate(idxs):
+    masks.fill(i, batch[k])
+  case, ntri, _ = mesh_ops._mc_count_kernel(batch)
+  mesh_ops._drop_pad_ring(ntri, [tuple(s - 1 for s in masks.shape(i)) for i in idxs])
+  nt = ntri.reshape(-1)
+  total = int(nt.sum(dtype=torch.int64))
+  cells = case.numel()
+  label = f"{len(idxs)} masks of bucket {bx}x{by}x{bz}, {total} triangles"
+  runs = [
+    ("X1 mc_count", lambda: mesh_ops._mc_count_kernel(batch),
+     batch.numel() + 2 * cells + 8 * len(idxs), passes_per_task),
+    ("X2 mc_emit", lambda: mesh_ops._mc_tris(case, *mesh_ops._emit_slots(nt, total)),
+     nt.numel() + 36 * total, passes_per_task),
+    ("X3 mt_count", lambda: mesh_ops._count_kernel(batch),
+     batch.numel() + 12 * cells + 8 * len(idxs), 0),
+  ]
+  programs = []
+  for name, fn, nbytes, launches in runs:
+    programs.append({
+      "name": name, "replaces": MESH_PROGRAMS[name], "case": label,
+      "launches_per_task": launches,
+      "ms": cuda_ms(fn, reps=10), "device_ms": profiled_device_ms(fn, torch),
+      "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+    })
+  del batch, case, ntri, nt
+  torch.cuda.empty_cache()
+  return programs
+
+
+def mesh_e2e_phase(root, torch, dev, shape=MESH_SHAPE, n_seeds=MESH_SEEDS,
+                   sample=MESH_SAMPLE, simplify_threads=MESH_SIMPLIFY_THREADS):
+  """The mesh forge and merge on a Voronoi segmentation with the defaults
+  (task shape 448^3, simplification 100 with error 40, spatial index,
+  gzip) but ``simplify_threads``: per task its wall, stage split (a
+  stage's seconds are summed over the simplification threads), label and
+  face counts, the card's busy time from a profiler trace of the task
+  and its peak memory; the merge's wall; manifest coverage; the first
+  task's labels held card against CPU; the device programs. Returns the
+  programs."""
+  from igneous_tpu_torch import Volume, telemetry
+  from igneous_tpu_torch.queues import LocalTaskQueue
+  from igneous_tpu_torch.task_creation import create_mesh_manifest_tasks, create_meshing_tasks
+  from torch.profiler import ProfilerActivity, profile
+
+  t0 = time.perf_counter()
+  data = voronoi_segmentation(shape, n_seeds, np.random.default_rng(1), torch, dev)
+  path = f"file://{root}/mesh_segmentation"
+  Volume.from_numpy(data, path, resolution=(8, 8, 40), chunk_size=(64, 64, 64),
+                    compress=None)
+  print(f"ingest mesh_segmentation: {data.shape} {data.dtype}, "
+        f"{len(np.unique(data)) - 1} labels {time.perf_counter() - t0:.1f} s", flush=True)
+  del data
+
+  tasks = list(create_meshing_tasks(path, parallel=simplify_threads))
+  if len(tasks) != 2:
+    fail(f"mesh: expected 2 tasks of 448^3, planned {len(tasks)}")
+  queue = LocalTaskQueue(parallel=1)
+  passes = 0
+  for i, task in enumerate(tasks):
+    telemetry.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      t0 = time.perf_counter()
+      queue.insert([task])
+      wall = time.perf_counter() - t0
+    busy = traced_device_us(prof) / 1e6
+    if not busy > 0:
+      fail(f"mesh task {i}: the trace shows no work on the card")
+    snap = telemetry.snapshot()
+    counts = telemetry.counters()
+    passes += snap["count"]["count"]
+    print(f"e2e mesh task {i}: wall {wall:.3f} s, {simplify_threads} simplification "
+          f"thread(s), {counts['labels']} labels, "
+          f"{counts['faces']} faces, {counts['faces_simplified']} simplified, "
+          f"card busy {busy:.4f} s (traced; idle {100 * (1 - busy / wall):.2f}%), "
+          f"peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, "
+          f"stages (s) {json.dumps({k: round(v['seconds'], 4) for k, v in snap.items()})}, "
+          f"entries {json.dumps({k: v['count'] for k, v in snap.items()})}", flush=True)
+  t0 = time.perf_counter()
+  queue.insert(create_mesh_manifest_tasks(path, magnitude=2))
+  merge = time.perf_counter() - t0
+  frags = check_manifests(path)
+  print(f"e2e mesh merge: wall {merge:.3f} s, {frags} fragments, each listed in "
+        f"exactly one manifest, every listed fragment exists", flush=True)
+  ctx = mesh_card_against_cpu(tasks[0], path, sample, torch, dev)
+  if dev.type != "cuda":
+    return []
+  return mesh_programs(ctx, passes / len(tasks), torch, dev)
+
+
 def load_copy(alias: str, path: str):
   """Import another copy of the igneous_tpu_torch package (a directory,
   for example one unpacked from an earlier commit with ``git archive``)
@@ -682,6 +975,11 @@ def main() -> int:
   import argparse
 
   parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+  parser.add_argument(
+    "--mesh-simplify-threads", type=int, default=MESH_SIMPLIFY_THREADS, metavar="N",
+    help="simplification threads of each mesh task (the forge's "
+         "--simplify-parallel; 1 is its default)",
+  )
   parser.add_argument(
     "--baseline", action="append", default=[], metavar="NAME=DIR",
     help="time the kernels of another copy of the package (DIR holds its "
@@ -713,13 +1011,14 @@ def main() -> int:
   t0 = time.perf_counter()
   sources = ("pooling", "ccl")
   builds = [(b, name) for b in [_build] + [c[0] for _, c in copies] for name in sources]
+  builds.append((_build, "simplify"))  # the mesh path's host library, with g++
   with ThreadPoolExecutor(len(builds)) as pool:
-    # one nvcc per source, together
+    # one compiler per source, together
     list(pool.map(lambda job: job[0].build(job[1]), builds))
   print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-  for name in sources:
+  for name in sources + ("simplify",):
     log = _build.BUILD_LOG[name]
-    print(f"build {name}: nvcc {log['seconds']:.1f} s", flush=True)
+    print(f"build {name}: {log['seconds']:.1f} s", flush=True)
     for line in log["ptxas"].splitlines():
       if "Used" in line or "spill" in line:
         print(f"ptxas {name}: {line.strip()}")
@@ -735,6 +1034,14 @@ def main() -> int:
     launches = e2e_phase(root, cp, torch, dev)
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches["tile_resolve"] = ccl_e2e_phase(root, cc, cp, torch, dev)
+  for counts in (cc.LAUNCHES, cp.LAUNCHES):
+    for key in counts:
+      counts[key] = 0
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+    programs = mesh_e2e_phase(root, torch, dev,
+                              simplify_threads=args.mesh_simplify_threads)
+  if any(cc.LAUNCHES.values()) or any(cp.LAUNCHES.values()):
+    fail("mesh: the pooling or CCL kernels ran on the mesh path")
 
   kernels = []
   replaces = {
@@ -765,6 +1072,7 @@ def main() -> int:
   })
   print(f"wall: {time.perf_counter() - t_all:.1f} s")
   print(card_line())
+  print(json.dumps({"programs": programs}))
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": {
     "platform": "gpu", "kind": torch.cuda.get_device_name(0),

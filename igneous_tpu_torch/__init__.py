@@ -1,16 +1,19 @@
 """igneous_tpu_torch: the PyTorch/CUDA port of igneous_tpu.
 
-It runs two of Igneous's paths on an NVIDIA GPU, each with hand-written
-CUDA kernels:
+It runs three of Igneous's paths on an NVIDIA GPU:
   - downsampling: create_downsampling_tasks → LocalTaskQueue →
     DownsampleTask → the 2x2x1 pooling pyramid (``csrc/pooling.cu``);
   - whole-image connected components: ccl_auto → the four passes
     CCLFacesTask, CCLEquivalancesTask, create_relabeling, RelabelCCLTask →
     ops.ccl.connected_components → the block-local tile resolve
-    (``csrc/ccl.cu``).
+    (``csrc/ccl.cu``);
+  - meshing: create_meshing_tasks → LocalTaskQueue → MeshTask → marching
+    cubes as torch ops on the device (``ops/mesh.py``), then
+    create_mesh_manifest_tasks → MeshManifestPrefixTask; the host
+    simplifies with ``csrc/simplify.cpp``.
 It imports torch, numpy, scipy and the standard library, never jax or
 igneous_tpu, and reads and writes the same Precomputed layers, scratch
-files and task payloads.
+files, meshes and task payloads.
 
 The device defaults to CUDA; ``set_device("cpu")`` or
 ``IGNEOUS_TORCH_DEVICE=cpu`` asks for the CPU, where the kernels' plain

@@ -1,11 +1,11 @@
-"""The port's command line: ``python -m igneous_tpu_torch image downsample``
-and ``python -m igneous_tpu_torch image ccl {faces,links,calc-labels,
-relabel,clean,auto}``.
+"""The port's command line: ``python -m igneous_tpu_torch image downsample``,
+``python -m igneous_tpu_torch image ccl {faces,links,calc-labels,relabel,
+clean,auto}`` and ``python -m igneous_tpu_torch mesh {forge,merge}``.
 
-A minimal counterpart of ``igneous-tpu image downsample`` and
-``igneous-tpu image ccl`` (``igneous_tpu/cli.py``), with the same option
-names. Tasks run in a ``LocalTaskQueue`` on the port's device (cuda;
-``IGNEOUS_TORCH_DEVICE=cpu`` asks for the CPU).
+A minimal counterpart of ``igneous-tpu image downsample``, ``igneous-tpu
+image ccl`` and ``igneous-tpu mesh forge|merge`` (``igneous_tpu/cli.py``),
+with the same option names. Tasks run in a ``LocalTaskQueue`` on the
+port's device (cuda; ``IGNEOUS_TORCH_DEVICE=cpu`` asks for the CPU).
 """
 
 from __future__ import annotations
@@ -45,7 +45,96 @@ def build_parser() -> argparse.ArgumentParser:
   _add_ccl(image.add_parser(
     "ccl", help="Whole-image connected components labeling (4-pass)."
   ).add_subparsers(dest="ccl_command", required=True))
+  _add_mesh(groups.add_parser("mesh", help="Mesh forging.").add_subparsers(
+    dest="command", required=True))
   return parser
+
+
+def _id_list(text: str):
+  """'5,6,7' -> [5, 6, 7]; blanks ignored; empty -> None."""
+  try:
+    ids = [int(tok) for tok in text.split(",") if tok.strip()]
+  except ValueError:
+    raise argparse.ArgumentTypeError(f"not a comma-separated id list: {text!r}")
+  return ids or None
+
+
+def _add_mesh(mesh) -> None:
+  cmd = mesh.add_parser("forge", help="Stage 1: mesh every label of PATH.")
+  cmd.add_argument("path")
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--shape", type=_tuple3, default=(448, 448, 448))
+  cmd.add_argument("--simplify", dest="simplify", action="store_true", default=True,
+                   help="Enable mesh simplification (default).")
+  cmd.add_argument("--skip-simplify", dest="simplify", action="store_false")
+  cmd.add_argument("--simplify-factor", type=int, default=100)
+  cmd.add_argument("--max-error", type=int, default=40)
+  cmd.add_argument("--mesh-dir", "--dir", dest="mesh_dir", default=None,
+                   help="Write meshes into this directory instead of the "
+                        "one in the info file.")
+  cmd.add_argument("--dust-threshold", "--dust", dest="dust_threshold", type=int,
+                   default=None, help="Skip objects smaller than this many voxels.")
+  cmd.add_argument("--dust-global", dest="dust_global", action="store_true",
+                   default=False, help="Not ported yet: raises.")
+  cmd.add_argument("--dust-local", dest="dust_global", action="store_false")
+  cmd.add_argument("--fill-missing", action="store_true")
+  cmd.add_argument("--fill-holes", type=int, default=0,
+                   help="Not ported yet: any value above 0 raises.")
+  cmd.add_argument("--compress", default="gzip", help="gzip or none.")
+  cmd.add_argument("--sharded", action="store_true", help="Not ported yet: raises.")
+  cmd.add_argument("--spatial-index", dest="spatial_index", action="store_true",
+                   default=True)
+  cmd.add_argument("--no-spatial-index", dest="spatial_index", action="store_false")
+  cmd.add_argument("--closed-edge", dest="closed_edge", action="store_true",
+                   default=True, help="Close meshes against the dataset boundary.")
+  cmd.add_argument("--open-edge", dest="closed_edge", action="store_false")
+  cmd.add_argument("--labels", "--obj-ids", dest="obj_ids", type=_id_list,
+                   default=None, help="comma-separated: mesh only these labels")
+  cmd.add_argument("--exclude-labels", "--exclude-obj-ids", dest="exclude_obj_ids",
+                   type=_id_list, default=None,
+                   help="comma-separated: never mesh these labels")
+  cmd.add_argument("--mesher", default="cubes", choices=["cubes", "tetrahedra"])
+  cmd.add_argument("--simplify-parallel", type=int, default=1,
+                   help="threads for per-label simplification inside each task")
+  cmd = mesh.add_parser("merge", help="Stage 2: write the legacy manifests.")
+  cmd.add_argument("path")
+  cmd.add_argument("--magnitude", type=int, default=2)
+  cmd.add_argument("--mesh-dir", "--dir", dest="mesh_dir", default=None)
+  cmd.add_argument("--nlod", type=int, default=0,
+                   help="(multires) not ported yet: any value above 0 raises.")
+  cmd.add_argument("--vqb", type=int, default=16, help="(multires) not ported yet.")
+  cmd.add_argument("--min-chunk-size", type=_tuple3, default=(256, 256, 256),
+                   help="(multires) not ported yet.")
+
+
+def _run_mesh(args) -> int:
+  from . import task_creation as tc
+  from .queues import LocalTaskQueue
+
+  queue = LocalTaskQueue(parallel=args.parallel)
+  if args.command == "merge":
+    if args.nlod > 0:
+      raise NotImplementedError(
+        "multires meshes (--nlod > 0) are not ported to igneous_tpu_torch yet"
+      )
+    queue.insert(tc.create_mesh_manifest_tasks(
+      args.path, magnitude=args.magnitude, mesh_dir=args.mesh_dir))
+    return 0
+  compress = args.compress
+  if compress.lower() in ("none", "false"):
+    compress = None
+  queue.insert(tc.create_meshing_tasks(
+    args.path, mip=args.mip, shape=args.shape, simplification=args.simplify,
+    simplification_factor=args.simplify_factor,
+    max_simplification_error=args.max_error, mesh_dir=args.mesh_dir,
+    dust_threshold=args.dust_threshold, dust_global=args.dust_global,
+    fill_missing=args.fill_missing, fill_holes=args.fill_holes,
+    sharded=args.sharded, spatial_index=args.spatial_index,
+    closed_dataset_edges=args.closed_edge, object_ids=args.obj_ids,
+    exclude_object_ids=args.exclude_obj_ids, mesher=args.mesher,
+    parallel=args.simplify_parallel, compress=compress,
+  ))
+  return 0
 
 
 def _ccl_opts(cmd) -> None:
@@ -133,6 +222,8 @@ def _run_ccl(args) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
   args = build_parser().parse_args(argv)
+  if args.group == "mesh":
+    return _run_mesh(args)
   if args.command == "ccl":
     return _run_ccl(args)
   from .queues import LocalTaskQueue

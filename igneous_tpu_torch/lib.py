@@ -1,7 +1,7 @@
 """Geometry primitives: integer vectors, bounding boxes, and grid math.
 
 The port's own copy of ``igneous_tpu/lib.py``, trimmed to what the
-downsample path uses.
+downsample, connected-components and meshing paths use.
 
 Conventions:
   - All voxel coordinates are (x, y, z) triples.
@@ -12,6 +12,7 @@ Conventions:
 
 from __future__ import annotations
 
+import re
 from typing import Iterator, Sequence, Union
 
 import numpy as np
@@ -67,10 +68,21 @@ class Bbox:
 
   __slots__ = ("minpt", "maxpt", "dtype")
 
+  _FILENAME_RE = re.compile(r"(-?\d+)-(-?\d+)_(-?\d+)-(-?\d+)_(-?\d+)-(-?\d+)")
+
   def __init__(self, minpt: VecLike, maxpt: VecLike, dtype=np.int64):
     self.minpt = Vec(*minpt, dtype=dtype)
     self.maxpt = Vec(*maxpt, dtype=dtype)
     self.dtype = dtype
+
+  @classmethod
+  def from_filename(cls, filename: str) -> "Bbox":
+    """Parse the Precomputed chunk-name convention ``x0-x1_y0-y1_z0-z1``."""
+    m = cls._FILENAME_RE.search(filename)
+    if m is None:
+      raise ValueError(f"Not a chunk filename: {filename}")
+    g = [int(v) for v in m.groups()]
+    return cls((g[0], g[2], g[4]), (g[1], g[3], g[5]))
 
   # -- geometry -------------------------------------------------------------
 
@@ -94,6 +106,10 @@ class Bbox:
     mx = np.minimum(a.maxpt, b.maxpt)
     mx = np.maximum(mn, mx)
     return cls(mn, mx)
+
+  @classmethod
+  def intersects(cls, a: "Bbox", b: "Bbox") -> bool:
+    return not cls.intersection(a, b).empty()
 
   # scaling between mips
   def __truediv__(self, factor) -> "Bbox":

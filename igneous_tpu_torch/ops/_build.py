@@ -1,10 +1,13 @@
-"""Build and load the port's CUDA kernels (csrc/*.cu) at first use.
+"""Build and load the port's native libraries at first use.
 
-Each source compiles with nvcc into a shared library with a plain C
-interface under ``igneous_tpu_torch/build/`` and is loaded with ctypes. A
-library's file name carries a hash of its source text and the nvcc flags,
-so a library built from other source is never loaded. Nothing here runs at
-import: the CPU tests import every module and there is no nvcc there.
+``csrc/<name>.cu`` (the CUDA kernels) compiles with nvcc and
+``csrc/<name>.cpp`` (host code: the mesh simplifier) with g++, each into a
+shared library with a plain C interface under ``igneous_tpu_torch/build/``,
+loaded with ctypes. A library's file name carries a hash of its source text
+and the compiler flags, so a library built from other source is never
+loaded. A build that fails raises: no caller falls back to another
+implementation. Nothing here runs at import: the CPU tests import every
+module and there is no nvcc there.
 """
 
 from __future__ import annotations
@@ -26,11 +29,15 @@ NVCC_FLAGS = [
   "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
   "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# the JAX package's flags for its native host libraries, so both build the
+# same code from the same source
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# per-source build record: seconds spent in nvcc (0 when the library was
-# already current) and what ptxas reported (registers, shared memory, spills)
+# per-source build record: seconds spent in the compiler (0 when the
+# library was already current) and what it reported on stderr (for nvcc,
+# ptxas's registers, shared memory and spills)
 BUILD_LOG: Dict[str, dict] = {}
 
 
@@ -45,29 +52,42 @@ def nvcc_path() -> str:
   raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
+def _source(name: str):
+  """(source, flags, compiler) of ``name``: ``csrc/<name>.cu`` built by
+  nvcc, else ``csrc/<name>.cpp`` built by g++."""
+  cu = CSRC_DIR / f"{name}.cu"
+  if cu.exists():
+    return cu, NVCC_FLAGS, nvcc_path
+  return CSRC_DIR / f"{name}.cpp", GXX_FLAGS, lambda: "g++"
+
+
 def library_path(name: str) -> Path:
-  """``build/lib<name>-<hash>.so``: the hash covers the source text of
-  ``csrc/<name>.cu`` and the nvcc flags."""
-  digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
-  digest.update(" ".join(NVCC_FLAGS).encode())
+  """``build/lib<name>-<hash>.so``: the hash covers the source text and
+  the compiler flags."""
+  src, flags, _ = _source(name)
+  digest = hashlib.sha256(src.read_bytes())
+  digest.update(" ".join(flags).encode())
   return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:8]}.so"
 
 
 def build(name: str) -> Path:
-  """Compile ``csrc/<name>.cu`` unless its library already exists."""
-  src = CSRC_DIR / f"{name}.cu"
+  """Compile ``name``'s source unless its library already exists."""
   out = library_path(name)
   if out.exists():
     BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": ""})
     return out
+  src, flags, compiler = _source(name)
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
   tmp = out.with_suffix(f".so.tmp{os.getpid()}")
-  cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+  cmd = [compiler(), *flags, "-o", str(tmp), str(src)]
   t0 = time.perf_counter()
-  proc = subprocess.run(cmd, capture_output=True, text=True)
+  try:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+  except FileNotFoundError as e:
+    raise RuntimeError(f"cannot build {src}: {e}") from e
   if proc.returncode != 0:
     tmp.unlink(missing_ok=True)
-    raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+    raise RuntimeError(f"{cmd[0]} failed for {src}:\n{proc.stderr}")
   os.replace(tmp, out)
   BUILD_LOG[name] = {
     "seconds": time.perf_counter() - t0, "ptxas": proc.stderr,
@@ -76,7 +96,7 @@ def build(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-  """The loaded library for ``csrc/<name>.cu``, built on first use."""
+  """The loaded library for ``csrc/<name>``, built on first use."""
   with _LOCK:
     lib = _LIBS.get(name)
     if lib is None:

@@ -1,12 +1,14 @@
 """Label remapping on the host, in numpy.
 
-The port's own copy of ``remap`` and ``inverse_component_map`` from
-``igneous_tpu/ops/remap.py`` (the fastremap functions the CCL passes use).
+The port's own copy of ``remap``, ``renumber``, ``unique``, ``mask``,
+``mask_except`` and ``inverse_component_map`` from
+``igneous_tpu/ops/remap.py`` (the fastremap functions the CCL passes and
+the mesh forge use).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable, Tuple
 
 import numpy as np
 
@@ -36,6 +38,53 @@ def remap(
     missing = np.unique(arr[~found])
     raise KeyError(f"labels not in remap table: {missing[:10].tolist()}…")
   return vals[idx_c]
+
+
+def renumber(
+  arr: np.ndarray, start: int = 1, preserve_zero: bool = True
+) -> Tuple[np.ndarray, Dict[int, int]]:
+  """Relabel to a dense range; returns (renumbered, {new: old})."""
+  uniq = np.unique(arr)
+  if preserve_zero:
+    uniq = uniq[uniq != 0]
+  n = len(uniq) + start
+  if n < 2**16:
+    dtype = np.uint16
+  elif n < 2**32:
+    dtype = np.uint32
+  else:
+    dtype = np.uint64
+  out = (np.searchsorted(uniq, arr) + start).astype(dtype)
+  if preserve_zero:
+    out[arr == 0] = 0
+  mapping = {start + i: int(v) for i, v in enumerate(uniq.tolist())}
+  if preserve_zero:
+    mapping[0] = 0
+  return out, mapping
+
+
+def unique(arr: np.ndarray, return_counts: bool = False):
+  return np.unique(arr, return_counts=return_counts)
+
+
+def mask(arr: np.ndarray, labels: Iterable[int]) -> np.ndarray:
+  """Zero out the given labels."""
+  labels = np.asarray(sorted(set(int(l) for l in labels)), dtype=arr.dtype)
+  if len(labels) == 0:
+    return arr.copy()
+  idx = np.clip(np.searchsorted(labels, arr), 0, len(labels) - 1)
+  hit = labels[idx] == arr
+  return np.where(hit, arr.dtype.type(0), arr)
+
+
+def mask_except(arr: np.ndarray, labels: Iterable[int]) -> np.ndarray:
+  """Zero out everything EXCEPT the given labels."""
+  labels = np.asarray(sorted(set(int(l) for l in labels)), dtype=arr.dtype)
+  if len(labels) == 0:
+    return np.zeros_like(arr)
+  idx = np.clip(np.searchsorted(labels, arr), 0, len(labels) - 1)
+  hit = labels[idx] == arr
+  return np.where(hit, arr, arr.dtype.type(0))
 
 
 def inverse_component_map(a: np.ndarray, b: np.ndarray) -> Dict[int, np.ndarray]:

@@ -9,3 +9,4 @@ from .ccl import (
   create_relabeling,
 )
 from .image import create_downsampling_tasks
+from .mesh import create_mesh_manifest_tasks, create_meshing_tasks

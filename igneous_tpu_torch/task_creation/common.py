@@ -1,7 +1,7 @@
 """Factory commons: grid decomposition and bounds resolution.
 
 The port's copy of the parts of ``igneous_tpu/task_creation/common.py``
-that the downsample and CCL factories use.
+that the downsample, CCL and mesh factories use.
 """
 
 from __future__ import annotations
@@ -44,6 +44,19 @@ def get_bounds(
   if chunk_size is not None:
     bounds = bounds.expand_to_chunk_size(chunk_size, vol.meta.voxel_offset(mip))
   return Bbox.intersection(bounds, vol.meta.bounds(mip))
+
+
+def label_prefixes(magnitude: int) -> Iterator[str]:
+  """Decimal prefixes covering every positive integer label exactly once:
+  full-length prefixes (no leading zeros) plus terminated ``N:`` prefixes
+  for labels shorter than ``magnitude`` digits (the mesh-manifest
+  fan-out)."""
+  for prefix in range(10 ** (magnitude - 1), 10**magnitude):
+    yield str(prefix)
+  for ndigits in range(1, magnitude):
+    lo = 10 ** (ndigits - 1) if ndigits > 1 else 1
+    for prefix in range(lo, 10**ndigits):
+      yield f"{prefix}:"
 
 
 class GridTaskIterator:

@@ -7,3 +7,4 @@ from .ccl import (
   create_relabeling,
 )
 from .image import DownsampleTask, TransferTask, downsample_and_upload
+from .mesh import MeshManifestFilesystemTask, MeshManifestPrefixTask, MeshTask

@@ -1,9 +1,11 @@
-"""Wall-clock stage timers for one process.
+"""Wall-clock stage timers and counters for one process.
 
-The downsample path (download, h2d, kernel, d2h, upload) and the CCL path
-(tasks.ccl, ops.ccl) time their stages here so a caller can split a task's
-wall time. ``stage`` only reads the host clock; the device stages
-synchronise where they end (ops.pooling, ops.ccl).
+The downsample path (download, h2d, kernel, d2h, upload), the CCL path
+(tasks.ccl, ops.ccl) and the mesh path (tasks.mesh, ops.mesh) time their
+stages here so a caller can split a task's wall time. ``stage`` only reads
+the host clock; the device stages synchronise where they end (ops.pooling,
+ops.ccl, ops.mesh). ``add`` counts work items (the mesh path's labels and
+faces).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Dict
 
 _LOCK = threading.Lock()
 _STAGES: Dict[str, list] = {}
+_COUNTS: Dict[str, int] = {}
 
 
 @contextmanager
@@ -30,6 +33,17 @@ def stage(name: str):
       acc[1] += 1
 
 
+def add(name: str, n: int) -> None:
+  with _LOCK:
+    _COUNTS[name] = _COUNTS.get(name, 0) + int(n)
+
+
+def counters() -> Dict[str, int]:
+  """{counter: total} since the last reset."""
+  with _LOCK:
+    return dict(_COUNTS)
+
+
 def snapshot() -> Dict[str, dict]:
   """{stage: {"seconds": total, "count": entries}} since the last reset."""
   with _LOCK:
@@ -39,3 +53,4 @@ def snapshot() -> Dict[str, dict]:
 def reset() -> None:
   with _LOCK:
     _STAGES.clear()
+    _COUNTS.clear()

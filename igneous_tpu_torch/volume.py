@@ -1,9 +1,10 @@
 """Chunked Precomputed volume IO: the port's host data plane.
 
 The port's own copy of the parts of ``igneous_tpu/volume.py`` that the
-downsample path uses: ``from_numpy``, ``download`` and ``upload`` of bbox
-cutouts at a mip, and the info accessors. Pure host numpy: the device
-work happens in ``igneous_tpu_torch.ops`` on arrays produced here. The
+downsample, connected-components and meshing paths use: ``from_numpy``,
+``download`` and ``upload`` of bbox cutouts at a mip, and the info
+accessors. Pure host numpy: the device work happens in
+``igneous_tpu_torch.ops`` on arrays produced here. The
 chunk decode cache, integrity manifests, sharded scales and graphene are
 not ported yet.
 """
@@ -116,6 +117,10 @@ class Volume:
   # -- properties -----------------------------------------------------------
 
   @property
+  def info(self) -> dict:
+    return self.meta.info
+
+  @property
   def layer_type(self) -> str:
     return self.meta.layer_type
 
@@ -130,6 +135,10 @@ class Volume:
   @property
   def bounds(self) -> Bbox:
     return self.meta.bounds(self.mip)
+
+  @property
+  def resolution(self):
+    return self.meta.resolution(self.mip)
 
   def mip_bounds(self, mip: int) -> Bbox:
     return self.meta.bounds(mip)

@@ -47,6 +47,8 @@ import igneous_tpu_torch.task_creation, igneous_tpu_torch.ops.pooling
 import igneous_tpu_torch.ops.ccl, igneous_tpu_torch.ops.cuda_ccl
 import igneous_tpu_torch.ops.remap, igneous_tpu_torch.tasks.ccl
 import igneous_tpu_torch.task_creation.ccl, igneous_tpu_torch.tools.ccl_stage_costs
+import igneous_tpu_torch.ops.mesh, igneous_tpu_torch.mesh_io, igneous_tpu_torch.spatial_index
+import igneous_tpu_torch.tasks.mesh, igneous_tpu_torch.task_creation.mesh
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'igneous_tpu')]
 assert not bad, bad
 print('IMPORTED')
@@ -153,7 +155,7 @@ def test_reference_payload_maps_into_the_port_registry(monkeypatch):
 
 def test_unported_payloads_raise():
   with pytest.raises(KeyError, match="not ported"):
-    deserialize({"class": "MeshTask", "module": "igneous_tpu.tasks.mesh", "params": {}})
+    deserialize({"class": "SkeletonTask", "module": "igneous_tpu.tasks.skeleton", "params": {}})
   with pytest.raises(KeyError, match="queueable"):
     deserialize({"fn": "delete_mesh_files", "args": [], "kwargs": {}})
 
