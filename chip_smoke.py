@@ -1,12 +1,13 @@
-"""Drive igneous_tpu_torch's downsample, connected-components and meshing
-paths on one NVIDIA GPU and check them.
+"""Drive igneous_tpu_torch's downsample, connected-components, meshing and
+skeleton paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each reported on its own line:
-  1. build: compile the kernel sources (csrc/pooling.cu, csrc/ccl.cu) with
-     nvcc and the mesh simplifier (csrc/simplify.cpp) with g++, one process
-     per source, started together;
+  1. build: compile the kernel sources (csrc/pooling.cu, csrc/ccl.cu,
+     csrc/edt.cu) with nvcc and the host libraries of the mesh and skeleton
+     paths (csrc/simplify.cpp, csrc/dijkstra.cpp, csrc/fggraph.cpp) with
+     g++, one process per source, started together;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, bit for bit, at the main paths' shapes, with its time (device
      time: calls captured in a CUDA graph and replayed between CUDA
@@ -14,7 +15,12 @@ Phases, each reported on its own line:
      time; pool2x2x1 at every element width on its vector and element-wise
      paths; tile_resolve on five cases at connectivity 6, 18 and 26, on
      every tile of the sweep and on an odd tile (the runtime-shape
-     instance), each run twice with the same output both times;
+     instance); edt_pass (three passes, one EDT) on five cases, the first
+     the default skeleton task's 515^3 uint64 field, also timed pass by
+     pass and held against the JAX package's host EDT (native/csrc/edt.cpp,
+     built with g++ and timed on the host's cores as context), with the
+     float32 square root equal to numpy's; each case run twice with the
+     same output both times;
   3. e2e downsample: four file:// layers through Volume.from_numpy ->
      create_downsampling_tasks -> LocalTaskQueue -> DownsampleTask, every
      produced mip read back and compared with the plain pyramid computed
@@ -27,9 +33,10 @@ Phases, each reported on its own line:
      have launched at least once per task in each recomputing pass, and
      the destination must be the same partition as scipy.ndimage.label's
      (6-connected, per label), with max_label its component count;
-  5. e2e mesh: a 896x448x448 uint64 Voronoi segmentation (1000 seeds, ids
+  5. e2e mesh: a 896x448x224 uint64 Voronoi segmentation (500 seeds, ids
      above 2^32 and 2^63, membrane gaps) through create_meshing_tasks ->
-     LocalTaskQueue -> MeshTask (two 448^3 tasks, simplification 100 with
+     LocalTaskQueue -> MeshTask (two tasks of the default 448^3 shape, at
+     half its depth: 448x448x224; simplification 100 with
      error 40, spatial index, gzip; 8 simplification threads) and
      create_mesh_manifest_tasks; each task's wall, stage split and
      label and face counts, the merge's wall; every fragment listed in
@@ -41,7 +48,21 @@ Phases, each reported on its own line:
      kernels may launch; the device programs of the path (the XLA
      programs X1-X3 the port runs as torch ops) timed at the first
      task's largest count pass against their bytes bound;
-  6. the card's name and power limit, the programs line, the kernels
+  6. e2e skeleton: a 1024x512x512 uint64 layer of 300 neurite-like tubes
+     (radius 3-12 voxels along random polylines, about 10% foreground,
+     ids above 2^32 and 2^63, many across x = 512) through
+     create_skeletonizing_tasks -> LocalTaskQueue -> SkeletonTask (two
+     512^3 tasks with every default, 8 tracing threads) and
+     create_unsharded_skeleton_merge_tasks; each task's wall, stage split,
+     label and vertex counts, the card's busy time from a profiler trace
+     and its peak memory; edt_pass must launch three times a task (the
+     counts set to 0 before) and the other kernels not at all; every tube
+     component across x = 512 one connected merged skeleton; the first
+     task's EDT field equal to the plain version's (run on the card) bit
+     for bit, and 32 of its labels (seed 1) plus its largest skeletonized
+     to the same bytes on the card and on the CPU route, and equal to the
+     written fragments;
+  7. the card's name and power limit, the programs line, the kernels
      line, and the result.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -678,8 +699,10 @@ def ccl_e2e_phase(root, cc, cp, torch, dev):
 # ---------------------------------------------------------------------------
 # meshing
 
-MESH_SHAPE = (896, 448, 448)  # (x, y, z): two tasks of the default 448^3
-MESH_SEEDS = 1000
+# (x, y, z): two tasks of the default 448^3 shape, at half its depth so that
+# the whole script, skeleton phase included, stays near 700 s
+MESH_SHAPE = (896, 448, 224)
+MESH_SEEDS = 500
 MESH_SAMPLE = 64  # labels of the first task held card against CPU, + its largest
 # threads for the per-label simplification inside each task (the forge's
 # --simplify-parallel; its output does not depend on it): at the default 1
@@ -815,21 +838,28 @@ def mesh_card_against_cpu(task, path: str, sample: int, torch, dev):
   return card
 
 
-def profiled_device_ms(fn, torch, reps: int = 5) -> float:
+def profiled_device_ms(fn, torch, reps: int = 5, attempts: int = 3) -> float:
   """Kernel time on the card per call of ``fn`` (a sequence of torch ops),
-  summed from a torch.profiler trace; fails where the trace shows none."""
+  summed from a torch.profiler trace. A trace that shows no kernel time
+  is taken again, up to ``attempts`` traces in all (an H100 run once gave
+  an empty trace of a program that had traced before); fails where every
+  trace shows none."""
   from torch.profiler import ProfilerActivity, profile
 
   fn()
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    for _ in range(reps):
-      fn()
-    torch.cuda.synchronize()
-  us = traced_device_us(prof)
-  if not us > 0:
-    fail("profiler: the trace shows no kernel time on the card")
-  return us / 1e3 / reps
+  for attempt in range(1, attempts + 1):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(reps):
+        fn()
+      torch.cuda.synchronize()
+    us = traced_device_us(prof)
+    if us > 0:
+      if attempt > 1:
+        print(f"profiler: kernel time in trace {attempt} of {attempts}", flush=True)
+      return us / 1e3 / reps
+    print(f"profiler: trace {attempt} of {attempts} shows no kernel time", flush=True)
+  fail("profiler: the trace shows no kernel time on the card")
 
 
 def traced_device_us(prof) -> float:
@@ -915,7 +945,7 @@ def mesh_e2e_phase(root, torch, dev, shape=MESH_SHAPE, n_seeds=MESH_SEEDS,
 
   tasks = list(create_meshing_tasks(path, parallel=simplify_threads))
   if len(tasks) != 2:
-    fail(f"mesh: expected 2 tasks of 448^3, planned {len(tasks)}")
+    fail(f"mesh: expected 2 tasks, planned {len(tasks)}")
   queue = LocalTaskQueue(parallel=1)
   passes = 0
   for i, task in enumerate(tasks):
@@ -948,6 +978,406 @@ def mesh_e2e_phase(root, torch, dev, shape=MESH_SHAPE, n_seeds=MESH_SEEDS,
   if dev.type != "cuda":
     return []
   return mesh_programs(ctx, passes / len(tasks), torch, dev)
+
+
+# ---------------------------------------------------------------------------
+# EDT and skeletons
+
+SKEL_SHAPE = (1024, 512, 512)  # (x, y, z): two tasks of the default 512^3
+SKEL_TUBES = 300
+SKEL_SAMPLE = 32  # labels of the first task held card against CPU, + its largest
+SKEL_MIN_CROSSING = 10  # boundary-crossing tube components the merge check needs
+# threads for the per-label tracing of each task (the task's ``parallel``;
+# its output does not depend on it), as the mesh phase uses 8 threads
+SKEL_TRACE_THREADS = 8
+EDT_CUTOUT = 513  # the default skeleton task's cutout: 512^3 plus the overlap
+EDT_REPLACES = "igneous_tpu/ops/edt.py:256"  # _edt_sq_kernel (XLA), three axis passes
+# the JAX package's host EDT (threaded C++), timed as context only
+HOST_EDT_SOURCE = "igneous_tpu/native/csrc/edt.cpp"
+
+
+def neurites(shape, n_tubes: int, rng, torch, dev):
+  """(z, y, x) int64 on ``dev`` holding uint64 bits: ``n_tubes`` tubes of
+  radius 3-12 voxels along random polylines (5-8 segments of 60-160
+  voxels, turning by up to 60 degrees), painted in order, so that later
+  tubes cut earlier ones, with ids above 2^32, eight of them at or above
+  2^63 (all of them if fewer). ``shape`` is (x, y, z). Made on the card
+  from ``rng``."""
+  X, Y, Z = shape
+  vol = torch.zeros((Z, Y, X), dtype=torch.int64, device=dev)
+  ids = (2**32 + 7919 * (1 + rng.permutation(10 * n_tubes)[:n_tubes])).astype(np.uint64)
+  ids[rng.choice(n_tubes, min(8, n_tubes), replace=False)] |= np.uint64(2**63)
+  size = np.array([X, Y, Z], dtype=np.float64)
+  for t in range(n_tubes):
+    r = float(rng.uniform(3, 12))
+    p = rng.random(3) * size
+    d = rng.standard_normal(3)
+    d /= np.linalg.norm(d)
+    label = int(ids.view(np.int64)[t])
+    for _ in range(int(rng.integers(5, 9))):
+      turn = rng.standard_normal(3)
+      turn -= turn.dot(d) * d
+      turn /= np.linalg.norm(turn)
+      ang = float(rng.uniform(0, np.pi / 3))
+      d = np.cos(ang) * d + np.sin(ang) * turn
+      q = np.clip(p + d * rng.uniform(60, 160), 0, size - 1)
+      lo = np.maximum(np.floor(np.minimum(p, q) - r), 0).astype(int)
+      hi = np.minimum(np.ceil(np.maximum(p, q) + r) + 1, size).astype(int)
+      xs = torch.arange(lo[0], hi[0], device=dev, dtype=torch.float32).view(1, 1, -1)
+      ys = torch.arange(lo[1], hi[1], device=dev, dtype=torch.float32).view(1, -1, 1)
+      zs = torch.arange(lo[2], hi[2], device=dev, dtype=torch.float32).view(-1, 1, 1)
+      seg = q - p
+      den = float(seg.dot(seg)) or 1.0
+      u = ((xs - p[0]) * seg[0] + (ys - p[1]) * seg[1] + (zs - p[2]) * seg[2]) / den
+      u = u.clamp(0, 1)
+      dist2 = (xs - p[0] - u * seg[0]) ** 2 + (ys - p[1] - u * seg[1]) ** 2 \
+        + (zs - p[2] - u * seg[2]) ** 2
+      box = vol[lo[2]:hi[2], lo[1]:hi[1], lo[0]:hi[0]]
+      box.masked_fill_(dist2 <= r * r, label)
+      p = q
+  return vol
+
+
+def host_edt_lib(torch):
+  """The JAX package's host EDT (``HOST_EDT_SOURCE``) built with g++ into
+  the port's build directory, or None where the source is absent. It is
+  timed as context beside the card's EDT, and its output is held against
+  the kernel's."""
+  import ctypes
+  import hashlib
+  import os
+
+  path = os.path.join(os.path.dirname(os.path.abspath(__file__)), HOST_EDT_SOURCE)
+  if not os.path.exists(path):
+    return None
+  from igneous_tpu_torch.ops import _build
+
+  src = open(path, "rb").read()
+  out = _build.BUILD_DIR / f"libhostedt-{hashlib.sha256(src).hexdigest()[:8]}.so"
+  if not out.exists():
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run(["g++", *_build.GXX_FLAGS, "-o", str(out), path],
+                   check=True, capture_output=True)
+  lib = ctypes.CDLL(str(out))
+  lib.edt_ml_sq64.restype = None
+  lib.edt_ml_sq64.argtypes = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+    ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_int,
+  ]
+  return lib
+
+
+def host_squared_edt(lib, lab, anisotropy):
+  """Seconds and (z, y, x) float32 result of the host EDT on the (z, y, x)
+  int64 tensor ``lab`` (passes along x, y, z, as the port's)."""
+  import ctypes
+
+  xyz = np.ascontiguousarray(lab.cpu().numpy().transpose(2, 1, 0))
+  out = np.empty(xyz.shape, dtype=np.float32)
+  t0 = time.perf_counter()
+  lib.edt_ml_sq64(xyz.ctypes.data_as(ctypes.c_void_p), out.ctypes.data_as(ctypes.c_void_p),
+                  *xyz.shape, *(float(a) for a in anisotropy), 0)
+  return time.perf_counter() - t0, out.transpose(2, 1, 0)
+
+
+def plain_squared_edt(ce, lab, anisotropy):
+  """The three passes of ``ops.edt.squared_edt`` with the plain version."""
+  import torch
+
+  wx, wy, wz = anisotropy
+  a = torch.empty(lab.shape, dtype=torch.float32, device=lab.device)
+  b = torch.empty_like(a)
+  ce.edt_pass_plain(lab, a, a, 2, wx, True)
+  ce.edt_pass_plain(lab, a, b, 1, wy, False)
+  ce.edt_pass_plain(lab, b, a, 0, wz, False)
+  return a
+
+
+def edt_bound_ms(lab) -> float:
+  """Bytes bound of the three passes: labels read once a pass, values read
+  in passes 2-3 and written in all three (float32), over the memory rate;
+  the integer and FP64 work per voxel is below it."""
+  nbytes = lab.numel() * (3 * lab.element_size() + 5 * 4)
+  return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def edt_kernel_phase(ce, edt_ops, torch, dev):
+  """``edt_pass`` against its plain version on the card, bit for bit, on
+  five cases: the default task's field (a 513^3 cutout of neurite-like
+  uint64 labels, some at or above 2^63, padded to 515^3) at (8, 8, 40);
+  a 257^3 crop of it at (1, 1, 1), and its low 32 bits as int32 labels;
+  thin slabs; an odd shape. Each case runs twice and must give the same
+  output; the float32 square root and cleared background must equal
+  numpy's sqrt of the same squared field. The first case is also timed
+  pass by pass, and held against the JAX package's host EDT and timed
+  there, as context."""
+  rng = np.random.default_rng(1)
+  n = EDT_CUTOUT
+  field = neurites((n, n, n), 180, rng, torch, dev)
+  full = torch.nn.functional.pad(field, (1, 1, 1, 1, 1, 1))
+  slabs = torch.zeros((128, 256, 512), dtype=torch.int64, device=dev)  # (z, y, x)
+  slabs[:, :, ::2] = 5  # 1-thick x slabs
+  slabs[:, :128, :] += 7  # a label wall mid-y
+  slabs[32:96, 64:192, 128:384] = 11
+  odd = neurites((257, 3, 129), 6, rng, torch, dev)
+  crop = full[:257, :257, :257]
+  inputs = [
+    ("neurites 513^3 cutout padded to 515^3, uint64, (8, 8, 40)", full, (8, 8, 40)),
+    ("neurites 257^3 crop of it, uint64, (1, 1, 1)", crop, (1, 1, 1)),
+    ("neurites 257^3 crop, low 32 bits as int32, (8, 8, 40)", crop.to(torch.int32), (8, 8, 40)),
+    ("thin slabs (512, 256, 128), (2, 3, 5)", slabs, (2, 3, 5)),
+    ("odd shape (257, 3, 129) neurites, (4, 4, 40)", odd, (4, 4, 40)),
+  ]
+  host = host_edt_lib(torch)
+  cases = []
+  for label, lab, anis in inputs:
+    lab = lab.contiguous()
+    first = edt_ops.squared_edt(lab, anis)
+    second = edt_ops.squared_edt(lab, anis)
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+      fail(f"edt_pass {label}: two runs gave different outputs")
+    t0 = time.perf_counter()
+    plain = plain_squared_edt(ce, lab, anis)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    same = torch.equal(first.view(torch.int32), plain.view(torch.int32))
+    err = 0.0 if same else float((first.double() - plain.double()).abs().max())
+    dist = edt_ops.distance_field(lab, anis)
+    want = np.sqrt(first.cpu().numpy(), dtype=np.float32)
+    want[(lab == 0).cpu().numpy()] = 0
+    sqrt_same = np.array_equal(dist.cpu().numpy().view(np.uint32), want.view(np.uint32))
+    fn = lambda: edt_ops.squared_edt(lab, anis)  # noqa: E731
+    case = {
+      "kernel": "edt_pass", "case": f"{label}, 3 passes", "max_abs_err": err,
+      "ms": device_ms(fn, reps=5, batch=3), "call_ms": cuda_ms(fn, reps=5),
+      "plain_ms": 1e3 * plain_s, "bound_ms": edt_bound_ms(lab), "bound_by": "bytes",
+      "scratch_gb": max(ce.scratch_bytes(lab.shape, a) for a in range(3)) / 1e9,
+      "sqrt_bitwise": sqrt_same, "library": "none",
+    }
+    if lab is full:
+      wx, wy, wz = anis
+      val = torch.empty(lab.shape, dtype=torch.float32, device=dev)
+      out = torch.empty_like(val)
+      case["pass_ms"] = {
+        "x (contiguous lines, first)": device_ms(lambda: ce.edt_pass(lab, val, val, 2, wx, True), reps=5, batch=3),
+        "y": device_ms(lambda: ce.edt_pass(lab, val, out, 1, wy, False), reps=5, batch=3),
+        "z": device_ms(lambda: ce.edt_pass(lab, out, val, 0, wz, False), reps=5, batch=3),
+      }
+      del val, out
+    if host is not None and lab is full:
+      host_s, host_sq = host_squared_edt(host, lab, anis)
+      case["host_edt_cpp_ms"] = 1e3 * host_s
+      case["host_edt_cpp_equal"] = np.array_equal(
+        host_sq.view(np.uint32), first.cpu().numpy().view(np.uint32))
+      if not case["host_edt_cpp_equal"]:
+        fail(f"edt_pass {label}: differs from the JAX package's host EDT")
+    print("kernel " + json.dumps(case), flush=True)
+    if err > TOLERANCE:
+      fail(f"edt_pass {label}: max abs err {err} against its plain version")
+    if not sqrt_same:
+      fail(f"edt_pass {label}: the distances differ from numpy's sqrt of the squared field")
+    cases.append(case)
+    del first, second, plain, dist
+  print("library: none (PyTorch has no multilabel distance transform)", flush=True)
+  del inputs, field, full, crop, slabs, odd
+  torch.cuda.empty_cache()
+  return cases
+
+
+def crossing_components(seg, boundary: int, dust: int, torch):
+  """{label: [(component mask (x, y, z) bool over its box, box lo)]} for
+  every 26-connected component of a label with voxels on both sides of
+  the plane x = ``boundary``, where the label has at least ``dust`` voxels
+  in each task's cutout (x < boundary + 1 and x >= boundary; a task skips
+  a label below its dust threshold, so no weld is expected there).
+  ``seg``: the (z, y, x) int64 layer on the card."""
+  from scipy import ndimage
+
+  out = {}
+  both = np.intersect1d(torch.unique(seg[:, :, boundary - 1]).cpu().numpy(),
+                        torch.unique(seg[:, :, boundary]).cpu().numpy())
+  for label in both[both != 0].tolist():
+    hit = seg == label
+    if min(int(hit[:, :, : boundary + 1].sum()), int(hit[:, :, boundary:].sum())) < dust:
+      continue
+    idx = hit.nonzero()
+    lo, hi = idx.min(0).values.tolist(), (idx.max(0).values + 1).tolist()
+    box = hit[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]].cpu().numpy().transpose(2, 1, 0)
+    comps, _ = ndimage.label(box, structure=np.ones((3, 3, 3), bool))
+    origin = np.array(lo[::-1])
+    for ci, sl in enumerate(ndimage.find_objects(comps), start=1):
+      if sl is None or not (origin[0] + sl[0].start < boundary < origin[0] + sl[0].stop):
+        continue
+      out.setdefault(int(np.int64(label).view(np.uint64)), []).append(
+        (comps[sl] == ci, origin + np.array([s.start for s in sl])))
+  return out
+
+
+def skeleton_card_against_cpu(task, path: str, sample: int, ce, edt_ops, torch, dev):
+  """The first task's field on the card equals the plain version's (run on
+  the card, the CPU route's code) bit for bit; ``sample`` of its labels
+  (seed 1) plus its largest skeletonize, with the task's border pins, to
+  the same bytes on the card and on the CPU route (labels and boxes in
+  torch on the CPU, the plain field), equal to the written fragments."""
+  import gzip
+  import os
+
+  from igneous_tpu_torch import Volume, set_device
+  from igneous_tpu_torch.ops.mesh import labels_on_device
+  from igneous_tpu_torch.ops.skeletonize import TeasarParams, cutout_labels, skeletonize
+
+  t0 = time.perf_counter()
+  vol = Volume(path)
+  labels, cutout, core, bounds = task.prepare_labels(vol)
+  anis = tuple(float(v) for v in vol.resolution)
+  card_field, ids, counts, _, _ = cutout_labels(labels, anis)
+  seg, _ = labels_on_device(labels, (0, 0, 0), (0, 0, 0), dev)
+  pad = torch.nn.functional.pad(seg, (1, 1, 1, 1, 1, 1))
+  sq = plain_squared_edt(ce, pad, (anis[0], anis[1], anis[2]))[1:-1, 1:-1, 1:-1]
+  plain_field = torch.sqrt(sq).masked_fill_(seg == 0, 0.0).cpu().numpy().transpose(2, 1, 0)
+  del seg, pad, sq
+  torch.cuda.empty_cache()
+  if not np.array_equal(card_field.view(np.uint32), plain_field.view(np.uint32)):
+    fail("skeleton: the card's EDT field differs from the plain version's")
+  largest = ids[int(np.argmax(counts))]
+  pick = np.random.default_rng(1).choice(len(ids), min(sample, len(ids)), replace=False)
+  chosen = sorted({ids[i] for i in pick} | {largest})
+  kw = dict(
+    anisotropy=anis, params=TeasarParams.from_dict(task.teasar_params),
+    offset=tuple(float(v) for v in cutout.minpt), object_ids=chosen,
+    dust_threshold=task.dust_threshold, parallel=SKEL_TRACE_THREADS,
+    extra_targets_per_label=task.targets(labels, cutout, core, bounds),
+  )
+  card = skeletonize(labels, **kw)
+  set_device("cpu")
+  try:
+    cpu = skeletonize(labels, edt_field=plain_field, **kw)
+  finally:
+    set_device(dev)
+  if list(card) != list(cpu):
+    fail("skeleton: the card and the CPU route skeletonized different labels")
+  sdir = vol.info["skeletons"]
+  verts = 0
+  for label in card:
+    data = card[label].to_precomputed()
+    if data != cpu[label].to_precomputed():
+      fail(f"skeleton: label {label}: the card's skeleton differs from the CPU route's")
+    written = os.path.join(path[len("file://"):], sdir, f"{label}:{core.to_filename()}.sk.gz")
+    with open(written, "rb") as f:
+      if gzip.decompress(f.read()) != data:
+        fail(f"skeleton: label {label}: the written fragment differs from the card's")
+    verts += len(card[label].vertices)
+  print(f"e2e skeleton check: task 0, {len(card)} of {len(ids)} labels (the largest, "
+        f"{largest}, {int(counts.max())} voxels): the EDT field equal to the plain "
+        f"version's, the skeletons ({verts} vertices) equal on the card and on the CPU "
+        f"route and to the written fragments, {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def skeleton_e2e_phase(root, ce, edt_ops, torch, dev):
+  """The skeleton forge and merge with the defaults (task shape 512^3,
+  +1 overlap, fix_borders, fix_branching, spatial index, TEASAR scale 4
+  and const 500, forge dust 1000, merge dust 4000 and tick 6000,
+  magnitude 1) but ``SKEL_TRACE_THREADS`` tracing threads: per task its
+  wall, stage split, label and vertex counts, the card's busy time from a
+  profiler trace and its peak memory, and ``edt_pass``'s launches (three
+  a task); the merge's wall; every boundary-crossing tube one connected
+  skeleton; the first task held card against CPU. Returns the launches."""
+  from igneous_tpu_torch import CloudFiles, Volume, telemetry
+  from igneous_tpu_torch.queues import LocalTaskQueue
+  from igneous_tpu_torch.skeleton_io import Skeleton
+  from igneous_tpu_torch.task_creation import (
+    create_skeletonizing_tasks,
+    create_unsharded_skeleton_merge_tasks,
+  )
+  from torch.profiler import ProfilerActivity, profile
+
+  t0 = time.perf_counter()
+  shape = SKEL_SHAPE
+  seg = neurites(shape, SKEL_TUBES, np.random.default_rng(1), torch, dev)
+  data = seg.cpu().numpy()
+  path = f"file://{root}/skeleton_segmentation"
+  Volume.from_numpy(data.view(np.uint64).transpose(2, 1, 0), path, resolution=(8, 8, 40),
+                    chunk_size=(64, 64, 64), compress=None, layer_type="segmentation")
+  print(f"ingest skeleton_segmentation: {shape} uint64, {len(torch.unique(seg)) - 1} labels, "
+        f"{100 * float((seg != 0).double().mean()):.1f}% foreground "
+        f"{time.perf_counter() - t0:.1f} s", flush=True)
+  del data
+
+  tasks = list(create_skeletonizing_tasks(path, parallel=SKEL_TRACE_THREADS))
+  if len(tasks) != 2:
+    fail(f"skeleton: expected 2 tasks of 512^3, planned {len(tasks)}")
+  queue = LocalTaskQueue(parallel=1)
+  ce.LAUNCHES["edt_pass"] = 0
+  for i, task in enumerate(tasks):
+    telemetry.reset()
+    before = ce.LAUNCHES["edt_pass"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      t0 = time.perf_counter()
+      queue.insert([task])
+      wall = time.perf_counter() - t0
+    busy = traced_device_us(prof) / 1e6
+    if not busy > 0:
+      fail(f"skeleton task {i}: the trace shows no work on the card")
+    launched = ce.LAUNCHES["edt_pass"] - before
+    snap = telemetry.snapshot()
+    counts = telemetry.counters()
+    print(f"e2e skeleton task {i}: wall {wall:.3f} s, {SKEL_TRACE_THREADS} tracing "
+          f"threads, {counts.get('labels', 0)} labels, {counts.get('vertices', 0)} "
+          f"vertices, edt_pass launches {launched}, card busy {busy:.4f} s (traced; idle "
+          f"{100 * (1 - busy / wall):.2f}%), peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, stages (s) "
+          f"{json.dumps({k: round(v['seconds'], 4) for k, v in snap.items()})}", flush=True)
+    if launched != 3:
+      fail(f"skeleton task {i}: edt_pass launched {launched} times, not 3")
+  launches = ce.LAUNCHES["edt_pass"]
+
+  t0 = time.perf_counter()
+  merges = list(create_unsharded_skeleton_merge_tasks(path))
+  queue.insert(merges)
+  merge = time.perf_counter() - t0
+  cf = CloudFiles(path)
+  sdir = Volume(path).info["skeletons"]
+  names = [k.split("/")[-1] for k in cf.list(f"{sdir}/")]
+  frags = sum(n.endswith(".sk") for n in names)
+  merged = [n for n in names if n.isdigit()]
+  print(f"e2e skeleton merge: wall {merge:.3f} s, {len(merges)} tasks, {frags} fragments, "
+        f"{len(merged)} skeletons", flush=True)
+
+  # every tube component crossing the task boundary is one skeleton there
+  res = np.array([8, 8, 40], np.float32)
+  crossing = crossing_components(seg, shape[0] // 2, tasks[0].dust_threshold, torch)
+  del seg
+  torch.cuda.empty_cache()
+  checked = spanning = 0
+  for label, comps in crossing.items():
+    blob = cf.get(f"{sdir}/{label}")
+    if blob is None:
+      continue
+    skel = Skeleton.from_precomputed(blob)
+    comp = skel.components_by_vertex()
+    vox = np.rint(skel.vertices / res).astype(np.int64)
+    for mask, lo in comps:
+      local = vox - lo
+      inside = np.all((local >= 0) & (local < mask.shape), axis=1)
+      inside[inside] = mask[tuple(local[inside].T)]
+      if not inside.any():
+        continue
+      pieces = np.unique(comp[inside])
+      if len(pieces) != 1:
+        fail(f"skeleton: label {label}: a tube across x = {shape[0] // 2} is "
+             f"{len(pieces)} skeleton pieces")
+      checked += 1
+      xs = vox[inside, 0]
+      spanning += int(xs.min() < shape[0] // 2 < xs.max())
+  print(f"e2e skeleton merge check: {checked} tube components across x = "
+        f"{shape[0] // 2} ({len(crossing)} labels) each one connected skeleton, "
+        f"{spanning} with vertices on both sides", flush=True)
+  if checked < SKEL_MIN_CROSSING:
+    fail(f"skeleton: only {checked} boundary-crossing tubes were checked")
+  skeleton_card_against_cpu(tasks[0], path, SKEL_SAMPLE, ce, edt_ops, torch, dev)
+  return launches
 
 
 def load_copy(alias: str, path: str):
@@ -998,6 +1428,7 @@ def main() -> int:
     from igneous_tpu_torch import set_device
     from igneous_tpu_torch.ops import _build, ccl as ccl_ops
     from igneous_tpu_torch.ops import cuda_ccl as cc, cuda_pooling as cp
+    from igneous_tpu_torch.ops import cuda_edt as ce, edt as edt_ops
   except ImportError as e:
     fail(f"igneous_tpu_torch is not importable here ({e}); run from the repo root")
 
@@ -1011,12 +1442,14 @@ def main() -> int:
   t0 = time.perf_counter()
   sources = ("pooling", "ccl")
   builds = [(b, name) for b in [_build] + [c[0] for _, c in copies] for name in sources]
-  builds.append((_build, "simplify"))  # the mesh path's host library, with g++
+  # the EDT kernel, and the host libraries of the mesh and skeleton paths (g++)
+  host_libs = ("simplify", "dijkstra", "fggraph")
+  builds += [(_build, name) for name in ("edt",) + host_libs]
   with ThreadPoolExecutor(len(builds)) as pool:
     # one compiler per source, together
     list(pool.map(lambda job: job[0].build(job[1]), builds))
   print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-  for name in sources + ("simplify",):
+  for name in sources + ("edt",) + host_libs:
     log = _build.BUILD_LOG[name]
     print(f"build {name}: {log['seconds']:.1f} s", flush=True)
     for line in log["ptxas"].splitlines():
@@ -1025,6 +1458,7 @@ def main() -> int:
 
   cases = kernel_phase(cp, torch, dev, [(k, c[2]) for k, c in copies])
   ccl_cases = ccl_kernel_phase(cc, ccl_ops, torch, dev, [(k, c[1]) for k, c in copies])
+  edt_cases = edt_kernel_phase(ce, edt_ops, torch, dev)
   if copies:
     print(f"wall: {time.perf_counter() - t_all:.1f} s")
     print(card_line())
@@ -1034,14 +1468,21 @@ def main() -> int:
     launches = e2e_phase(root, cp, torch, dev)
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches["tile_resolve"] = ccl_e2e_phase(root, cc, cp, torch, dev)
-  for counts in (cc.LAUNCHES, cp.LAUNCHES):
+  for counts in (cc.LAUNCHES, cp.LAUNCHES, ce.LAUNCHES):
     for key in counts:
       counts[key] = 0
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     programs = mesh_e2e_phase(root, torch, dev,
                               simplify_threads=args.mesh_simplify_threads)
+  if any(cc.LAUNCHES.values()) or any(cp.LAUNCHES.values()) or any(ce.LAUNCHES.values()):
+    fail("mesh: the pooling, CCL or EDT kernels ran on the mesh path")
+  for counts in (cc.LAUNCHES, cp.LAUNCHES):
+    for key in counts:
+      counts[key] = 0
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+    launches["edt_pass"] = skeleton_e2e_phase(root, ce, edt_ops, torch, dev)
   if any(cc.LAUNCHES.values()) or any(cp.LAUNCHES.values()):
-    fail("mesh: the pooling or CCL kernels ran on the mesh path")
+    fail("skeleton: the pooling or CCL kernels ran on the skeleton path")
 
   kernels = []
   replaces = {
@@ -1066,6 +1507,16 @@ def main() -> int:
     "replaces": "igneous_tpu/ops/pallas_ccl.py:118",
     "launches": launches["tile_resolve"],
     "max_abs_err": max(c["max_abs_err"] for c in ccl_cases),
+    "ms": first["ms"], "plain_ms": first["plain_ms"],
+    "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+    "library_ms": None, "case": first["case"],
+  })
+  first = edt_cases[0]  # the default skeleton task's field
+  kernels.append({
+    "name": "edt_pass", "route": "cuda",
+    "source": "igneous_tpu_torch/csrc/edt.cu",
+    "replaces": EDT_REPLACES, "launches": launches["edt_pass"],
+    "max_abs_err": max(c["max_abs_err"] for c in edt_cases),
     "ms": first["ms"], "plain_ms": first["plain_ms"],
     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
     "library_ms": None, "case": first["case"],

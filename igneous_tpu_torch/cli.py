@@ -1,10 +1,13 @@
 """The port's command line: ``python -m igneous_tpu_torch image downsample``,
 ``python -m igneous_tpu_torch image ccl {faces,links,calc-labels,relabel,
-clean,auto}`` and ``python -m igneous_tpu_torch mesh {forge,merge}``.
+clean,auto}``, ``python -m igneous_tpu_torch mesh {forge,merge}`` and
+``python -m igneous_tpu_torch skeleton {forge,merge}``.
 
 A minimal counterpart of ``igneous-tpu image downsample``, ``igneous-tpu
-image ccl`` and ``igneous-tpu mesh forge|merge`` (``igneous_tpu/cli.py``),
-with the same option names. Tasks run in a ``LocalTaskQueue`` on the
+image ccl``, ``igneous-tpu mesh forge|merge`` and ``igneous-tpu skeleton
+forge|merge`` (``igneous_tpu/cli.py``), with the same option names; an
+option the port does not have is refused by the parser, and the ones it
+does not run yet raise ``NotImplementedError`` before anything is written. Tasks run in a ``LocalTaskQueue`` on the
 port's device (cuda; ``IGNEOUS_TORCH_DEVICE=cpu`` asks for the CPU).
 """
 
@@ -46,6 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
     "ccl", help="Whole-image connected components labeling (4-pass)."
   ).add_subparsers(dest="ccl_command", required=True))
   _add_mesh(groups.add_parser("mesh", help="Mesh forging.").add_subparsers(
+    dest="command", required=True))
+  _add_skeleton(groups.add_parser("skeleton", help="Skeleton forging.").add_subparsers(
     dest="command", required=True))
   return parser
 
@@ -137,6 +142,98 @@ def _run_mesh(args) -> int:
   return 0
 
 
+def _add_skeleton(skel) -> None:
+  cmd = skel.add_parser("forge", help="Stage 1: skeletonize every label of PATH.")
+  cmd.add_argument("path")
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--shape", type=_tuple3, default=(512, 512, 512))
+  cmd.add_argument("--scale", type=float, default=4.0, help="TEASAR scale")
+  cmd.add_argument("--const", type=float, default=500.0, help="TEASAR const (nm)")
+  cmd.add_argument("--max-paths", type=float, default=None,
+                   help="Abort an object after tracing this many paths.")
+  cmd.add_argument("--dust-threshold", type=int, default=1000)
+  cmd.add_argument("--dust-global", dest="dust_global", action="store_true",
+                   default=False, help="Not ported yet: raises.")
+  cmd.add_argument("--dust-local", dest="dust_global", action="store_false")
+  cmd.add_argument("--fill-missing", action="store_true")
+  cmd.add_argument("--fill-holes", type=int, default=0,
+                   help="Not ported yet: any value above 0 raises.")
+  cmd.add_argument("--sharded", action="store_true", help="Not ported yet: raises.")
+  cmd.add_argument("--skel-dir", default=None)
+  cmd.add_argument("--spatial-index", dest="spatial_index", action="store_true",
+                   default=True)
+  cmd.add_argument("--skip-spatial-index", dest="spatial_index", action="store_false")
+  cmd.add_argument("--fix-borders", dest="fix_borders", action="store_true", default=True)
+  cmd.add_argument("--no-fix-borders", dest="fix_borders", action="store_false")
+  cmd.add_argument("--fix-branching", dest="fix_branching", action="store_true",
+                   default=True)
+  cmd.add_argument("--no-fix-branching", dest="fix_branching", action="store_false")
+  cmd.add_argument("--fix-avocados", action="store_true")
+  cmd.add_argument("--fix-autapses", action="store_true", help="Not ported yet: raises.")
+  cmd.add_argument("--soma-detect", type=float, default=1100.0)
+  cmd.add_argument("--soma-accept", type=float, default=3500.0)
+  cmd.add_argument("--soma-scale", type=float, default=2.0)
+  cmd.add_argument("--soma-const", type=float, default=300.0)
+  cmd.add_argument("--labels", type=_id_list, default=None,
+                   help="comma-separated: skeletonize only these labels")
+  cmd.add_argument("--cross-section", type=int, default=0,
+                   help="Not ported yet: any value above 0 raises.")
+  cmd.add_argument("--output", "-o", default=None,
+                   help="Write stage-1 fragments to this path instead.")
+  cmd.add_argument("--timestamp", type=int, default=None,
+                   help="(graphene) not ported yet: raises.")
+  cmd.add_argument("--root-ids", default=None, help="(graphene) not ported yet: raises.")
+  cmd = skel.add_parser("merge", help="Stage 2: fuse each label's fragments.")
+  cmd.add_argument("path")
+  cmd.add_argument("--magnitude", type=int, default=1)
+  cmd.add_argument("--skel-dir", default=None)
+  cmd.add_argument("--dust-threshold", "--min-cable-length", dest="dust_threshold",
+                   type=float, default=4000.0,
+                   help="Skip objects shorter than this physical path length.")
+  cmd.add_argument("--tick-threshold", type=float, default=6000.0)
+  cmd.add_argument("--delete-fragments", action="store_true")
+  cmd.add_argument("--max-cable-length", type=float, default=None)
+
+
+def _run_skeleton(args) -> int:
+  from . import task_creation as tc
+  from .queues import LocalTaskQueue
+
+  queue = LocalTaskQueue(parallel=args.parallel)
+  if args.command == "merge":
+    queue.insert(tc.create_unsharded_skeleton_merge_tasks(
+      args.path, magnitude=args.magnitude, skel_dir=args.skel_dir,
+      dust_threshold=args.dust_threshold, tick_threshold=args.tick_threshold,
+      delete_fragments=args.delete_fragments,
+      max_cable_length=args.max_cable_length,
+    ))
+    return 0
+  if args.timestamp is not None:
+    raise NotImplementedError(
+      "--timestamp (graphene layers) is not ported to igneous_tpu_torch yet"
+    )
+  queue.insert(tc.create_skeletonizing_tasks(
+    args.path, mip=args.mip, shape=args.shape,
+    teasar_params={
+      "scale": args.scale, "const": args.const,
+      "soma_detection_threshold": args.soma_detect,
+      "soma_acceptance_threshold": args.soma_accept,
+      "soma_invalidation_scale": args.soma_scale,
+      "soma_invalidation_const": args.soma_const,
+      "max_paths": args.max_paths,
+    },
+    dust_threshold=args.dust_threshold, dust_global=args.dust_global,
+    fill_missing=args.fill_missing, fill_holes=args.fill_holes,
+    sharded=args.sharded, skel_dir=args.skel_dir,
+    spatial_index=args.spatial_index, fix_borders=args.fix_borders,
+    fix_branching=args.fix_branching, fix_avocados=args.fix_avocados,
+    fix_autapses=args.fix_autapses, object_ids=args.labels,
+    cross_sectional_area=args.cross_section > 0,
+    frag_path=args.output, root_ids_cloudpath=args.root_ids,
+  ))
+  return 0
+
+
 def _ccl_opts(cmd) -> None:
   cmd.add_argument("--mip", type=int, default=0)
   cmd.add_argument("--shape", type=_tuple3, default=(448, 448, 448))
@@ -224,6 +321,8 @@ def main(argv: Optional[List[str]] = None) -> int:
   args = build_parser().parse_args(argv)
   if args.group == "mesh":
     return _run_mesh(args)
+  if args.group == "skeleton":
+    return _run_skeleton(args)
   if args.command == "ccl":
     return _run_ccl(args)
   from .queues import LocalTaskQueue

@@ -111,9 +111,12 @@ def _ccl_tiled_roots(
   )
 
 
-def _ccl_tiled(labels_zyx: np.ndarray, connectivity: int) -> np.ndarray:
-  """Device tiled resolve + host boundary merge -> merged roots (z, y, x)."""
-  dev = get_device()
+def _ccl_tiled(
+  labels_zyx: np.ndarray, connectivity: int, dev: Optional[torch.device] = None
+) -> np.ndarray:
+  """Device tiled resolve + host boundary merge -> merged roots (z, y, x),
+  on ``dev`` (default: the port's device)."""
+  dev = get_device() if dev is None else dev
   tile = _tile_shape(dev)
   with telemetry.stage("h2d"):
     lab = torch.from_numpy(labels_zyx).to(dev)
@@ -196,13 +199,16 @@ def _merge_tile_roots(
 
 
 def connected_components(
-  labels: np.ndarray, connectivity: int = 6, return_N: bool = False
+  labels: np.ndarray, connectivity: int = 6, return_N: bool = False,
+  device: Optional[torch.device] = None,
 ):
   """cc3d-equivalent block CCL. labels: (x, y, z) any integer dtype.
 
   Returns components renumbered 1..N in order of each component's first
   voxel in Fortran (x-fastest) scan order; 0 stays background.
   Deterministic across recomputation, which the 4-pass CCL protocol needs.
+  ``device`` overrides the port's device (the skeleton task labels its
+  small boundary planes on the CPU).
   """
   if labels.ndim != 3:
     raise ValueError("labels must be (x, y, z)")
@@ -215,7 +221,7 @@ def connected_components(
     lab32 = _dense_relabel(labels)
     # device layout (z, y, x): x innermost
     zyx = np.ascontiguousarray(lab32.transpose(2, 1, 0))
-  roots = _ccl_tiled(zyx, connectivity).transpose(2, 1, 0)
+  roots = _ccl_tiled(zyx, connectivity, device).transpose(2, 1, 0)
   with telemetry.stage("renumber"):
     out = _roots_to_components(roots)
     N = int(out.max())

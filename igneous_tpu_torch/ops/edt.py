@@ -1,0 +1,89 @@
+"""Multilabel anisotropic Euclidean distance transform on the port's device.
+
+The port's counterpart of ``igneous_tpu/ops/edt.py``'s ``edt``, with the
+semantics of the JAX package's host path (``IGNEOUS_EDT_BACKEND=native``,
+``igneous_tpu/native/csrc/edt.cpp``), which that package takes for every
+CPU skeleton task: for every nonzero voxel, the anisotropic distance to the
+nearest voxel centre of a DIFFERENT label (background reads 0), bit for bit.
+
+Three axis passes, x (edge term only), then y, then z, each one launch of
+``cuda_edt.edt_pass`` over the (z, y, x) labels: the CUDA kernel of
+``csrc/edt.cu`` on the card, its plain PyTorch version on the CPU. Labels
+are compared by raw 32- or 64-bit equality: ids of 32 bits or fewer travel
+as int32, 64-bit ids as int64 (uint64 bits, ids at or above 2^63
+included), and 0 stays background whatever the sign of the others.
+
+Not ported (ROADMAP.md): ``edt_batch`` and its executors, the
+``IGNEOUS_EDT_BACKEND`` / ``IGNEOUS_EDT_LINE_BLOCK`` knobs, ``paged_edt``
+and the JAX package's float32 device variant.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..device import get_device
+from .cuda_edt import edt_pass
+
+
+def squared_edt(lab: torch.Tensor, anisotropy: Sequence[float]) -> torch.Tensor:
+  """(z, y, x) contiguous int32 or int64 labels -> the squared distances,
+  float32 in the same layout, before the background is cleared.
+  ``anisotropy`` is (wx, wy, wz)."""
+  wx, wy, wz = (float(a) for a in anisotropy)
+  a = torch.empty(lab.shape, dtype=torch.float32, device=lab.device)
+  b = torch.empty_like(a)
+  edt_pass(lab, a, a, 2, wx, True)
+  edt_pass(lab, a, b, 1, wy, False)
+  edt_pass(lab, b, a, 0, wz, False)
+  return a
+
+
+def distance_field(
+  lab: torch.Tensor, anisotropy: Sequence[float], black_border: bool = False
+) -> torch.Tensor:
+  """(z, y, x) int32 or int64 labels on the device -> float32 distances in
+  the same layout: the square root of ``squared_edt`` (float32, as
+  ``np.sqrt`` of the host path), exactly 0 on background.
+  ``black_border`` treats the outside of the array as background."""
+  work = lab
+  if black_border:
+    Z, Y, X = lab.shape
+    work = torch.zeros((Z + 2, Y + 2, X + 2), dtype=lab.dtype, device=lab.device)
+    work[1:-1, 1:-1, 1:-1] = lab
+  sq = squared_edt(work.contiguous(), anisotropy)
+  del work
+  if black_border:
+    sq = sq[1:-1, 1:-1, 1:-1]
+  out = torch.sqrt(sq)
+  return out.masked_fill_(lab == 0, 0.0)
+
+
+def host_labels(labels: np.ndarray) -> np.ndarray:
+  """Any integer (or bool) labels -> int32 or int64 of the same bits where
+  they are 32 or 64 bits wide (narrower ids widen), as the host path
+  compares them."""
+  if labels.dtype.itemsize <= 4:
+    lab = labels if labels.dtype.itemsize == 4 else labels.astype(np.int32)
+    return lab.view(np.int32)
+  return labels.view(np.int64)
+
+
+def edt(
+  labels: np.ndarray,
+  anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
+  black_border: bool = False,
+) -> np.ndarray:
+  """labels: (x, y, z) integers -> float32 distances, same shape, computed
+  on the port's device. ``black_border`` treats the array boundary as
+  background (kimimaro uses this so skeletons stay inside the cutout)."""
+  if labels.ndim != 3:
+    raise ValueError("labels must be 3d")
+  lab = host_labels(np.asarray(labels))
+  zyx = np.ascontiguousarray(lab.transpose(2, 1, 0))
+  t = torch.from_numpy(zyx).to(get_device())
+  out = distance_field(t, anisotropy, black_border)
+  return out.cpu().numpy().transpose(2, 1, 0)

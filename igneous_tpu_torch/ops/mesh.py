@@ -665,6 +665,30 @@ def marching_tetrahedra(
 _SIGN = -(1 << 63)
 
 
+def labels_on_device(img: np.ndarray, pad_lo, pad_hi, dev):
+  """(x, y, z) labels -> (z, y, x) int64 on ``dev``, zero-padded by
+  ``pad_lo`` / ``pad_hi`` voxels ((x, y, z) each), and whether the int64
+  holds uint64 bits. Unsigned labels narrower than 64 bits travel as the
+  signed type of their width and are widened on the device."""
+  zyx = np.ascontiguousarray(img.transpose(2, 1, 0))
+  flip = zyx.dtype == np.uint64
+  width = zyx.dtype.itemsize
+  unsigned = zyx.dtype.kind == "u" and width > 1
+  if unsigned:
+    zyx = zyx.view(f"i{width}")
+  src = torch.from_numpy(zyx).to(dev).to(torch.int64)
+  if unsigned and width < 8:
+    src &= (1 << (8 * width)) - 1
+  Z, Y, X = (s + lo + hi for s, lo, hi in zip(src.shape, pad_lo[::-1], pad_hi[::-1]))
+  seg = torch.zeros((Z, Y, X), dtype=torch.int64, device=dev)
+  seg[
+    pad_lo[2] : Z - pad_hi[2], pad_lo[1] : Y - pad_hi[1], pad_lo[0] : X - pad_hi[0]
+  ] = src
+  if seg.is_cuda:
+    torch.cuda.synchronize(seg.device)
+  return seg, flip
+
+
 def label_boxes(seg: torch.Tensor, flip_sign: bool):
   """The labels of one (z, y, x) int64 cutout on the device: their unique
   values with voxel counts, the dense renumbering and each dense id's
@@ -675,10 +699,10 @@ def label_boxes(seg: torch.Tensor, flip_sign: bool):
 
   Returns (labels int64 numpy (U,) in ascending order of the source's
   values, counts int64 numpy (U,), dense (z, y, x) int32 on the device
-  with 0 for label 0 and 1..n for the nonzero labels in ascending order,
-  lo and hi int64 numpy (n + 1, 3): the (x, y, z) least and greatest
-  coordinate plus one of each dense id, as ``ndimage.find_objects``'s
-  slices).
+  with 0 for label 0 and 1..n for the nonzero labels in ascending order
+  (signed labels below 0 included), lo and hi int64 numpy (n + 1, 3): the
+  (x, y, z) least and greatest coordinate plus one of each dense id, as
+  ``ndimage.find_objects``'s slices).
   """
   key = torch.bitwise_xor(seg, _SIGN) if flip_sign else seg
   uniq, inverse, counts = torch.unique(
@@ -688,10 +712,14 @@ def label_boxes(seg: torch.Tensor, flip_sign: bool):
   if flip_sign:
     uniq = torch.bitwise_xor(uniq, _SIGN)
   labels = uniq.cpu().numpy()
-  has_zero = bool(len(labels)) and labels[0] == 0
-  if not has_zero:
+  zero = np.flatnonzero(labels == 0)
+  if not len(zero):
     inverse += 1
-  n = len(labels) - int(has_zero)
+  elif zero[0] > 0:
+    # signed labels below 0 sort before it: they take dense ids 1..p
+    p = int(zero[0])
+    inverse = torch.where(inverse < p, inverse + 1, inverse.masked_fill(inverse == p, 0))
+  n = len(labels) - len(zero)
   Z, Y, X = seg.shape
   lo = torch.full((3, n + 1), max(X, Y, Z), dtype=torch.int32, device=seg.device)
   hi = torch.full((3, n + 1), -1, dtype=torch.int32, device=seg.device)

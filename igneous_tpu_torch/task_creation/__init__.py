@@ -10,3 +10,4 @@ from .ccl import (
 )
 from .image import create_downsampling_tasks
 from .mesh import create_mesh_manifest_tasks, create_meshing_tasks
+from .skeleton import create_skeletonizing_tasks, create_unsharded_skeleton_merge_tasks

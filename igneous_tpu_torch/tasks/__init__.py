@@ -8,3 +8,4 @@ from .ccl import (
 )
 from .image import DownsampleTask, TransferTask, downsample_and_upload
 from .mesh import MeshManifestFilesystemTask, MeshManifestPrefixTask, MeshTask
+from .skeleton import SkeletonTask, UnshardedSkeletonMergeTask

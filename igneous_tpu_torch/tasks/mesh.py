@@ -30,7 +30,6 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
 
 import numpy as np
-import torch
 
 from .. import telemetry
 from ..device import get_device
@@ -40,6 +39,7 @@ from ..ops import remap as fastremap
 from ..ops.mesh import (
   LabelMasks,
   label_boxes,
+  labels_on_device,
   marching_cubes_batch,
   marching_tetrahedra_batch,
 )
@@ -55,30 +55,6 @@ def mesh_dir_for(vol: Volume, mesh_dir: Optional[str]) -> str:
   if vol.info.get("mesh"):
     return vol.info["mesh"]
   raise ValueError("No mesh directory configured in the info file")
-
-
-def _padded_on_device(img: np.ndarray, pad_lo, pad_hi, dev):
-  """(x, y, z) labels → (z, y, x) int64 on ``dev``, zero-padded by
-  ``pad_lo`` / ``pad_hi`` voxels ((x, y, z) each), and whether the int64
-  holds uint64 bits. Unsigned labels narrower than 64 bits travel as the
-  signed type of their width and are widened on the device."""
-  zyx = np.ascontiguousarray(img.transpose(2, 1, 0))
-  flip = zyx.dtype == np.uint64
-  width = zyx.dtype.itemsize
-  unsigned = zyx.dtype.kind == "u" and width > 1
-  if unsigned:
-    zyx = zyx.view(f"i{width}")
-  src = torch.from_numpy(zyx).to(dev).to(torch.int64)
-  if unsigned and width < 8:
-    src &= (1 << (8 * width)) - 1
-  Z, Y, X = (s + lo + hi for s, lo, hi in zip(src.shape, pad_lo[::-1], pad_hi[::-1]))
-  seg = torch.zeros((Z, Y, X), dtype=torch.int64, device=dev)
-  seg[
-    pad_lo[2] : Z - pad_hi[2], pad_lo[1] : Y - pad_hi[1], pad_lo[0] : X - pad_hi[0]
-  ] = src
-  if seg.is_cuda:
-    torch.cuda.synchronize(seg.device)
-  return seg, flip
 
 
 def refuse_unported(
@@ -231,7 +207,7 @@ class MeshTask(RegisteredTask):
 
     dev = get_device()
     with telemetry.stage("h2d"):
-      seg, flip = _padded_on_device(img, pad_lo, pad_hi, dev)
+      seg, flip = labels_on_device(img, pad_lo, pad_hi, dev)
     X, Y, Z = (int(s) for s in reversed(seg.shape))
 
     with telemetry.stage("labels"):

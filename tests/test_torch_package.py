@@ -49,8 +49,13 @@ import igneous_tpu_torch.ops.remap, igneous_tpu_torch.tasks.ccl
 import igneous_tpu_torch.task_creation.ccl, igneous_tpu_torch.tools.ccl_stage_costs
 import igneous_tpu_torch.ops.mesh, igneous_tpu_torch.mesh_io, igneous_tpu_torch.spatial_index
 import igneous_tpu_torch.tasks.mesh, igneous_tpu_torch.task_creation.mesh
+import igneous_tpu_torch.ops.edt, igneous_tpu_torch.ops.cuda_edt
+import igneous_tpu_torch.ops.skeletonize, igneous_tpu_torch.skeleton_io
+import igneous_tpu_torch.tasks.skeleton, igneous_tpu_torch.task_creation.skeleton
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'igneous_tpu')]
 assert not bad, bad
+from igneous_tpu_torch.ops import _build
+assert _build._LIBS == {} and _build.BUILD_LOG == {}, 'a library was built at import'
 print('IMPORTED')
 """
 
@@ -155,9 +160,41 @@ def test_reference_payload_maps_into_the_port_registry(monkeypatch):
 
 def test_unported_payloads_raise():
   with pytest.raises(KeyError, match="not ported"):
-    deserialize({"class": "SkeletonTask", "module": "igneous_tpu.tasks.skeleton", "params": {}})
+    deserialize({"class": "ShardedSkeletonMergeTask", "module": "igneous_tpu.tasks.skeleton",
+                 "params": {}})
   with pytest.raises(KeyError, match="queueable"):
     deserialize({"fn": "delete_mesh_files", "args": [], "kwargs": {}})
+
+
+def _code(path):
+  """A C++ source's lines without comments and blank lines."""
+  lines = (line.split("//")[0].rstrip() for line in path.read_text().splitlines())
+  return [line for line in lines if line]
+
+
+@pytest.mark.parametrize("name", ["edt", "dijkstra", "fggraph"])
+def test_skeleton_libraries_build_at_first_use_into_the_build_dir(name, tmp_path, monkeypatch, cpu):
+  """The skeleton path's sources build only when first called, into
+  ``igneous_tpu_torch/build/`` (which .gitignore lists): the CUDA kernel
+  with nvcc for sm_90a, the two host libraries with g++ from copies of the
+  JAX package's sources."""
+  from igneous_tpu_torch.ops import _build, skeletonize
+
+  path = _build.library_path(name)
+  assert path.parent == _build.BUILD_DIR == PORT / "build"
+  assert "igneous_tpu_torch/build/" in (REPO / ".gitignore").read_text().split()
+  src, flags, _ = _build._source(name)
+  if name == "edt":
+    assert src.name == "edt.cu" and "arch=compute_90a,code=sm_90a" in flags
+    return
+  assert _code(src) == _code(REPO / "igneous_tpu" / "native" / "csrc" / f"{name}.cpp")
+  monkeypatch.setattr(_build, "_LIBS", {})
+  monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+  assert list(tmp_path.iterdir()) == []
+  mask = np.zeros((12, 6, 6), bool)
+  mask[1:11, 2:4, 2:4] = True
+  assert len(skeletonize.skeletonize_mask(mask)) > 2
+  assert any(p.name.startswith(f"lib{name}-") for p in tmp_path.iterdir())
 
 
 # ---------------------------------------------------------------------------
