@@ -15,12 +15,17 @@ Phases, each reported on its own line:
      time; pool2x2x1 at every element width on its vector and element-wise
      paths; tile_resolve on five cases at connectivity 6, 18 and 26, on
      every tile of the sweep and on an odd tile (the runtime-shape
-     instance); edt_pass (three passes, one EDT) on five cases, the first
+     instance); edt_pass (three passes, one EDT) on seven cases, the first
      the default skeleton task's 515^3 uint64 field, also timed pass by
      pass and held against the JAX package's host EDT (native/csrc/edt.cpp,
      built with g++ and timed on the host's cores as context), with the
-     float32 square root equal to numpy's; each case run twice with the
-     same output both times;
+     float32 square root equal to numpy's, the last two with lines longer
+     than the shared-memory threshold along z and along x (the long-line
+     kernel); each case run twice with the same output both times; single
+     passes on seeded random values along each axis, first and not, on
+     the first and the long-line cases; the worst stack depth (one label,
+     equal values) along each axis, timed; edt_pass's bound the larger of
+     its bytes and its FP64 work counted on this run's data;
   3. e2e downsample: four file:// layers through Volume.from_numpy ->
      create_downsampling_tasks -> LocalTaskQueue -> DownsampleTask, every
      produced mip read back and compared with the plain pyramid computed
@@ -73,7 +78,8 @@ package beside it.
 times the kernels of other copies of the package (an earlier commit's, say:
 ``git archive <commit> igneous_tpu_torch | tar -x -C DIR0`` makes
 DIR0/igneous_tpu_torch) against this checkout's, in turns on the same card,
-and runs phases 1 and 2 only.
+with equal outputs (edt_pass pass by pass and over the three passes on
+the 515^3 field), and runs phases 1 and 2 only.
 """
 
 from __future__ import annotations
@@ -991,6 +997,11 @@ SKEL_MIN_CROSSING = 10  # boundary-crossing tube components the merge check need
 # its output does not depend on it), as the mesh phase uses 8 threads
 SKEL_TRACE_THREADS = 8
 EDT_CUTOUT = 513  # the default skeleton task's cutout: 512^3 plus the overlap
+# (x, y, z) shapes whose lines exceed the shared-memory threshold (7264
+# after the first pass): along z, and along x
+EDT_LONG_Z = (32, 32, 8192)
+EDT_LONG_X = (8192, 64, 64)
+EDT_WORST = 515  # side of the worst-stack-depth case
 EDT_REPLACES = "igneous_tpu/ops/edt.py:256"  # _edt_sq_kernel (XLA), three axis passes
 # the JAX package's host EDT (threaded C++), timed as context only
 HOST_EDT_SOURCE = "igneous_tpu/native/csrc/edt.cpp"
@@ -1080,28 +1091,92 @@ def host_squared_edt(lib, lab, anisotropy):
   return time.perf_counter() - t0, out.transpose(2, 1, 0)
 
 
-def plain_squared_edt(ce, lab, anisotropy):
-  """The three passes of ``ops.edt.squared_edt`` with the plain version."""
+def squared_edt_with(edt_pass, lab, anisotropy):
+  """The three passes of ``ops.edt.squared_edt`` with ``edt_pass``: a plain
+  version, or another copy's kernel."""
   import torch
 
   wx, wy, wz = anisotropy
   a = torch.empty(lab.shape, dtype=torch.float32, device=lab.device)
   b = torch.empty_like(a)
-  ce.edt_pass_plain(lab, a, a, 2, wx, True)
-  ce.edt_pass_plain(lab, a, b, 1, wy, False)
-  ce.edt_pass_plain(lab, b, a, 0, wz, False)
+  edt_pass(lab, a, a, 2, wx, True)
+  edt_pass(lab, a, b, 1, wy, False)
+  edt_pass(lab, b, a, 0, wz, False)
   return a
 
 
-def edt_bound_ms(lab) -> float:
-  """Bytes bound of the three passes: labels read once a pass, values read
-  in passes 2-3 and written in all three (float32), over the memory rate;
-  the integer and FP64 work per voxel is below it."""
+def plain_squared_edt(ce, lab, anisotropy):
+  """The three passes of ``ops.edt.squared_edt`` with the plain version."""
+  return squared_edt_with(ce.edt_pass_plain, lab, anisotropy)
+
+
+# FP64 instructions a voxel, counted from csrc/edt.cu: a __ddiv_rn is
+# FP64_PER_DIV of them (the reciprocal's Newton steps and the rounding
+# correction nvcc emits for sm_90, its fast path), an add, subtract or
+# multiply one
+FP64_PER_DIV = 8
+# 64 FP64 lanes per SM x 132 SMs x 1.98 GHz boost (Hopper white paper)
+FP64_OPS_PER_S = 64 * 132 * 1.98e9
+
+
+def edt_fp64_ops(lab, anisotropy, torch) -> float:
+  """The least FP64 work of the three passes on this field, counted from
+  the kernel's code and this run's data: the edge term's two multiplies
+  for every voxel of every pass; in the y and z passes, for each value
+  below the skip threshold (a push) its height (a division) and its
+  offset (an add) and, at the queries, one add and one multiply; and for
+  every push but the first of a run one pop test (a division, an add and
+  a subtract). The values are the x and y passes' outputs."""
+  from igneous_tpu_torch.ops import cuda_edt as ce
+
+  wx, wy, _ = anisotropy
+  ops = 3 * 2 * lab.numel()
+  vals = torch.empty(lab.shape, dtype=torch.float32, device=lab.device)
+  ce.edt_pass(lab, vals, vals, 2, wx, True)
+  for axis in (1, 0):
+    pushes = int((vals < ce._SKIP).sum())
+    moved = lab.movedim(axis, -1)
+    runs = int((moved[..., 1:] != moved[..., :-1]).sum()) + moved.numel() // moved.shape[-1]
+    ops += pushes * (FP64_PER_DIV + 1 + 2) + max(0, pushes - runs) * (FP64_PER_DIV + 2)
+    if axis == 1:
+      vals = ce.edt_pass(lab, vals, torch.empty_like(vals), 1, wy, False)
+  return float(ops)
+
+
+def edt_bound(lab, anisotropy, torch):
+  """(ms, "bytes" or "operations"): the least time of the three passes,
+  the larger of the bytes (labels read once a pass, values read in passes
+  2-3 and written in all three, float32) over the memory rate and the
+  FP64 work of ``edt_fp64_ops`` over the FP64 rate."""
   nbytes = lab.numel() * (3 * lab.element_size() + 5 * 4)
-  return 1e3 * nbytes / HBM_BYTES_PER_S
+  bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+  fp64_ms = 1e3 * edt_fp64_ops(lab, anisotropy, torch) / FP64_OPS_PER_S
+  return (bytes_ms, "bytes") if bytes_ms >= fp64_ms else (fp64_ms, "operations"), fp64_ms
 
 
-def edt_kernel_phase(ce, edt_ops, torch, dev):
+def edt_single_passes(ce, lab, label, g, torch, reps: int = 0):
+  """``edt_pass`` alone on each axis, first and not, on seeded random
+  values (uniform in [0, 1000), one in twenty 1e20), against its plain
+  version bit for bit; returns {pass: device ms} when ``reps``."""
+  dev = lab.device
+  val = torch.rand(lab.shape, device=dev, generator=g) * 1000
+  val[torch.rand(lab.shape, device=dev, generator=g) < 0.05] = ce.INF
+  times = {}
+  for axis in (0, 1, 2):
+    for first in (True, False):
+      got = ce.edt_pass(lab, val, torch.empty_like(val), axis, 3.0, first)
+      ref = ce.edt_pass_plain(lab, val, torch.empty_like(val), axis, 3.0, first)
+      if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        fail(f"edt_pass {label}: axis {axis} first={first} differs from its plain version")
+      if reps:
+        out = torch.empty_like(val)
+        times[f"axis {axis}{' first' if first else ''}"] = device_ms(
+          lambda: ce.edt_pass(lab, val, out, axis, 3.0, first), reps=reps, batch=3)
+      del got, ref
+  return times
+
+
+def edt_kernel_phase(ce, edt_ops, torch, dev, others=()):
   """``edt_pass`` against its plain version on the card, bit for bit, on
   five cases: the default task's field (a 513^3 cutout of neurite-like
   uint64 labels, some at or above 2^63, padded to 515^3) at (8, 8, 40);
@@ -1109,9 +1184,16 @@ def edt_kernel_phase(ce, edt_ops, torch, dev):
   thin slabs; an odd shape. Each case runs twice and must give the same
   output; the float32 square root and cleared background must equal
   numpy's sqrt of the same squared field. The first case is also timed
-  pass by pass, and held against the JAX package's host EDT and timed
-  there, as context."""
+  pass by pass, against each (name, cuda_edt of another copy of the
+  package) of ``others`` in turns with equal outputs, and held against
+  the JAX package's host EDT and timed there, as context. Then single
+  passes on seeded random values along each axis, first and not, on the
+  first case; the worst stack depth (one label, equal values: every
+  position a stack entry) at 515^3, timed; and two cases whose lines
+  exceed the shared-memory threshold (the long-line kernel), along z and
+  along x."""
   rng = np.random.default_rng(1)
+  g = torch.Generator(device=dev).manual_seed(1)
   n = EDT_CUTOUT
   field = neurites((n, n, n), 180, rng, torch, dev)
   full = torch.nn.functional.pad(field, (1, 1, 1, 1, 1, 1))
@@ -1121,12 +1203,16 @@ def edt_kernel_phase(ce, edt_ops, torch, dev):
   slabs[32:96, 64:192, 128:384] = 11
   odd = neurites((257, 3, 129), 6, rng, torch, dev)
   crop = full[:257, :257, :257]
+  long_z = neurites(EDT_LONG_Z, 40, rng, torch, dev)
+  long_x = neurites(EDT_LONG_X, 40, rng, torch, dev)
   inputs = [
     ("neurites 513^3 cutout padded to 515^3, uint64, (8, 8, 40)", full, (8, 8, 40)),
     ("neurites 257^3 crop of it, uint64, (1, 1, 1)", crop, (1, 1, 1)),
     ("neurites 257^3 crop, low 32 bits as int32, (8, 8, 40)", crop.to(torch.int32), (8, 8, 40)),
     ("thin slabs (512, 256, 128), (2, 3, 5)", slabs, (2, 3, 5)),
     ("odd shape (257, 3, 129) neurites, (4, 4, 40)", odd, (4, 4, 40)),
+    (f"long lines along z {tuple(long_z.shape[::-1])} neurites, (8, 8, 40)", long_z, (8, 8, 40)),
+    (f"long lines along x {tuple(long_x.shape[::-1])} neurites, (8, 8, 40)", long_x, (8, 8, 40)),
   ]
   host = host_edt_lib(torch)
   cases = []
@@ -1148,23 +1234,49 @@ def edt_kernel_phase(ce, edt_ops, torch, dev):
     want[(lab == 0).cpu().numpy()] = 0
     sqrt_same = np.array_equal(dist.cpu().numpy().view(np.uint32), want.view(np.uint32))
     fn = lambda: edt_ops.squared_edt(lab, anis)  # noqa: E731
+    (bound_ms, bound_by), fp64_ms = edt_bound(lab, anis, torch)
     case = {
       "kernel": "edt_pass", "case": f"{label}, 3 passes", "max_abs_err": err,
       "ms": device_ms(fn, reps=5, batch=3), "call_ms": cuda_ms(fn, reps=5),
-      "plain_ms": 1e3 * plain_s, "bound_ms": edt_bound_ms(lab), "bound_by": "bytes",
-      "scratch_gb": max(ce.scratch_bytes(lab.shape, a) for a in range(3)) / 1e9,
+      "plain_ms": 1e3 * plain_s, "bound_ms": bound_ms, "bound_by": bound_by,
+      "fp64_bound_ms": fp64_ms,
+      "scratch_gb": max(ce.scratch_bytes(lab.shape, a, a == 2) for a in range(3)) / 1e9,
+      "long_line_passes": [a for a in range(3) if ce.long_line(lab.shape, a, a == 2)],
       "sqrt_bitwise": sqrt_same, "library": "none",
     }
     if lab is full:
+      # each pass on its own input (the previous pass's output) into its
+      # own buffer, so that every call of a pass does the same work
       wx, wy, wz = anis
-      val = torch.empty(lab.shape, dtype=torch.float32, device=dev)
-      out = torch.empty_like(val)
-      case["pass_ms"] = {
-        "x (contiguous lines, first)": device_ms(lambda: ce.edt_pass(lab, val, val, 2, wx, True), reps=5, batch=3),
-        "y": device_ms(lambda: ce.edt_pass(lab, val, out, 1, wy, False), reps=5, batch=3),
-        "z": device_ms(lambda: ce.edt_pass(lab, out, val, 0, wz, False), reps=5, batch=3),
+      xo = torch.empty(lab.shape, dtype=torch.float32, device=dev)
+      yo = torch.empty_like(xo)
+      ce.edt_pass(lab, xo, xo, 2, wx, True)
+      ce.edt_pass(lab, xo, yo, 1, wy, False)
+      mine, theirs = torch.empty_like(xo), torch.empty_like(xo)
+      passes = {
+        "x (contiguous lines, first)": lambda m, dst: m.edt_pass(lab, dst, dst, 2, wx, True),
+        "y": lambda m, dst: m.edt_pass(lab, xo, dst, 1, wy, False),
+        "z": lambda m, dst: m.edt_pass(lab, yo, dst, 0, wz, False),
       }
-      del val, out
+      case["pass_ms"] = {k: device_ms(lambda f=f: f(ce, mine), reps=5, batch=3)
+                         for k, f in passes.items()}
+      Z, Y, X = lab.shape
+      case["blocks_per_sm"] = {"x": ce.blocks_per_sm(X, 1, True),
+                               "y": ce.blocks_per_sm(Y, X, False),
+                               "z": ce.blocks_per_sm(Z, Y * X, False)}
+      if others:
+        case["against"] = {
+          k: against(lambda f=f: f(ce, mine),
+                     [(nm, lambda f=f, m=m: f(m, theirs)) for nm, m in others], reps=5)
+          for k, f in passes.items()
+        }
+        case["against"]["3 passes"] = against(
+          fn, [(nm, lambda m=m: squared_edt_with(m.edt_pass, lab, anis)) for nm, m in others],
+          reps=5)
+        for rec in [r for recs in case["against"].values() for r in recs]:
+          if not rec["equal"]:
+            fail(f"edt_pass {label}: differs from {rec['against']}'s kernel")
+      del xo, yo, mine, theirs
     if host is not None and lab is full:
       host_s, host_sq = host_squared_edt(host, lab, anis)
       case["host_edt_cpp_ms"] = 1e3 * host_s
@@ -1172,6 +1284,12 @@ def edt_kernel_phase(ce, edt_ops, torch, dev):
         host_sq.view(np.uint32), first.cpu().numpy().view(np.uint32))
       if not case["host_edt_cpp_equal"]:
         fail(f"edt_pass {label}: differs from the JAX package's host EDT")
+    if lab is full or lab is long_z or lab is long_x:
+      # single passes on random values (the long-line cases' long passes
+      # among them), bit for bit
+      case["single_passes_bitwise"] = True
+      case["single_pass_ms"] = edt_single_passes(ce, lab, label, g, torch,
+                                                 reps=3 if lab is not full else 0)
     print("kernel " + json.dumps(case), flush=True)
     if err > TOLERANCE:
       fail(f"edt_pass {label}: max abs err {err} against its plain version")
@@ -1179,8 +1297,27 @@ def edt_kernel_phase(ce, edt_ops, torch, dev):
       fail(f"edt_pass {label}: the distances differ from numpy's sqrt of the squared field")
     cases.append(case)
     del first, second, plain, dist
+
+  # the worst stack depth: one label and equal values, so that every
+  # position of every line is a stack entry, along each axis
+  one = torch.full((EDT_WORST,) * 3, 3, dtype=torch.int64, device=dev)
+  val = torch.full(one.shape, 4.0, dtype=torch.float32, device=dev)
+  worst = {}
+  for axis in (0, 1, 2):
+    out = torch.empty_like(val)
+    got = ce.edt_pass(one, val, out, axis, 8.0, False)
+    ref = ce.edt_pass_plain(one, val, torch.empty_like(val), axis, 8.0, False)
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+      fail(f"edt_pass worst stack depth: axis {axis} differs from its plain version")
+    worst[f"axis {axis}"] = device_ms(lambda: ce.edt_pass(one, val, out, axis, 8.0, False),
+                                      reps=5, batch=3)
+    del got, ref
+  print("kernel " + json.dumps({
+    "kernel": "edt_pass", "case": f"worst stack depth: one label, equal values, "
+    f"{EDT_WORST}^3, single passes at w = 8", "max_abs_err": 0.0, "pass_ms": worst,
+  }), flush=True)
   print("library: none (PyTorch has no multilabel distance transform)", flush=True)
-  del inputs, field, full, crop, slabs, odd
+  del inputs, field, full, crop, slabs, odd, long_z, long_x, one, val
   torch.cuda.empty_cache()
   return cases
 
@@ -1383,7 +1520,8 @@ def skeleton_e2e_phase(root, ce, edt_ops, torch, dev):
 def load_copy(alias: str, path: str):
   """Import another copy of the igneous_tpu_torch package (a directory,
   for example one unpacked from an earlier commit with ``git archive``)
-  under the name ``alias``; returns its (_build, cuda_ccl, cuda_pooling).
+  under the name ``alias``; returns its (_build, cuda_ccl, cuda_pooling,
+  cuda_edt).
   Its kernels build from its own csrc/ into its own build/."""
   import importlib
   import importlib.util
@@ -1398,7 +1536,7 @@ def load_copy(alias: str, path: str):
   sys.modules[alias] = pkg
   spec.loader.exec_module(pkg)
   return tuple(importlib.import_module(f"{alias}.ops.{m}")
-               for m in ("_build", "cuda_ccl", "cuda_pooling"))
+               for m in ("_build", "cuda_ccl", "cuda_pooling", "cuda_edt"))
 
 
 def main() -> int:
@@ -1440,16 +1578,16 @@ def main() -> int:
   copies = [(spec.split("=", 1)[0], load_copy(*spec.split("=", 1)))
             for spec in args.baseline]
   t0 = time.perf_counter()
-  sources = ("pooling", "ccl")
+  sources = ("pooling", "ccl", "edt")
   builds = [(b, name) for b in [_build] + [c[0] for _, c in copies] for name in sources]
-  # the EDT kernel, and the host libraries of the mesh and skeleton paths (g++)
+  # the host libraries of the mesh and skeleton paths (g++)
   host_libs = ("simplify", "dijkstra", "fggraph")
-  builds += [(_build, name) for name in ("edt",) + host_libs]
+  builds += [(_build, name) for name in host_libs]
   with ThreadPoolExecutor(len(builds)) as pool:
     # one compiler per source, together
     list(pool.map(lambda job: job[0].build(job[1]), builds))
   print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-  for name in sources + ("edt",) + host_libs:
+  for name in sources + host_libs:
     log = _build.BUILD_LOG[name]
     print(f"build {name}: {log['seconds']:.1f} s", flush=True)
     for line in log["ptxas"].splitlines():
@@ -1458,7 +1596,7 @@ def main() -> int:
 
   cases = kernel_phase(cp, torch, dev, [(k, c[2]) for k, c in copies])
   ccl_cases = ccl_kernel_phase(cc, ccl_ops, torch, dev, [(k, c[1]) for k, c in copies])
-  edt_cases = edt_kernel_phase(ce, edt_ops, torch, dev)
+  edt_cases = edt_kernel_phase(ce, edt_ops, torch, dev, [(k, c[3]) for k, c in copies])
   if copies:
     print(f"wall: {time.perf_counter() - t_all:.1f} s")
     print(card_line())

@@ -25,8 +25,12 @@ as int64 and need no renumbering.
 shape; not read when ``first``) and writes ``val_out`` along dimension
 ``axis``. The two value buffers must be distinct. The wrapper takes the
 plain version only for a tensor that lies on the CPU; for a CUDA tensor
-it launches the kernel of ``csrc/edt.cu`` or raises. ``LAUNCHES`` counts
-kernel launches, one per launch and nowhere else.
+it launches a kernel of ``csrc/edt.cu`` or raises: the shared-memory
+design where a block's run-start and stack bitmasks fit in
+``SMEM_BUDGET`` bytes (``smem_bytes``), else the long-line kernel with
+its stacks in device scratch (``scratch_bytes``), chosen from the shape
+before the launch and never after a failure. ``LAUNCHES`` counts kernel launches, one per launch
+and nowhere else.
 """
 
 from __future__ import annotations
@@ -99,7 +103,9 @@ def _envelope(val: torch.Tensor, lab: torch.Tensor, edge: torch.Tensor, w2: floa
   chg[1:] = (lab[:, 1:] != lab[:, :-1]).T
   f = val.T.to(torch.float64)  # (n, lines)
   push = f < _SKIP
-  h_all = f / w2
+  # a true division: PyTorch's CUDA division by a Python scalar multiplies
+  # by its reciprocal, which is not the correctly rounded quotient
+  h_all = f / torch.full((), w2, dtype=torch.float64, device=dev)
   far = torch.full((1, L), _FAR, dtype=torch.float64, device=dev)
   for q in range(n):
     cq = chg[q : q + 1]
@@ -181,13 +187,27 @@ def _check(labels, val_in, val_out, axis, first):
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel
+# the CUDA kernels
+
+SMEM_BUDGET = 232448  # shared memory one block may use on sm_90 (227 KB)
+LINES_PER_BLOCK = 128  # the line kernel: a thread a line
+ROW_WARPS = 4  # the edge-row kernel (first pass on the contiguous axis)
 
 
 def _lib():
   lib = _build.load("edt")
   if not getattr(lib, "_configured", False):
     for fn in (lib.edt_pass_i32, lib.edt_pass_i64):
+      fn.restype = ctypes.c_int
+      fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_double, ctypes.c_int, ctypes.c_void_p,
+      ]
+    lib.edt_pass_blocks_per_sm.restype = ctypes.c_int
+    lib.edt_pass_blocks_per_sm.argtypes = [ctypes.c_longlong, ctypes.c_longlong,
+                                           ctypes.c_int]
+    for fn in (lib.edt_pass_long_i32, lib.edt_pass_long_i64):
       fn.restype = ctypes.c_int
       fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -199,11 +219,47 @@ def _lib():
   return lib
 
 
-def scratch_bytes(shape, axis: int) -> int:
-  """Device bytes of the kernel's per-line stacks for one pass: for each
-  line, n int32 positions, n double heights and n + 1 double bounds."""
-  n = shape[axis]
+def _pass_shape(shape, axis: int):
+  """(lines, n, inner) of a pass along ``axis`` of a contiguous ``shape``."""
+  n = int(shape[axis])
   lines = int(np.prod(shape)) // max(n, 1)
+  return lines, n, int(np.prod(shape[axis + 1 :]))
+
+
+def smem_bytes(n: int, inner: int, first: bool) -> int:
+  """Dynamic shared memory of a block of the shared-memory design (the
+  formula of ``csrc/edt.cu``'s ``smem_bytes``): the first pass along the
+  contiguous axis keeps, per warp, the line's run starts and a carry a
+  word (8 bytes per 32 positions); otherwise a block keeps its 128 lines'
+  run starts and, after the first pass, their stacks, one bit a position
+  each."""
+  words = (n + 31) // 32
+  if inner == 1 and first:
+    return ROW_WARPS * 2 * words * 4
+  return words * LINES_PER_BLOCK * 4 * (1 if first else 2)
+
+
+def blocks_per_sm(n: int, inner: int, first: bool) -> int:
+  """Resident blocks an SM holds of the shared-memory design's kernel for
+  such a pass (the CUDA occupancy calculator; needs the library)."""
+  return int(_lib().edt_pass_blocks_per_sm(n, inner, int(bool(first))))
+
+
+def long_line(shape, axis: int, first: bool) -> bool:
+  """Whether the pass takes the long-line kernel: its lines' bitmasks do
+  not fit a block's shared memory (after the first pass, n above 7264)."""
+  _, n, inner = _pass_shape(shape, axis)
+  return smem_bytes(n, inner, first) > SMEM_BUDGET
+
+
+def scratch_bytes(shape, axis: int, first: bool = False) -> int:
+  """Device bytes of scratch the pass allocates: none on the
+  shared-memory design; on the long-line kernel after the first pass,
+  for each line, n int32 positions, n double heights and n + 1 double
+  bounds."""
+  if first or not long_line(shape, axis, first):
+    return 0
+  lines, n, _ = _pass_shape(shape, axis)
   return lines * (4 * n + 8 * n + 8 * (n + 1))
 
 
@@ -218,24 +274,27 @@ def edt_pass(labels, val_in, val_out, axis: int, w: float, first: bool):
     first or val_in.is_contiguous()
   ):
     raise ValueError("edt_pass needs contiguous tensors")
-  n = labels.shape[axis]
-  lines = labels.numel() // max(n, 1)
+  lines, n, inner = _pass_shape(labels.shape, axis)
   if lines == 0 or n == 0:
     return val_out
-  inner = int(np.prod(labels.shape[axis + 1 :]))
   dev = labels.device
-  vbuf = torch.empty(lines * n, dtype=torch.int32, device=dev)
-  hbuf = torch.empty(lines * n, dtype=torch.float64, device=dev)
-  zbuf = torch.empty(lines * (n + 1), dtype=torch.float64, device=dev)
   lib = _lib()
-  fn = lib.edt_pass_i64 if labels.dtype == torch.int64 else lib.edt_pass_i32
+  i64 = labels.dtype == torch.int64
+  src = val_out if first else val_in
+  args = (lines, n, inner, float(w) * float(w), int(bool(first)))
   with torch.cuda.device(dev):
-    rc = fn(
-      labels.data_ptr(), val_out.data_ptr() if first else val_in.data_ptr(),
-      val_out.data_ptr(), vbuf.data_ptr(), hbuf.data_ptr(), zbuf.data_ptr(),
-      lines, n, inner, float(w) * float(w), int(bool(first)),
-      torch.cuda.current_stream(dev).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if not long_line(labels.shape, axis, first):
+      fn = lib.edt_pass_i64 if i64 else lib.edt_pass_i32
+      rc = fn(labels.data_ptr(), src.data_ptr(), val_out.data_ptr(), *args, stream)
+    else:
+      size = 0 if first else lines * n
+      vbuf = torch.empty(size, dtype=torch.int32, device=dev)
+      hbuf = torch.empty(size, dtype=torch.float64, device=dev)
+      zbuf = torch.empty(size + (0 if first else lines), dtype=torch.float64, device=dev)
+      fn = lib.edt_pass_long_i64 if i64 else lib.edt_pass_long_i32
+      rc = fn(labels.data_ptr(), src.data_ptr(), val_out.data_ptr(), vbuf.data_ptr(),
+              hbuf.data_ptr(), zbuf.data_ptr(), *args, stream)
   if rc != 0:
     raise RuntimeError(f"edt_pass: CUDA error {rc} at launch")
   LAUNCHES["edt_pass"] += 1

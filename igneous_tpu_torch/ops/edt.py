@@ -47,8 +47,11 @@ def distance_field(
 ) -> torch.Tensor:
   """(z, y, x) int32 or int64 labels on the device -> float32 distances in
   the same layout: the square root of ``squared_edt`` (float32, as
-  ``np.sqrt`` of the host path), exactly 0 on background.
-  ``black_border`` treats the outside of the array as background."""
+  ``np.sqrt`` of the host path: correctly rounded), exactly 0 on
+  background. ``black_border`` treats the outside of the array as
+  background. On the CPU the root is taken in double and rounded once to
+  float32 (the same value), since PyTorch's vectorised float32 root on the
+  CPU may be one unit in the last place off."""
   work = lab
   if black_border:
     Z, Y, X = lab.shape
@@ -58,7 +61,7 @@ def distance_field(
   del work
   if black_border:
     sq = sq[1:-1, 1:-1, 1:-1]
-  out = torch.sqrt(sq)
+  out = torch.sqrt(sq.double()).float() if sq.device.type == "cpu" else torch.sqrt(sq)
   return out.masked_fill_(lab == 0, 0.0)
 
 
