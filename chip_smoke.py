@@ -1,13 +1,14 @@
-"""Drive igneous_tpu_torch's downsample, connected-components, meshing and
-skeleton paths on one NVIDIA GPU and check them.
+"""Drive igneous_tpu_torch's downsample, transfer, connected-components,
+meshing and skeleton paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each reported on its own line:
   1. build: compile the kernel sources (csrc/pooling.cu, csrc/ccl.cu,
      csrc/edt.cu) with nvcc and the host libraries of the mesh and skeleton
-     paths (csrc/simplify.cpp, csrc/dijkstra.cpp, csrc/fggraph.cpp) with
-     g++, one process per source, started together;
+     paths and the chunk codec (csrc/simplify.cpp, csrc/dijkstra.cpp,
+     csrc/fggraph.cpp, csrc/cseg.cpp) with g++, one process per source,
+     started together;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, bit for bit, at the main paths' shapes, with its time (device
      time: calls captured in a CUDA graph and replayed between CUDA
@@ -31,6 +32,19 @@ Phases, each reported on its own line:
      produced mip read back and compared with the plain pyramid computed
      on the card; the kernels' launch counts are set to 0 just before and
      read just after, and each kernel must have launched;
+  3a. codecs (host): 64 chunks of the segmentation layer's mip 0 and all 4
+     of its mip 3, chosen from seed 1, through the compressed_segmentation
+     codec's native, numpy and per-block loop routes (one stream, each
+     decoder gives the chunk back) and through compresso (round trip
+     equal), with their rates on one host thread;
+  3b. e2e xfer: the same raw segmentation layer through
+     create_transfer_tasks into compressed_segmentation in 64^3 chunks with
+     4 new mips (compress at its default, gzip), task by task on a
+     LocalTaskQueue: each task's wall, stage split and launches (set to 0
+     just before; pyramid2x2x1 must launch), the bytes written against the
+     raw bytes, every mip 0-4 read back equal to the raw layer's same mip;
+     then a compresso transfer of a 512x512x64 crop with no pyramid, read
+     back equal, its info advertising compresso-cpsx;
   4. e2e ccl: two file:// layers through ccl_auto (the four passes on a
      LocalTaskQueue, task shape 448^3, raw destination), with the wall time
      of every pass and the stage split of its tasks; the launch counts are
@@ -426,6 +440,182 @@ def e2e_phase(root, cp, torch, dev):
     torch.cuda.empty_cache()
     print(f"e2e {name}: {num_mips} mips read back, equal to the plain pyramid", flush=True)
   return main_launches
+
+
+# ---------------------------------------------------------------------------
+# chunk codecs and the transfer (host codecs, the pyramid on the card)
+
+CODEC_SAMPLE = 64  # chunks of each mip, chosen from seed 1 (all, where fewer)
+CODEC_MIPS = (0, 3)
+XFER_CHUNK = (64, 64, 64)
+XFER_MIPS = 4
+XFER_CROP = (512, 512, 64)  # the compresso transfer's bounds
+
+
+def rate(nbytes: int, seconds: float) -> float:
+  return round(nbytes / seconds / 1e6, 1) if seconds > 0 else float("inf")
+
+
+def codec_phase(root: str) -> None:
+  """Chunks of phase 3's raw uint64 segmentation through every route of
+  the compressed_segmentation codec (native, numpy, the per-block loop
+  spec: one stream) and through compresso, each read back equal; rates of
+  one thread on the host."""
+  import os
+
+  from igneous_tpu_torch import Volume, compresso, cseg
+
+  t_phase = time.perf_counter()
+  rng = np.random.default_rng(1)
+  block = (8, 8, 8)
+  for mip in CODEC_MIPS:
+    vol = Volume(f"file://{root}/segmentation", mip=mip)
+    chunks = vol._chunks(vol.mip_bounds(mip), mip)
+    pick = rng.choice(len(chunks), min(CODEC_SAMPLE, len(chunks)), replace=False)
+    secs = {k: 0.0 for k in ("native_enc", "numpy_enc", "loop_enc", "native_dec",
+                             "numpy_dec")}
+    raw = stored = 0
+    cutouts = []
+    for i in sorted(pick):
+      chan = vol.download(chunks[i], mip)[..., 0]  # (x, y, z), Fortran order
+      cutouts.append(chan)
+      t0 = time.perf_counter()
+      native = cseg._native_encode_channel(chan, block)
+      t1 = time.perf_counter()
+      numpy_words = cseg._encode_channel(chan, block)
+      t2 = time.perf_counter()
+      loop = cseg._encode_channel_loop(chan, block)
+      t3 = time.perf_counter()
+      if not (np.array_equal(native, loop) and np.array_equal(numpy_words, loop)):
+        fail(f"codec: cseg routes disagree on chunk {chunks[i]} at mip {mip}")
+      words = np.concatenate([np.uint32([1]), loop])
+      t4 = time.perf_counter()
+      back = cseg._native_decode_channel(words[1:], chan.shape, np.uint64, block)
+      t5 = time.perf_counter()
+      back_np = np.empty(chan.shape, np.uint64, order="F")
+      cseg._decode_channel_np(words, 1, chan.shape, block, 2, np.uint64, out=back_np)
+      t6 = time.perf_counter()
+      if not (np.array_equal(back, chan) and np.array_equal(back_np, chan)):
+        fail(f"codec: cseg decode differs from chunk {chunks[i]} at mip {mip}")
+      if cseg.compress(chan) != words.tobytes():
+        fail(f"codec: cseg.compress differs from its routes at mip {mip}")
+      for key, dt in zip(secs, (t1 - t0, t2 - t1, t3 - t2, t5 - t4, t6 - t5)):
+        secs[key] += dt
+      raw += chan.nbytes
+      stored += words.nbytes
+    rates = {k: rate(raw, v) for k, v in secs.items()}
+    print(f"codec cseg mip {mip}: {len(pick)} chunks {chunks[0].size3().tolist()} uint64, "
+          f"{raw / 2**20:.0f} MiB, native = numpy = loop bytes, decoded equal; "
+          f"raw/cseg {raw / stored:.2f}; MB/s one thread {json.dumps(rates)}; "
+          f"host cores {os.cpu_count()}", flush=True)
+
+    # compresso: the same chunks, one thread
+    enc = dec = 0.0
+    stored = 0
+    for chan in cutouts:
+      t0 = time.perf_counter()
+      data = compresso.compress(chan)
+      t1 = time.perf_counter()
+      back = compresso.decompress(data, chan.shape + (1,), np.uint64)
+      t2 = time.perf_counter()
+      if not np.array_equal(back[..., 0], chan):
+        fail(f"codec: compresso round trip differs at mip {mip}")
+      enc += t1 - t0
+      dec += t2 - t1
+      stored += len(data)
+    print(f"codec compresso mip {mip}: {len(cutouts)} chunks round trip equal, "
+          f"raw/compresso {raw / stored:.2f}, MB/s one thread "
+          f"enc {rate(raw, enc)} dec {rate(raw, dec)}", flush=True)
+  print(f"codec: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def tree_bytes(path: str) -> int:
+  import os
+
+  return sum(os.path.getsize(os.path.join(d, f))
+             for d, _, files in os.walk(path) for f in files)
+
+
+def xfer_e2e_phase(root, cp, torch, dev):
+  """Phase 3's raw segmentation through create_transfer_tasks into a
+  compressed_segmentation layer of 64^3 chunks with 4 new mips (compress
+  at its default), task by task on a LocalTaskQueue; every mip read back
+  equal to the same mip of the raw layer (which phase 3 held against the
+  plain pyramid on the card); then a compresso transfer of a crop.
+  Returns the kernels' launches."""
+  from igneous_tpu_torch import Bbox, Volume, telemetry
+  from igneous_tpu_torch.queues import LocalTaskQueue
+  from igneous_tpu_torch.task_creation import create_transfer_tasks
+
+  t_phase = time.perf_counter()
+  src, dest = f"file://{root}/segmentation", f"file://{root}/segmentation_cseg"
+  for key in cp.LAUNCHES:
+    cp.LAUNCHES[key] = 0
+  t0 = time.perf_counter()
+  tasks = list(create_transfer_tasks(
+    src, dest, chunk_size=XFER_CHUNK, encoding="compressed_segmentation",
+    num_mips=XFER_MIPS,
+  ))
+  plan = time.perf_counter() - t0
+  for i, task in enumerate(tasks):
+    telemetry.reset()
+    before = dict(cp.LAUNCHES)
+    t0 = time.perf_counter()
+    LocalTaskQueue(parallel=1).insert([task])
+    wall = time.perf_counter() - t0
+    stages = {k: round(v["seconds"], 4) for k, v in telemetry.snapshot().items()}
+    launched = {k: cp.LAUNCHES[k] - before[k] for k in cp.LAUNCHES}
+    print(f"e2e xfer task {i}: {task.shape.tolist()} at {task.offset.tolist()}, "
+          f"wall {wall:.3f} s, stages (s) {json.dumps(stages)}, "
+          f"launches {json.dumps(launched)}", flush=True)
+  launches = dict(cp.LAUNCHES)
+  if launches["pyramid2x2x1"] < 1:
+    fail("xfer: pyramid2x2x1 was not launched")
+
+  dvol = Volume(dest)
+  if dvol.meta.num_mips != XFER_MIPS + 1:
+    fail(f"xfer: {dvol.meta.num_mips} scales, expected {XFER_MIPS + 1}")
+  raw = sum(int(np.prod(dvol.meta.volume_size(m))) * 8 for m in range(XFER_MIPS + 1))
+  written = tree_bytes(f"{root}/segmentation_cseg")
+  print(f"e2e xfer: {len(tasks)} tasks (planned in {plan:.3f} s), launches "
+        f"{json.dumps(launches)}, written {written} bytes, raw {raw} bytes, "
+        f"raw/written {raw / written:.2f}", flush=True)
+
+  t0 = time.perf_counter()
+  for mip in range(XFER_MIPS + 1):
+    want = Volume(src, mip=mip)
+    got = Volume(dest, mip=mip)
+    if got.mip_bounds(mip) != want.mip_bounds(mip) or got.meta.encoding(mip) != \
+        "compressed_segmentation":
+      fail(f"xfer mip {mip}: bounds or encoding differ")
+    a = got.download(got.mip_bounds(mip))
+    b = want.download(want.mip_bounds(mip))
+    if not np.array_equal(a, b):
+      fail(f"xfer mip {mip}: the cseg layer differs from the raw layer")
+    del a, b
+  print(f"e2e xfer: mips 0-{XFER_MIPS} read back equal to the raw layer's, "
+        f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+  # compresso: a crop, no pyramid
+  cdest = f"file://{root}/segmentation_compresso"
+  crop = Bbox((0, 0, 0), XFER_CROP)
+  t0 = time.perf_counter()
+  LocalTaskQueue(parallel=1).insert(create_transfer_tasks(
+    src, cdest, encoding="compresso", bounds=crop, skip_downsamples=True,
+  ))
+  wall = time.perf_counter() - t0
+  cvol = Volume(cdest)
+  if cvol.meta.encoding(0) != "compresso-cpsx":
+    fail(f"xfer compresso: info advertises {cvol.meta.encoding(0)!r}")
+  if not np.array_equal(cvol.download(crop), Volume(src).download(crop)):
+    fail("xfer compresso: the crop read back differs from the raw layer")
+  print(f"e2e xfer compresso: {list(XFER_CROP)} crop in {wall:.3f} s, "
+        f"{tree_bytes(f'{root}/segmentation_compresso')} bytes written, read back "
+        f"equal, info advertises compresso-cpsx", flush=True)
+  if any(cp.LAUNCHES[k] != launches[k] for k in launches):
+    fail("xfer compresso: a kernel ran on a transfer with no pyramid")
+  print(f"e2e xfer: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+  return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1580,8 +1770,8 @@ def main() -> int:
   t0 = time.perf_counter()
   sources = ("pooling", "ccl", "edt")
   builds = [(b, name) for b in [_build] + [c[0] for _, c in copies] for name in sources]
-  # the host libraries of the mesh and skeleton paths (g++)
-  host_libs = ("simplify", "dijkstra", "fggraph")
+  # the host libraries of the mesh and skeleton paths and the codec (g++)
+  host_libs = ("simplify", "dijkstra", "fggraph", "cseg")
   builds += [(_build, name) for name in host_libs]
   with ThreadPoolExecutor(len(builds)) as pool:
     # one compiler per source, together
@@ -1604,6 +1794,8 @@ def main() -> int:
     return 0
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches = e2e_phase(root, cp, torch, dev)
+    codec_phase(root)
+    xfer_launches = xfer_e2e_phase(root, cp, torch, dev)
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches["tile_resolve"] = ccl_e2e_phase(root, cc, cp, torch, dev)
   for counts in (cc.LAUNCHES, cp.LAUNCHES, ce.LAUNCHES):
@@ -1633,6 +1825,7 @@ def main() -> int:
       "name": name, "route": "cuda",
       "source": "igneous_tpu_torch/csrc/pooling.cu",
       "replaces": replaces[name], "launches": launches[name],
+      "launches_xfer": xfer_launches[name],
       "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == name),
       "ms": first["ms"], "plain_ms": first["plain_ms"],
       "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

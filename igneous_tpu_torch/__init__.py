@@ -1,8 +1,11 @@
 """igneous_tpu_torch: the PyTorch/CUDA port of igneous_tpu.
 
-It runs four of Igneous's paths on an NVIDIA GPU:
+It runs five of Igneous's paths on an NVIDIA GPU:
   - downsampling: create_downsampling_tasks → LocalTaskQueue →
     DownsampleTask → the 2x2x1 pooling pyramid (``csrc/pooling.cu``);
+  - transfers: create_transfer_tasks → LocalTaskQueue → TransferTask,
+    which rechunks, re-encodes and translates a layer and builds its
+    pyramid with the same kernels;
   - whole-image connected components: ccl_auto → the four passes
     CCLFacesTask, CCLEquivalancesTask, create_relabeling, RelabelCCLTask →
     ops.ccl.connected_components → the block-local tile resolve
@@ -16,9 +19,11 @@ It runs four of Igneous's paths on an NVIDIA GPU:
     device, TEASAR tracing on the host (``csrc/fggraph.cpp``,
     ``csrc/dijkstra.cpp``), then create_unsharded_skeleton_merge_tasks →
     UnshardedSkeletonMergeTask.
-It imports torch, numpy, scipy and the standard library, never jax or
-igneous_tpu, and reads and writes the same Precomputed layers, scratch
-files, meshes and task payloads.
+Every path reads and writes the raw, compressed_segmentation
+(``csrc/cseg.cpp`` on the host), compresso, jpeg and png chunk encodings.
+It imports torch, numpy, scipy, PIL (for jpeg and png only) and the
+standard library, never jax or igneous_tpu, and reads and writes the same
+Precomputed layers, scratch files, meshes and task payloads.
 
 The device defaults to CUDA; ``set_device("cpu")`` or
 ``IGNEOUS_TORCH_DEVICE=cpu`` asks for the CPU, where the kernels' plain

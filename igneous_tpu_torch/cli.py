@@ -1,11 +1,12 @@
-"""The port's command line: ``python -m igneous_tpu_torch image downsample``,
-``python -m igneous_tpu_torch image ccl {faces,links,calc-labels,relabel,
-clean,auto}``, ``python -m igneous_tpu_torch mesh {forge,merge}`` and
-``python -m igneous_tpu_torch skeleton {forge,merge}``.
+"""The port's command line: ``python -m igneous_tpu_torch image
+{downsample,xfer}``, ``python -m igneous_tpu_torch image ccl {faces,links,
+calc-labels,relabel,clean,auto}``, ``python -m igneous_tpu_torch mesh
+{forge,merge}`` and ``python -m igneous_tpu_torch skeleton {forge,merge}``.
 
-A minimal counterpart of ``igneous-tpu image downsample``, ``igneous-tpu
-image ccl``, ``igneous-tpu mesh forge|merge`` and ``igneous-tpu skeleton
-forge|merge`` (``igneous_tpu/cli.py``), with the same option names; an
+A minimal counterpart of ``igneous-tpu image downsample|xfer``,
+``igneous-tpu image ccl``, ``igneous-tpu mesh forge|merge`` and
+``igneous-tpu skeleton forge|merge`` (``igneous_tpu/cli.py``), with the
+same option names; an
 option the port does not have is refused by the parser, and the ones it
 does not run yet raise ``NotImplementedError`` before anything is written. Tasks run in a ``LocalTaskQueue`` on the
 port's device (cuda; ``IGNEOUS_TORCH_DEVICE=cpu`` asks for the CPU).
@@ -24,6 +25,56 @@ def _tuple3(text: str):
   return tuple(parts)
 
 
+def _tuple2(text: str):
+  parts = [int(v) for v in text.split(",")]
+  if len(parts) != 2:
+    raise argparse.ArgumentTypeError(f"{text!r} is not an int pair like 0,1024")
+  return tuple(parts)
+
+
+def _resolve_compress(compress: str, encoding):
+  """'none'/'false' -> False; the image codecs, which compress
+  themselves, take no second-stage compression."""
+  if compress.lower() in ("none", "false"):
+    return False
+  if encoding and encoding.lower() in ("jpeg", "jxl", "png", "fpzip", "zfpc"):
+    return False
+  return compress
+
+
+def _range_opts(cmd) -> None:
+  for axis in "xyz":
+    cmd.add_argument(f"--{axis}range", type=_tuple2, default=None,
+                     help=f"Restrict {axis}-bounds (in the bounds mip), e.g. 0,1024")
+
+
+def _cli_bounds(path: str, mip: int, args):
+  """The volume's bounds at ``mip`` with the given axis ranges put in;
+  None when no range is given."""
+  ranges = (args.xrange, args.yrange, args.zrange)
+  if not any(ranges):
+    return None
+  from .volume import Volume
+
+  bounds = Volume(path).meta.bounds(mip)
+  for axis, rng in enumerate(ranges):
+    if rng:
+      bounds.minpt[axis], bounds.maxpt[axis] = sorted(rng)
+  return bounds
+
+
+def _encoding_opts(cmd) -> None:
+  cmd.add_argument("--encoding", default=None,
+                   help="raw, compressed_segmentation, compresso, jpeg or png.")
+  cmd.add_argument("--encoding-level", type=int, default=None,
+                   help="png level / jpeg quality.")
+  cmd.add_argument("--encoding-effort", type=int, default=None,
+                   help="(jpeg xl) accepted for parity; jxl is not shipped.")
+  cmd.add_argument("--compress", default="gzip",
+                   help="Chunk compression: gzip, none, or auto (gzip for "
+                        "raw and the segmentation codecs, none for jpeg and png).")
+
+
 def build_parser() -> argparse.ArgumentParser:
   parser = argparse.ArgumentParser(prog="python -m igneous_tpu_torch")
   parser.add_argument("-p", "--parallel", type=int, default=1,
@@ -39,12 +90,13 @@ def build_parser() -> argparse.ArgumentParser:
   ds.add_argument("--sparse", action="store_true")
   ds.add_argument("--fill-missing", action="store_true")
   ds.add_argument("--chunk-size", type=_tuple3, default=None)
-  ds.add_argument("--compress", default="gzip", help="gzip or none.")
+  _encoding_opts(ds)
   ds.add_argument("--delete-bg", action="store_true",
                   help="Delete background tiles instead of uploading them.")
   ds.add_argument("--bg-color", type=int, default=0)
   ds.add_argument("--memory", dest="memory_target", type=int, default=int(3.5e9))
   ds.add_argument("--method", dest="downsample_method", default="auto")
+  _add_xfer(image.add_parser("xfer", help="Transfer/rechunk/re-encode SRC into DEST."))
   _add_ccl(image.add_parser(
     "ccl", help="Whole-image connected components labeling (4-pass)."
   ).add_subparsers(dest="ccl_command", required=True))
@@ -53,6 +105,81 @@ def build_parser() -> argparse.ArgumentParser:
   _add_skeleton(groups.add_parser("skeleton", help="Skeleton forging.").add_subparsers(
     dest="command", required=True))
   return parser
+
+
+def _add_xfer(cmd) -> None:
+  cmd.add_argument("src")
+  cmd.add_argument("dest")
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--chunk-size", type=_tuple3, default=None)
+  cmd.add_argument("--shape", type=_tuple3, default=None,
+                   help="(overrides --memory) Task shape in voxels.")
+  cmd.add_argument("--translate", type=_tuple3, default=(0, 0, 0))
+  cmd.add_argument("--fill-missing", action="store_true")
+  cmd.add_argument("--sharded", action="store_true", help="Not ported yet: raises.")
+  _encoding_opts(cmd)
+  cmd.add_argument("--downsample", dest="do_downsample", action="store_true",
+                   default=True, help="Produce downsamples from transfer tiles (default).")
+  cmd.add_argument("--skip-downsample", dest="do_downsample", action="store_false")
+  cmd.add_argument("--max-mips", type=int, default=5,
+                   help="Maximum number of additional pyramid levels.")
+  cmd.add_argument("--num-mips", type=int, default=None,
+                   help="Deprecated alias for --max-mips.")
+  cmd.add_argument("--memory", dest="memory_target", type=int, default=int(3.5e9))
+  cmd.add_argument("--sparse", action="store_true")
+  cmd.add_argument("--volumetric", action="store_true", help="Use 2x2x2 downsampling.")
+  cmd.add_argument("--method", "--downsample-method", dest="downsample_method",
+                   default="auto")
+  cmd.add_argument("--delete-bg", action="store_true")
+  cmd.add_argument("--bg-color", type=int, default=0)
+  cmd.add_argument("--dest-voxel-offset", type=_tuple3, default=None,
+                   help="Set the new volume's global origin.")
+  cmd.add_argument("--clean-info", action="store_true",
+                   help="Scrub mesh/skeleton fields from the new info.")
+  cmd.add_argument("--no-src-update", action="store_true",
+                   help="Skip the source provenance note.")
+  cmd.add_argument("--truncate-scales", dest="truncate_scales", action="store_true",
+                   default=True, help="Drop source scales above --mip in the new info (default).")
+  cmd.add_argument("--no-truncate-scales", dest="truncate_scales", action="store_false")
+  cmd.add_argument("--use-https-src", action="store_true",
+                   help="Implies --no-src-update.")
+  _range_opts(cmd)
+  cmd.add_argument("--bounds-mip", type=int, default=None,
+                   help="Mip the ranges are specified in [default: --mip].")
+  cmd.add_argument("--cutout", action="store_true",
+                   help="Restrict a newly created volume to the given bounds.")
+
+
+def _run_xfer(args) -> int:
+  from .queues import LocalTaskQueue
+  from .task_creation import create_transfer_tasks
+
+  if args.sharded:
+    raise NotImplementedError(
+      "sharded transfers (--sharded) are not ported to igneous_tpu_torch yet"
+    )
+  bounds_mip = args.mip if args.bounds_mip is None else args.bounds_mip
+  max_mips = args.max_mips if args.num_mips is None else args.num_mips
+  if not args.do_downsample:
+    max_mips = 0
+  tasks = create_transfer_tasks(
+    args.src, args.dest, chunk_size=args.chunk_size, shape=args.shape,
+    mip=args.mip, translate=args.translate, fill_missing=args.fill_missing,
+    encoding=args.encoding, encoding_level=args.encoding_level,
+    encoding_effort=args.encoding_effort,
+    compress=_resolve_compress(args.compress, args.encoding),
+    num_mips=max_mips, memory_target=args.memory_target, sparse=args.sparse,
+    factor=(2, 2, 2) if args.volumetric else None,
+    downsample_method=args.downsample_method,
+    delete_black_uploads=args.delete_bg, background_color=args.bg_color,
+    dest_voxel_offset=args.dest_voxel_offset, clean_info=args.clean_info,
+    no_src_update=args.no_src_update, truncate_scales=args.truncate_scales,
+    use_https_for_source=args.use_https_src,
+    bounds=_cli_bounds(args.src, bounds_mip, args), bounds_mip=bounds_mip,
+    cutout=args.cutout,
+  )
+  LocalTaskQueue(parallel=args.parallel).insert(tasks)
+  return 0
 
 
 def _id_list(text: str):
@@ -247,7 +374,8 @@ def _ccl_opts(cmd) -> None:
 
 def _dest_opts(cmd) -> None:
   cmd.add_argument("--encoding", default="compressed_segmentation",
-                   help="Destination encoding; the port writes raw only.")
+                   help="Destination encoding (raw, compressed_segmentation, "
+                        "compresso, ...).")
   cmd.add_argument("--chunk-size", type=_tuple3, default=None,
                    help="Chunk size of the destination layer.")
 
@@ -325,6 +453,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     return _run_skeleton(args)
   if args.command == "ccl":
     return _run_ccl(args)
+  if args.command == "xfer":
+    return _run_xfer(args)
   from .queues import LocalTaskQueue
   from .task_creation import create_downsampling_tasks
 
@@ -333,14 +463,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     if factor is not None:
       raise SystemExit("--volumetric and --factor are exclusive")
     factor = (2, 2, 2)
-  compress = args.compress
-  if compress.lower() in ("none", "false"):
-    compress = False
   tasks = create_downsampling_tasks(
     args.path, mip=args.mip, num_mips=args.num_mips,
     fill_missing=args.fill_missing, sparse=args.sparse,
-    chunk_size=args.chunk_size, delete_black_uploads=args.delete_bg,
-    background_color=args.bg_color, compress=compress, factor=factor,
+    chunk_size=args.chunk_size, encoding=args.encoding,
+    encoding_level=args.encoding_level, encoding_effort=args.encoding_effort,
+    delete_black_uploads=args.delete_bg, background_color=args.bg_color,
+    compress=_resolve_compress(args.compress, args.encoding), factor=factor,
     memory_target=args.memory_target,
     downsample_method=args.downsample_method,
   )

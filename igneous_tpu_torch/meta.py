@@ -2,7 +2,7 @@
 
 The port's own copy of ``igneous_tpu/meta.py``: the same ``info`` and
 ``provenance`` files, so a layer written by either package reads in the
-other. Trimmed to what the downsample path uses.
+other. Trimmed to what the ported paths use.
 """
 
 from __future__ import annotations
@@ -16,6 +16,16 @@ from .lib import Bbox, Vec, ceil_div, jsonify
 from .storage import CloudFiles
 
 LAYER_TYPES = ("image", "segmentation")
+
+
+def advertised_encoding(encoding: str) -> str:
+  """Precomputed-info name for an encoding. The compresso codec writes
+  its own container (magic ``cpsx``, ``compresso.py``), not the published
+  compresso v3 bitstream, so info files advertise it as
+  ``compresso-cpsx``: external readers fail loudly on the unknown
+  encoding instead of mis-decoding it. The read path (``codecs.py``)
+  accepts both names."""
+  return "compresso-cpsx" if encoding == "compresso" else encoding
 
 
 class PrecomputedMetadata:
@@ -42,6 +52,7 @@ class PrecomputedMetadata:
     voxel_offset: Sequence[int],
     volume_size: Sequence[int],
     chunk_size: Sequence[int] = (64, 64, 64),
+    compressed_segmentation_block_size: Sequence[int] = (8, 8, 8),
   ) -> dict:
     if layer_type not in LAYER_TYPES:
       raise ValueError(f"layer_type must be one of {LAYER_TYPES}: {layer_type}")
@@ -51,8 +62,12 @@ class PrecomputedMetadata:
       "resolution": [int(r) for r in resolution],
       "voxel_offset": [int(v) for v in voxel_offset],
       "chunk_sizes": [[int(c) for c in chunk_size]],
-      "encoding": encoding,
+      "encoding": advertised_encoding(encoding),
     }
+    if encoding == "compressed_segmentation":
+      scale["compressed_segmentation_block_size"] = [
+        int(v) for v in compressed_segmentation_block_size
+      ]
     return {
       "type": layer_type,
       "data_type": data_type,
@@ -143,6 +158,34 @@ class PrecomputedMetadata:
   def encoding(self, mip: int) -> str:
     return self.scale(mip)["encoding"]
 
+  def set_encoding(self, mip: int, encoding: Optional[str],
+                   encoding_level: Optional[int] = None,
+                   encoding_effort: Optional[int] = None):
+    """Set a scale's encoding and its quality knob: ``encoding_level`` is
+    the jpeg quality or the png compression level, recorded in the scale
+    so that uploads pick it up. ``encoding_effort`` (jpeg xl) is accepted
+    and has no effect."""
+    scale = self.scale(mip)
+    if encoding is not None:
+      scale["encoding"] = advertised_encoding(encoding)
+      if encoding == "compressed_segmentation":
+        scale.setdefault("compressed_segmentation_block_size", [8, 8, 8])
+    if encoding_level is None:
+      return
+    encoding = encoding or scale["encoding"]
+    if encoding == "jpeg":
+      scale["jpeg_quality"] = int(encoding_level)
+    elif encoding == "png":
+      scale["png_level"] = int(encoding_level)
+    elif encoding in ("jxl", "fpzip", "zfpc"):
+      raise NotImplementedError(
+        f"encoding {encoding!r} is not shipped (no offline oracle to "
+        f"validate its bitstream against; see ROADMAP.md)"
+      )
+
+  def cseg_block_size(self, mip: int) -> Vec:
+    return Vec(*self.scale(mip).get("compressed_segmentation_block_size", [8, 8, 8]))
+
   def downsample_ratio(self, mip: int) -> Vec:
     return Vec(*(self.resolution(mip) // self.resolution(0)))
 
@@ -176,8 +219,13 @@ class PrecomputedMetadata:
         // factor
       ],
       "chunk_sizes": [[int(c) for c in chunk_size]],
-      "encoding": encoding or base["encoding"],
+      "encoding": advertised_encoding(encoding) if encoding
+                  else base["encoding"],
     }
+    if new_scale["encoding"] == "compressed_segmentation":
+      new_scale["compressed_segmentation_block_size"] = list(
+        base.get("compressed_segmentation_block_size", [8, 8, 8])
+      )
     # keep scales sorted by total resolution volume (finest first)
     self.info["scales"].append(new_scale)
     self.info["scales"].sort(

@@ -4,9 +4,8 @@ The port's own copy of ``igneous_tpu/task_creation/ccl.py``: the same task
 grids, payloads and scratch files. ``ccl_auto`` runs the four passes on a
 ``LocalTaskQueue``; lease-based queues (fq://) are not ported yet.
 
-The destination's default encoding stays ``compressed_segmentation``, as
-in the reference, but the port has no codec for it yet: the factories
-refuse it before any task runs (``encoding="raw"`` works).
+The destination's default encoding is ``compressed_segmentation``, as in
+the reference; any encoding of ``codecs.py`` may be asked for.
 """
 
 from __future__ import annotations
@@ -29,15 +28,6 @@ from ..volume import Volume
 from .common import GridTaskIterator, get_bounds, operator_contact
 
 DEFAULT_CCL_SHAPE = (448, 448, 448)
-PORTED_ENCODINGS = ("raw",)
-
-
-def _check_encoding(encoding: str) -> None:
-  if encoding not in PORTED_ENCODINGS:
-    raise NotImplementedError(
-      f"destination encoding {encoding!r} is not ported to igneous_tpu_torch "
-      "yet (ROADMAP.md, codecs); pass encoding=\"raw\" (--encoding raw)"
-    )
 
 
 def _grid(vol: Volume, mip: int, shape: Sequence[int], bounds: Optional[Bbox]):
@@ -132,7 +122,6 @@ def create_ccl_relabel_tasks(
 ):
   """Creates the destination segmentation layer and the pass-4 grid.
   Requires create_relabeling to have produced max_label.json."""
-  _check_encoding(encoding)
   vol = Volume(src_path, mip=mip)
   cf = CloudFiles(src_path)
   scratch = ccl_scratch_path(src_path, mip)
@@ -211,7 +200,6 @@ def ccl_auto(
   (one is made when omitted), which executes each pass on insert."""
   from ..queues import LocalTaskQueue
 
-  _check_encoding(encoding)  # before any pass, not in pass 4
   tq = queue if queue is not None else LocalTaskQueue()
   tq.insert(create_ccl_face_tasks(src_path, mip, shape, **kw))
   tq.insert(create_ccl_equivalence_tasks(src_path, mip, shape, **kw))

@@ -2,10 +2,14 @@
 
 Counterpart of ``igneous_tpu/tasks/image.py``: the same constructor
 signatures (so payloads serialized by the JAX package run here), the same
-pyramid schedule and the same uploads. The mip pyramid of each task is
-computed on the port's device by ``ops.pooling.downsample_auto``. The
-compressed-domain passthrough, the staged pipeline and graphene
-(agglomerate / stop_layer) are not ported yet.
+pyramid schedule and the same uploads. A transfer decodes its cutout,
+re-encodes it in the destination's encoding and chunking (at a translated
+offset if asked), and builds its mip pyramid on the port's device with
+``ops.pooling.downsample_auto``. The compressed-domain passthrough (which
+moves stored chunks without decoding them), the staged pipeline and
+graphene (agglomerate / timestamp / stop_layer) are not ported yet: every
+transfer here decodes and re-encodes, with the bytes of the JAX package's
+decode route.
 """
 
 from __future__ import annotations
@@ -82,8 +86,9 @@ def downsample_and_upload(
 
 
 class TransferTask(RegisteredTask):
-  """Copy (and optionally translate) a cutout, then build its downsample
-  pyramid on the device."""
+  """Copy a cutout into the destination's chunking and encoding
+  (optionally translated), then build its downsample pyramid on the
+  device."""
 
   def __init__(
     self,

@@ -1,9 +1,10 @@
 """Chunked Precomputed volume IO: the port's host data plane.
 
 The port's own copy of the parts of ``igneous_tpu/volume.py`` that the
-downsample, connected-components and meshing paths use: ``from_numpy``,
-``download`` and ``upload`` of bbox cutouts at a mip, and the info
-accessors. Pure host numpy: the device work happens in
+downsample, transfer, connected-components, meshing and skeleton paths
+use: ``from_numpy``, ``download`` and ``upload`` of bbox cutouts at a mip
+in any of the ported encodings (``codecs.py``), and the info accessors.
+Pure host numpy: the device work happens in
 ``igneous_tpu_torch.ops`` on arrays produced here. The
 chunk decode cache, integrity manifests, sharded scales and graphene are
 not ported yet.
@@ -170,8 +171,10 @@ class Volume:
           f"Missing chunk {self.meta.chunk_name(mip, chunk_bbx)} in {self.cloudpath}"
         )
       return np.full(shape, self.background_color, dtype=self.dtype)
+    # read-only where the codec allows it: download copies the voxels
     return codecs.decode(
-      decompress_bytes(data, method), self.meta.encoding(mip), shape, self.dtype
+      decompress_bytes(data, method), self.meta.encoding(mip), shape,
+      self.dtype, block_size=self.meta.cseg_block_size(mip), writable=False,
     )
 
   def download(self, bbox: Bbox, mip: Optional[int] = None) -> np.ndarray:
@@ -243,6 +246,14 @@ class Volume:
       )
 
     encoding = self.meta.encoding(mip)
+    block_size = self.meta.cseg_block_size(mip)
+    # the scale's quality knob (meta.set_encoding)
+    enc_kw = {}
+    scale = self.meta.scale(mip)
+    if encoding == "jpeg" and "jpeg_quality" in scale:
+      enc_kw["jpeg_quality"] = int(scale["jpeg_quality"])
+    elif encoding == "png" and "png_level" in scale:
+      enc_kw["png_level"] = int(scale["png_level"])
     jobs, deletes = [], []
     for chunk_bbx in self._chunks(bbox, mip):
       src = tuple(
@@ -258,7 +269,10 @@ class Volume:
 
     def put(job):
       key, cutout = job
-      self.cf.put(key, codecs.encode(cutout, encoding), compress=compress)
+      self.cf.put(
+        key, codecs.encode(cutout, encoding, block_size=block_size, **enc_kw),
+        compress=compress,
+      )
 
     _io_map(put, jobs, self.parallel)
     if deletes:

@@ -3,8 +3,9 @@
 ccl_auto(encoding="raw") in both packages on the same layers: byte-identical
 destination chunks, equal info and max_label, byte-identical scratch files
 (faces, equivalences, relabel maps); payloads the JAX package serialized
-run in the port; the command lines agree; the compressed_segmentation
-default is refused before any task runs.
+run in the port; the command lines agree; at the default
+compressed_segmentation destination, ccl_auto, the pass-4 factory and the
+command line write the reference's bytes too.
 """
 
 import pathlib
@@ -233,26 +234,60 @@ def test_cli_passes_one_by_one_match_auto(tmp_path, capsys):
   assert _chunks(tmp_path / "passes" / "dest") == _chunks(tmp_path / "auto" / "dest")
 
 
-def test_compressed_segmentation_default_raises_before_any_task(tmp_path):
+def _default_encoding_layer(tmp_path, who):
   data = checkerboard((40, 36, 20), 7)
-  src = _source(tmp_path, "src", data, layer_type="image", chunk_size=(16, 16, 16))
-  dest = tmp_path / "dest"
-  ran = []
+  return _source(tmp_path / who, "src", data, layer_type="image", chunk_size=(16, 16, 16))
 
-  class Recording(LocalTaskQueue):
-    def insert(self, tasks, total=None):
-      ran.append(tasks)
-      super().insert(tasks, total)
 
-  with pytest.raises(NotImplementedError, match='encoding="raw"'):
-    tc.ccl_auto(f"file://{src}", f"file://{dest}", shape=(16, 16, 16),
-                threshold_gte=1, queue=Recording())
-  assert ran == []
-  assert list(CloudFiles(f"file://{src}").list("ccl/")) == []
-  assert not dest.exists()
-  with pytest.raises(NotImplementedError, match="compressed_segmentation"):
-    tc.create_ccl_relabel_tasks(f"file://{src}", f"file://{dest}", 0, (16, 16, 16))
-  assert not dest.exists()
-  with pytest.raises(NotImplementedError):
-    cli_main(["image", "ccl", "auto", str(src), f"file://{dest}"])
-  assert not dest.exists()
+def test_ccl_auto_default_cseg_matches_reference(tmp_path):
+  """ccl_auto's default destination, compressed_segmentation."""
+  counts = {}
+  for who, run in (("jax", jax_tc.ccl_auto), ("torch", tc.ccl_auto)):
+    src = _default_encoding_layer(tmp_path, who)
+    counts[who] = run(f"file://{src}", f"file://{tmp_path / who / 'dest'}",
+                      shape=(16, 16, 16), threshold_gte=1)
+  assert counts["torch"] == counts["jax"] > 1
+  got, want = _chunks(tmp_path / "torch" / "dest"), _chunks(tmp_path / "jax" / "dest")
+  assert len(got) > 4 and got == want
+  info = Volume(f"file://{tmp_path / 'torch' / 'dest'}").meta.info
+  assert info["scales"][0]["encoding"] == "compressed_segmentation"
+  assert info["scales"][0]["compressed_segmentation_block_size"] == [8, 8, 8]
+
+
+def test_relabel_factory_default_cseg_matches_reference(tmp_path):
+  """Passes 1-3, then create_ccl_relabel_tasks at its default encoding."""
+  for who, lib, queue in (("jax", jax_tc, None), ("torch", tc, LocalTaskQueue())):
+    src = f"file://{_default_encoding_layer(tmp_path, who)}"
+    kw = dict(threshold_gte=1)
+    for factory in (lib.create_ccl_face_tasks, lib.create_ccl_equivalence_tasks):
+      tasks = factory(src, 0, (16, 16, 16), **kw)
+      if queue is None:
+        for task in tasks:
+          task.execute()
+      else:
+        queue.insert(tasks)
+    lib.create_relabeling(src, 0)
+    tasks = lib.create_ccl_relabel_tasks(src, f"file://{tmp_path / who / 'dest'}", 0,
+                                         (16, 16, 16), **kw)
+    if queue is None:
+      for task in tasks:
+        task.execute()
+    else:
+      queue.insert(tasks)
+  got, want = _chunks(tmp_path / "torch" / "dest"), _chunks(tmp_path / "jax" / "dest")
+  assert len(got) > 4 and got == want
+  assert _files(tmp_path / "torch" / "src" / "ccl") == _files(tmp_path / "jax" / "src" / "ccl")
+
+
+def test_cli_ccl_auto_default_cseg_matches_reference(tmp_path):
+  args = ["--shape", "16,16,16", "--threshold-gte", "1"]
+  jsrc = _default_encoding_layer(tmp_path, "jax")
+  res = CliRunner().invoke(
+    jax_cli, ["image", "ccl", "auto", f"file://{jsrc}", f"file://{tmp_path / 'jax' / 'dest'}", *args]
+  )
+  assert res.exit_code == 0, res.output
+  tsrc = _default_encoding_layer(tmp_path, "torch")
+  assert cli_main(["image", "ccl", "auto", str(tsrc), f"file://{tmp_path / 'torch' / 'dest'}", *args]) == 0
+  got, want = _chunks(tmp_path / "torch" / "dest"), _chunks(tmp_path / "jax" / "dest")
+  assert len(got) > 4 and got == want
+  assert b"compressed_segmentation" in got["info"]

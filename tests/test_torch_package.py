@@ -52,6 +52,7 @@ import igneous_tpu_torch.tasks.mesh, igneous_tpu_torch.task_creation.mesh
 import igneous_tpu_torch.ops.edt, igneous_tpu_torch.ops.cuda_edt
 import igneous_tpu_torch.ops.skeletonize, igneous_tpu_torch.skeleton_io
 import igneous_tpu_torch.tasks.skeleton, igneous_tpu_torch.task_creation.skeleton
+import igneous_tpu_torch.cseg, igneous_tpu_torch.compresso, igneous_tpu_torch.codecs
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'igneous_tpu')]
 assert not bad, bad
 from igneous_tpu_torch.ops import _build
