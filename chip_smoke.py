@@ -1,5 +1,6 @@
 """Drive igneous_tpu_torch's downsample, transfer, connected-components,
-meshing and skeleton paths on one NVIDIA GPU and check them.
+meshing and skeleton paths, solo and batched, on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -45,6 +46,26 @@ Phases, each reported on its own line:
      raw bytes, every mip 0-4 read back equal to the raw layer's same mip;
      then a compresso transfer of a 512x512x64 crop with no pyramid, read
      back equal, its info advertising compresso-cpsx;
+  3c. batched: phase 3's image layer twice through batched_downsample,
+     at 1024x1024x64 in batches of 8 (2 dispatches, 3 mips; a profiler
+     trace for the card's busy share) and through `image downsample
+     --batched` at its defaults (256x256x64, batch 8: 32 dispatches, 1
+     mip), the segmentation at 512x512x64 (2 dispatches, 2 mips) and the
+     ragged image at 256x256x64 (9 full cutouts, 7 through PagedPyramid
+     in 28 page rounds), each into a new layer sharing phase 3's mip 0:
+     per run its wall, dispatches, launches (pyramid2x2x1 once per
+     full-cutout dispatch, pool2x2x1 once per level of every page round)
+     and stage split, every produced chunk and the info's scales equal to
+     phase 3's solo output; the page kernel (X5) on one round against its
+     plain version, timed; entry() once, equal to the plain pyramid; then,
+     after phase 4, batched_ccl_faces over its segmentation layer
+     (paged_ccl, tile_resolve once per page round), every face file equal
+     to the task path's pass 1, both walls; and after phase 6, edt_batch
+     and paged_edt on the two default skeleton cutouts, bit for bit the
+     solo edt, with their walls, launches and peak memory, and
+     batched_skeleton_forge over the layer's two tasks into a second
+     skeleton directory, its fragments and spatial files equal to phase
+     6's; the launch counts are set to 0 just before each part;
   4. e2e ccl: two file:// layers through ccl_auto (the four passes on a
      LocalTaskQueue, task shape 448^3, raw destination), with the wall time
      of every pass and the stage split of its tasks; the launch counts are
@@ -81,8 +102,9 @@ Phases, each reported on its own line:
      for bit, and 32 of its labels (seed 1) plus its largest skeletonized
      to the same bytes on the card and on the CPU route, and equal to the
      written fragments;
-  7. the card's name and power limit, the programs line, the kernels
-     line, and the result.
+  7. the card's name and power limit, the programs line (X1-X3, X5),
+     the kernels line (each kernel's launches on the main paths, the
+     transfer and the batched phase), and the result.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside it.
@@ -1707,6 +1729,339 @@ def skeleton_e2e_phase(root, ce, edt_ops, torch, dev):
   return launches
 
 
+# ---------------------------------------------------------------------------
+# batched and paged execution
+
+# (layer of phase 3, cutout shape, batch size, mips the chunk guard allows,
+# through the command line); the second run is `image downsample --batched`
+# at the command line's defaults
+BATCHED_RUNS = [
+  ("image", (1024, 1024, 64), 8, 3, False),
+  ("image", (256, 256, 64), 8, 1, True),
+  ("segmentation", (512, 512, 64), 8, 2, False),
+  ("ragged_image", (256, 256, 64), 8, 2, False),
+]
+PAGE = 32  # the default page edge (IGNEOUS_PAGE_SHAPE) and pages a round
+X5_REPLACES = "igneous_tpu/parallel/paged.py:163"  # _make_page_kernel (XLA)
+
+
+def link_layer(src: str, dst: str) -> None:
+  """A new layer at ``dst``: ``src``'s mip-0 chunk files hard-linked (the
+  batched runs only read them) and its info cut to mip 0."""
+  import os
+
+  info = json.load(open(os.path.join(src, "info")))
+  info["scales"] = info["scales"][:1]
+  key = info["scales"][0]["key"]
+  os.makedirs(os.path.join(dst, key))
+  for name in os.listdir(os.path.join(src, key)):
+    os.link(os.path.join(src, key, name), os.path.join(dst, key, name))
+  with open(os.path.join(dst, "info"), "w") as f:
+    json.dump(info, f)
+
+
+def same_files(a: str, b: str, keep=lambda name: True) -> int:
+  """Fails unless directories ``a`` and ``b`` hold the same files (of the
+  names ``keep`` accepts) with the same bytes; returns how many."""
+  import os
+
+  names = sorted(filter(keep, os.listdir(a)))
+  other = sorted(filter(keep, os.listdir(b)))
+  if names != other:
+    fail(f"{a} and {b} hold other files ({len(names)} against {len(other)})")
+  for n in names:
+    with open(os.path.join(a, n), "rb") as fa, open(os.path.join(b, n), "rb") as fb:
+      if fa.read() != fb.read():
+        fail(f"{a}/{n} differs from {b}/{n}")
+  return len(names)
+
+
+def grid_counts(size, shape):
+  """(full cutouts, edge cutouts, pages of the edge cutouts) of a layer's
+  grid at cutout ``shape`` (x, y, z), with PAGE^3 pages."""
+  full = edge = pages = 0
+  for x in range(0, size[0], shape[0]):
+    for y in range(0, size[1], shape[1]):
+      for z in range(0, size[2], shape[2]):
+        ext = [min(s, n - o) for s, n, o in zip(shape, size, (x, y, z))]
+        if ext == list(shape):
+          full += 1
+        else:
+          edge += 1
+          pages += int(np.prod([-(-e // PAGE) for e in ext]))
+  return full, edge, pages
+
+
+def stage_split(snap) -> dict:
+  return {k: round(v["seconds"], 4) for k, v in snap.items()}
+
+
+def batched_downsample_phase(root, cp, torch, dev):
+  """Phase 3's layers again through ``batched_downsample`` (and once
+  through ``image downsample --batched``) into new layers that share their
+  mip 0: per run its wall, dispatches, launches and stage split; a
+  profiler trace of the first run for the card's busy share; every
+  produced chunk and the scales of the info equal to phase 3's solo
+  output."""
+  import contextlib
+  import io
+  import os
+  import re
+
+  from igneous_tpu_torch import Volume, telemetry
+  from igneous_tpu_torch.cli import main as cli_main
+  from igneous_tpu_torch.parallel.batch_runner import batched_downsample
+  from torch.profiler import ProfilerActivity, profile
+
+  for i, (name, shape, batch, mips, via_cli) in enumerate(BATCHED_RUNS):
+    src, dst = os.path.join(root, name), os.path.join(root, f"{name}_batched{i}")
+    link_layer(src, dst)
+    size = [int(v) for v in Volume(f"file://{src}").meta.volume_size(0)]
+    full, edge, pages = grid_counts(size, shape)
+    rounds = -(-pages // PAGE)
+    full_dispatches = -(-full // batch)
+    telemetry.reset()
+    before = dict(cp.LAUNCHES)
+    prof = profile(activities=[ProfilerActivity.CUDA]) if i == 0 else contextlib.nullcontext()
+    with prof:
+      t0 = time.perf_counter()
+      if via_cli:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+          rc = cli_main(["image", "downsample", f"file://{dst}", "--batched"])
+        m = re.fullmatch(r"batched: (\d+) cutouts in (\d+) dispatches, (\d+) edge "
+                         r"cutouts via the task path\n", out.getvalue())
+        if rc != 0 or m is None:
+          fail(f"batched {name}: the command line said {out.getvalue()!r} (rc {rc})")
+        stats = {"batched_cutouts": int(m[1]), "dispatches": int(m[2]),
+                 "edge_cutouts": int(m[3]), "paged_cutouts": edge}
+        summary = out.getvalue().strip()
+      else:
+        stats = batched_downsample(f"file://{dst}", num_mips=5, shape=shape, batch_size=batch)
+        summary = json.dumps(stats)
+      wall = time.perf_counter() - t0
+    launched = {k: cp.LAUNCHES[k] - before[k] for k in cp.LAUNCHES}
+    busy = ""
+    if i == 0:
+      us = traced_device_us(prof)
+      if not us > 0:
+        fail(f"batched {name}: the trace shows no work on the card")
+      busy = f", card busy {us / 1e6:.4f} s (traced; idle {100 * (1 - us / 1e6 / wall):.2f}%)"
+    print(f"batched {name} at {shape[0]}x{shape[1]}x{shape[2]}, batch {batch}: wall "
+          f"{wall:.3f} s, {summary}, launches {json.dumps(launched)}{busy}, stages (s) "
+          f"{json.dumps(stage_split(telemetry.snapshot()))}", flush=True)
+    want = {"batched_cutouts": full, "edge_cutouts": 0, "paged_cutouts": edge,
+            "dispatches": full_dispatches + rounds}
+    if any(stats[k] != v for k, v in want.items()):
+      fail(f"batched {name}: stats {stats}, expected {want}")
+    if launched["pyramid2x2x1"] != full_dispatches:
+      fail(f"batched {name}: pyramid2x2x1 launched {launched['pyramid2x2x1']} times "
+           f"for {full_dispatches} full-cutout dispatches")
+    if launched["pool2x2x1"] != rounds * mips:
+      fail(f"batched {name}: pool2x2x1 launched {launched['pool2x2x1']} times for "
+           f"{rounds} page rounds of {mips} levels")
+    solo, got = Volume(f"file://{src}").info, Volume(f"file://{dst}").info
+    if got["scales"] != solo["scales"][: mips + 1]:
+      fail(f"batched {name}: the info's scales differ from the solo run's")
+    n = sum(same_files(os.path.join(src, s["key"]), os.path.join(dst, s["key"]))
+            for s in got["scales"][1:])
+    print(f"batched {name}: {n} chunk files of mips 1-{mips} equal to phase 3's solo "
+          f"output byte for byte", flush=True)
+
+
+def page_kernel_program(root, cp, torch, dev):
+  """X5, the page kernel (``parallel.paged.page_pyramid``: three
+  clamp-gathers and one ``pool2x2x1`` a level) on the first round of the
+  ragged layer's corner cutout (232x232x64 at the ragged run's cutout
+  shape, 2 levels): kernel time from
+  the profiler, time between CUDA events, the plain version's (the same
+  with ``pool2x2x1_plain``), equal outputs, and the bytes bound (pages in
+  and out once)."""
+  import torch.nn.functional as F
+
+  from igneous_tpu_torch import Volume
+  from igneous_tpu_torch.lib import Bbox
+  from igneous_tpu_torch.parallel import paged
+
+  vol = Volume(f"file://{root}/ragged_image")
+  size = vol.meta.volume_size(0)
+  shape = next(r[1] for r in BATCHED_RUNS if r[0] == "ragged_image")
+  img = vol.download(Bbox([(s - 1) // c * c for s, c in zip(size, shape)], size))
+  t = torch.from_numpy(img.transpose(3, 2, 1, 0)).to(dev)
+  Z, Y, X = t.shape[1:]
+  padded = F.pad(t, (0, (-X) % PAGE, 0, (-Y) % PAGE, 0, (-Z) % PAGE))
+  pages = paged.to_pages(padded, (PAGE,) * 3)[:PAGE]
+  exts = []
+  for oz in range(0, Z, PAGE):
+    for oy in range(0, Y, PAGE):
+      for ox in range(0, X, PAGE):
+        exts.append((min(PAGE, Z - oz), min(PAGE, Y - oy), min(PAGE, X - ox)))
+  ext = torch.tensor(exts[:PAGE], dtype=torch.int64, device=dev)
+  factors = ((2, 2, 1), (2, 2, 1))
+  fn = lambda: paged.page_pyramid(pages, ext, factors, "average", False)  # noqa: E731
+  outs = fn()
+  real = cp.pool2x2x1
+  cp.pool2x2x1 = cp.pool2x2x1_plain
+  try:
+    plain = lambda: paged.page_pyramid(pages, ext, factors, "average", False)  # noqa: E731
+    refs = plain()
+    plain_ms = cuda_ms(plain, reps=20)
+  finally:
+    cp.pool2x2x1 = real
+  err = max_abs_err(outs, refs)
+  if err > TOLERANCE:
+    fail(f"X5 page kernel: differs from its plain version (max abs err {err})")
+  nbytes = pages.numel() + sum(o.numel() for o in outs)
+  return {
+    "name": "X5 page_pyramid", "replaces": X5_REPLACES,
+    "case": f"{PAGE} pages of the ragged layer's corner cutout, uint8 average, 2 levels",
+    "launches_per_round": {"pool2x2x1": len(factors)},
+    "ms": cuda_ms(fn, reps=20), "device_ms": profiled_device_ms(fn, torch),
+    "plain_ms": plain_ms, "max_abs_err": err,
+    "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+  }
+
+
+def batched_ccl_phase(root, cc, torch, dev):
+  """``batched_ccl_faces`` (``paged_ccl`` in rounds of 32 pages) over phase
+  4's segmentation layer, against the task path's pass 1
+  (``create_ccl_face_tasks``): its wall and the task path's, dispatches,
+  ``tile_resolve`` launches (once per page round), stage split, and every
+  face file equal byte for byte. Returns tile_resolve's launches."""
+  import os
+  import shutil
+
+  from igneous_tpu_torch import Volume, telemetry
+  from igneous_tpu_torch.lib import Bbox
+  from igneous_tpu_torch.parallel.batch_runner import batched_ccl_faces
+  from igneous_tpu_torch.queues import LocalTaskQueue
+  from igneous_tpu_torch.task_creation import create_ccl_face_tasks
+
+  name = "ccl_segmentation"
+  src = f"file://{root}/{name}"
+  faces = os.path.join(root, name, "ccl", "0", "faces")
+  shutil.rmtree(os.path.join(root, name, "ccl"), ignore_errors=True)
+  tasks = list(create_ccl_face_tasks(src, shape=CCL_TASK_SHAPE))
+  bounds = Volume(src).meta.bounds(0)
+  pages = 0
+  for t in tasks:
+    cut = Bbox.intersection(Bbox(t.offset, t.offset + t.shape + 1), bounds)
+    pages += int(np.prod([-(-int(s) // PAGE) for s in cut.size3()]))
+  rounds = -(-pages // PAGE)  # one group: every task in one batch of 8
+  for key in cc.LAUNCHES:
+    cc.LAUNCHES[key] = 0
+  telemetry.reset()
+  t0 = time.perf_counter()
+  stats = batched_ccl_faces(src, shape=CCL_TASK_SHAPE)
+  wall = time.perf_counter() - t0
+  launched = cc.LAUNCHES["tile_resolve"]
+  stages = stage_split(telemetry.snapshot())
+  batched = os.path.join(root, "faces_batched")
+  shutil.move(faces, batched)
+  telemetry.reset()
+  t0 = time.perf_counter()
+  LocalTaskQueue(parallel=1).insert(create_ccl_face_tasks(src, shape=CCL_TASK_SHAPE))
+  task_wall = time.perf_counter() - t0
+  n = same_files(batched, faces)
+  print(f"batched ccl {name}: batched_ccl_faces wall {wall:.3f} s ({json.dumps(stats)}, "
+        f"{pages} pages in {rounds} rounds, tile_resolve launches {launched}), task path "
+        f"pass 1 wall {task_wall:.3f} s; {n} face files equal byte for byte; stages (s) "
+        f"batched {json.dumps(stages)}, task path "
+        f"{json.dumps(stage_split(telemetry.snapshot()))}", flush=True)
+  if stats != {"batched_cutouts": len(tasks), "edge_cutouts": 0, "dispatches": 1}:
+    fail(f"batched ccl: stats {stats} for {len(tasks)} tasks")
+  if launched != rounds:
+    fail(f"batched ccl: tile_resolve launched {launched} times for {rounds} page rounds")
+  shutil.rmtree(os.path.join(root, name, "ccl"))
+  return launched
+
+
+def batched_skeleton_phase(root, ce, edt_ops, torch, dev):
+  """``edt_batch`` on the two default skeleton cutouts cut to their common
+  512^3, and ``paged_edt`` on the whole cutouts (513x512x512 and 512^3,
+  padded to 544^3), each bit for bit the solo ``edt``, with walls, launches
+  and peak memory; then ``batched_skeleton_forge`` over the layer's two
+  default tasks into a second skeleton directory, its fragments and
+  spatial files equal byte for byte to phase 6's. Returns edt_pass's
+  launches."""
+  import os
+
+  from igneous_tpu_torch import Volume, telemetry
+  from igneous_tpu_torch.parallel.batch_runner import batched_skeleton_forge
+  from igneous_tpu_torch.parallel.paged import paged_edt
+  from igneous_tpu_torch.task_creation import create_skeletonizing_tasks
+
+  path = f"file://{root}/skeleton_segmentation"
+  sdir = Volume(path).info["skeletons"]
+  tasks = list(create_skeletonizing_tasks(path, parallel=SKEL_TRACE_THREADS))
+  labels = [t.prepare_labels(Volume(path))[0] for t in tasks]
+  anis = (8.0, 8.0, 40.0)
+  launches = 0
+  common = tuple(min(s) for s in zip(*(l.shape for l in labels)))
+  crops = np.stack([l[: common[0], : common[1], : common[2]] for l in labels])
+  for what, fn, items in (
+    ("edt_batch", lambda: edt_ops.edt_batch(crops, anis, black_border=True), crops),
+    ("paged_edt", lambda: paged_edt(labels, anis), labels),
+  ):
+    ce.LAUNCHES["edt_pass"] = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    fields = fn()
+    wall = time.perf_counter() - t0
+    launched = ce.LAUNCHES["edt_pass"]
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    for lab, field in zip(items, fields):
+      if not np.array_equal(field, edt_ops.edt(lab, anis, black_border=True)):
+        fail(f"{what}: a field differs from the solo edt of its cutout")
+    print(f"batched edt {what}: {len(items)} cutouts {[l.shape for l in items]}, wall "
+          f"{wall:.3f} s, edt_pass launches {launched}, peak {peak:.2f} GB, bit for bit "
+          f"the solo edt", flush=True)
+    if launched != 3:
+      fail(f"{what}: edt_pass launched {launched} times, not 3")
+    launches += launched
+    del fields
+
+  ce.LAUNCHES["edt_pass"] = 0
+  telemetry.reset()
+  t0 = time.perf_counter()
+  stats = batched_skeleton_forge(path, skel_dir="skeletons_batched", parallel=SKEL_TRACE_THREADS)
+  wall = time.perf_counter() - t0
+  launched = ce.LAUNCHES["edt_pass"]
+  a, b = os.path.join(root, "skeleton_segmentation", sdir), os.path.join(
+    root, "skeleton_segmentation", "skeletons_batched")
+  # all but the merged skeletons, which phase 6's merge wrote (named by label)
+  frags = same_files(a, b, keep=lambda n: not n.split(".")[0].isdigit())
+  print(f"batched skeleton forge: wall {wall:.3f} s, {json.dumps(stats)}, edt_pass "
+        f"launches {launched}, {frags} fragment and spatial files equal to phase 6's byte "
+        f"for byte, stages (s) {json.dumps(stage_split(telemetry.snapshot()))}", flush=True)
+  if stats != {"batched_cutouts": len(tasks), "solo_cutouts": 0, "dispatches": 1}:
+    fail(f"batched skeleton forge: stats {stats} for {len(tasks)} tasks")
+  if launched != 3:
+    fail(f"batched skeleton forge: edt_pass launched {launched} times, not 3")
+  return launches + launched
+
+
+def entry_phase(cp, torch, dev):
+  """The port's ``entry()`` once on the card, equal to the plain pyramid;
+  returns pyramid2x2x1's launches (one)."""
+  from igneous_tpu_torch.entry import FACTORS, entry
+  from igneous_tpu_torch.ops.pooling import _pyramid_impl
+
+  before = cp.LAUNCHES["pyramid2x2x1"]
+  fn, (x,) = entry()
+  outs = fn(x)
+  torch.cuda.synchronize()
+  launched = cp.LAUNCHES["pyramid2x2x1"] - before
+  refs = _pyramid_impl(torch.from_numpy(x).to(dev), FACTORS, "average", False)
+  err = max_abs_err(outs, refs)
+  print(f"entry: {len(outs)} mips {[tuple(o.shape) for o in outs]}, pyramid2x2x1 "
+        f"launches {launched}, max abs err against the plain pyramid {err}", flush=True)
+  if err > TOLERANCE or launched != 1:
+    fail(f"entry: max abs err {err}, pyramid2x2x1 launches {launched}")
+  return launched
+
+
 def load_copy(alias: str, path: str):
   """Import another copy of the igneous_tpu_torch package (a directory,
   for example one unpacked from an earlier commit with ``git archive``)
@@ -1796,8 +2151,24 @@ def main() -> int:
     launches = e2e_phase(root, cp, torch, dev)
     codec_phase(root)
     xfer_launches = xfer_e2e_phase(root, cp, torch, dev)
+    # the batched phase: its own counts, set to 0 just before each part
+    t_phase = time.perf_counter()
+    for counts in (cc.LAUNCHES, cp.LAUNCHES, ce.LAUNCHES):
+      for key in counts:
+        counts[key] = 0
+    batched_downsample_phase(root, cp, torch, dev)
+    batched_launches = dict(cp.LAUNCHES)
+    batched_launches["pyramid2x2x1"] += entry_phase(cp, torch, dev)
+    if any(cc.LAUNCHES.values()) or any(ce.LAUNCHES.values()):
+      fail("batched: the CCL or EDT kernels ran on the batched downsample path")
+    # measured after the counts were read: its launches are no path's
+    x5 = page_kernel_program(root, cp, torch, dev)
+    t_batched = time.perf_counter() - t_phase
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches["tile_resolve"] = ccl_e2e_phase(root, cc, cp, torch, dev)
+    t_phase = time.perf_counter()
+    batched_launches["tile_resolve"] = batched_ccl_phase(root, cc, torch, dev)
+    t_batched += time.perf_counter() - t_phase
   for counts in (cc.LAUNCHES, cp.LAUNCHES, ce.LAUNCHES):
     for key in counts:
       counts[key] = 0
@@ -1811,8 +2182,13 @@ def main() -> int:
       counts[key] = 0
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches["edt_pass"] = skeleton_e2e_phase(root, ce, edt_ops, torch, dev)
-  if any(cc.LAUNCHES.values()) or any(cp.LAUNCHES.values()):
-    fail("skeleton: the pooling or CCL kernels ran on the skeleton path")
+    if any(cc.LAUNCHES.values()) or any(cp.LAUNCHES.values()):
+      fail("skeleton: the pooling or CCL kernels ran on the skeleton path")
+    t_phase = time.perf_counter()
+    batched_launches["edt_pass"] = batched_skeleton_phase(root, ce, edt_ops, torch, dev)
+    t_batched += time.perf_counter() - t_phase
+  print(f"batched: phase wall {t_batched:.1f} s", flush=True)
+  programs.append(x5)
 
   kernels = []
   replaces = {
@@ -1826,6 +2202,7 @@ def main() -> int:
       "source": "igneous_tpu_torch/csrc/pooling.cu",
       "replaces": replaces[name], "launches": launches[name],
       "launches_xfer": xfer_launches[name],
+      "launches_batched": batched_launches[name],
       "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == name),
       "ms": first["ms"], "plain_ms": first["plain_ms"],
       "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -1837,6 +2214,7 @@ def main() -> int:
     "source": "igneous_tpu_torch/csrc/ccl.cu",
     "replaces": "igneous_tpu/ops/pallas_ccl.py:118",
     "launches": launches["tile_resolve"],
+    "launches_batched": batched_launches["tile_resolve"],
     "max_abs_err": max(c["max_abs_err"] for c in ccl_cases),
     "ms": first["ms"], "plain_ms": first["plain_ms"],
     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -1847,6 +2225,7 @@ def main() -> int:
     "name": "edt_pass", "route": "cuda",
     "source": "igneous_tpu_torch/csrc/edt.cu",
     "replaces": EDT_REPLACES, "launches": launches["edt_pass"],
+    "launches_batched": batched_launches["edt_pass"],
     "max_abs_err": max(c["max_abs_err"] for c in edt_cases),
     "ms": first["ms"], "plain_ms": first["plain_ms"],
     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -1,5 +1,5 @@
 """The port's command line: ``python -m igneous_tpu_torch image
-{downsample,xfer}``, ``python -m igneous_tpu_torch image ccl {faces,links,
+{downsample [--batched],xfer}``, ``python -m igneous_tpu_torch image ccl {faces,links,
 calc-labels,relabel,clean,auto}``, ``python -m igneous_tpu_torch mesh
 {forge,merge}`` and ``python -m igneous_tpu_torch skeleton {forge,merge}``.
 
@@ -96,6 +96,14 @@ def build_parser() -> argparse.ArgumentParser:
   ds.add_argument("--bg-color", type=int, default=0)
   ds.add_argument("--memory", dest="memory_target", type=int, default=int(3.5e9))
   ds.add_argument("--method", dest="downsample_method", default="auto")
+  _range_opts(ds)
+  ds.add_argument("--batched", action="store_true",
+                  help="Run on this host's device now (K cutouts per launch, "
+                       "double-buffered IO) instead of running per-cutout tasks.")
+  ds.add_argument("--batch-size", type=int, default=8,
+                  help="Cutouts per device launch with --batched.")
+  ds.add_argument("--shape", type=_tuple3, default=(256, 256, 64),
+                  help="Cutout shape with --batched.")
   _add_xfer(image.add_parser("xfer", help="Transfer/rechunk/re-encode SRC into DEST."))
   _add_ccl(image.add_parser(
     "ccl", help="Whole-image connected components labeling (4-pass)."
@@ -445,8 +453,31 @@ def _run_ccl(args) -> int:
   return 0
 
 
+def _run_batched(parser, args, factor) -> int:
+  if args.encoding or args.chunk_size:
+    parser.error(
+      "--batched downsamples in place; --encoding/--chunk-size apply "
+      "only to the task factories"
+    )
+  from .parallel.batch_runner import batched_downsample
+
+  stats = batched_downsample(
+    args.path, mip=args.mip, num_mips=args.num_mips, shape=args.shape,
+    batch_size=args.batch_size, factor=factor or (2, 2, 1),
+    sparse=args.sparse, fill_missing=args.fill_missing,
+    method=args.downsample_method, bounds=_cli_bounds(args.path, args.mip, args),
+  )
+  print(
+    f"batched: {stats['batched_cutouts']} cutouts in "
+    f"{stats['dispatches']} dispatches, {stats['edge_cutouts']} edge "
+    f"cutouts via the task path"
+  )
+  return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
-  args = build_parser().parse_args(argv)
+  parser = build_parser()
+  args = parser.parse_args(argv)
   if args.group == "mesh":
     return _run_mesh(args)
   if args.group == "skeleton":
@@ -463,6 +494,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if factor is not None:
       raise SystemExit("--volumetric and --factor are exclusive")
     factor = (2, 2, 2)
+  if args.batched:
+    return _run_batched(parser, args, factor)
   tasks = create_downsampling_tasks(
     args.path, mip=args.mip, num_mips=args.num_mips,
     fill_missing=args.fill_missing, sparse=args.sparse,
@@ -472,6 +505,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     compress=_resolve_compress(args.compress, args.encoding), factor=factor,
     memory_target=args.memory_target,
     downsample_method=args.downsample_method,
+    bounds=_cli_bounds(args.path, args.mip, args), bounds_mip=args.mip,
   )
   LocalTaskQueue(parallel=args.parallel).insert(tasks)
   return 0

@@ -22,6 +22,7 @@ only on the partition.
 from __future__ import annotations
 
 import os
+from functools import partial
 from typing import Optional, Tuple
 
 import numpy as np
@@ -61,11 +62,13 @@ def _tile_shape(device: Optional[torch.device] = None) -> Tuple[int, int, int]:
 
 
 def to_tiles(labels: torch.Tensor, tile: Tuple[int, int, int]):
-  """(z, y, x) labels -> ((T, tz, ty, tx) contiguous tiles, (tz, ty, tx),
-  (nz, ny, nx)). Tiles are clipped to the volume, and the volume is padded
-  with background to whole tiles, as ``_ccl_tiled_kernel`` does."""
-  Z, Y, X = labels.shape
-  tz, ty, tx = (min(t, s) for t, s in zip(tile, labels.shape))
+  """(z, y, x) labels, or a (B, z, y, x) batch of them -> ((T, tz, ty, tx)
+  contiguous tiles, (tz, ty, tx), (nz, ny, nx)), the tiles of a batch item
+  after another's. Tiles are clipped to the volume, and the volume is
+  padded with background to whole tiles, as ``_ccl_tiled_kernel`` does."""
+  batch = labels if labels.dim() == 4 else labels[None]
+  B, Z, Y, X = batch.shape
+  tz, ty, tx = (min(t, s) for t, s in zip(tile, (Z, Y, X)))
   pz, py, px = (-Z) % tz, (-Y) % ty, (-X) % tx
   if (Z + pz) * (Y + py) * (X + px) > _BIG:
     raise ValueError(
@@ -73,11 +76,11 @@ def to_tiles(labels: torch.Tensor, tile: Tuple[int, int, int]):
       "than int32 flat indices can address; label smaller cutouts"
     )
   nz, ny, nx = (Z + pz) // tz, (Y + py) // ty, (X + px) // tx
-  lab = torch.nn.functional.pad(labels, (0, px, 0, py, 0, pz))
+  lab = torch.nn.functional.pad(batch, (0, px, 0, py, 0, pz))
   labt = (
-    lab.view(nz, tz, ny, ty, nx, tx)
-    .permute(0, 2, 4, 1, 3, 5)
-    .reshape(nz * ny * nx, tz, ty, tx)
+    lab.view(B, nz, tz, ny, ty, nx, tx)
+    .permute(0, 1, 3, 5, 2, 4, 6)
+    .reshape(B * nz * ny * nx, tz, ty, tx)
     .contiguous()
   )
   return labt, (tz, ty, tx), (nz, ny, nx)
@@ -88,25 +91,28 @@ def _ccl_tiled_roots(
 ) -> torch.Tensor:
   """labels (z, y, x) int32 on the device -> per-voxel tile-local root as a
   global flat index over the tile-padded volume (background: int32 max),
-  the output of ``_ccl_tiled_kernel``."""
-  Z, Y, X = labels.shape
+  the output of ``_ccl_tiled_kernel``. A (B, z, y, x) batch gives (B, z,
+  y, x) roots, each item's over its own volume, from one launch."""
+  if labels.dim() == 3:
+    return _ccl_tiled_roots(labels[None], connectivity, tile)[0]
+  B, Z, Y, X = labels.shape
   labt, (tz, ty, tx), (nz, ny, nx) = to_tiles(labels, tile)
   Yp, Xp = ny * ty, nx * tx
-  L = cuda_ccl.tile_resolve(labt, connectivity).view(nz, ny, nx, tz, ty, tx)
+  L = cuda_ccl.tile_resolve(labt, connectivity).view(B, nz, ny, nx, tz, ty, tx)
   # local root -> global flat index of that root voxel (in padded space)
   dev = labels.device
   lz = torch.div(L, ty * tx, rounding_mode="floor")
   rem = L - lz * (ty * tx)
   ly = torch.div(rem, tx, rounding_mode="floor")
   lx = rem - ly * tx
-  iz = torch.arange(nz, dtype=torch.int32, device=dev).view(nz, 1, 1, 1, 1, 1)
-  iy = torch.arange(ny, dtype=torch.int32, device=dev).view(1, ny, 1, 1, 1, 1)
-  ix = torch.arange(nx, dtype=torch.int32, device=dev).view(1, 1, nx, 1, 1, 1)
+  iz = torch.arange(nz, dtype=torch.int32, device=dev).view(1, nz, 1, 1, 1, 1, 1)
+  iy = torch.arange(ny, dtype=torch.int32, device=dev).view(1, 1, ny, 1, 1, 1, 1)
+  ix = torch.arange(nx, dtype=torch.int32, device=dev).view(1, 1, 1, nx, 1, 1, 1)
   g = ((iz * tz + lz) * Yp + (iy * ty + ly)) * Xp + (ix * tx + lx)
   g = torch.where(labt.view(L.shape) != 0, g, _BIG)
   return (
-    g.permute(0, 3, 1, 4, 2, 5)
-    .reshape(nz * tz, Yp, Xp)[:Z, :Y, :X]
+    g.permute(0, 1, 4, 2, 5, 3, 6)
+    .reshape(B, nz * tz, Yp, Xp)[:, :Z, :Y, :X]
     .contiguous()
   )
 
@@ -226,6 +232,43 @@ def connected_components(
     out = _roots_to_components(roots)
     N = int(out.max())
   return (out, N) if return_N else out
+
+
+def _batch_executor(connectivity: int):
+  """The ``BatchKernelExecutor`` of the tiled resolve over a (K, z, y, x)
+  int32 batch: one ``tile_resolve`` launch for all K."""
+  from ..parallel.executor import BatchKernelExecutor
+
+  return BatchKernelExecutor(
+    partial(_ccl_tiled_roots, connectivity=connectivity, tile=_tile_shape())
+  )
+
+
+def connected_components_batch(
+  labels_batch: np.ndarray, connectivity: int = 6, executor=None
+):
+  """Batched block CCL: (K, x, y, z) -> list of K component volumes, each
+  numbered exactly as ``connected_components`` numbers it alone. The tile
+  resolve of all K cutouts is one launch; the merge and the renumbering
+  stay per cutout on the host."""
+  labels_batch = np.asarray(labels_batch)
+  if labels_batch.ndim != 4:
+    raise ValueError("labels_batch must be (K, x, y, z)")
+  neighbor_offsets(connectivity)
+  if executor is None:
+    executor = _batch_executor(connectivity)
+  with telemetry.stage("dense_relabel"):
+    lab32 = _dense_relabel(labels_batch)
+    zyx = np.ascontiguousarray(lab32.transpose(0, 3, 2, 1))  # (K, z, y, x)
+  roots = executor(zyx)
+  tile = _tile_shape(executor.device)
+  out = []
+  for k in range(len(zyx)):
+    with telemetry.stage("tile_merge"):
+      merged = _merge_tile_roots(roots[k], zyx[k], connectivity, tile)
+    with telemetry.stage("renumber"):
+      out.append(_roots_to_components(merged.transpose(2, 1, 0)))
+  return out
 
 
 def dust(

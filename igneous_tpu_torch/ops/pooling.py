@@ -19,6 +19,9 @@ kernel when x and y are multiples of 2**run, else iterates the single
 step); every other factor runs the plain PyTorch pyramid below on the same
 device. The route depends only on (factors, method, sparse, dtype, shape).
 On the CPU the same route calls the kernels' plain versions.
+``device_pyramid`` takes the route on a tensor with any leading dimensions,
+so a batch of K cutouts (``pyramid_batched``, ``parallel.ChunkExecutor``)
+is the launches of one.
 """
 
 from __future__ import annotations
@@ -218,6 +221,40 @@ def route(factors, method: str, sparse: bool, dtype) -> int:
   return run if _kernel_takes(method, sparse, np.dtype(dtype)) else 0
 
 
+def device_pyramid(x: torch.Tensor, factors, method: str, sparse: bool) -> List[torch.Tensor]:
+  """The pyramid of a (..., c, z, y, x) tensor on its device, one tensor
+  per mip with the same leading dimensions: ``route``'s leading run of
+  2x2x1 factors through ``cuda_pooling.pyramid2x2x1``, the other factors
+  through the plain pyramid. A leading batch dimension is one more run of
+  planes to the kernels, so K cutouts take the launches of one."""
+  dtype = torch.empty(0, dtype=x.dtype).numpy().dtype
+  run = route(factors, method, sparse, dtype)
+  outs = cuda_pooling.pyramid2x2x1(x, run, method) if run else []
+  cur = outs[-1] if outs else x
+  lead = cur.shape[:-3]
+  flat = cur.reshape((-1,) + cur.shape[-3:])
+  for o in _pyramid_impl(flat, factors[run:], method, sparse):
+    outs.append(o.reshape(lead + o.shape[1:]))
+  return outs
+
+
+def pyramid_batched(factors, method: str, sparse: bool):
+  """The batched pyramid: a function of a (B, c, z, y, x) array or tensor
+  that returns the tuple of (B, ...) mips on the port's device, each
+  batch item what ``downsample`` gives it alone. The JAX package's
+  ``pyramid_batched`` vmaps its pyramid; here the batch is one more
+  leading dimension of the same launches (``device_pyramid``)."""
+  factors = tuple(tuple(int(v) for v in f) for f in factors)
+
+  def run(x) -> Tuple[torch.Tensor, ...]:
+    x = torch.as_tensor(x, device=get_device())
+    if x.dim() != 5:
+      raise ValueError(f"expected a (B, c, z, y, x) batch, got shape {tuple(x.shape)}")
+    return tuple(device_pyramid(x.contiguous(), factors, method, sparse))
+
+  return run
+
+
 def _work_array(img: np.ndarray, method: str) -> np.ndarray:
   """The (x, y, z, c) array the device pools, as the reference converts it:
   bool as uint8, and 64-bit data through float32 for average."""
@@ -251,16 +288,13 @@ def downsample(
   orig_dtype = img.dtype
   factors = _normalize_factors(factor, num_mips)
   work = _work_array(img, method)
-  run = route(factors, method, sparse, work.dtype)
 
   # an F-ordered cutout's (c,z,y,x) transpose is already C-contiguous: it
   # goes to the device as one copy, and any reordering happens there
   with telemetry.stage("h2d"):
     x = torch.from_numpy(work.transpose(3, 2, 1, 0)).to(dev).contiguous()
   with telemetry.stage("kernel"):
-    outs = cuda_pooling.pyramid2x2x1(x, run, method) if run else []
-    cur = outs[-1] if outs else x
-    outs += _pyramid_impl(cur, factors[run:], method, sparse)
+    outs = device_pyramid(x, factors, method, sparse)
     if dev.type == "cuda":
       torch.cuda.synchronize(dev)
   with telemetry.stage("d2h"):

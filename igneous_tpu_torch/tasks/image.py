@@ -60,16 +60,25 @@ def downsample_and_upload(
   sparse: bool = False,
   method: str = "auto",
   compress="gzip",
+  _mips_out=None,
+  sink=None,
 ):
   """Build the mip pyramid of one cutout on the device and upload every
-  level. ``image`` covers ``bounds`` at ``mip``."""
+  level. ``image`` covers ``bounds`` at ``mip``. ``_mips_out`` injects a
+  pyramid computed earlier (the batched and paged runners' device stage),
+  so that only the upload loop runs here and the chunk bytes stay those
+  of solo execution. ``sink`` routes each chunk's encode and put through
+  an upload ticket (``Volume.upload``; the caller joins it)."""
   factors = _resolve_factors(vol, mip, task_shape, num_mips, factor)
   if not factors:
     return
-  method = pooling.method_for_layer(vol.layer_type, method)
-  mips_out = pooling.downsample_auto(
-    image, factors, len(factors), method=method, sparse=sparse
-  )
+  if _mips_out is not None:
+    mips_out = _mips_out
+  else:
+    method = pooling.method_for_layer(vol.layer_type, method)
+    mips_out = pooling.downsample_auto(
+      image, factors, len(factors), method=method, sparse=sparse
+    )
 
   cur_bounds = bounds.clone()
   for i, mipped in enumerate(mips_out):
@@ -81,7 +90,7 @@ def downsample_and_upload(
     with telemetry.stage("upload"):
       vol.upload(
         dest_bounds, np.asarray(mipped[sl], dtype=vol.dtype),
-        mip=dest_mip, compress=compress,
+        mip=dest_mip, compress=compress, sink=sink,
       )
 
 

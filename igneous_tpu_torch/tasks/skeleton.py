@@ -251,12 +251,17 @@ class SkeletonTask(RegisteredTask):
         targets[label] = merged
     return targets or None
 
-  def execute(self):
+  def execute(self, _prepared=None, _edt_field=None):
+    """``_prepared`` (what ``prepare_labels`` returned) and ``_edt_field``
+    (the cutout's distance field) come from a batched runner
+    (``parallel.batch_runner.batched_skeleton_forge``), which downloads
+    ahead and runs the EDT of several tasks at once; the fragments are
+    the same."""
     # the reference opens the layer with bounded=False; the port's Volume
     # has no such option and needs none: the cutout is intersected with
     # the bounds before it is downloaded
     vol = Volume(self.cloudpath, mip=self.mip, fill_missing=self.fill_missing)
-    prepared = self.prepare_labels(vol)
+    prepared = _prepared if _prepared is not None else self.prepare_labels(vol)
     if prepared is None:
       return
     labels, cutout, core, bounds = prepared
@@ -270,6 +275,7 @@ class SkeletonTask(RegisteredTask):
       dust_threshold=self.dust_threshold,
       extra_targets_per_label=targets,
       parallel=self.parallel,
+      edt_field=_edt_field,
       fix_branching=self.fix_branching,
       fix_avocados=self.fix_avocados,
     )

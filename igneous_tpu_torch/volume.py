@@ -213,9 +213,16 @@ class Volume:
     img: np.ndarray,
     mip: Optional[int] = None,
     compress: Optional[str] = "gzip",
+    sink=None,
   ):
     """Write ``img`` (x, y, z[, c]) over ``bbox`` at ``mip``, one object per
-    chunk. ``bbox`` must be chunk-aligned or clipped at the volume bounds."""
+    chunk. ``bbox`` must be chunk-aligned or clipped at the volume bounds.
+
+    ``sink`` (``pipeline.UploadTicket`` or ``SerialSink``): when given,
+    each chunk's encode and put is submitted to it instead of run here;
+    the caller joins the sink before it treats the upload as durable and
+    leaves ``img`` unchanged until then. The bytes are the same either
+    way."""
     mip = self.mip if mip is None else mip
     if img.ndim == 3:
       img = img[..., np.newaxis]
@@ -274,7 +281,11 @@ class Volume:
         compress=compress,
       )
 
-    _io_map(put, jobs, self.parallel)
+    if sink is not None:
+      for job in jobs:
+        sink.submit(lambda job=job: put(job))
+    else:
+      _io_map(put, jobs, self.parallel)
     if deletes:
       self.cf.delete(deletes)
 

@@ -53,6 +53,9 @@ import igneous_tpu_torch.ops.edt, igneous_tpu_torch.ops.cuda_edt
 import igneous_tpu_torch.ops.skeletonize, igneous_tpu_torch.skeleton_io
 import igneous_tpu_torch.tasks.skeleton, igneous_tpu_torch.task_creation.skeleton
 import igneous_tpu_torch.cseg, igneous_tpu_torch.compresso, igneous_tpu_torch.codecs
+import igneous_tpu_torch.parallel, igneous_tpu_torch.parallel.executor
+import igneous_tpu_torch.parallel.paged, igneous_tpu_torch.parallel.batch_runner
+import igneous_tpu_torch.pipeline, igneous_tpu_torch.pipeline.encoder, igneous_tpu_torch.entry
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'igneous_tpu')]
 assert not bad, bad
 from igneous_tpu_torch.ops import _build
