@@ -1,6 +1,6 @@
 """Drive igneous_tpu_torch's downsample, transfer, connected-components,
-meshing and skeleton paths, solo and batched, on one NVIDIA GPU and check
-them.
+meshing and skeleton paths, solo, batched and pipelined, on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -66,6 +66,24 @@ Phases, each reported on its own line:
      batched_skeleton_forge over the layer's two tasks into a second
      skeleton directory, its fragments and spatial files equal to phase
      6's; the launch counts are set to 0 just before each part;
+  3d. pipelined (after phase 3c, on phase 3's and 3b's layers): the
+     image as 16 tasks of 1024x1024x64 with 3 mips (phase 3c's first
+     batched grid) and the segmentation as 16 tasks of 512x512x64 with 2
+     mips, each through create_downsampling_tasks -> LocalTaskQueue into
+     new layers that share phase 3's mip 0, once with IGNEOUS_PIPELINE=off
+     (the serial loop) and once at the default (the staged pipeline): per
+     run its wall, stage split (thread-seconds), the caller's waits, the
+     prefetch buffer's stalls and high-water bytes and the chunk cache's
+     counts; pyramid2x2x1 once a task (counts set to 0 just before each
+     run), the runner's stats 16 staged, none solo or failed, every chunk
+     and the info's scales equal to phase 3's solo output; then phase 3b's
+     cseg layer and phase 3's image (its mip 0 stored uncompressed, so
+     compress none) through create_transfer_tasks with skip_downsamples
+     into layers of the same chunking and encoding: the passthrough moves
+     every chunk verbatim, each file byte for byte the source's, no kernel
+     launched; the decode route (IGNEOUS_TRANSFER_PASSTHROUGH=off, and for
+     the cseg layer once more with IGNEOUS_CHUNK_CACHE=off) writes the
+     same bytes; every wall printed;
   4. e2e ccl: two file:// layers through ccl_auto (the four passes on a
      LocalTaskQueue, task shape 448^3, raw destination), with the wall time
      of every pass and the stage split of its tasks; the launch counts are
@@ -104,7 +122,8 @@ Phases, each reported on its own line:
      written fragments;
   7. the card's name and power limit, the programs line (X1-X3, X5),
      the kernels line (each kernel's launches on the main paths, the
-     transfer and the batched phase), and the result.
+     transfer, the batched phase and the pipelined streams), and the
+     result.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside it.
@@ -1869,6 +1888,154 @@ def batched_downsample_phase(root, cp, torch, dev):
           f"output byte for byte", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the staged pipeline and the passthrough transfer
+
+# (layer of phase 3, memory_target, tasks, task shape, mips the chunk guard
+# allows): the grid of phase 3c's first batched run, and of its
+# segmentation run
+PIPELINED_RUNS = [
+  ("image", 2**27, 16, (1024, 1024, 64), 3),
+  ("segmentation", 2**28, 16, (512, 512, 64), 2),
+]
+# (source layer, compress): phase 3b's cseg layer (gzip chunks) and phase
+# 3's image, whose mip 0 is stored uncompressed
+PASSTHROUGH_RUNS = [("segmentation_cseg", "gzip"), ("image", None)]
+
+
+def pipeline_line(snap: dict, gauges: dict, counters: dict) -> str:
+  """The stage split of a stream: thread-seconds of the pools' stages, the
+  caller's waits, the prefetch buffer's stalls and high-water bytes, the
+  chunk cache's hits and misses."""
+  waits = {k: round(snap[k]["seconds"], 4) for k in (
+    "pipeline.download_wait_s", "pipeline.upload_join_s",
+    "pipeline.prefetch.producer_stall_s") if k in snap}
+  stages = {k: round(v["seconds"], 4) for k, v in snap.items()
+            if not k.startswith("pipeline.")}
+  cache = {k: counters.get(f"chunk_cache.{k}", 0) for k in ("hits", "misses", "evicted")}
+  high = int(gauges.get("pipeline.prefetch.bytes", 0))
+  return (f"stages (thread-s) {json.dumps(stages)}, caller waits (s) {json.dumps(waits)}, "
+          f"prefetch high-water {high} bytes, chunk cache {json.dumps(cache)}")
+
+
+def pipelined_phase(root, cp, cc, ce, torch, dev):
+  """Phase 3's image and segmentation as 16-task streams through
+  ``create_downsampling_tasks`` -> ``LocalTaskQueue`` into new layers that
+  share phase 3's mip 0, once with ``IGNEOUS_PIPELINE=off`` (the serial
+  loop) and once at the default (the staged pipeline): per run its wall,
+  stage split, the caller's waits, the prefetch buffer's stalls and
+  high-water bytes and the chunk cache's counts; pyramid2x2x1 once a task
+  (counts set to 0 just before each run); the runner's stats; every chunk
+  and the info's scales equal to phase 3's solo output. Then the
+  passthrough: phase 3b's cseg layer and phase 3's image copied with
+  ``skip_downsamples`` into new layers of the same chunking and encoding,
+  every chunk file byte for byte the source's, every chunk moved
+  verbatim and no kernel launched; then the same copies down the decode
+  route (``IGNEOUS_TRANSFER_PASSTHROUGH=off``; the cseg layer's once more
+  with ``IGNEOUS_CHUNK_CACHE=off``), with the same bytes. Returns the
+  pooling kernels' launches in the pipelined runs."""
+  import os
+
+  from igneous_tpu_torch import Volume, chunk_cache, telemetry
+  from igneous_tpu_torch.queues import LocalTaskQueue
+  from igneous_tpu_torch.task_creation import create_downsampling_tasks, create_transfer_tasks
+
+  t_phase = time.perf_counter()
+  pipelined = {k: 0 for k in cp.LAUNCHES}
+  walls = {}
+  for name, target, ntasks, shape, mips in PIPELINED_RUNS:
+    src = os.path.join(root, name)
+    for mode in ("serial", "pipelined"):
+      dst = os.path.join(root, f"{name}_{mode}")
+      link_layer(src, dst)
+      tasks = list(create_downsampling_tasks(f"file://{dst}", mip=0, num_mips=mips,
+                                             memory_target=target))
+      if len(tasks) != ntasks or [int(v) for v in tasks[0].shape] != list(shape):
+        fail(f"pipelined {name}: planned {len(tasks)} tasks of {tasks[0].shape}")
+      if mode == "serial":
+        os.environ["IGNEOUS_PIPELINE"] = "off"
+      telemetry.reset()
+      chunk_cache.clear()
+      for key in cp.LAUNCHES:
+        cp.LAUNCHES[key] = 0
+      queue = LocalTaskQueue(parallel=1)
+      t0 = time.perf_counter()
+      try:
+        queue.insert(tasks)
+      finally:
+        os.environ.pop("IGNEOUS_PIPELINE", None)
+      wall = time.perf_counter() - t0
+      launched = dict(cp.LAUNCHES)
+      walls[(name, mode)] = wall
+      print(f"pipelined {name} {mode}: {ntasks} tasks of {shape[0]}x{shape[1]}x{shape[2]}, "
+            f"{mips} mips, wall {wall:.3f} s, stats {json.dumps(queue.pipeline_stats)}, "
+            f"launches {json.dumps(launched)}, "
+            f"{pipeline_line(telemetry.snapshot(), telemetry.gauges(), telemetry.counters())}",
+            flush=True)
+      if queue.completed != ntasks:
+        fail(f"pipelined {name} {mode}: {queue.completed} of {ntasks} tasks completed")
+      if launched["pyramid2x2x1"] != ntasks or launched["pool2x2x1"] != 0:
+        fail(f"pipelined {name} {mode}: launches {launched}, expected pyramid2x2x1 "
+             f"once for each of {ntasks} tasks")
+      if mode == "pipelined":
+        want = {"executed": ntasks, "staged": ntasks, "solo": 0, "failed": 0,
+                "drained": False}
+        if queue.pipeline_stats != want:
+          fail(f"pipelined {name}: runner stats {queue.pipeline_stats}, expected {want}")
+        for key, n in launched.items():
+          pipelined[key] += n
+      solo, got = Volume(f"file://{src}").info, Volume(f"file://{dst}").info
+      if got["scales"] != solo["scales"][: mips + 1]:
+        fail(f"pipelined {name} {mode}: the info's scales differ from phase 3's")
+      n = sum(same_files(os.path.join(src, sc["key"]), os.path.join(dst, sc["key"]))
+              for sc in got["scales"][1:])
+      print(f"pipelined {name} {mode}: {n} chunk files of mips 1-{mips} equal to phase "
+            f"3's solo output byte for byte", flush=True)
+    print(f"pipelined {name}: serial {walls[(name, 'serial')]:.3f} s, pipelined "
+          f"{walls[(name, 'pipelined')]:.3f} s", flush=True)
+
+  for name, compress in PASSTHROUGH_RUNS:
+    src = f"file://{root}/{name}"
+    key = Volume(src).meta.key(0)
+    routes = [("passthrough", {}), ("decode", {"IGNEOUS_TRANSFER_PASSTHROUGH": "off"})]
+    if compress is not None:
+      routes.append(("decode_nocache", {"IGNEOUS_TRANSFER_PASSTHROUGH": "off",
+                                        "IGNEOUS_CHUNK_CACHE": "off"}))
+    for route, env in routes:
+      dest = f"{root}/{name}_{route}"
+      tasks = list(create_transfer_tasks(src, f"file://{dest}", skip_downsamples=True,
+                                         compress=compress))
+      os.environ.update(env)
+      telemetry.reset()
+      chunk_cache.clear()
+      for counts in (cp.LAUNCHES, cc.LAUNCHES, ce.LAUNCHES):
+        for k in counts:
+          counts[k] = 0
+      queue = LocalTaskQueue(parallel=1)
+      t0 = time.perf_counter()
+      try:
+        queue.insert(tasks)
+      finally:
+        for k in env:
+          os.environ.pop(k, None)
+      wall = time.perf_counter() - t0
+      counters = telemetry.counters()
+      moved = {k: counters.get(f"transfer.passthrough.{k}", 0)
+               for k in ("chunks", "verbatim", "recompressed", "bytes")}
+      n = same_files(os.path.join(root, name, key), os.path.join(dest, key))
+      print(f"passthrough {name} {route}: {len(tasks)} tasks, wall {wall:.3f} s, "
+            f"moved {json.dumps(moved)}, stats {json.dumps(queue.pipeline_stats)}, "
+            f"{pipeline_line(telemetry.snapshot(), telemetry.gauges(), counters)}; "
+            f"{n} chunk files byte for byte the source's", flush=True)
+      if any(any(c.values()) for c in (cp.LAUNCHES, cc.LAUNCHES, ce.LAUNCHES)):
+        fail(f"passthrough {name} {route}: a kernel launched on a copy with no pyramid")
+      want = n if route == "passthrough" else 0
+      if moved["verbatim"] != want or moved["chunks"] != want:
+        fail(f"passthrough {name} {route}: moved {moved}, expected {want} chunks verbatim")
+  print(f"pipelined: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+  return pipelined
+
+
 def page_kernel_program(root, cp, torch, dev):
   """X5, the page kernel (``parallel.paged.page_pyramid``: three
   clamp-gathers and one ``pool2x2x1`` a level) on the first round of the
@@ -2164,6 +2331,7 @@ def main() -> int:
     # measured after the counts were read: its launches are no path's
     x5 = page_kernel_program(root, cp, torch, dev)
     t_batched = time.perf_counter() - t_phase
+    pipelined_launches = pipelined_phase(root, cp, cc, ce, torch, dev)
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches["tile_resolve"] = ccl_e2e_phase(root, cc, cp, torch, dev)
     t_phase = time.perf_counter()
@@ -2203,6 +2371,7 @@ def main() -> int:
       "replaces": replaces[name], "launches": launches[name],
       "launches_xfer": xfer_launches[name],
       "launches_batched": batched_launches[name],
+      "launches_pipelined": pipelined_launches[name],
       "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == name),
       "ms": first["ms"], "plain_ms": first["plain_ms"],
       "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

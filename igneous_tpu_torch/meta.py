@@ -183,6 +183,9 @@ class PrecomputedMetadata:
         f"validate its bitstream against; see ROADMAP.md)"
       )
 
+  def is_sharded(self, mip: int) -> bool:
+    return self.scale(mip).get("sharding") is not None
+
   def cseg_block_size(self, mip: int) -> Vec:
     return Vec(*self.scale(mip).get("compressed_segmentation_block_size", [8, 8, 8]))
 

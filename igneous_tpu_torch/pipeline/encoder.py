@@ -1,43 +1,28 @@
 """Parallel chunk encode/upload with deterministic bytes.
 
 The port's own copy of ``igneous_tpu/pipeline/encoder.py``'s
-``UploadTicket``, ``EncodePool``, ``SerialSink``, ``shared_encode_pool``
-and ``shared_prefetch_pool``. Each chunk is encoded and compressed
-independently (gzip with ``mtime=0``), so the bytes of every stored object
-are a function of its voxels alone: the pool's width and scheduling change
-which object lands first, never what lands.
+``UploadTicket``, ``EncodePool``, ``SerialSink``, ``shared_encode_pool``,
+``shared_io_pool`` and ``shared_prefetch_pool``. Each chunk is encoded and
+compressed independently (gzip with ``mtime=0``), so the bytes of every
+stored object are a function of its voxels alone: the pool's width and
+scheduling change which object lands first, never what lands.
 
 Work is grouped under tickets. A caller joins its ticket before it reports
-success, and a failed put re-raises at the join. The thread counts are the
-reference's defaults (``pipeline/config.py``): ``min(8, cores)`` encode
-threads, and ``max(min(8, 2 * cores), 2)`` prefetch threads.
+success, and a failed put re-raises at the join. The widths come from
+``pipeline/config.py``: ``IGNEOUS_PIPELINE_ENCODE_THREADS`` encode threads
+(default ``min(8, cores)``), ``IGNEOUS_PIPELINE_IO_THREADS`` chunk get/put
+threads (default ``min(8, 2 * cores)``), and as many prefetch threads, or
+``IGNEOUS_PIPELINE_PREFETCH`` where that is more.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
-import os
 import threading
 from typing import Callable, List, Optional
 
 from .. import telemetry
-
-PREFETCH_DEPTH = 2  # cutouts downloading ahead of compute
-
-
-def _cores() -> int:
-  try:
-    return len(os.sched_getaffinity(0))
-  except AttributeError:
-    return os.cpu_count() or 1
-
-
-def encode_threads() -> int:
-  return min(8, max(_cores(), 1))
-
-
-def io_threads() -> int:
-  return min(8, _cores() * 2)
+from . import config
 
 
 class UploadTicket:
@@ -81,7 +66,7 @@ class EncodePool:
 
   def __init__(self):
     self._ex = cf.ThreadPoolExecutor(
-      max_workers=encode_threads(), thread_name_prefix="igt-pipeline-encode"
+      max_workers=config.encode_threads(), thread_name_prefix="igt-pipeline-encode"
     )
 
   def _submit(self, fn) -> cf.Future:
@@ -103,6 +88,7 @@ class SerialSink:
 
 
 _SHARED: Optional[EncodePool] = None
+_SHARED_IO: Optional[cf.ThreadPoolExecutor] = None
 _SHARED_PREFETCH: Optional[cf.ThreadPoolExecutor] = None
 _SHARED_LOCK = threading.Lock()
 
@@ -115,15 +101,27 @@ def shared_encode_pool() -> EncodePool:
     return _SHARED
 
 
+def shared_io_pool() -> cf.ThreadPoolExecutor:
+  """Threads for single chunk gets and puts (the passthrough transfer's
+  stored-byte reads)."""
+  global _SHARED_IO
+  with _SHARED_LOCK:
+    if _SHARED_IO is None:
+      _SHARED_IO = cf.ThreadPoolExecutor(
+        max_workers=config.io_threads(), thread_name_prefix="igt-pipeline-io"
+      )
+    return _SHARED_IO
+
+
 def shared_prefetch_pool() -> cf.ThreadPoolExecutor:
-  """Threads for whole-cutout downloads. ``Volume.download`` fans its
-  chunk reads out to threads of its own, so these never wait on
-  themselves."""
+  """Threads for whole-cutout downloads, apart from ``shared_io_pool``: a
+  cutout download fans its chunk reads out to threads of its own, so
+  these never wait on themselves."""
   global _SHARED_PREFETCH
   with _SHARED_LOCK:
     if _SHARED_PREFETCH is None:
       _SHARED_PREFETCH = cf.ThreadPoolExecutor(
-        max_workers=max(io_threads(), PREFETCH_DEPTH),
+        max_workers=max(config.io_threads(), config.prefetch_depth()),
         thread_name_prefix="igt-pipeline-prefetch",
       )
     return _SHARED_PREFETCH

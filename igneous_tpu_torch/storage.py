@@ -23,6 +23,24 @@ COMPRESSION_EXTS = {"gzip": ".gz", None: "", False: "", "": ""}
 _EXT_TO_COMPRESSION = {".gz": "gzip"}
 
 
+def wire_ext(compress) -> Optional[str]:
+  """The stored filename extension a ``compress=`` choice gives ("" for
+  none), or None for a method the port does not write: callers take that
+  as "no compressed-domain move" and decode, where the method raises."""
+  try:
+    return COMPRESSION_EXTS[compress]
+  except (KeyError, TypeError):
+    return None
+
+
+def method_for_ext(ext: str) -> Optional[str]:
+  """Inverse of ``wire_ext``: the compression a stored extension implies
+  (None for "", uncompressed)."""
+  if not ext:
+    return None
+  return _EXT_TO_COMPRESSION.get(ext)
+
+
 def compress_bytes(data: bytes, method) -> bytes:
   if method in (None, False, ""):
     return data
@@ -180,6 +198,12 @@ class CloudFiles:
       if data is not None:
         return data, method
     return None, None
+
+  def put_stored(self, key: str, data: bytes, method) -> None:
+    """Store bytes that already carry ``method``'s compression as they
+    are, under the extension ``method`` implies: the write half of the
+    zero-decode transfer."""
+    self.backend.put(key + COMPRESSION_EXTS[method], bytes(data))
 
   def get(self, key: str) -> Optional[bytes]:
     data, method = self.get_stored(key)

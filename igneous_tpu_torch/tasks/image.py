@@ -2,28 +2,50 @@
 
 Counterpart of ``igneous_tpu/tasks/image.py``: the same constructor
 signatures (so payloads serialized by the JAX package run here), the same
-pyramid schedule and the same uploads. A transfer decodes its cutout,
-re-encodes it in the destination's encoding and chunking (at a translated
-offset if asked), and builds its mip pyramid on the port's device with
-``ops.pooling.downsample_auto``. The compressed-domain passthrough (which
-moves stored chunks without decoding them), the staged pipeline and
-graphene (agglomerate / timestamp / stop_layer) are not ported yet: every
-transfer here decodes and re-encodes, with the bytes of the JAX package's
-decode route.
+pyramid schedule and the same uploads. Each task publishes a stage plan
+(``pipeline.StagePlan``) that ``LocalTaskQueue`` runs through the staged
+pipeline, and ``execute()`` runs the same plan on a serial sink. A
+transfer decodes its cutout, re-encodes it in the destination's encoding
+and chunking (at a translated offset if asked), and builds its mip
+pyramid on the port's device with ``ops.pooling.downsample_auto``. A
+transfer whose layers line up exactly moves the stored chunk bytes
+instead, decoding nothing (the passthrough; ``IGNEOUS_TRANSFER_PASSTHROUGH
+=off`` turns it off). Graphene (agglomerate / timestamp / stop_layer) is
+not ported.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import numpy as np
 
-from .. import telemetry
+from .. import chunk_cache, telemetry
 from ..downsample_scales import DEFAULT_FACTOR, compute_factors, truncate_writable_factors
-from ..lib import Bbox, Vec
+from ..lib import Bbox, Vec, chunk_bboxes
 from ..ops import pooling
+from ..pipeline import SerialSink, StagePlan, shared_io_pool
 from ..queues.registry import RegisteredTask
+from ..storage import CloudFiles, compress_bytes, decompress_bytes, wire_ext
 from ..volume import Volume
+
+# an empty cutout stages as a no-op, so the pipeline needs no barrier for it
+_NOOP_PLAN = StagePlan(lambda: None, lambda p: None, lambda o, s: None)
+
+
+def _passthrough_enabled() -> bool:
+  """``IGNEOUS_TRANSFER_PASSTHROUGH=0|off|false|no`` sends eligible
+  transfers down the decode and re-encode route."""
+  val = os.environ.get("IGNEOUS_TRANSFER_PASSTHROUGH", "")
+  return val == "" or val.strip().lower() not in ("0", "off", "false", "no")
+
+
+def _cutout_nbytes(vol: Volume, bounds: Bbox) -> int:
+  """Decoded bytes of ``bounds`` in ``vol``: what the prefetch budget
+  reserves before the download starts."""
+  voxels = int(np.prod([int(v) for v in bounds.size3()]))
+  return voxels * vol.dtype.itemsize * vol.num_channels
 
 
 def _resolve_factors(
@@ -143,7 +165,7 @@ class TransferTask(RegisteredTask):
     self.num_mips = num_mips
     self.factor = factor
 
-  def execute(self):
+  def _volumes_and_bounds(self):
     src = Volume(self.src_path, mip=self.mip, fill_missing=self.fill_missing)
     dest = Volume(
       self.dest_path,
@@ -155,21 +177,201 @@ class TransferTask(RegisteredTask):
     bounds = Bbox.intersection(
       Bbox(self.offset, self.offset + self.shape), src.bounds
     )
+    return src, dest, bounds
+
+  def execute(self):
+    src, dest, bounds = self._volumes_and_bounds()
     if bounds.empty():
       return
+    # the stage code the pipeline schedules: one implementation, one set
+    # of bytes
+    plan = self._plan_for(src, dest, bounds)
+    plan.upload(plan.compute(plan.download()), SerialSink())
+
+  def stage_plan(self) -> StagePlan:
+    """The task's pipeline stages: download the cutout (host only), build
+    its pyramid on the device, route every chunk encode and put through
+    the sink. A passthrough-eligible transfer publishes a plan that moves
+    stored bytes and computes nothing."""
+    src, dest, bounds = self._volumes_and_bounds()
+    if bounds.empty():
+      return _NOOP_PLAN
+    return self._plan_for(src, dest, bounds)
+
+  def _plan_for(self, src, dest, bounds: Bbox) -> StagePlan:
+    if self._passthrough_eligible(src, dest, bounds):
+      return self._passthrough_plan(src, dest, bounds)
+    return self._build_plan(src, dest, bounds)
+
+  def _build_plan(self, src, dest, bounds: Bbox) -> StagePlan:
     dest_bounds = Bbox(bounds.minpt + self.translate, bounds.maxpt + self.translate)
-    with telemetry.stage("download"):
-      image = src.download(bounds)
+    if self.skip_downsamples:
+      factors = []
+    else:
+      factors = _resolve_factors(dest, self.mip, self.shape, self.num_mips, self.factor)
+    writes = set()
     if not self.skip_first:
-      with telemetry.stage("upload"):
-        dest.upload(dest_bounds, image, compress=self.compress)
-    if not self.skip_downsamples:
-      downsample_and_upload(
-        image, dest_bounds, dest,
-        task_shape=self.shape, mip=self.mip, num_mips=self.num_mips,
-        factor=self.factor, sparse=self.sparse,
-        method=self.downsample_method, compress=self.compress,
+      writes.add((self.dest_path, self.mip))
+    writes.update((self.dest_path, self.mip + i + 1) for i in range(len(factors)))
+
+    def download():
+      # numpy and storage only: it runs on a prefetch thread
+      with telemetry.stage("download"):
+        return src.download(bounds)
+
+    def compute(image):
+      # the caller's thread: the only one that touches the device
+      if not factors:
+        return image, None
+      method = pooling.method_for_layer(dest.layer_type, self.downsample_method)
+      return image, pooling.downsample_auto(
+        image, factors, len(factors), method=method, sparse=self.sparse
       )
+
+    def upload(outputs, sink):
+      image, mips_out = outputs
+      if not self.skip_first:
+        with telemetry.stage("upload"):
+          dest.upload(dest_bounds, image, compress=self.compress, sink=sink)
+      if mips_out is not None:
+        downsample_and_upload(
+          image, dest_bounds, dest,
+          task_shape=self.shape, mip=self.mip, num_mips=self.num_mips,
+          factor=self.factor, sparse=self.sparse,
+          method=self.downsample_method, compress=self.compress,
+          _mips_out=mips_out, sink=sink,
+        )
+
+    return StagePlan(
+      download, compute, upload,
+      reads={(self.src_path, self.mip)}, writes=writes,
+      nbytes_hint=_cutout_nbytes(dest, bounds),
+      aligned_writes=self._writes_chunk_aligned(dest, dest_bounds, factors),
+    )
+
+  def _writes_chunk_aligned(self, dest, dest_bounds: Bbox, factors) -> bool:
+    """True when every bbox the upload writes (the first mip's cutout and
+    each pyramid level, walked with the kernels' ceil-division shapes as
+    ``downsample_and_upload`` walks them) is chunk aligned or clipped at
+    the volume's bounds: then the plan touches whole chunk objects only
+    and may overlap other aligned writers of the same (path, mip)."""
+    def aligned(box: Bbox, mip: int) -> bool:
+      if box.empty():
+        return True  # writes nothing
+      expanded = box.expand_to_chunk_size(
+        dest.meta.chunk_size(mip), dest.meta.voxel_offset(mip)
+      )
+      return Bbox.intersection(expanded, dest.meta.bounds(mip)) == box
+
+    if not self.skip_first and not aligned(dest_bounds, self.mip):
+      return False
+    cur_min = np.asarray(dest_bounds.minpt, dtype=np.int64)
+    cur_shape = np.asarray([int(v) for v in dest_bounds.size3()], dtype=np.int64)
+    for i, f in enumerate(factors):
+      fa = np.asarray([int(v) for v in f], dtype=np.int64)
+      cur_min = cur_min // fa
+      cur_shape = -(-cur_shape // fa)
+      dest_mip = self.mip + i + 1
+      box = Bbox.intersection(
+        Bbox(cur_min, cur_min + cur_shape), dest.meta.bounds(dest_mip)
+      )
+      if not aligned(box, dest_mip):
+        return False
+    return True
+
+  def _passthrough_eligible(self, src, dest, bounds: Bbox) -> bool:
+    """Whether the stored chunk objects can move without decoding a voxel:
+    the grids, dtype and encoding line up exactly and nothing is
+    resampled or remapped. (Graphene options, which would remap, raise in
+    the constructor.)"""
+    mip = self.mip
+    sm, dm = src.meta, dest.meta
+    return (
+      _passthrough_enabled()
+      and self.skip_downsamples
+      and not self.skip_first  # skip_first with skip_downsamples does nothing
+      # the decode route writes explicit background chunks for holes
+      and not self.fill_missing
+      # the decode route deletes all-background chunks: a stored-byte move
+      # cannot tell them without decoding
+      and not self.delete_black_uploads
+      # an unknown wire compression raises, with context, on the decode route
+      and wire_ext(self.compress) is not None
+      and tuple(int(v) for v in self.translate) == (0, 0, 0)
+      # edge chunks carry the volume's clamped bounds in their names
+      and src.bounds == dest.bounds
+      and not sm.is_sharded(mip) and not dm.is_sharded(mip)
+      and bool(np.all(sm.chunk_size(mip) == dm.chunk_size(mip)))
+      and bool(np.all(sm.voxel_offset(mip) == dm.voxel_offset(mip)))
+      and src.dtype == dest.dtype
+      and sm.encoding(mip) == dm.encoding(mip)
+      and (
+        sm.encoding(mip) != "compressed_segmentation"
+        or bool(np.all(sm.cseg_block_size(mip) == dm.cseg_block_size(mip)))
+      )
+      and bounds == Bbox.intersection(
+        bounds.expand_to_chunk_size(sm.chunk_size(mip), sm.voxel_offset(mip)),
+        src.bounds,
+      )
+    )
+
+  def _passthrough_plan(self, src, dest, bounds: Bbox) -> StagePlan:
+    """The zero-decode transfer: stored chunk bytes move as they are when
+    their wire compression is already ``compress``, and are only
+    re-wrapped (inflate, deflate) otherwise; no chunk codec runs. Every
+    write is a whole chunk object, so the plan proves alignment."""
+    mip = self.mip
+    sm, dm = src.meta, dest.meta
+    src_cf, dest_cf = CloudFiles(self.src_path), CloudFiles(self.dest_path)
+    dest_ext = wire_ext(self.compress)
+    chunks = [
+      c for c in (
+        Bbox.intersection(gc, src.bounds)
+        for gc in chunk_bboxes(
+          bounds, sm.chunk_size(mip), offset=sm.voxel_offset(mip), clamp=False
+        )
+      )
+      if not c.empty()
+    ]
+
+    def download():
+      keys = [sm.chunk_name(mip, c) for c in chunks]
+      with telemetry.stage("passthrough_download"):
+        if len(keys) > 1:
+          return list(shared_io_pool().map(src_cf.get_stored, keys))
+        return [src_cf.get_stored(k) for k in keys]
+
+    def compute(stored):
+      return stored  # nothing to decode or resample
+
+    def upload(stored, sink):
+      with telemetry.stage("passthrough_upload"):
+        for c, (data, method) in zip(chunks, stored):
+          if data is None:
+            continue  # a missing chunk stays missing
+          key = dm.chunk_name(mip, c)
+
+          def put_one(key=key, data=data, method=method):
+            telemetry.add("transfer.passthrough.chunks", 1)
+            telemetry.add("transfer.passthrough.bytes", len(data))
+            if wire_ext(method) == dest_ext:
+              telemetry.add("transfer.passthrough.verbatim", 1)
+              dest_cf.put_stored(key, data, method)
+            else:
+              telemetry.add("transfer.passthrough.recompressed", 1)
+              dest_cf.put_stored(
+                key, compress_bytes(decompress_bytes(data, method), self.compress),
+                self.compress,
+              )
+
+          sink.submit(put_one)
+      chunk_cache.invalidate(dest.cloudpath, mip)
+
+    return StagePlan(
+      download, compute, upload,
+      reads={(self.src_path, mip)}, writes={(self.dest_path, mip)},
+      nbytes_hint=_cutout_nbytes(dest, bounds), aligned_writes=True,
+    )
 
 
 class DownsampleTask(TransferTask):

@@ -5,7 +5,10 @@ The downsample path (download, h2d, kernel, d2h, upload), the CCL path
 stages here so a caller can split a task's wall time. ``stage`` only reads
 the host clock; the device stages synchronise where they end (ops.pooling,
 ops.ccl, ops.mesh). ``add`` counts work items (the mesh path's labels and
-faces).
+faces, the chunk cache's hits and misses). ``observe`` adds a duration
+measured elsewhere to a stage (the staged pipeline's stall seconds), and
+``gauge_max`` keeps the highest value a gauge has shown (its buffer's
+bytes in flight).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Dict
 _LOCK = threading.Lock()
 _STAGES: Dict[str, list] = {}
 _COUNTS: Dict[str, int] = {}
+_GAUGES: Dict[str, float] = {}
 
 
 @contextmanager
@@ -26,16 +30,31 @@ def stage(name: str):
   try:
     yield
   finally:
-    dt = time.perf_counter() - t0
-    with _LOCK:
-      acc = _STAGES.setdefault(name, [0.0, 0])
-      acc[0] += dt
-      acc[1] += 1
+    observe(name, time.perf_counter() - t0)
+
+
+def observe(name: str, seconds: float) -> None:
+  with _LOCK:
+    acc = _STAGES.setdefault(name, [0.0, 0])
+    acc[0] += seconds
+    acc[1] += 1
 
 
 def add(name: str, n: int) -> None:
   with _LOCK:
     _COUNTS[name] = _COUNTS.get(name, 0) + int(n)
+
+
+def gauge_max(name: str, value: float) -> None:
+  with _LOCK:
+    if value > _GAUGES.get(name, float("-inf")):
+      _GAUGES[name] = value
+
+
+def gauges() -> Dict[str, float]:
+  """{gauge: highest value} since the last reset."""
+  with _LOCK:
+    return dict(_GAUGES)
 
 
 def counters() -> Dict[str, int]:
@@ -54,3 +73,4 @@ def reset() -> None:
   with _LOCK:
     _STAGES.clear()
     _COUNTS.clear()
+    _GAUGES.clear()

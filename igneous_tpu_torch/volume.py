@@ -5,9 +5,10 @@ downsample, transfer, connected-components, meshing and skeleton paths
 use: ``from_numpy``, ``download`` and ``upload`` of bbox cutouts at a mip
 in any of the ported encodings (``codecs.py``), and the info accessors.
 Pure host numpy: the device work happens in
-``igneous_tpu_torch.ops`` on arrays produced here. The
-chunk decode cache, integrity manifests, sharded scales and graphene are
-not ported yet.
+``igneous_tpu_torch.ops`` on arrays produced here. Chunk reads go
+through the process-wide decode cache (``chunk_cache.py``), and uploads
+invalidate it. Integrity manifests, sharded scales and graphene are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from . import codecs
+from . import chunk_cache, codecs
 from .lib import Bbox, chunk_bboxes
 from .meta import PrecomputedMetadata
 from .storage import decompress_bytes
@@ -163,6 +164,9 @@ class Volume:
     return [c for c in chunks if not c.empty()]
 
   def _decode(self, stored, chunk_bbx: Bbox, mip: int) -> np.ndarray:
+    """Decode a (stored bytes, compression) pair through the chunk decode
+    cache; a hit skips both the inflate and the chunk codec. Read-only
+    where the codec allows it: download copies the voxels."""
     data, method = stored
     shape = tuple(int(v) for v in chunk_bbx.size3()) + (self.num_channels,)
     if data is None:
@@ -171,11 +175,26 @@ class Volume:
           f"Missing chunk {self.meta.chunk_name(mip, chunk_bbx)} in {self.cloudpath}"
         )
       return np.full(shape, self.background_color, dtype=self.dtype)
-    # read-only where the codec allows it: download copies the voxels
-    return codecs.decode(
-      decompress_bytes(data, method), self.meta.encoding(mip), shape,
-      self.dtype, block_size=self.meta.cseg_block_size(mip), writable=False,
+    encoding = self.meta.encoding(mip)
+
+    def decode():
+      return codecs.decode(
+        decompress_bytes(data, method), encoding, shape, self.dtype,
+        block_size=self.meta.cseg_block_size(mip), writable=False,
+      )
+
+    # an uncompressed raw chunk decodes as a view of its bytes: caching it
+    # would spend budget to save nothing
+    if not chunk_cache.enabled() or (method is None and encoding == "raw"):
+      return decode()
+    bbox_key = (
+      tuple(int(v) for v in chunk_bbx.minpt), tuple(int(v) for v in chunk_bbx.maxpt)
     )
+    key, arr = chunk_cache.lookup(self.cloudpath, mip, bbox_key, data)
+    if arr is not None:
+      return arr
+    # a chunk that fails to decode raises here, before it could be stored
+    return chunk_cache.store(key, decode())
 
   def download(self, bbox: Bbox, mip: Optional[int] = None) -> np.ndarray:
     """The (x, y, z, c) cutout of ``bbox`` at ``mip``, Fortran-ordered: its
@@ -288,6 +307,11 @@ class Volume:
       _io_map(put, jobs, self.parallel)
     if deletes:
       self.cf.delete(deletes)
+    # entries under this (path, mip) are doomed (the digest key already
+    # keeps later reads right; this frees their memory now). Puts routed
+    # through a sink may still be in flight: the pipeline runner
+    # invalidates again when it joins the ticket.
+    chunk_cache.invalidate(self.cloudpath, mip)
 
   def __repr__(self):
     return (

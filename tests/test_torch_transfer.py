@@ -8,8 +8,8 @@ compressed_segmentation (uint32, uint64), compresso, jpeg and png layers;
 create_transfer_tasks from raw into compressed_segmentation with a
 rechunk and each of its options, into the image codecs with an encoding
 level, with compress none, gzip and auto (the reference with its
-compressed-domain passthrough off, which the port does not have, and once
-at its default on a passthrough-eligible transfer); mesh and skeleton
+compressed-domain passthrough off, and once at its default on a
+passthrough-eligible transfer, which the port moves the same way); mesh and skeleton
 forge+merge from a compressed_segmentation source; a TransferTask payload
 the JAX package serialized; ``image xfer`` and ``image downsample
 --encoding`` on both command lines; and the refused options, which
@@ -225,8 +225,8 @@ def _transfer_both(tmp_path, monkeypatch, kind, src_mips, kw, passthrough=False)
   for who in ("jax", "port"):
     make = jax_tc.create_transfer_tasks if who == "jax" else tc.create_transfer_tasks
     extra = {} if bounds is None else {"bounds": (JaxBbox if who == "jax" else Bbox)(*bounds)}
-    # the reference decodes and re-encodes, as the port does, unless a
-    # case asks for its default
+    # the reference decodes and re-encodes unless a case asks for its
+    # default; the port, at its default, writes the same bytes either way
     if who == "jax" and not passthrough:
       monkeypatch.setenv(PASSTHROUGH, "off")
     tasks = make(f"file://{roots[who] / 'src'}", f"file://{roots[who] / 'dest'}", **kw, **extra)
@@ -409,7 +409,7 @@ def _cli_both(tmp_path, data, jax_args, port_args=None, **vol_kw):
    "--translate", "8,8,8", "--compress", "auto"],
 ], ids=["cseg_translate", "compresso_cutout", "cseg_memory_offset"])
 def test_cli_xfer_matches_reference(tmp_path, monkeypatch, opts):
-  monkeypatch.setenv(PASSTHROUGH, "off")  # read by the reference only
+  monkeypatch.setenv(PASSTHROUGH, "off")  # both packages take the decode route
   args = ["image", "xfer", "file://ROOT/src", "file://ROOT/dest", *opts]
   roots = _cli_both(tmp_path, segmentation(SRC_SHAPE, seed=8), args, chunk_size=(64, 64, 64))
   assert_same_tree(roots["port"], roots["jax"], min_files=8)
