@@ -1,6 +1,6 @@
 """Drive igneous_tpu_torch's downsample, transfer, connected-components,
-meshing and skeleton paths, solo, batched and pipelined, on one NVIDIA GPU
-and check them.
+meshing, skeleton, morphology, census and inference paths, solo, batched
+and pipelined, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -84,7 +84,9 @@ Phases, each reported on its own line:
      launched; the decode route (IGNEOUS_TRANSFER_PASSTHROUGH=off, and for
      the cseg layer once more with IGNEOUS_CHUNK_CACHE=off) writes the
      same bytes; every wall printed;
-  4. e2e ccl: two file:// layers through ccl_auto (the four passes on a
+  4. e2e ccl: two file:// layers (an 896x896x224 thresholded smooth image
+     and an 896x448x224 uint64 segmentation of 750 balls, both at half
+     the task's depth) through ccl_auto (the four passes on a
      LocalTaskQueue, task shape 448^3, raw destination), with the wall time
      of every pass and the stage split of its tasks; the launch counts are
      set to 0 just before each layer and read just after, tile_resolve must
@@ -106,11 +108,13 @@ Phases, each reported on its own line:
      kernels may launch; the device programs of the path (the XLA
      programs X1-X3 the port runs as torch ops) timed at the first
      task's largest count pass against their bytes bound;
-  6. e2e skeleton: a 1024x512x512 uint64 layer of 300 neurite-like tubes
-     (radius 3-12 voxels along random polylines, about 10% foreground,
-     ids above 2^32 and 2^63, many across x = 512) through
+  6. e2e skeleton: a 1024x512x256 uint64 layer of 150 neurite-like tubes
+     (radius 3-12 voxels along random polylines, ids above 2^32 and 2^63,
+     many across x = 512; half the depth and tubes of the 1024x512x512
+     layer it had before phases 8 and 9) through
      create_skeletonizing_tasks -> LocalTaskQueue -> SkeletonTask (two
-     512^3 tasks with every default, 8 tracing threads) and
+     tasks of the default 512^3 shape with every default, 8 tracing
+     threads) and
      create_unsharded_skeleton_merge_tasks; each task's wall, stage split,
      label and vertex counts, the card's busy time from a profiler trace
      and its peak memory; edt_pass must launch three times a task (the
@@ -120,7 +124,36 @@ Phases, each reported on its own line:
      for bit, and 32 of its labels (seed 1) plus its largest skeletonized
      to the same bytes on the card and on the CPU route, and equal to the
      written fragments;
-  7. the card's name and power limit, the programs line (X1-X3, X5),
+  8. morphology and the census (after phase 6): a 448x448x224 uint64
+     "hollow cells" layer (150 Voronoi cells with cavities, every third
+     opened by a one-voxel channel, and 400 specks, a quarter across
+     x = 224): dilate and erode of the first mesh task's cutout on the
+     card and on the CPU route, bit for bit, and X6 (the dilation step)
+     timed against its bound; create_voxel_counting_tasks (224^3) ->
+     LocalTaskQueue -> CountVoxelsTask and accumulate_voxel_counts, the
+     totals equal to numpy's over the layer; two MeshTasks of 224x448x224
+     with fill_holes=3, dust_threshold=100 and dust_global (8
+     simplification threads): the meshed labels exactly those of 100 or
+     more voxels in the census, the first task's labels (32 and its
+     largest) card against CPU and against the written fragments, the
+     level-3 fill count above the level-1 count above 0, each task's
+     stage split (fill_holes on the host, dilate and erode on the card);
+     no pooling, CCL or EDT kernel launched;
+  9. inference (after phase 3d, on phase 3's image, bounds 1024x1024x64):
+     the repo's inference model (convnet3d 1 -> 8 -> 2, patch 64x64x32,
+     overlap 16x16x8, init_params(seed=0)) through create_inference_tasks
+     -> LocalTaskQueue -> InferenceTask, 16 tasks of 108 patches at batch
+     4, pipelined with postprocess none, again with IGNEOUS_PIPELINE=off
+     and with batch 7 (both byte for byte the first), and with argmax
+     (equal to the argmax of the first's floats); the identity model on
+     the card and on the CPU route, byte for byte; the first task on the
+     card and on the CPU route within rtol 1e-5 and atol 1e-5 of the
+     largest output, argmax differences only at margins within it; per
+     run its wall, stage split, the caller's waits, patches, padded slots
+     and dispatches; X7 (one dispatch of the model, cuDNN with TF32 off)
+     against its bound and cuDNN's batched call; the card's busy share
+     over one task from a profiler trace; no hand kernel launched;
+  7. the card's name and power limit, the programs line (X1-X3, X5-X7),
      the kernels line (each kernel's launches on the main paths, the
      transfer, the batched phase and the pipelined streams), and the
      result.
@@ -795,12 +828,14 @@ def blobs(shape, n_labels: int, n_blobs: int, rng, torch, dev) -> np.ndarray:
 
 
 CCL_LAYERS = [
-  # name, shape (x, y, z), dtype, ccl_auto options; the mask layer runs at
-  # half its depth (4 tasks of 448x448x224) so that the whole script,
-  # mesh phase included, stays near half its time limit
+  # name, shape (x, y, z), dtype, ccl_auto options; both layers run at half
+  # the depth of the default 448^3 task (the mask layer since the mesh
+  # phase, the segmentation since phases 8 and 9) so that the whole
+  # script stays inside its time limit
   ("ccl_mask", (896, 896, 224), "uint8", {"threshold_gte": 128}),
-  ("ccl_segmentation", (896, 448, 448), "uint64", {}),
+  ("ccl_segmentation", (896, 448, 224), "uint64", {}),
 ]
+CCL_BLOBS = 750  # balls of the segmentation layer (1500 at its full depth)
 
 
 def oracle(data: np.ndarray, kw: dict, torch, dev):
@@ -882,7 +917,7 @@ def ccl_e2e_phase(root, cc, cp, torch, dev):
     if dtype == "uint8":
       data = smooth_image(shape, rng, torch, dev)
     else:
-      data = blobs(shape, 16, 1500, rng, torch, dev)
+      data = blobs(shape, 16, CCL_BLOBS, rng, torch, dev)
     src, dest = f"file://{root}/{name}", f"file://{root}/{name}_out"
     Volume.from_numpy(data, src, resolution=(8, 8, 40), chunk_size=(64, 64, 64),
                       compress=None)
@@ -1220,8 +1255,10 @@ def mesh_e2e_phase(root, torch, dev, shape=MESH_SHAPE, n_seeds=MESH_SEEDS,
 # ---------------------------------------------------------------------------
 # EDT and skeletons
 
-SKEL_SHAPE = (1024, 512, 512)  # (x, y, z): two tasks of the default 512^3
-SKEL_TUBES = 300
+# (x, y, z): two tasks of the default 512^3 shape at half its depth (and
+# half the tubes of the full depth), so that phases 8 and 9 fit the run
+SKEL_SHAPE = (1024, 512, 256)
+SKEL_TUBES = 150
 SKEL_SAMPLE = 32  # labels of the first task held card against CPU, + its largest
 SKEL_MIN_CROSSING = 10  # boundary-crossing tube components the merge check needs
 # threads for the per-label tracing of each task (the task's ``parallel``;
@@ -1614,7 +1651,7 @@ def skeleton_card_against_cpu(task, path: str, sample: int, ce, edt_ops, torch, 
   kw = dict(
     anisotropy=anis, params=TeasarParams.from_dict(task.teasar_params),
     offset=tuple(float(v) for v in cutout.minpt), object_ids=chosen,
-    dust_threshold=task.dust_threshold, parallel=SKEL_TRACE_THREADS,
+    dust_threshold=task.local_dust, parallel=SKEL_TRACE_THREADS,
     extra_targets_per_label=task.targets(labels, cutout, core, bounds),
   )
   card = skeletonize(labels, **kw)
@@ -1674,7 +1711,7 @@ def skeleton_e2e_phase(root, ce, edt_ops, torch, dev):
 
   tasks = list(create_skeletonizing_tasks(path, parallel=SKEL_TRACE_THREADS))
   if len(tasks) != 2:
-    fail(f"skeleton: expected 2 tasks of 512^3, planned {len(tasks)}")
+    fail(f"skeleton: expected 2 tasks, planned {len(tasks)}")
   queue = LocalTaskQueue(parallel=1)
   ce.LAUNCHES["edt_pass"] = 0
   for i, task in enumerate(tasks):
@@ -1746,6 +1783,404 @@ def skeleton_e2e_phase(root, ce, edt_ops, torch, dev):
     fail(f"skeleton: only {checked} boundary-crossing tubes were checked")
   skeleton_card_against_cpu(tasks[0], path, SKEL_SAMPLE, ce, edt_ops, torch, dev)
   return launches
+
+
+# ---------------------------------------------------------------------------
+# morphology and the voxel-count census (phase 8)
+
+HOLLOW_SHAPE = (448, 448, 224)  # (x, y, z): two mesh tasks of 224x448x224
+HOLLOW_TASK = (224, 448, 224)
+HOLLOW_SEEDS = 150
+HOLLOW_SPECKS = 400  # a quarter of them across x = 224
+HOLLOW_DUST = 100  # the forge's dust threshold, applied to the census counts
+HOLLOW_CENSUS_TASK = (224, 224, 224)
+HOLLOW_SAMPLE = 32  # labels of the first task held card against CPU, + its largest
+X6_REPLACES = "igneous_tpu/ops/morphology.py:19"  # _dilate_kernel (XLA)
+
+
+def hollow_cells(shape, n_seeds: int, n_specks: int, seed: int, torch, dev) -> np.ndarray:
+  """(x, y, z) uint64 Fortran-ordered: ``voronoi_segmentation`` of
+  ``n_seeds`` seeds (ids above 2^32, eight at or above 2^63, 6-connected
+  boundaries zeroed) with a background ball of radius 3-8 voxels at every
+  seed, an enclosed cavity where the ball lies inside its cell; every
+  third ball joined to its cell's boundary (or the volume's face) by a
+  straight one-voxel channel along +x, which fill_holes levels 1-2 leave
+  open and level 3 closes. Then ``n_specks`` specks with ids of their own
+  (2^34 + k): three quarters boxes of 2-4 voxels a side (8-64 voxels)
+  anywhere, a quarter boxes of 4-8 x 3-6 x 3-6 voxels (36-288) across
+  x = X / 2, some of which reach the dust threshold only in the whole
+  layer."""
+  X, Y, Z = shape
+  seeds = np.random.default_rng(seed).random((n_seeds, 3)) * np.array([X, Y, Z])
+  out = voronoi_segmentation(shape, n_seeds, np.random.default_rng(seed), torch, dev)
+  out = np.asfortranarray(out)
+  rng = np.random.default_rng(seed + 1)
+  for i, c in enumerate(np.floor(seeds).astype(np.int64)):
+    r = float(rng.uniform(3, 8))
+    lo = np.maximum(c - int(np.ceil(r)), 0)
+    hi = np.minimum(c + int(np.ceil(r)) + 1, [X, Y, Z])
+    grid = np.meshgrid(*[np.arange(a, b) for a, b in zip(lo, hi)], indexing="ij")
+    ball = sum((g - ci) ** 2 for g, ci in zip(grid, c)) <= r * r
+    out[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]][ball] = 0
+    if i % 3 == 0:
+      row = out[:, c[1], c[2]]
+      beyond = np.flatnonzero(row[c[0] + int(np.ceil(r)) + 1:] == 0)
+      end = c[0] + int(np.ceil(r)) + 1 + int(beyond[0]) if len(beyond) else X
+      out[c[0]:end, c[1], c[2]] = 0
+  for k in range(n_specks):
+    if k % 4 == 0:
+      dx = int(rng.integers(4, 9))
+      x0 = X // 2 - int(rng.integers(1, dx))
+      dims = (dx, int(rng.integers(3, 7)), int(rng.integers(3, 7)))
+      lo = (x0, int(rng.integers(0, Y - dims[1])), int(rng.integers(0, Z - dims[2])))
+    else:
+      dims = tuple(int(v) for v in rng.integers(2, 5, 3))
+      lo = tuple(int(rng.integers(0, n - d)) for n, d in zip((X, Y, Z), dims))
+    out[lo[0]:lo[0] + dims[0], lo[1]:lo[1] + dims[1], lo[2]:lo[2] + dims[2]] = 2**34 + k
+  return out
+
+
+def morphology_phase(root, cp, cc, ce, torch, dev):
+  """Phase 8 on a "hollow cells" layer (``hollow_cells``): ``dilate`` and
+  ``erode`` of the first mesh task's cutout on the card and on the CPU
+  route, bit for bit, and X6 (``dilate_step``) timed against its bound;
+  the census (``create_voxel_counting_tasks`` at 224^3 on a
+  ``LocalTaskQueue``, then ``accumulate_voxel_counts``), its totals equal
+  to numpy's over the whole layer; the mesh forge of two 224x448x224
+  tasks with ``fill_holes=3``, ``dust_threshold=100`` and
+  ``dust_global``: the meshed labels exactly those whose census count is
+  100 or more, the first task's labels (32 and its largest) card against
+  CPU and against the written fragments, the level-3 fill count above 0;
+  no pooling, CCL or EDT kernel launched. Returns X6's record."""
+  from igneous_tpu_torch import Bbox, CloudFiles, Volume, set_device, telemetry
+  from igneous_tpu_torch.ops import morphology
+  from igneous_tpu_torch.ops.mesh import unique_on_device
+  from igneous_tpu_torch.queues import LocalTaskQueue
+  from igneous_tpu_torch.task_creation import (
+    accumulate_voxel_counts,
+    create_meshing_tasks,
+    create_voxel_counting_tasks,
+  )
+
+  t_phase = time.perf_counter()
+  for counts in (cp.LAUNCHES, cc.LAUNCHES, ce.LAUNCHES):
+    for key in counts:
+      counts[key] = 0
+  t0 = time.perf_counter()
+  data = hollow_cells(HOLLOW_SHAPE, HOLLOW_SEEDS, HOLLOW_SPECKS, 2, torch, dev)
+  path = f"file://{root}/hollow_cells"
+  Volume.from_numpy(data, path, resolution=(8, 8, 40), chunk_size=(64, 64, 64),
+                    compress=None, layer_type="segmentation")
+  uniq, counts = np.unique(data, return_counts=True)
+  half = HOLLOW_SHAPE[0] // 2
+  left, right = (
+    {int(l): int(c) for l, c in zip(*np.unique(part, return_counts=True))}
+    for part in (data[: half + 1], data[half:])
+  )
+  big = {int(l) for l, c in zip(uniq, counts) if l and c >= HOLLOW_DUST}
+  rescued = [int(l) for l in big if max(left.get(l, 0), right.get(l, 0)) < HOLLOW_DUST]
+  print(f"ingest hollow_cells: {HOLLOW_SHAPE} uint64, {len(uniq) - 1} labels, {len(big)} "
+        f"of {HOLLOW_DUST}+ voxels, {len(rescued)} of them below it in each task "
+        f"{time.perf_counter() - t0:.1f} s", flush=True)
+  if not rescued:
+    fail("morphology: no label reaches the dust threshold only across the task boundary")
+
+  # dilate and erode of the first task's cutout: the card against the CPU route
+  img = Volume(path).download(Bbox((0, 0, 0), (half + 1,) + HOLLOW_SHAPE[1:]))[..., 0]
+  t0 = time.perf_counter()
+  grown, shrunk = morphology.dilate(img), morphology.erode(img)
+  card_s = time.perf_counter() - t0
+  _, fills3 = morphology.fill_holes(img, return_fill_count=True, level=3)
+  _, fills1 = morphology.fill_holes(img, return_fill_count=True, level=1)
+  set_device("cpu")
+  try:
+    t0 = time.perf_counter()
+    cpu_grown, cpu_shrunk = morphology.dilate(img), morphology.erode(img)
+    cpu_s = time.perf_counter() - t0
+  finally:
+    set_device(dev)
+  if not (np.array_equal(grown, cpu_grown) and np.array_equal(shrunk, cpu_shrunk)):
+    fail("morphology: dilate or erode on the card differs from the CPU route")
+  n1, n3 = sum(fills1.values()), sum(fills3.values())
+  print(f"morphology: dilate and erode of the {img.shape} cutout equal on the card "
+        f"({card_s:.3f} s with copies) and the CPU route ({cpu_s:.3f} s); fill_holes "
+        f"level 1 fills {n1} voxels of {len(fills1)} labels, level 3 {n3} of "
+        f"{len(fills3)}", flush=True)
+  if not n3 > n1 > 0:
+    fail(f"morphology: fill counts level 1 {n1}, level 3 {n3}")
+  del grown, shrunk, cpu_grown, cpu_shrunk
+
+  # X6: one dilation step of the cutout's dense labels on the card
+  _, inverse = unique_on_device(img, dev, return_inverse=True)
+  x = inverse.to(torch.int32)
+  del inverse
+  nbytes = 2 * x.numel() * x.element_size()
+  x6 = {
+    "name": "X6 dilate_step", "replaces": X6_REPLACES,
+    "case": f"task 0's cutout {img.shape} (x, y, z), int32 dense ids",
+    "launches_per_task": 1, "ms": cuda_ms(lambda: morphology.dilate_step(x), reps=10),
+    "device_ms": profiled_device_ms(lambda: morphology.dilate_step(x), torch),
+    "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes", "library_ms": None,
+  }
+  del x, img
+  torch.cuda.empty_cache()
+
+  # the census
+  telemetry.reset()
+  t0 = time.perf_counter()
+  tasks = list(create_voxel_counting_tasks(path, shape=HOLLOW_CENSUS_TASK))
+  LocalTaskQueue(parallel=1).insert(tasks)
+  totals = accumulate_voxel_counts(path)
+  wall = time.perf_counter() - t0
+  snap = telemetry.snapshot()
+  if totals != {int(l): int(c) for l, c in zip(uniq, counts)}:
+    fail("census: the totals differ from numpy's unique counts of the layer")
+  print(f"census: {len(tasks)} tasks of {HOLLOW_CENSUS_TASK}, wall {wall:.3f} s, "
+        f"{len(totals)} labels equal to numpy's counts, stages (s) "
+        f"{json.dumps(stage_split(snap))}", flush=True)
+
+  # the mesh forge with fill_holes=3 and dust_global
+  tasks = list(create_meshing_tasks(
+    path, shape=HOLLOW_TASK, fill_holes=3, dust_threshold=HOLLOW_DUST, dust_global=True,
+    parallel=MESH_SIMPLIFY_THREADS))
+  if len(tasks) != 2:
+    fail(f"morphology mesh: expected 2 tasks, planned {len(tasks)}")
+  queue = LocalTaskQueue(parallel=1)
+  for i, task in enumerate(tasks):
+    telemetry.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    queue.insert([task])
+    wall = time.perf_counter() - t0
+    c = telemetry.counters()
+    print(f"morphology mesh task {i}: wall {wall:.3f} s, {c.get('labels', 0)} labels, "
+          f"{c.get('faces', 0)} faces, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, stages (s) "
+          f"{json.dumps(stage_split(telemetry.snapshot()))}", flush=True)
+  mdir = Volume(path).info["mesh"]
+  names = [k.split("/")[-1] for k in CloudFiles(path).list(f"{mdir}/")]
+  meshed = {int(n.split(":")[0]) for n in names if n.count(":") == 2}
+  if meshed != big:
+    fail(f"morphology mesh: {len(meshed)} labels meshed, {len(big)} of {HOLLOW_DUST}+ "
+         f"voxels in the census ({len(meshed - big)} extra, {len(big - meshed)} missing)")
+  print(f"morphology mesh: the {len(meshed)} meshed labels are those of {HOLLOW_DUST}+ "
+        f"voxels in the census, {len(rescued)} of them below it in each task", flush=True)
+  mesh_card_against_cpu(tasks[0], path, HOLLOW_SAMPLE, torch, dev)
+  if any(any(c.values()) for c in (cp.LAUNCHES, cc.LAUNCHES, ce.LAUNCHES)):
+    fail("morphology: a pooling, CCL or EDT kernel launched")
+  print(f"morphology: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+  return x6
+
+
+# ---------------------------------------------------------------------------
+# conv-net inference (phase 9)
+
+# the repo's own inference configuration (bench.py:942-946)
+INFER_SPEC = dict(architecture="convnet3d", in_channels=1, out_channels=2,
+                  patch_shape=(64, 64, 32), overlap=(16, 16, 8), hidden=(8,))
+INFER_BOUNDS = ((0, 0, 0), (1024, 1024, 64))  # of phase 3's image
+INFER_TASKS = 16  # of the default 256x256x64
+INFER_PATCHES = 108  # a task's 288x288x80 halo'd cutout: 6 x 6 x 3 patches
+INFER_BATCH = 4
+# card against the CPU route: |a - b| <= RTOL |b| + ATOL max|b| (the two
+# sum 27 float32 products a channel in different orders)
+INFER_RTOL = INFER_ATOL = 1e-5
+FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+X7_REPLACES = "igneous_tpu/infer/registry.py:105"  # _convnet3d (XLA)
+
+
+def layer_files(path: str) -> dict:
+  """{name: bytes} of a layer's chunk files at mip 0 (``path`` file://)."""
+  import os
+
+  base = path[len("file://"):]
+  key = json.load(open(os.path.join(base, "info")))["scales"][0]["key"]
+  d = os.path.join(base, key)
+  return {n: open(os.path.join(d, n), "rb").read() for n in sorted(os.listdir(d))}
+
+
+def inference_phase(root, cp, cc, ce, torch, dev):
+  """Phase 9 on phase 3's image (bounds 1024x1024x64): the repo's
+  inference model (``INFER_SPEC``, ``init_params(seed=0)``) through
+  ``create_inference_tasks`` -> ``LocalTaskQueue`` -> ``InferenceTask``,
+  16 tasks of 108 patches at batch 4: pipelined with postprocess none,
+  the same with ``IGNEOUS_PIPELINE=off`` and with batch 7 (both byte for
+  byte the first), argmax (equal to the argmax of the first's floats);
+  the identity model on the card and on the CPU route, byte for byte, and
+  equal to the image; the first task's halo'd cutout on the card and on
+  the CPU route within the stated tolerance, argmax mismatches only at
+  margins within it; X7 (one dispatch) against its bound and cuDNN's
+  batched call; the card's busy share over one task from a profiler
+  trace. No hand kernel launches. Returns X7's record."""
+  import os
+
+  from igneous_tpu_torch import Bbox, Volume, set_device, telemetry
+  from igneous_tpu_torch.infer import ModelSpec, infer_cutout, init_params, load_model, save_model
+  from igneous_tpu_torch.infer.engine import _to_device_layout
+  from igneous_tpu_torch.infer.registry import conv_flags
+  from igneous_tpu_torch.queues import LocalTaskQueue
+  from igneous_tpu_torch.task_creation import create_inference_tasks
+  from torch.profiler import ProfilerActivity, profile
+
+  t_phase = time.perf_counter()
+  src = f"file://{root}/image"
+  spec = ModelSpec(**INFER_SPEC)
+  model_path, ident_path = f"file://{root}/model", f"file://{root}/model_identity"
+  save_model(model_path, spec, init_params(spec, seed=0))
+  save_model(ident_path, ModelSpec("identity", 1, 1, spec.patch_shape, spec.overlap), {})
+  bounds = Bbox(*INFER_BOUNDS)
+
+  def campaign(name, model, env=(), batch_size=INFER_BATCH, **kw):
+    dest = f"file://{root}/infer_{name}"
+    tasks = list(create_inference_tasks(src, dest, model, bounds=bounds,
+                                        batch_size=batch_size, **kw))
+    if len(tasks) != INFER_TASKS:
+      fail(f"infer {name}: planned {len(tasks)} tasks, expected {INFER_TASKS}")
+    for counts in (cp.LAUNCHES, cc.LAUNCHES, ce.LAUNCHES):
+      for key in counts:
+        counts[key] = 0
+    telemetry.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    os.environ.update(dict(env))
+    queue = LocalTaskQueue(parallel=1)
+    t0 = time.perf_counter()
+    try:
+      queue.insert(tasks)
+    finally:
+      for k, _ in env:
+        os.environ.pop(k, None)
+    wall = time.perf_counter() - t0
+    counters = telemetry.counters()
+    dispatches = -(-INFER_PATCHES // batch_size)
+    want = {"infer.patches": INFER_TASKS * INFER_PATCHES,
+            "infer.dispatches": INFER_TASKS * dispatches,
+            "infer.padded_slots": INFER_TASKS * (dispatches * batch_size - INFER_PATCHES)}
+    got = {k: counters.get(k, 0) for k in want}
+    print(f"infer {name}: {len(tasks)} tasks, batch {batch_size}, wall {wall:.3f} s, "
+          f"{json.dumps(got)}, runner {json.dumps(queue.pipeline_stats)}, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, "
+          f"{pipeline_line(telemetry.snapshot(), telemetry.gauges(), counters)}", flush=True)
+    if got != want:
+      fail(f"infer {name}: counted {got}, expected {want}")
+    if queue.completed != INFER_TASKS:
+      fail(f"infer {name}: {queue.completed} of {INFER_TASKS} tasks completed")
+    if any(any(c.values()) for c in (cp.LAUNCHES, cc.LAUNCHES, ce.LAUNCHES)):
+      fail(f"infer {name}: a pooling, CCL or EDT kernel launched")
+    return dest, tasks
+
+  first, tasks = campaign("none", model_path)
+  ref_files = layer_files(first)
+  for name, kw in (("none_serial", {"env": (("IGNEOUS_PIPELINE", "off"),)}),
+                   ("none_batch7", {"batch_size": 7})):
+    dest, _ = campaign(name, model_path, **kw)
+    if layer_files(dest) != ref_files:
+      fail(f"infer {name}: the files differ from the pipelined batch-4 run's")
+    print(f"infer {name}: {len(ref_files)} chunk files byte for byte the pipelined "
+          f"batch-4 run's", flush=True)
+  out = Volume(first)
+  floats = out.download(bounds)
+  want = tuple(int(v) for v in bounds.size3()) + (spec.out_channels,)
+  if floats.dtype != np.float32 or floats.shape != want or not np.isfinite(floats).all():
+    fail(f"infer: output {floats.dtype} {floats.shape}, finite {np.isfinite(floats).all()}")
+  dest, _ = campaign("argmax", model_path, postprocess="argmax")
+  labels = Volume(dest).download(bounds)[..., 0]
+  if not np.array_equal(labels, np.argmax(floats, axis=3).astype(np.uint8)):
+    fail("infer argmax: differs from the argmax of the float run on the card")
+
+  # the identity model: the engine alone, the card against the CPU route
+  ident, _ = campaign("identity", ident_path)
+  set_device("cpu")
+  try:
+    ident_cpu, _ = campaign("identity_cpu", ident_path)
+  finally:
+    set_device(dev)
+  if layer_files(ident) != layer_files(ident_cpu):
+    fail("infer identity: the card's files differ from the CPU route's")
+  img = Volume(src).download(bounds)[..., :1].astype(np.float32)
+  got = Volume(ident).download(bounds)
+  if not np.allclose(got, img, rtol=1e-6, atol=1e-3):
+    fail("infer identity: the blend does not give the image back")
+  print("infer identity: card and CPU route byte for byte, equal to the image within "
+        "the blend's rounding", flush=True)
+
+  # the first task: card against the CPU route, within the tolerance
+  task = tasks[0]
+  halo = np.asarray(task.halo)
+  core = Bbox(task.offset, task.offset + task.shape)
+  cut = Volume(src, bounded=False).download(Bbox(core.minpt - halo, core.maxpt + halo))
+  model = load_model(model_path)
+  card, _ = infer_cutout(model, cut, INFER_BATCH)
+  set_device("cpu")
+  try:
+    t0 = time.perf_counter()
+    cpu, _ = infer_cutout(model, cut, INFER_BATCH)
+    cpu_s = time.perf_counter() - t0
+  finally:
+    set_device(dev)
+  err = np.abs(card - cpu)
+  limit = INFER_RTOL * np.abs(cpu) + INFER_ATOL * float(np.abs(cpu).max())
+  if not (err <= limit).all():
+    fail(f"infer: the card's task 0 differs from the CPU route's by {float(err.max())}")
+  hx, hy, hz = (int(v) for v in halo)
+  sx, sy, sz = (int(v) for v in task.shape)
+  core_cpu = cpu[hx:hx + sx, hy:hy + sy, hz:hz + sz]
+  margin = np.abs(core_cpu[..., 0] - core_cpu[..., 1])
+  differ = labels[:sx, :sy, :sz] != np.argmax(core_cpu, axis=3)
+  tol = INFER_RTOL * np.abs(core_cpu).max(axis=3) + INFER_ATOL * float(np.abs(cpu).max())
+  if (differ & (margin > 2 * tol)).any():
+    fail("infer argmax: the card and the CPU route disagree at a margin above the tolerance")
+  print(f"infer task 0: card and CPU route ({cpu_s:.3f} s) within rtol {INFER_RTOL}, atol "
+        f"{INFER_ATOL} x max|out| (max err {float(err.max()):.3e} of max|out| "
+        f"{float(np.abs(cpu).max()):.3f}); argmax differs at {int(differ.sum())} voxels, "
+        f"all at margins within it", flush=True)
+
+  # X7: one dispatch of the campaign against its bound and cuDNN's batched call
+  consts = model.device_params()
+  p = spec.patch_shape
+  batch = torch.from_numpy(np.stack([
+    _to_device_layout(cut[x:x + p[0], 0:p[1], 0:p[2]].astype(np.float32))
+    for x in (0, 48, 96, 144)])).to(dev)
+  widths = (spec.in_channels,) + tuple(spec.hidden) + (spec.out_channels,)
+  voxels = batch.shape[0] * int(np.prod(p))
+  nbytes = 4 * voxels * sum(widths)
+  flops = 2 * 27 * voxels * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+  bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOPS
+
+  def batched():
+    with torch.inference_mode(), conv_flags():
+      return torch.func.functional_call(model.module, consts, (batch,))
+
+  run = lambda: model.apply(consts, batch)  # noqa: E731
+  if not torch.equal(run(), run()):
+    fail("X7: two runs of one dispatch differ")
+  x7 = {
+    "name": "X7 convnet3d", "replaces": X7_REPLACES,
+    "case": f"one dispatch: {batch.shape[0]} patches {tuple(batch.shape[1:])}, "
+            f"widths {widths}, float32, TF32 off",
+    "launches_per_task": -(-INFER_PATCHES // INFER_BATCH),
+    "ms": cuda_ms(run, reps=20), "device_ms": profiled_device_ms(run, torch),
+    "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    "library_ms": cuda_ms(batched, reps=20),
+  }
+  del batch
+  torch.cuda.empty_cache()
+
+  # the card's busy share over one task
+  one = list(create_inference_tasks(src, f"file://{root}/infer_traced", model_path,
+                                    bounds=Bbox((0, 0, 0), (256, 256, 64))))
+  telemetry.reset()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    LocalTaskQueue(parallel=1).insert(one)
+    wall = time.perf_counter() - t0
+  busy = traced_device_us(prof) / 1e6
+  if not busy > 0:
+    fail("infer: the trace shows no work on the card")
+  print(f"infer traced task: wall {wall:.3f} s, card busy {busy:.4f} s (traced; idle "
+        f"{100 * (1 - busy / wall):.2f}%), stages (s) "
+        f"{json.dumps(stage_split(telemetry.snapshot()))}", flush=True)
+  print(f"infer: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+  return x7
 
 
 # ---------------------------------------------------------------------------
@@ -2144,9 +2579,9 @@ def batched_ccl_phase(root, cc, torch, dev):
 
 
 def batched_skeleton_phase(root, ce, edt_ops, torch, dev):
-  """``edt_batch`` on the two default skeleton cutouts cut to their common
-  512^3, and ``paged_edt`` on the whole cutouts (513x512x512 and 512^3,
-  padded to 544^3), each bit for bit the solo ``edt``, with walls, launches
+  """``edt_batch`` on phase 6's two skeleton cutouts cut to their common
+  shape, and ``paged_edt`` on the whole cutouts (padded to page
+  multiples), each bit for bit the solo ``edt``, with walls, launches
   and peak memory; then ``batched_skeleton_forge`` over the layer's two
   default tasks into a second skeleton directory, its fragments and
   spatial files equal byte for byte to phase 6's. Returns edt_pass's
@@ -2332,6 +2767,7 @@ def main() -> int:
     x5 = page_kernel_program(root, cp, torch, dev)
     t_batched = time.perf_counter() - t_phase
     pipelined_launches = pipelined_phase(root, cp, cc, ce, torch, dev)
+    x7 = inference_phase(root, cp, cc, ce, torch, dev)
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches["tile_resolve"] = ccl_e2e_phase(root, cc, cp, torch, dev)
     t_phase = time.perf_counter()
@@ -2356,7 +2792,9 @@ def main() -> int:
     batched_launches["edt_pass"] = batched_skeleton_phase(root, ce, edt_ops, torch, dev)
     t_batched += time.perf_counter() - t_phase
   print(f"batched: phase wall {t_batched:.1f} s", flush=True)
-  programs.append(x5)
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+    x6 = morphology_phase(root, cp, cc, ce, torch, dev)
+  programs += [x5, x6, x7]
 
   kernels = []
   replaces = {

@@ -1,6 +1,6 @@
 """igneous_tpu_torch: the PyTorch/CUDA port of igneous_tpu.
 
-It runs five of Igneous's paths on an NVIDIA GPU:
+It runs these of Igneous's paths on an NVIDIA GPU:
   - downsampling: create_downsampling_tasks → LocalTaskQueue →
     DownsampleTask → the 2x2x1 pooling pyramid (``csrc/pooling.cu``);
   - transfers: create_transfer_tasks → LocalTaskQueue → TransferTask,
@@ -18,7 +18,15 @@ It runs five of Igneous's paths on an NVIDIA GPU:
     the multilabel EDT (``csrc/edt.cu``) and the labels' boxes on the
     device, TEASAR tracing on the host (``csrc/fggraph.cpp``,
     ``csrc/dijkstra.cpp``), then create_unsharded_skeleton_merge_tasks →
-    UnshardedSkeletonMergeTask.
+    UnshardedSkeletonMergeTask;
+  - morphology and the voxel-count census: ``ops.morphology`` (dilate and
+    erode on the device, the hole fill on the host) behind the forges'
+    ``fill_holes``, and create_voxel_counting_tasks → CountVoxelsTask →
+    accumulate_voxel_counts behind their ``dust_global``;
+  - conv-net inference: create_inference_tasks → LocalTaskQueue →
+    InferenceTask → the model (``infer.registry``, cuDNN convolutions with
+    TF32 off) over overlapping patches, blended on the host
+    (``infer.engine``).
 Every path reads and writes the raw, compressed_segmentation
 (``csrc/cseg.cpp`` on the host), compresso, jpeg and png chunk encodings.
 It imports torch, numpy, scipy, PIL (for jpeg and png only) and the

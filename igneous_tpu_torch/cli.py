@@ -1,12 +1,13 @@
 """The port's command line: ``python -m igneous_tpu_torch image
-{downsample [--batched],xfer}``, ``python -m igneous_tpu_torch image ccl {faces,links,
+{downsample [--batched],xfer,infer}``, ``python -m igneous_tpu_torch image
+voxels {count,sum}``, ``python -m igneous_tpu_torch image ccl {faces,links,
 calc-labels,relabel,clean,auto}``, ``python -m igneous_tpu_torch mesh
 {forge,merge}`` and ``python -m igneous_tpu_torch skeleton {forge,merge}``.
 
-A minimal counterpart of ``igneous-tpu image downsample|xfer``,
-``igneous-tpu image ccl``, ``igneous-tpu mesh forge|merge`` and
-``igneous-tpu skeleton forge|merge`` (``igneous_tpu/cli.py``), with the
-same option names; an
+A minimal counterpart of ``igneous-tpu image downsample|xfer|infer``,
+``igneous-tpu image voxels count|sum``, ``igneous-tpu image ccl``,
+``igneous-tpu mesh forge|merge`` and ``igneous-tpu skeleton forge|merge``
+(``igneous_tpu/cli.py``), with the same option names; an
 option the port does not have is refused by the parser, and the ones it
 does not run yet raise ``NotImplementedError`` before anything is written. Tasks run in a ``LocalTaskQueue`` on the
 port's device (cuda; ``IGNEOUS_TORCH_DEVICE=cpu`` asks for the CPU).
@@ -105,6 +106,10 @@ def build_parser() -> argparse.ArgumentParser:
   ds.add_argument("--shape", type=_tuple3, default=(256, 256, 64),
                   help="Cutout shape with --batched.")
   _add_xfer(image.add_parser("xfer", help="Transfer/rechunk/re-encode SRC into DEST."))
+  _add_infer(image.add_parser(
+    "infer", help="Run conv-net inference over SRC into DEST."))
+  _add_voxels(image.add_parser("voxels", help="Voxel statistics.").add_subparsers(
+    dest="voxels_command", required=True))
   _add_ccl(image.add_parser(
     "ccl", help="Whole-image connected components labeling (4-pass)."
   ).add_subparsers(dest="ccl_command", required=True))
@@ -190,6 +195,79 @@ def _run_xfer(args) -> int:
   return 0
 
 
+def _add_infer(cmd) -> None:
+  cmd.add_argument("src")
+  cmd.add_argument("dest")
+  cmd.add_argument("--model", dest="model_path", required=True,
+                   help="Cloudpath of a saved model (model.json + params.npz).")
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--shape", type=_tuple3, default=None,
+                   help="Task shape in voxels (snapped up to chunk multiples).")
+  cmd.add_argument("--halo", type=_tuple3, default=None,
+                   help="Context voxels per face [default: the model overlap].")
+  cmd.add_argument("--batch-size", type=int, default=4,
+                   help="Patches per device dispatch group.")
+  cmd.add_argument("--postprocess", default="none",
+                   choices=["none", "quantize", "argmax"],
+                   help="none: float32 channels; quantize: uint8 [0,1]*255; "
+                        "argmax: uint8 channel argmax (segmentation).")
+  cmd.add_argument("--fill-missing", action="store_true")
+  cmd.add_argument("--compress", default="gzip")
+  cmd.add_argument("--chunk-size", type=_tuple3, default=None,
+                   help="Destination chunk size [default: source's].")
+  _range_opts(cmd)
+  cmd.add_argument("--bounds-mip", type=int, default=None,
+                   help="Mip the ranges are specified in [default: --mip].")
+
+
+def _run_infer(args) -> int:
+  from .queues import LocalTaskQueue
+  from .task_creation import create_inference_tasks
+
+  bounds_mip = args.mip if args.bounds_mip is None else args.bounds_mip
+  tasks = create_inference_tasks(
+    args.src, args.dest, args.model_path, mip=args.mip, shape=args.shape,
+    halo=args.halo, bounds=_cli_bounds(args.src, bounds_mip, args),
+    bounds_mip=bounds_mip, fill_missing=args.fill_missing,
+    batch_size=args.batch_size, postprocess=args.postprocess,
+    compress=args.compress, chunk_size=args.chunk_size,
+  )
+  LocalTaskQueue(parallel=args.parallel).insert(tasks)
+  return 0
+
+
+def _add_voxels(voxels) -> None:
+  cmd = voxels.add_parser("count", help="Census phase; run `voxels sum` afterwards.")
+  cmd.add_argument("path")
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--shape", type=_tuple3, default=(512, 512, 512))
+  cmd.add_argument("--fill-missing", action="store_true")
+  cmd = voxels.add_parser("sum", help="Reduce census files into voxel_counts.im.")
+  cmd.add_argument("path")
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--compress", default="gzip",
+                   help="Compression for the stored voxel_counts.im.")
+  cmd.add_argument("-o", "--output", default=None,
+                   help="Also write the IntMap file locally at this path.")
+
+
+def _run_voxels(args) -> int:
+  from . import task_creation as tc
+  from .queues import LocalTaskQueue
+
+  if args.voxels_command == "count":
+    LocalTaskQueue(parallel=args.parallel).insert(tc.create_voxel_counting_tasks(
+      args.path, mip=args.mip, shape=args.shape, fill_missing=args.fill_missing,
+    ))
+    return 0
+  totals = tc.accumulate_voxel_counts(
+    args.path, args.mip, compress=_resolve_compress(args.compress, None) or None,
+    additional_output=args.output,
+  )
+  print(f"labels: {len(totals)}")
+  return 0
+
+
 def _id_list(text: str):
   """'5,6,7' -> [5, 6, 7]; blanks ignored; empty -> None."""
   try:
@@ -215,11 +293,14 @@ def _add_mesh(mesh) -> None:
   cmd.add_argument("--dust-threshold", "--dust", dest="dust_threshold", type=int,
                    default=None, help="Skip objects smaller than this many voxels.")
   cmd.add_argument("--dust-global", dest="dust_global", action="store_true",
-                   default=False, help="Not ported yet: raises.")
+                   default=False,
+                   help="Dust by the layer's voxel-count census (run `image "
+                        "voxels count` and `image voxels sum` first).")
   cmd.add_argument("--dust-local", dest="dust_global", action="store_false")
   cmd.add_argument("--fill-missing", action="store_true")
   cmd.add_argument("--fill-holes", type=int, default=0,
-                   help="Not ported yet: any value above 0 raises.")
+                   help="Fill cavities: 0 off, 1-2 enclosed cavities, 3 and "
+                        "up a morphological closing first.")
   cmd.add_argument("--compress", default="gzip", help="gzip or none.")
   cmd.add_argument("--sharded", action="store_true", help="Not ported yet: raises.")
   cmd.add_argument("--spatial-index", dest="spatial_index", action="store_true",
@@ -288,11 +369,14 @@ def _add_skeleton(skel) -> None:
                    help="Abort an object after tracing this many paths.")
   cmd.add_argument("--dust-threshold", type=int, default=1000)
   cmd.add_argument("--dust-global", dest="dust_global", action="store_true",
-                   default=False, help="Not ported yet: raises.")
+                   default=False,
+                   help="Dust by the layer's voxel-count census (run `image "
+                        "voxels count` and `image voxels sum` first).")
   cmd.add_argument("--dust-local", dest="dust_global", action="store_false")
   cmd.add_argument("--fill-missing", action="store_true")
   cmd.add_argument("--fill-holes", type=int, default=0,
-                   help="Not ported yet: any value above 0 raises.")
+                   help="Fill cavities: 0 off, 1-2 enclosed cavities, 3 and "
+                        "up a morphological closing first.")
   cmd.add_argument("--sharded", action="store_true", help="Not ported yet: raises.")
   cmd.add_argument("--skel-dir", default=None)
   cmd.add_argument("--spatial-index", dest="spatial_index", action="store_true",
@@ -486,6 +570,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     return _run_ccl(args)
   if args.command == "xfer":
     return _run_xfer(args)
+  if args.command == "infer":
+    return _run_infer(args)
+  if args.command == "voxels":
+    return _run_voxels(args)
   from .queues import LocalTaskQueue
   from .task_creation import create_downsampling_tasks
 

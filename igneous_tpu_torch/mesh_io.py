@@ -3,8 +3,9 @@
 The port's own copy of the parts of ``igneous_tpu/mesh_io.py`` that the
 legacy meshing path uses: ``Mesh`` with its Precomputed codec, and
 ``simplify`` with the native quadric edge collapse (``csrc/simplify.cpp``,
-built with g++ by ``ops/_build.py``). Draco and the ``.frags`` container
-are not ported yet. Unlike the JAX package, a simplifier library that does
+built with g++ by ``ops/_build.py``), and the ``FragMap`` container,
+trimmed to what the voxel-count census writes and reads. Draco and the
+sharded ``.frags`` output are not ported yet. Unlike the JAX package, a simplifier library that does
 not build raises instead of falling back to vertex clustering; clustering
 runs only when asked for (``placement="centroid"``) or where the JAX
 package's own algorithm takes it (a collapse that leaves no face).
@@ -269,3 +270,63 @@ def _cluster_collapse(
 
   faces = inverse[mesh.faces.astype(np.int64)].astype(np.uint32)
   return Mesh(centroids.astype(np.float32), drop_degenerate_faces(faces))
+
+
+# ---------------------------------------------------------------------------
+# FragMap: the uint64 -> bytes container of ``voxel_counts.im``
+
+
+class FragMap:
+  """Zero-parse random-access uint64 -> bytes container (the mapbuffer
+  equivalent; the JAX package's ``mesh_io.FragMap``, trimmed to
+  ``tobytes``, ``frombytes`` and ``get``). Layout (little endian):
+    magic b'IGFM' | uint32 version | uint64 N
+    uint64 keys[N] (sorted) | uint64 offsets[N+1] (into blob section)
+    blobs
+  Lookups binary-search the key table; nothing else is parsed.
+  """
+
+  MAGIC = b"IGFM"
+
+  def __init__(self, data: bytes):
+    if data[:4] != self.MAGIC:
+      raise ValueError("not a FragMap")
+    self._data = data
+    (self._n,) = struct.unpack_from("<Q", data, 8)
+    ko = 16
+    self._keys = np.frombuffer(data, dtype="<u8", count=self._n, offset=ko)
+    self._offsets = np.frombuffer(
+      data, dtype="<u8", count=self._n + 1, offset=ko + 8 * self._n
+    )
+    self._blob0 = ko + 8 * self._n + 8 * (self._n + 1)
+
+  @classmethod
+  def frombytes(cls, data: bytes) -> "FragMap":
+    return cls(data)
+
+  @classmethod
+  def tobytes(cls, mapping) -> bytes:
+    keys = sorted(mapping.keys())
+    blobs = [mapping[k] for k in keys]
+    offsets = np.zeros(len(keys) + 1, dtype="<u8")
+    np.cumsum([len(b) for b in blobs], out=offsets[1:])
+    return b"".join([
+      cls.MAGIC,
+      struct.pack("<I", 1),
+      struct.pack("<Q", len(keys)),
+      np.asarray(keys, dtype="<u8").tobytes(),
+      offsets.tobytes(),
+      *blobs,
+    ])
+
+  def __len__(self) -> int:
+    return int(self._n)
+
+  def get(self, key: int):
+    """The bytes stored under ``key``, or None."""
+    i = int(np.searchsorted(self._keys, np.uint64(key)))
+    if i >= self._n or self._keys[i] != np.uint64(key):
+      return None
+    a = self._blob0 + int(self._offsets[i])
+    b = self._blob0 + int(self._offsets[i + 1])
+    return self._data[a:b]

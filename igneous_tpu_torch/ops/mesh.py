@@ -736,3 +736,36 @@ def label_boxes(seg: torch.Tensor, flip_sign: bool):
   lo = lo.T.cpu().numpy().astype(np.int64)
   hi = hi.T.cpu().numpy().astype(np.int64) + 1
   return labels, counts.cpu().numpy(), dense, lo, hi
+
+
+def unique_on_device(img: np.ndarray, dev, return_inverse: bool = False,
+                     return_counts: bool = False):
+  """``np.unique`` of (x, y, z) integer labels, computed on ``dev``.
+
+  Returns a tuple: the unique labels (numpy, ``img``'s dtype, in numpy's
+  ascending order: uint64 ids at or above 2^63 last), then, as asked, the
+  inverse ((z, y, x) int64 on ``dev``: each voxel's index into the
+  labels) and the voxel counts (int64 numpy)."""
+  if img.dtype.kind not in "biu":
+    raise ValueError(f"labels must be integers, not {img.dtype}")
+  seg, flip = labels_on_device(img, (0, 0, 0), (0, 0, 0), dev)
+  key = torch.bitwise_xor(seg, _SIGN) if flip else seg
+  del seg
+  res = torch.unique(
+    key.reshape(-1), sorted=True, return_inverse=return_inverse,
+    return_counts=return_counts,
+  )
+  shape = key.shape
+  del key
+  res = res if isinstance(res, tuple) else (res,)
+  uniq = res[0]
+  if flip:
+    uniq = torch.bitwise_xor(uniq, _SIGN)
+  uniq = uniq.cpu().numpy()
+  out = [uniq.view(np.uint64) if flip else uniq.astype(img.dtype)]
+  rest = list(res[1:])
+  if return_inverse:
+    out.append(rest.pop(0).view(shape))
+  if return_counts:
+    out.append(rest.pop(0).cpu().numpy())
+  return tuple(out)

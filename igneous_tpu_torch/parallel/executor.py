@@ -70,10 +70,14 @@ class BatchKernelExecutor:
   once with :meth:`put_consts` so that its host-to-device copy is paid
   per model, not per call; numpy consts given straight to ``__call__``
   are copied at every call.
+
+  ``stage``: the telemetry stage that times the kernel (``infer`` for a
+  model's dispatches).
   """
 
-  def __init__(self, kernel: Callable):
+  def __init__(self, kernel: Callable, stage: str = "kernel"):
     self.kernel = kernel
+    self.stage = stage
     self.device = get_device()
     self._consts: Dict = {}
 
@@ -94,7 +98,7 @@ class BatchKernelExecutor:
       xs = _tree_map(lambda a: to_device(a, dev), batch)
       if consts is not None:
         consts = _tree_map(lambda a: to_device(a, dev), consts)
-    with telemetry.stage("kernel"):
+    with telemetry.stage(self.stage):
       out = self.kernel(xs) if consts is None else self.kernel(consts, xs)
       sync(dev)
     with telemetry.stage("d2h"):

@@ -1,9 +1,11 @@
-"""Image task factories: the downsample pyramid and the transfer.
+"""Image task factories: the downsample pyramid, the transfer and the
+voxel-count census.
 
-Counterpart of ``create_downsampling_tasks`` and ``create_transfer_tasks``
-in ``igneous_tpu/task_creation/image.py``: the same task shapes, scales,
-``info`` and provenance, and the same DownsampleTask and TransferTask
-payloads. Graphene sources (agglomerate / timestamp / stop_layer) and
+Counterpart of ``create_downsampling_tasks``, ``create_transfer_tasks``
+and ``create_voxel_counting_tasks`` in
+``igneous_tpu/task_creation/image.py``: the same task shapes, scales,
+``info`` and provenance, and the same DownsampleTask, TransferTask and
+CountVoxelsTask payloads. Graphene sources (agglomerate / timestamp / stop_layer) and
 sharded scales are refused before anything is written.
 """
 
@@ -24,6 +26,7 @@ from ..downsample_scales import (
 from ..lib import Bbox, Vec, jsonify
 from ..meta import PrecomputedMetadata
 from ..tasks.image import DownsampleTask, TransferTask
+from ..tasks.stats import CountVoxelsTask, refuse_unported as refuse_graphene_census
 from ..volume import Volume
 from .common import GridTaskIterator, get_bounds, operator_contact
 
@@ -403,3 +406,33 @@ def create_transfer_tasks(
       })
 
   return GridTaskIterator(task_bounds, shape, make_task, finish)
+
+
+def create_voxel_counting_tasks(
+  cloudpath: str,
+  mip: int = 0,
+  shape: Sequence[int] = (512, 512, 512),
+  bounds: Optional[Bbox] = None,
+  fill_missing: bool = False,
+  agglomerate: bool = False,
+  timestamp: Optional[float] = None,
+):
+  """Census phase of the voxel statistics; reduce with
+  ``tasks.stats.accumulate_voxel_counts``."""
+  refuse_graphene_census(agglomerate, timestamp)
+  vol = Volume(cloudpath, mip=mip)
+  task_bounds = get_bounds(vol, bounds, mip, mip)
+  shape = Vec(*shape)
+
+  def make_task(shape_: Vec, offset: Vec):
+    return CountVoxelsTask(
+      cloudpath=cloudpath,
+      shape=shape_.tolist(),
+      offset=offset.tolist(),
+      mip=mip,
+      fill_missing=fill_missing,
+      agglomerate=agglomerate,
+      timestamp=timestamp,
+    )
+
+  return GridTaskIterator(task_bounds, shape, make_task)

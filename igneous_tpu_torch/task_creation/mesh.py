@@ -3,8 +3,7 @@
 The port's own copy of ``create_meshing_tasks`` and
 ``create_mesh_manifest_tasks`` from ``igneous_tpu/task_creation/mesh.py``:
 the same task grid, payloads, mesh ``info`` and provenance. The options
-the port does not run yet (sharded output, dust_global, fill_holes,
-draco, graphene layers) raise ``NotImplementedError`` before anything is
+the port does not run yet (sharded output, draco, graphene layers) raise ``NotImplementedError`` before anything is
 written.
 """
 
@@ -44,7 +43,7 @@ def create_meshing_tasks(
 ):
   """Stage-1 mesh forge grid; writes the mesh ``info`` and points the
   layer's ``info`` at it."""
-  refuse_unported(layer_path, sharded, dust_global, fill_holes, encoding, compress)
+  refuse_unported(layer_path, sharded, encoding, compress)
   vol = Volume(layer_path, mip=mip)
   if vol.layer_type != "segmentation":
     raise ValueError("Meshing requires a segmentation layer")

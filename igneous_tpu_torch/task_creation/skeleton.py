@@ -5,8 +5,7 @@ The port's own copy of ``create_skeletonizing_tasks`` and
 ``igneous_tpu/task_creation/skeleton.py``: the same task grid, payloads,
 skeleton ``info`` (``vertex_attributes``, ``spatial_index``) and
 provenance. The options the port does not run yet (sharded output,
-dust_global, fill_holes, fix_autapses, cross-sectional area, graphene
-layers and root ids) raise ``NotImplementedError`` before anything is
+fix_autapses, cross-sectional area, graphene layers and root ids) raise ``NotImplementedError`` before anything is
 written.
 """
 
@@ -56,8 +55,7 @@ def create_skeletonizing_tasks(
   ``{label: [[x, y, z] physical points]}`` or
   ``[((x, y, z), label, swc_label), ...]``."""
   refuse_unported(
-    cloudpath, sharded, dust_global, fill_holes, fix_autapses,
-    cross_sectional_area, root_ids_cloudpath,
+    cloudpath, sharded, fix_autapses, cross_sectional_area, root_ids_cloudpath,
   )
   vol = Volume(cloudpath, mip=mip)
   if vol.layer_type != "segmentation":

@@ -15,12 +15,18 @@ bounding box, the masks, the count pass and the emission stay there
 (``ops.mesh``). Only triangles come back; the weld, simplification,
 encoding and upload run on the host.
 
-Not ported yet (refused before anything is written): sharded ``.frags``
-output, ``dust_global``, ``fill_holes``, draco and graphene layers.
+``fill_holes`` closes cavities before the boundary pad (``ops.morphology``:
+a host flood fill, with a dilation and an erosion on the device from
+level 3), and ``dust_global`` drops the labels whose count in the layer's
+voxel-count census (``tasks.stats``) is below ``dust_threshold`` in place
+of this cutout's counts.
 
-Stage timers (``telemetry``): download, remap (object-id options), h2d,
-labels (unique, renumber, boxes), count, emit, d2h, weld, simplify and
-upload.
+Not ported yet (refused before anything is written): sharded ``.frags``
+output, draco and graphene layers.
+
+Stage timers (``telemetry``): download, remap (object-id options),
+fill_holes (with dilate and erode from level 3), h2d, labels (unique,
+renumber, boxes), count, emit, d2h, weld, simplify and upload.
 """
 
 from __future__ import annotations
@@ -43,10 +49,12 @@ from ..ops.mesh import (
   marching_cubes_batch,
   marching_tetrahedra_batch,
 )
+from ..ops.morphology import fill_holes
 from ..queues.registry import RegisteredTask
 from ..spatial_index import SpatialIndex
 from ..storage import CloudFiles
 from ..volume import Volume
+from .stats import globally_small_labels
 
 
 def mesh_dir_for(vol: Volume, mesh_dir: Optional[str]) -> str:
@@ -58,8 +66,8 @@ def mesh_dir_for(vol: Volume, mesh_dir: Optional[str]) -> str:
 
 
 def refuse_unported(
-  layer_path: str = "", sharded: bool = False, dust_global: bool = False,
-  fill_holes: int = 0, encoding: str = "precomputed", compress="gzip",
+  layer_path: str = "", sharded: bool = False, encoding: str = "precomputed",
+  compress="gzip",
 ) -> None:
   """Raise NotImplementedError for the mesh options the port does not
   run yet; the factory and the task call it before anything is written."""
@@ -68,10 +76,6 @@ def refuse_unported(
     refused.append("graphene layers")
   if sharded:
     refused.append("sharded .frags output")
-  if dust_global:
-    refused.append("dust_global")
-  if fill_holes:
-    refused.append("fill_holes")
   if encoding == "draco":
     refused.append("draco encoding")
   if compress not in ("gzip", None, False, ""):
@@ -113,7 +117,7 @@ class MeshTask(RegisteredTask):
     parallel: int = 1,
     compress: str = "gzip",
   ):
-    refuse_unported(layer_path, sharded, dust_global, fill_holes, encoding, compress)
+    refuse_unported(layer_path, sharded, encoding, compress)
     self.shape = Vec(*shape)
     self.offset = Vec(*offset)
     self.layer_path = layer_path
@@ -122,6 +126,8 @@ class MeshTask(RegisteredTask):
     self.max_simplification_error = max_simplification_error
     self.mesh_dir = mesh_dir
     self.dust_threshold = dust_threshold
+    # dust by the layer's voxel-count census instead of this cutout's
+    self.dust_global = bool(dust_global)
     self.object_ids = list(object_ids) if object_ids else None
     self.exclude_object_ids = (
       list(exclude_object_ids) if exclude_object_ids else None
@@ -136,6 +142,8 @@ class MeshTask(RegisteredTask):
     self.encoding = encoding
     self.spatial_index = spatial_index
     self.closed_dataset_edges = closed_dataset_edges
+    # the hole-filling level of ops.morphology.fill_holes (0 off)
+    self.fill_holes = int(fill_holes)
     if mesher not in ("cubes", "tetrahedra"):
       raise ValueError(f"mesher must be 'cubes' or 'tetrahedra': {mesher!r}")
     self.mesher = mesher
@@ -168,10 +176,10 @@ class MeshTask(RegisteredTask):
     device. Returns a context dict (or None when there is nothing to
     mesh); its ``jobs`` are (label, (x, y, z) slices of the box grown by
     one voxel, dense id) in ascending label order."""
-    # the reference opens the layer with bounded=False; the port's Volume
-    # has no such option and needs none: the cutout below is intersected
-    # with the bounds before it is downloaded
-    vol = Volume(self.layer_path, mip=self.mip, fill_missing=self.fill_missing)
+    vol = Volume(
+      self.layer_path, mip=self.mip, fill_missing=self.fill_missing,
+      bounded=False,
+    )
     bounds = vol.meta.bounds(self.mip)
     core = Bbox.intersection(Bbox(self.offset, self.offset + self.shape), bounds)
     if core.empty():
@@ -195,6 +203,11 @@ class MeshTask(RegisteredTask):
       if self.exclude_object_ids:
         img = fastremap.mask(img, self.exclude_object_ids)
 
+    if self.fill_holes:
+      # close internal cavities so meshes have no interior shells; before
+      # the boundary pad, as in the JAX package
+      img = fill_holes(img, level=self.fill_holes)
+
     # zero-pad where the cutout touches the dataset boundary so surfaces
     # close instead of gaping; interior task edges stay open (the
     # neighbour task supplies the adjoining surface)
@@ -215,7 +228,13 @@ class MeshTask(RegisteredTask):
       del seg
     labels = labels.view(np.uint64) if flip else labels.astype(img.dtype)
     sel = labels != 0
-    if self.dust_threshold:
+    if self.dust_threshold and self.dust_global:
+      # global counts keep objects that straddle task borders
+      small = set(globally_small_labels(
+        self.layer_path, self.mip, labels[sel], self.dust_threshold,
+      ))
+      sel &= np.asarray([int(l) not in small for l in labels], dtype=bool)
+    elif self.dust_threshold:
       sel &= counts >= self.dust_threshold
     if not sel.any():
       self._upload({}, core, cutout, vol)

@@ -14,14 +14,20 @@ Where the JAX package runs the whole-cutout EDT and the renumbering on the
 host, the port runs them on the device (``ops.skeletonize``); tracing,
 encoding and upload stay on the host.
 
-Not ported yet (``NotImplementedError`` when the task is made, before any
-download): sharded ``.frags`` output and its merge, ``dust_global``,
-``fill_holes``, ``fix_autapses``, graphene layers and ``root_ids``, and
-``cross_sectional_area``.
+``dust_global`` masks the labels whose count in the layer's voxel-count
+census (``tasks.stats``) is below ``dust_threshold`` and turns the local
+dust off; ``fill_holes`` then closes cavities (``ops.morphology``), as in
+the JAX package.
 
-Stage timers (``telemetry``): download, pins (the border pins: their
-planes' connected components on the CPU, whose own stages ``ops.ccl``
-records too), h2d, edt, labels, d2h, trace, upload (encoding included).
+Not ported yet (``NotImplementedError`` when the task is made, before any
+download): sharded ``.frags`` output and its merge, ``fix_autapses``,
+graphene layers and ``root_ids``, and ``cross_sectional_area``.
+
+Stage timers (``telemetry``): download, dust_global (the device count
+and the host mask), fill_holes (with dilate and erode from level 3), pins
+(the border pins: their planes' connected components on the CPU, whose
+own stages ``ops.ccl`` records too), h2d, edt, labels, d2h, trace, upload
+(encoding included).
 """
 
 from __future__ import annotations
@@ -33,15 +39,19 @@ import numpy as np
 import torch
 
 from .. import telemetry
+from ..device import get_device
 from ..lib import Bbox, Vec
 from ..ops import remap as fastremap
 from ..ops.ccl import connected_components
+from ..ops.mesh import unique_on_device
+from ..ops.morphology import fill_holes
 from ..ops.skeletonize import TeasarParams, skeletonize
 from ..queues.registry import RegisteredTask
 from ..skeleton_io import Skeleton, postprocess
 from ..spatial_index import SpatialIndex
 from ..storage import CloudFiles
 from ..volume import Volume
+from .stats import globally_small_labels
 
 
 def skel_dir_for(vol: Volume, skel_dir: Optional[str]) -> str:
@@ -53,8 +63,7 @@ def skel_dir_for(vol: Volume, skel_dir: Optional[str]) -> str:
 
 
 def refuse_unported(
-  cloudpath: str = "", sharded: bool = False, dust_global: bool = False,
-  fill_holes: int = 0, fix_autapses: bool = False,
+  cloudpath: str = "", sharded: bool = False, fix_autapses: bool = False,
   cross_sectional_area: bool = False, root_ids_cloudpath: Optional[str] = None,
 ) -> None:
   """Raise NotImplementedError for the skeleton options the port does not
@@ -65,10 +74,6 @@ def refuse_unported(
     refused.append("graphene layers")
   if sharded:
     refused.append("sharded .frags output")
-  if dust_global:
-    refused.append("dust_global")
-  if fill_holes:
-    refused.append("fill_holes")
   if fix_autapses:
     refused.append("fix_autapses")
   if cross_sectional_area:
@@ -174,8 +179,7 @@ class SkeletonTask(RegisteredTask):
     root_ids_cloudpath: Optional[str] = None,
   ):
     refuse_unported(
-      cloudpath, sharded, dust_global, fill_holes, fix_autapses,
-      cross_sectional_area, root_ids_cloudpath,
+      cloudpath, sharded, fix_autapses, cross_sectional_area, root_ids_cloudpath,
     )
     self.cloudpath = cloudpath
     self.shape = Vec(*shape)
@@ -185,10 +189,13 @@ class SkeletonTask(RegisteredTask):
     self.object_ids = list(object_ids) if object_ids else None
     self.mask_ids = list(mask_ids) if mask_ids else None
     self.dust_threshold = int(dust_threshold)
+    self.dust_global = bool(dust_global)
     self.fill_missing = fill_missing
     self.skel_dir = skel_dir
     self.spatial_index = spatial_index
     self.fix_borders = fix_borders
+    # the hole-filling level of ops.morphology.fill_holes (0 off)
+    self.fill_holes = int(fill_holes)
     self.fix_branching = bool(fix_branching)
     self.fix_avocados = bool(fix_avocados)
     # {label: [[x,y,z(,swc_label)] global voxel coords]}: synapse/marker
@@ -205,8 +212,9 @@ class SkeletonTask(RegisteredTask):
     self.frag_path = frag_path
 
   def prepare_labels(self, vol: Volume):
-    """Download and the object-id masks: everything before the EDT.
-    Returns (labels, cutout, core, bounds) or None for an empty core."""
+    """Download, the object-id masks, the global dust and the hole fill:
+    everything before the EDT. Returns (labels, cutout, core, bounds) or
+    None for an empty core."""
     bounds = vol.meta.bounds(self.mip)
     core = Bbox.intersection(Bbox(self.offset, self.offset + self.shape), bounds)
     if core.empty():
@@ -219,7 +227,25 @@ class SkeletonTask(RegisteredTask):
       labels = fastremap.mask_except(labels, self.object_ids)
     if self.mask_ids:
       labels = fastremap.mask(labels, self.mask_ids)
+    if self.dust_global and self.dust_threshold:
+      with telemetry.stage("dust_global"):
+        labels = self._apply_global_dust(labels)
+    if self.fill_holes:
+      # cavities distort the EDT and spawn spurious loops
+      labels = fill_holes(labels, level=self.fill_holes)
     return labels, cutout, core, bounds
+
+  def _apply_global_dust(self, labels: np.ndarray) -> np.ndarray:
+    uniq = unique_on_device(labels, get_device())[0]
+    small = globally_small_labels(
+      self.cloudpath, self.mip, uniq, self.dust_threshold
+    )
+    return fastremap.mask(labels, small) if small else labels
+
+  @property
+  def local_dust(self) -> int:
+    """The per-cutout dust threshold: off when the global census dusts."""
+    return 0 if self.dust_global and self.dust_threshold else self.dust_threshold
 
   def targets(self, labels, cutout: Bbox, core: Bbox, bounds: Bbox):
     """The vertices each label must keep, cutout-local: the border pins
@@ -257,10 +283,10 @@ class SkeletonTask(RegisteredTask):
     (``parallel.batch_runner.batched_skeleton_forge``), which downloads
     ahead and runs the EDT of several tasks at once; the fragments are
     the same."""
-    # the reference opens the layer with bounded=False; the port's Volume
-    # has no such option and needs none: the cutout is intersected with
-    # the bounds before it is downloaded
-    vol = Volume(self.cloudpath, mip=self.mip, fill_missing=self.fill_missing)
+    vol = Volume(
+      self.cloudpath, mip=self.mip, fill_missing=self.fill_missing,
+      bounded=False,
+    )
     prepared = _prepared if _prepared is not None else self.prepare_labels(vol)
     if prepared is None:
       return
@@ -272,7 +298,7 @@ class SkeletonTask(RegisteredTask):
       anisotropy=tuple(float(v) for v in vol.resolution),
       params=TeasarParams.from_dict(self.teasar_params),
       offset=tuple(float(v) for v in cutout.minpt),
-      dust_threshold=self.dust_threshold,
+      dust_threshold=self.local_dust,
       extra_targets_per_label=targets,
       parallel=self.parallel,
       edt_field=_edt_field,

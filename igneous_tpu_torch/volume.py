@@ -1,9 +1,11 @@
 """Chunked Precomputed volume IO: the port's host data plane.
 
 The port's own copy of the parts of ``igneous_tpu/volume.py`` that the
-downsample, transfer, connected-components, meshing and skeleton paths
-use: ``from_numpy``, ``download`` and ``upload`` of bbox cutouts at a mip
-in any of the ported encodings (``codecs.py``), and the info accessors.
+downsample, transfer, connected-components, meshing, skeleton, census
+and inference paths use: ``from_numpy``, ``download`` (``bounded=False``
+reads of boxes that reach past the bounds, background outside) and
+``upload`` of bbox cutouts at a mip in any of the ported encodings
+(``codecs.py``), and the info accessors.
 Pure host numpy: the device work happens in
 ``igneous_tpu_torch.ops`` on arrays produced here. Chunk reads go
 through the process-wide decode cache (``chunk_cache.py``), and uploads
@@ -59,6 +61,7 @@ class Volume:
     cloudpath: str,
     mip: int = 0,
     fill_missing: bool = False,
+    bounded: bool = True,
     delete_black_uploads: bool = False,
     background_color: int = 0,
     info: Optional[dict] = None,
@@ -68,6 +71,8 @@ class Volume:
     self.cloudpath = self.meta.cloudpath
     self.cf = self.meta.cf
     self.mip = mip
+    # False: downloads may reach past the bounds and read background there
+    self.bounded = bounded
     self.fill_missing = fill_missing
     self.delete_black_uploads = delete_black_uploads
     self.background_color = background_color
@@ -198,15 +203,27 @@ class Volume:
 
   def download(self, bbox: Bbox, mip: Optional[int] = None) -> np.ndarray:
     """The (x, y, z, c) cutout of ``bbox`` at ``mip``, Fortran-ordered: its
-    (c, z, y, x) transpose is C-contiguous, the device layout."""
+    (c, z, y, x) transpose is C-contiguous, the device layout. A bounded
+    volume raises for a box past its bounds; an unbounded one fills the
+    voxels outside them with ``background_color``."""
     mip = self.mip if mip is None else mip
     bbox = Bbox(bbox.minpt, bbox.maxpt)
     bounds = self.meta.bounds(mip)
-    if not bounds.contains_bbox(bbox):
-      raise OutOfBoundsError(f"{bbox} is not contained in {bounds}")
+    if self.bounded:
+      if not bounds.contains_bbox(bbox):
+        raise OutOfBoundsError(f"{bbox} is not contained in {bounds}")
+      inner = bbox
+    else:
+      inner = Bbox.intersection(bbox, bounds)
 
     out_shape = tuple(int(v) for v in bbox.size3()) + (self.num_channels,)
-    out = np.empty(out_shape, dtype=self.dtype, order="F")
+    if inner == bbox:
+      # the chunks cover every voxel: no background to write first
+      out = np.empty(out_shape, dtype=self.dtype, order="F")
+    else:
+      out = np.full(out_shape, self.background_color, dtype=self.dtype, order="F")
+    if inner.empty():
+      return out
 
     def place(c):
       img = self._decode(self.cf.get_stored(self.meta.chunk_name(mip, c)), c, mip)
@@ -221,7 +238,7 @@ class Volume:
       )
       out[dst] = img[src]  # disjoint regions: threads never overlap
 
-    _io_map(place, self._chunks(bbox, mip), self.parallel)
+    _io_map(place, self._chunks(inner, mip), self.parallel)
     return out
 
   # -- upload ---------------------------------------------------------------

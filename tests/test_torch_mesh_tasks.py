@@ -5,8 +5,10 @@ LocalTaskQueue -> MeshTask, then create_mesh_manifest_tasks ->
 MeshManifestPrefixTask: every file under the mesh directory (the mesh
 info, the gzip fragments, the .spatial files, the <label>:0 manifests) and
 the layer's info must be byte-identical. Also: payloads the JAX package
-serialized run in the port, the command lines agree, and the options the
-port does not run yet raise before anything is written.
+serialized run in the port, the command lines agree, ``fill_holes`` and
+``dust_global`` (after a voxel-count census) write the same fragments,
+and the options the port does not run yet raise before anything is
+written.
 """
 
 import pathlib
@@ -175,10 +177,117 @@ def test_cli_forge_and_merge_match_reference(tmp_path):
   assert _mesh_files(paths["port"]) == _mesh_files(paths["jax"])
 
 
+def hollow(dtype=np.uint64, seed=0) -> np.ndarray:
+  """``voronoi(dtype, seed)`` with a background ball (radius 2) at every
+  seed that lies inside its own cell, an enclosed cavity; every third
+  ball joined to the membrane along +x by a one-voxel channel, which
+  level 1 leaves open and level 3 closes. Plus specks with ids of their
+  own across the task boundary x = 32: each of the 45-voxel ones (18
+  voxels left of it, 27 right) reaches 40 only in the whole layer; the
+  27-voxel ones stay below it."""
+  out = voronoi(dtype, seed)
+  seeds = np.random.default_rng(seed).integers(0, SHAPE, (len(IDS), 3))
+  grid = np.stack(np.meshgrid(*[np.arange(s) for s in SHAPE], indexing="ij"), -1)
+  for i, c in enumerate(seeds):
+    ball = ((grid - c) ** 2).sum(-1) <= 4
+    label = out[tuple(c)]
+    if not label or not (out[ball] == label).all() or (c < 3).any() or (c >= np.asarray(SHAPE) - 3).any():
+      continue
+    out[ball] = 0
+    if i % 3 == 0:
+      x = c[0]
+      while x < SHAPE[0] and out[x, c[1], c[2]] in (0, label):
+        if out[x, c[1], c[2]] == 0 and x > c[0] + 2:
+          break
+        out[x, c[1], c[2]] = 0
+        x += 1
+  specks = [((30, 35), (4, 7), (4, 7), 2**63 + 99), ((30, 35), (30, 33), (16, 19), 555),
+            ((31, 34), (16, 19), (10, 13), 2**62 + 3), ((10, 13), (20, 23), (18, 21), 777)]
+  for (x0, x1), (y0, y1), (z0, z1), label in specks:
+    out[x0:x1, y0:y1, z0:z1] = label if dtype == np.uint64 else label % 2**32
+  return np.asfortranarray(out)
+
+
+def _census(jax_path: str, port_path: str, cli: bool = False) -> None:
+  """The voxel-count census of both layers, each by its own package."""
+  if cli:
+    runner = CliRunner()
+    for args in (["count", jax_path, "--shape", "32,32,32"], ["sum", jax_path]):
+      res = runner.invoke(jax_cli, ["image", "voxels", *args])
+      assert res.exit_code == 0, res.output
+    assert cli_main(["image", "voxels", "count", port_path, "--shape", "32,32,32"]) == 0
+    assert cli_main(["image", "voxels", "sum", port_path]) == 0
+    return
+  JaxQueue(parallel=1, progress=False).insert(
+    jax_tc.create_voxel_counting_tasks(jax_path, shape=TASK))
+  jax_tc.accumulate_voxel_counts(jax_path)
+  LocalTaskQueue().insert(tc.create_voxel_counting_tasks(port_path, shape=TASK))
+  tc.accumulate_voxel_counts(port_path)
+
+
+MORPH_CASES = {
+  "fill_holes_1": dict(fill_holes=1),
+  "fill_holes_3": dict(fill_holes=3),
+  "dust_global": dict(dust_global=True, dust_threshold=40),
+  "dust_global_fill_holes_3_uint32": dict(dust_global=True, dust_threshold=40, fill_holes=3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MORPH_CASES))
+def test_fill_holes_and_dust_global_match_reference(case, tmp_path):
+  kw = MORPH_CASES[case]
+  dtype = np.uint32 if case.endswith("uint32") else np.uint64
+  paths = _layers(tmp_path, hollow(dtype))
+  jax_path, port_path = (f"file://{paths[w]}" for w in ("jax", "port"))
+  if kw.get("dust_global"):
+    _census(jax_path, port_path)
+  JaxQueue(parallel=1, progress=False).insert(
+    jax_tc.create_meshing_tasks(jax_path, shape=TASK, **kw))
+  JaxQueue(parallel=1, progress=False).insert(jax_tc.create_mesh_manifest_tasks(jax_path))
+  LocalTaskQueue().insert(tc.create_meshing_tasks(port_path, shape=TASK, **kw))
+  LocalTaskQueue().insert(tc.create_mesh_manifest_tasks(port_path))
+  ref, got = _mesh_files(paths["jax"]), _mesh_files(paths["port"])
+  assert len(got) > 4
+  assert sorted(got) == sorted(ref)
+  assert [k for k in ref if got[k] != ref[k]] == []
+  if kw.get("dust_global"):
+    # the 45-voxel specks across x = 32 are meshed, the 27-voxel one not
+    meshed = {k.split("/")[-1].split(":")[0] for k in got if k.count(":") == 2}
+    assert {str(2**63 + 99 if dtype == np.uint64 else (2**63 + 99) % 2**32),
+            "555"} <= meshed
+    assert "777" not in meshed
+
+
+@pytest.mark.parametrize("case", ["fill_holes_1", "fill_holes_3_dust_global"])
+def test_cli_fill_holes_and_dust_global_match_reference(case, tmp_path):
+  paths = _layers(tmp_path, hollow(seed=1))
+  jax_path, port_path = (f"file://{paths[w]}" for w in ("jax", "port"))
+  args = ["--shape", "32,32,32", "--simplify-factor", "20"]
+  if case == "fill_holes_1":
+    args += ["--fill-holes", "1"]
+  else:
+    _census(jax_path, port_path, cli=True)
+    args += ["--fill-holes", "3", "--dust", "40", "--dust-global"]
+  runner = CliRunner()
+  res = runner.invoke(jax_cli, ["mesh", "forge", jax_path, *args])
+  assert res.exit_code == 0, res.output
+  assert cli_main(["mesh", "forge", port_path, *args]) == 0
+  ref, got = _mesh_files(paths["jax"]), _mesh_files(paths["port"])
+  assert len(got) > 4 and got == ref
+
+
+def test_dust_global_without_a_census_raises_as_the_reference(tmp_path):
+  paths = _layers(tmp_path, hollow())
+  kw = dict(shape=TASK, dust_global=True, dust_threshold=40)
+  with pytest.raises(ValueError, match="voxel-count census"):
+    JaxQueue(parallel=1, progress=False).insert(
+      jax_tc.create_meshing_tasks(f"file://{paths['jax']}", **kw))
+  with pytest.raises(ValueError, match="voxel-count census"):
+    LocalTaskQueue().insert(tc.create_meshing_tasks(f"file://{paths['port']}", **kw))
+
+
 REFUSED = {
   "sharded": dict(sharded=True),
-  "dust_global": dict(dust_global=True, dust_threshold=10),
-  "fill_holes": dict(fill_holes=1),
   "draco": dict(encoding="draco"),
 }
 
@@ -195,8 +304,7 @@ def test_unported_options_raise_before_writing(option, tmp_path):
     tc.create_meshing_tasks(layer, shape=TASK, **kw)
   with pytest.raises(NotImplementedError):
     MeshTask(shape=TASK, offset=(0, 0, 0), layer_path=layer, **kw)
-  cli = {"sharded": ["--sharded"], "dust_global": ["--dust-global"],
-         "fill_holes": ["--fill-holes", "1"]}.get(option)
+  cli = {"sharded": ["--sharded"]}.get(option)
   if cli or option == "graphene":
     with pytest.raises(NotImplementedError):
       cli_main(["mesh", "forge", layer, *(cli or [])])

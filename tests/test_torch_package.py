@@ -56,6 +56,9 @@ import igneous_tpu_torch.cseg, igneous_tpu_torch.compresso, igneous_tpu_torch.co
 import igneous_tpu_torch.parallel, igneous_tpu_torch.parallel.executor
 import igneous_tpu_torch.parallel.paged, igneous_tpu_torch.parallel.batch_runner
 import igneous_tpu_torch.pipeline, igneous_tpu_torch.pipeline.encoder, igneous_tpu_torch.entry
+import igneous_tpu_torch.ops.morphology, igneous_tpu_torch.tasks.stats
+import igneous_tpu_torch.infer, igneous_tpu_torch.infer.registry, igneous_tpu_torch.infer.engine
+import igneous_tpu_torch.tasks.inference, igneous_tpu_torch.task_creation.inference
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'igneous_tpu')]
 assert not bad, bad
 from igneous_tpu_torch.ops import _build

@@ -7,8 +7,10 @@ every file under the skeleton directory (the skeleton info, the gzip
 ``.sk`` fragments, the ``.spatial`` files, the merged skeletons) and the
 layer's info must be byte-identical. Also: payloads the JAX package
 serialized run in the port, the border pins follow the JAX package's
-plane numbering, the command lines agree, and the options the port does
-not run yet raise before anything is read or written.
+plane numbering, the command lines agree, ``fill_holes`` and
+``dust_global`` (after a voxel-count census) write the same fragments,
+and the options the port does not run yet raise before anything is read
+or written.
 """
 
 import pathlib
@@ -232,10 +234,85 @@ def test_cli_forge_and_merge_match_reference(tmp_path):
   assert _skel_files(paths["port"]) == _skel_files(paths["jax"])
 
 
+def hollow_tubes(seed=0, dtype=np.uint64) -> np.ndarray:
+  """``tubes(seed=seed)`` with holes: one interior voxel in 40 (all six
+  neighbours of its label) turned to background, enclosed cavities that
+  level 1 fills; every fifth of them opened by one more voxel toward +z,
+  and two 27-voxel specks with ids of their own, which the global dust
+  drops."""
+  out = tubes(seed=seed, dtype=dtype)
+  rng = np.random.default_rng(seed + 100)
+  inner = out[1:-1, 1:-1, 1:-1] != 0
+  for axis in range(3):
+    for d in (-1, 1):
+      inner &= np.roll(out, d, axis)[1:-1, 1:-1, 1:-1] == out[1:-1, 1:-1, 1:-1]
+  picks = np.argwhere(inner)
+  picks = picks[rng.random(len(picks)) < 1 / 40] + 1
+  for i, (x, y, z) in enumerate(picks):
+    out[x, y, z] = 0
+    if i % 5 == 0:
+      out[x, y, z + 1] = 0
+  out[4:7, 40:43, 2:5] = 31337
+  out[50:53, 2:5, 18:21] = 2**63 + 12345 if dtype == np.uint64 else 12345
+  return np.asfortranarray(out)
+
+
+def _census(jax_path: str, port_path: str, shape) -> None:
+  """The voxel-count census of both layers, each by its own package."""
+  JaxQueue(parallel=1, progress=False).insert(
+    jax_tc.create_voxel_counting_tasks(jax_path, shape=shape))
+  jax_tc.accumulate_voxel_counts(jax_path)
+  LocalTaskQueue().insert(tc.create_voxel_counting_tasks(port_path, shape=shape))
+  tc.accumulate_voxel_counts(port_path)
+
+
+MORPH_CASES = {
+  "fill_holes_1": dict(fill_holes=1),
+  "fill_holes_3": dict(fill_holes=3),
+  "dust_global": dict(dust_global=True),
+  "dust_global_fill_holes_3_uint32": dict(dust_global=True, fill_holes=3, dtype=np.uint32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MORPH_CASES))
+def test_fill_holes_and_dust_global_match_reference(case, tmp_path):
+  kw = dict(MORPH_CASES[case])
+  paths = _layers(tmp_path, hollow_tubes(dtype=kw.pop("dtype", np.uint64)))
+  if kw.get("dust_global"):
+    _census(f"file://{paths['jax']}", f"file://{paths['port']}", (32, 24, 24))
+  forge = {**FORGE, **kw}
+  JaxQueue(parallel=1, progress=False).insert(jax_tc.create_skeletonizing_tasks(
+    f"file://{paths['jax']}", shape=(32, 24, 24), **forge))
+  LocalTaskQueue().insert(tc.create_skeletonizing_tasks(
+    f"file://{paths['port']}", shape=(32, 24, 24), **forge))
+  ref, got = _skel_files(paths["jax"]), _skel_files(paths["port"])
+  assert sum(k.endswith(".gz") and ":" in k for k in got) > 5
+  assert sorted(got) == sorted(ref)
+  assert [k for k in ref if got[k] != ref[k]] == []
+  if kw.get("dust_global"):
+    assert not any(k.split("/")[-1].startswith("31337:") for k in got)
+
+
+def test_cli_fill_holes_and_dust_global_match_reference(tmp_path):
+  paths = _layers(tmp_path, hollow_tubes(seed=1))
+  jax_path, port_path = (f"file://{paths[w]}" for w in ("jax", "port"))
+  runner = CliRunner()
+  for args in (["count", jax_path, "--shape", "32,24,24"], ["sum", jax_path]):
+    res = runner.invoke(jax_cli, ["image", "voxels", *args])
+    assert res.exit_code == 0, res.output
+  assert cli_main(["image", "voxels", "count", port_path, "--shape", "32,24,24"]) == 0
+  assert cli_main(["image", "voxels", "sum", port_path]) == 0
+  args = ["--shape", "32,24,24", "--dust-threshold", "40", "--const", "80",
+          "--dust-global", "--fill-holes", "3"]
+  res = runner.invoke(jax_cli, ["skeleton", "forge", jax_path, *args])
+  assert res.exit_code == 0, res.output
+  assert cli_main(["skeleton", "forge", port_path, *args]) == 0
+  got = _skel_files(paths["port"])
+  assert sum(":" in k for k in got) > 5 and got == _skel_files(paths["jax"])
+
+
 REFUSED = {
   "sharded": (dict(sharded=True), ["--sharded"]),
-  "dust_global": (dict(dust_global=True), ["--dust-global"]),
-  "fill_holes": (dict(fill_holes=1), ["--fill-holes", "1"]),
   "fix_autapses": (dict(fix_autapses=True), ["--fix-autapses"]),
   "cross_sectional_area": (dict(cross_sectional_area=True), ["--cross-section", "2"]),
   "root_ids": (dict(root_ids_cloudpath="file:///nowhere"), ["--root-ids", "file:///nowhere"]),
