@@ -33,7 +33,7 @@ Phases, each reported on its own line:
      produced mip read back and compared with the plain pyramid computed
      on the card; the kernels' launch counts are set to 0 just before and
      read just after, and each kernel must have launched;
-  3a. codecs (host): 64 chunks of the segmentation layer's mip 0 and all 4
+  3a. codecs (host): 32 chunks of the segmentation layer's mip 0 and all 4
      of its mip 3, chosen from seed 1, through the compressed_segmentation
      codec's native, numpy and per-block loop routes (one stream, each
      decoder gives the chunk back) and through compresso (round trip
@@ -84,19 +84,19 @@ Phases, each reported on its own line:
      launched; the decode route (IGNEOUS_TRANSFER_PASSTHROUGH=off, and for
      the cseg layer once more with IGNEOUS_CHUNK_CACHE=off) writes the
      same bytes; every wall printed;
-  4. e2e ccl: two file:// layers (an 896x896x224 thresholded smooth image
+  4. e2e ccl: two file:// layers (an 896x448x224 thresholded smooth image
      and an 896x448x224 uint64 segmentation of 750 balls, both at half
-     the task's depth) through ccl_auto (the four passes on a
+     the task's depth, two tasks each) through ccl_auto (the four passes on a
      LocalTaskQueue, task shape 448^3, raw destination), with the wall time
      of every pass and the stage split of its tasks; the launch counts are
      set to 0 just before each layer and read just after, tile_resolve must
      have launched at least once per task in each recomputing pass, and
      the destination must be the same partition as scipy.ndimage.label's
      (6-connected, per label), with max_label its component count;
-  5. e2e mesh: a 896x448x224 uint64 Voronoi segmentation (500 seeds, ids
+  5. e2e mesh: a 896x448x112 uint64 Voronoi segmentation (250 seeds, ids
      above 2^32 and 2^63, membrane gaps) through create_meshing_tasks ->
      LocalTaskQueue -> MeshTask (two tasks of the default 448^3 shape, at
-     half its depth: 448x448x224; simplification 100 with
+     a quarter of its depth: 448x448x112; simplification 100 with
      error 40, spatial index, gzip; 8 simplification threads) and
      create_mesh_manifest_tasks; each task's wall, stage split and
      label and face counts, the merge's wall; every fragment listed in
@@ -153,6 +153,27 @@ Phases, each reported on its own line:
      and dispatches; X7 (one dispatch of the model, cuDNN with TF32 off)
      against its bound and cuDNN's batched call; the card's busy share
      over one task from a profiler trace; no hand kernel launched;
+  10. the device plane (igneous_tpu_torch.observability.device,
+     compile_cache, tune): the cost of one span on the card (1000 empty
+     spans) before the e2e phases; the device ledger reset before each
+     pipelined stream of phase 3d, each inference campaign of phase 9,
+     each mesh and skeleton task of phases 5 and 6, and printed after it
+     (the card's busy share, dispatches, h2d and d2h bytes, pad waste,
+     peak memory, the spans' host cost as a share of the wall, each
+     name's executes and span seconds; the hand kernels' executes equal
+     their launches); on phase 9's traced task and on phase 4's first
+     pass-1 task run again under a profiler trace, the ledger against the
+     trace: each hand kernel's span seconds within 10% (or 20 us a
+     launch) of its traced kernel time, its executes its launches, the
+     busy seconds between the trace's kernel and copy time and the wall;
+     then (after phase 8) the library store: every library of the run
+     put into a file:// store, a worker process with an empty build
+     directory and no compiler loads every one from it and holds each
+     hand kernel bit for bit against its plain version, fetch seconds
+     beside build seconds, and a bit-flipped entry quarantined, rebuilt
+     and put back; and the tuner, tune.run(size=64, budget_sec=60): each
+     candidate's time, all byte for byte the default's, the tuned file
+     of the card's kind written and read back by resolve;
   7. the card's name and power limit, the programs line (X1-X3, X5-X7),
      the kernels line (each kernel's launches on the main paths, the
      transfer, the batched phase and the pipelined streams), and the
@@ -519,7 +540,7 @@ def e2e_phase(root, cp, torch, dev):
 # ---------------------------------------------------------------------------
 # chunk codecs and the transfer (host codecs, the pyramid on the card)
 
-CODEC_SAMPLE = 64  # chunks of each mip, chosen from seed 1 (all, where fewer)
+CODEC_SAMPLE = 32  # chunks of each mip, chosen from seed 1 (all, where fewer)
 CODEC_MIPS = (0, 3)
 XFER_CHUNK = (64, 64, 64)
 XFER_MIPS = 4
@@ -830,9 +851,10 @@ def blobs(shape, n_labels: int, n_blobs: int, rng, torch, dev) -> np.ndarray:
 CCL_LAYERS = [
   # name, shape (x, y, z), dtype, ccl_auto options; both layers run at half
   # the depth of the default 448^3 task (the mask layer since the mesh
-  # phase, the segmentation since phases 8 and 9) so that the whole
+  # phase, the segmentation since phases 8 and 9), and the mask layer at
+  # half its width since the device plane's phase 10, so that the whole
   # script stays inside its time limit
-  ("ccl_mask", (896, 896, 224), "uint8", {"threshold_gte": 128}),
+  ("ccl_mask", (896, 448, 224), "uint8", {"threshold_gte": 128}),
   ("ccl_segmentation", (896, 448, 224), "uint64", {}),
 ]
 CCL_BLOBS = 750  # balls of the segmentation layer (1500 at its full depth)
@@ -965,16 +987,43 @@ def ccl_e2e_phase(root, cc, cp, torch, dev):
            f"(max_label {max_label}, oracle {n}, same partition {ok})")
     del data, exp, out
     torch.cuda.empty_cache()
+    if name == CCL_LAYERS[0][0]:
+      ccl_traced_task(src, kw, cc, cp, torch, dev)
   return launches
+
+
+def ccl_traced_task(src: str, kw: dict, cc, cp, torch, dev) -> None:
+  """The first pass-1 task of a CCL layer once more, under a profiler
+  trace: the device ledger against the trace. Runs after the layer's
+  launches were read; the next layer sets them to 0."""
+  from igneous_tpu_torch.queues import LocalTaskQueue
+  from igneous_tpu_torch.task_creation.ccl import create_ccl_face_tasks
+  from torch.profiler import ProfilerActivity, profile
+
+  task = next(iter(create_ccl_face_tasks(src, shape=CCL_TASK_SHAPE, **kw)))
+  for counts in (cc.LAUNCHES, cp.LAUNCHES):
+    for key in counts:
+      counts[key] = 0
+  ledger_reset(torch, dev)
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    LocalTaskQueue(parallel=1).insert([task])
+    wall = time.perf_counter() - t0
+  launched = launch_counts(cc, cp)
+  if launched["tile_resolve"] != 1:
+    fail(f"ccl traced task: tile_resolve launched {launched['tile_resolve']} times, not once")
+  snap = ledger_line("ccl traced task", wall, launched)
+  ledger_against_profiler("ccl traced task", snap, prof, wall, launched)
 
 
 # ---------------------------------------------------------------------------
 # meshing
 
-# (x, y, z): two tasks of the default 448^3 shape, at half its depth so that
-# the whole script, skeleton phase included, stays near 700 s
-MESH_SHAPE = (896, 448, 224)
-MESH_SEEDS = 500
+# (x, y, z): two tasks of the default 448^3 shape, at a quarter of its
+# depth (half since the skeleton phase, a quarter since the device plane's
+# phase 10) so that the whole script stays inside its time limit
+MESH_SHAPE = (896, 448, 112)
+MESH_SEEDS = 250
 MESH_SAMPLE = 64  # labels of the first task held card against CPU, + its largest
 # threads for the per-label simplification inside each task (the forge's
 # --simplify-parallel; its output does not depend on it): at the default 1
@@ -1222,7 +1271,7 @@ def mesh_e2e_phase(root, torch, dev, shape=MESH_SHAPE, n_seeds=MESH_SEEDS,
   passes = 0
   for i, task in enumerate(tasks):
     telemetry.reset()
-    torch.cuda.reset_peak_memory_stats(dev)
+    ledger_reset(torch, dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
       t0 = time.perf_counter()
       queue.insert([task])
@@ -1230,6 +1279,7 @@ def mesh_e2e_phase(root, torch, dev, shape=MESH_SHAPE, n_seeds=MESH_SEEDS,
     busy = traced_device_us(prof) / 1e6
     if not busy > 0:
       fail(f"mesh task {i}: the trace shows no work on the card")
+    ledger_line(f"mesh task {i} (traced busy {busy:.4f} s)", wall)
     snap = telemetry.snapshot()
     counts = telemetry.counters()
     passes += snap["count"]["count"]
@@ -1717,7 +1767,7 @@ def skeleton_e2e_phase(root, ce, edt_ops, torch, dev):
   for i, task in enumerate(tasks):
     telemetry.reset()
     before = ce.LAUNCHES["edt_pass"]
-    torch.cuda.reset_peak_memory_stats(dev)
+    ledger_reset(torch, dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
       t0 = time.perf_counter()
       queue.insert([task])
@@ -1726,6 +1776,7 @@ def skeleton_e2e_phase(root, ce, edt_ops, torch, dev):
     if not busy > 0:
       fail(f"skeleton task {i}: the trace shows no work on the card")
     launched = ce.LAUNCHES["edt_pass"] - before
+    ledger_line(f"skeleton task {i} (traced busy {busy:.4f} s)", wall, {"edt_pass": launched})
     snap = telemetry.snapshot()
     counts = telemetry.counters()
     print(f"e2e skeleton task {i}: wall {wall:.3f} s, {SKEL_TRACE_THREADS} tracing "
@@ -2043,6 +2094,7 @@ def inference_phase(root, cp, cc, ce, torch, dev):
     torch.cuda.reset_peak_memory_stats(dev)
     os.environ.update(dict(env))
     queue = LocalTaskQueue(parallel=1)
+    ledger_reset(torch, dev)
     t0 = time.perf_counter()
     try:
       queue.insert(tasks)
@@ -2050,6 +2102,7 @@ def inference_phase(root, cp, cc, ce, torch, dev):
       for k, _ in env:
         os.environ.pop(k, None)
     wall = time.perf_counter() - t0
+    ledger_line(f"infer {name}", wall, launch_counts(cp, cc, ce))
     counters = telemetry.counters()
     dispatches = -(-INFER_PATCHES // batch_size)
     want = {"infer.patches": INFER_TASKS * INFER_PATCHES,
@@ -2169,10 +2222,16 @@ def inference_phase(root, cp, cc, ce, torch, dev):
   one = list(create_inference_tasks(src, f"file://{root}/infer_traced", model_path,
                                     bounds=Bbox((0, 0, 0), (256, 256, 64))))
   telemetry.reset()
+  for counts in (cp.LAUNCHES, cc.LAUNCHES, ce.LAUNCHES):
+    for key in counts:
+      counts[key] = 0
+  ledger_reset(torch, dev)
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
     LocalTaskQueue(parallel=1).insert(one)
     wall = time.perf_counter() - t0
+  snap = ledger_line("infer traced task", wall, launch_counts(cp, cc, ce))
+  ledger_against_profiler("infer traced task", snap, prof, wall, launch_counts(cp, cc, ce))
   busy = traced_device_us(prof) / 1e6
   if not busy > 0:
     fail("infer: the trace shows no work on the card")
@@ -2394,6 +2453,7 @@ def pipelined_phase(root, cp, cc, ce, torch, dev):
       for key in cp.LAUNCHES:
         cp.LAUNCHES[key] = 0
       queue = LocalTaskQueue(parallel=1)
+      ledger_reset(torch, dev)
       t0 = time.perf_counter()
       try:
         queue.insert(tasks)
@@ -2401,6 +2461,7 @@ def pipelined_phase(root, cp, cc, ce, torch, dev):
         os.environ.pop("IGNEOUS_PIPELINE", None)
       wall = time.perf_counter() - t0
       launched = dict(cp.LAUNCHES)
+      ledger_line(f"pipelined {name} {mode}", wall, launched)
       walls[(name, mode)] = wall
       print(f"pipelined {name} {mode}: {ntasks} tasks of {shape[0]}x{shape[1]}x{shape[2]}, "
             f"{mips} mips, wall {wall:.3f} s, stats {json.dumps(queue.pipeline_stats)}, "
@@ -2686,6 +2747,321 @@ def load_copy(alias: str, path: str):
                for m in ("_build", "cuda_ccl", "cuda_pooling", "cuda_edt"))
 
 
+# ---------------------------------------------------------------------------
+# the device plane (phase 10): the ledger beside the runs above, the library
+# store, the tuner
+
+HAND_KERNELS = ("pyramid2x2x1", "pool2x2x1", "tile_resolve", "edt_pass")
+# the CUDA functions each hand kernel's launch runs, as the profiler names them
+TRACE_NAMES = {"pyramid2x2x1": "pyramid2x2x1_kernel", "pool2x2x1": "pool2x2x1_kernel",
+               "tile_resolve": "tile_resolve_kernel", "edt_pass": "edt_"}
+# a hand kernel's span time against the profiler's kernel time for the same
+# calls: within this share, or this many microseconds a launch if larger
+# (each span brackets one launch with two events)
+LEDGER_REL_TOL = 0.10
+LEDGER_US_PER_LAUNCH = 20.0
+SPAN_US = [0.0]  # host microseconds of one span, measured before the e2e phases
+LIBRARIES = ("pooling", "ccl", "edt", "simplify", "dijkstra", "fggraph", "cseg")
+TUNE_SIZE, TUNE_BUDGET_S = 64, 60.0
+
+
+def ledger_reset(torch, dev) -> None:
+  """A fresh device ledger (its anchor event on the current stream) and
+  fresh peak-memory statistics, just before a run."""
+  from igneous_tpu_torch.observability import device as ledger
+
+  ledger.reset()
+  torch.cuda.reset_peak_memory_stats(dev)
+
+
+def launch_counts(*modules) -> dict:
+  return {k: v for m in modules for k, v in m.LAUNCHES.items()}
+
+
+def card_label() -> str:
+  import torch
+
+  return f"cuda:{torch.cuda.current_device()}"
+
+
+def card_executes(snap: dict, name: str) -> int:
+  """A name's executes on the card (the skeleton task labels its boundary
+  planes on the CPU on purpose: those spans are no launches)."""
+  return snap["kernels"].get(name, {}).get("devices", {}).get(card_label(), 0)
+
+
+def ledger_line(label: str, wall: float, launches=None) -> dict:
+  """Print the device ledger of the run just ended: the card's busy share
+  of ``wall``, dispatches, copies, pad waste, peak memory, the spans' host
+  cost (``SPAN_US``) as a share of the wall, and each name's executes and
+  span seconds. ``launches``: the hand kernels' counts since the ledger's
+  reset, which their executes on the card must equal. Returns the
+  snapshot, its ``busy_s`` the card's."""
+  from igneous_tpu_torch.observability.device import LEDGER
+
+  LEDGER.sample_hbm()
+  snap = LEDGER.snapshot()
+  if snap is None:
+    fail(f"ledger {label}: no device work recorded")
+  snap["busy_s"] = snap["devices"].get(card_label(), 0.0)
+  k = snap["kernels"]
+  spans = sum(v["executes"] for v in k.values()) + snap["transfers"]
+  peak = max((r["peak_bytes_in_use"] for r in snap.get("hbm", {}).values()), default=0)
+  pad = snap["pad_waste_ratio"]
+  print(f"ledger {label}: wall {wall:.3f} s, card busy {snap['busy_s']:.4f} s (share "
+        f"{100 * snap['busy_s'] / wall:.2f}%, idle {100 * (1 - snap['busy_s'] / wall):.2f}%), "
+        f"dispatches {snap['dispatches']}, h2d {snap['h2d_bytes']} B, d2h "
+        f"{snap['d2h_bytes']} B, pad waste {'none' if pad is None else f'{pad:.4f}'} "
+        f"({snap['pad_bytes']} of {snap['real_bytes']} B), hbm peak {peak / 1e9:.3f} GB, "
+        f"{spans} spans ({100 * spans * SPAN_US[0] / 1e6 / wall:.4f}% of the wall at "
+        f"{SPAN_US[0]:.2f} us a span), executes and span s "
+        f"{json.dumps({n: [v['executes'], round(v['execute_s'], 4)] for n, v in k.items()})}",
+        flush=True)
+  if launches is not None:
+    for name in HAND_KERNELS:
+      if card_executes(snap, name) != launches.get(name, 0):
+        fail(f"ledger {label}: {name} executes {card_executes(snap, name)} on the card, "
+             f"launches {launches.get(name, 0)}")
+  return snap
+
+
+def ledger_against_profiler(label: str, snap: dict, prof, wall: float, launches: dict) -> None:
+  """The ledger against a torch.profiler trace of the same run: each hand
+  kernel's span seconds within ``LEDGER_REL_TOL`` (or
+  ``LEDGER_US_PER_LAUNCH`` a launch) of its kernels' traced time, its
+  executes equal to its launches, and the busy seconds at least the
+  trace's kernel and copy time and at most the wall."""
+  traced = traced_device_us(prof) / 1e6
+  events = prof.key_averages()
+  per = {}
+  for name in HAND_KERNELS:
+    n = launches.get(name, 0)
+    got = snap["kernels"].get(name, {"executes": 0, "execute_s": 0.0})
+    if card_executes(snap, name) != n or got["executes"] != n:
+      fail(f"ledger {label}: {name} executes {got['executes']}, launches {n}")
+    if not n:
+      continue
+    prof_s = sum(
+      getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+      for e in events if TRACE_NAMES[name] in e.key
+    ) / 1e6
+    tol = max(LEDGER_REL_TOL * prof_s, LEDGER_US_PER_LAUNCH * 1e-6 * n)
+    per[name] = {"launches": n, "ledger_s": round(got["execute_s"], 6),
+                 "traced_s": round(prof_s, 6), "tol_s": round(tol, 6)}
+    if not prof_s > 0 or abs(got["execute_s"] - prof_s) > tol:
+      fail(f"ledger {label}: {name} spans {got['execute_s']:.6f} s against the traced "
+           f"{prof_s:.6f} s, tolerance {tol:.6f} s")
+  busy = snap["busy_s"]
+  print(f"ledger against profiler {label}: busy {busy:.4f} s, traced kernels and copies "
+        f"{traced:.4f} s, wall {wall:.3f} s, hand kernels {json.dumps(per)}", flush=True)
+  if not traced <= busy <= wall:
+    fail(f"ledger {label}: busy {busy:.4f} s not between the traced {traced:.4f} s "
+         f"and the wall {wall:.3f} s")
+
+
+def span_cost(torch, dev) -> float:
+  """Host microseconds of one execute span on the card: 1000 empty spans,
+  their events resolved. Sets ``SPAN_US``."""
+  from igneous_tpu_torch.observability import device as ledger
+
+  ledger_reset(torch, dev)
+  torch.cuda.synchronize(dev)
+  t0 = time.perf_counter()
+  for _ in range(1000):
+    with ledger.execute_span("empty", device=dev):
+      pass
+  snap = ledger.LEDGER.snapshot()
+  SPAN_US[0] = (time.perf_counter() - t0) / 1000 * 1e6
+  if snap["kernels"]["empty"]["executes"] != 1000 or snap["dispatches"] != 1000:
+    fail(f"span cost: {snap['kernels']['empty']['executes']} of 1000 spans recorded")
+  print(f"span cost: {SPAN_US[0]:.2f} us a span (1000 empty execute spans on the card, "
+        f"events resolved), card busy {snap['busy_s'] * 1e3:.3f} ms", flush=True)
+  return SPAN_US[0]
+
+
+STORE_WORKER = r"""
+import json, shutil, sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from igneous_tpu_torch import cseg, set_device
+from igneous_tpu_torch.ops import _build
+
+
+def no_nvcc():
+  raise RuntimeError("this worker has no nvcc")
+
+
+_build.nvcc_path = no_nvcc  # /usr/local/cuda/bin/nvcc is off limits too
+_build.BUILD_DIR = Path(sys.argv[1])
+assert not any(_build.BUILD_DIR.iterdir())
+assert shutil.which("nvcc") is None and shutil.which("g++") is None
+names = sys.argv[2].split(",")
+dev = set_device("cuda")
+from igneous_tpu_torch.ops import cuda_ccl as cc, cuda_edt as ce, cuda_pooling as cp, edt
+
+for name in names:
+  _build.load(name)
+  if _build.BUILD_LOG[name].get("store") != "hit":
+    sys.exit(f"{name}: not loaded from the store: {_build.BUILD_LOG[name]}")
+g = torch.Generator(device=dev).manual_seed(0)
+equal = {}
+x = torch.randint(0, 256, (1, 64, 1000, 1000), dtype=torch.uint8, device=dev, generator=g)
+equal["pool2x2x1"] = torch.equal(cp.pool2x2x1(x), cp.pool2x2x1_plain(x))
+x = torch.randint(0, 256, (1, 64, 1024, 1024), dtype=torch.uint8, device=dev, generator=g)
+equal["pyramid2x2x1"] = all(torch.equal(a, b) for a, b in zip(
+  cp.pyramid2x2x1(x, 5), cp.pyramid2x2x1_plain(x, 5)))
+t = torch.randint(0, 3, (512, 16, 16, 32), dtype=torch.int32, device=dev, generator=g)
+equal["tile_resolve"] = torch.equal(cc.tile_resolve(t, 6), cc.tile_resolve_plain(t, 6))
+lab = torch.randint(0, 4, (96, 128, 160), dtype=torch.int32, device=dev, generator=g)
+card = edt.squared_edt(lab, (8.0, 8.0, 40.0))
+edt.edt_pass = ce.edt_pass_plain
+equal["edt_pass"] = torch.equal(card, edt.squared_edt(lab, (8.0, 8.0, 40.0)))
+torch.cuda.synchronize()
+launched = {**cp.LAUNCHES, **cc.LAUNCHES, **ce.LAUNCHES}
+seg = np.random.default_rng(0).integers(0, 9, (64, 64, 64, 1)).astype(np.uint64) << np.uint64(40)
+equal["cseg"] = bool(np.array_equal(cseg.decompress(cseg.compress(seg), seg.shape, np.uint64), seg))
+print(json.dumps({"fetch_s": {n: _build.BUILD_LOG[n]["fetch_s"] for n in names},
+                  "saved_s": {n: _build.BUILD_LOG[n]["saved_s"] for n in names},
+                  "equal": equal, "launched": launched}))
+"""
+
+
+def store_phase(root: str, torch, dev) -> None:
+  """The library store: every library this run built is put into a
+  file:// store; a worker process with an empty build directory, no nvcc
+  or g++ on its PATH, CUDA_HOME unset and its nvcc lookup made to raise
+  loads every library from the store and runs each hand kernel once, bit
+  for bit against its plain version (and the cseg codec through a round
+  trip); its fetch seconds beside this run's build seconds. Then one
+  entry is corrupted: it must be quarantined, rebuilt and put back."""
+  import os
+  from pathlib import Path
+
+  from igneous_tpu_torch import compile_cache
+  from igneous_tpu_torch.observability.device import LEDGER
+  from igneous_tpu_torch.ops import _build
+
+  t_phase = time.perf_counter()
+  store_root = f"file://{root}/library_store"
+  store = compile_cache.CompileCache(store_root)
+  built = {n: _build.BUILD_LOG[n]["seconds"] for n in LIBRARIES}
+  for name in LIBRARIES:
+    src, flags, compiler = _build._source(name)
+    kind = "nvcc" if src.suffix == ".cu" else "g++"
+    if not compile_cache.publish(store, name, src, flags, kind, compiler,
+                                 _build.library_path(name), built[name]):
+      fail(f"store: {name} was not put")
+  bare = Path(root) / "no_compilers"
+  work = Path(root) / "worker_build"
+  bare.mkdir()
+  work.mkdir()
+  env = {k: v for k, v in os.environ.items() if k != "CUDA_HOME"}
+  env.update(PATH=str(bare), IGNEOUS_COMPILE_CACHE=store_root,
+             PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+  t0 = time.perf_counter()
+  proc = subprocess.run([sys.executable, "-c", STORE_WORKER, str(work), ",".join(LIBRARIES)],
+                        env=env, capture_output=True, text=True, timeout=600)
+  worker_wall = time.perf_counter() - t0
+  if proc.returncode != 0:
+    fail(f"store: the worker without compilers failed:\n{proc.stderr[-3000:]}")
+  res = json.loads(proc.stdout.strip().splitlines()[-1])
+  if not all(res["equal"].values()) or not all(res["launched"][k] for k in HAND_KERNELS):
+    fail(f"store: the worker's kernels {res['equal']}, launches {res['launched']}")
+  print(f"store: {len(LIBRARIES)} libraries put, a worker with no compiler loaded every one "
+        f"from the store (wall {worker_wall:.1f} s with its imports and checks); each hand "
+        f"kernel bit for bit its plain version there {json.dumps(res['equal'])}, launches "
+        f"{json.dumps(res['launched'])}", flush=True)
+  for name in LIBRARIES:
+    print(f"store {name}: fetch {res['fetch_s'][name]:.4f} s, build {built[name]:.1f} s "
+          f"(this run; the entry's {res['saved_s'][name]:.1f} s)", flush=True)
+
+  # a bit-flipped entry: quarantined, rebuilt, a good copy put back
+  entries = sorted(Path(root, "library_store", "libraries", "cseg").rglob("*.bin"))
+  if len(entries) != 1:
+    fail(f"store: {len(entries)} cseg entries")
+  data = bytearray(entries[0].read_bytes())
+  data[-100] ^= 0x01
+  entries[0].write_bytes(bytes(data))
+  saved = _build.BUILD_DIR, _build.BUILD_LOG.get("cseg")
+  _build.BUILD_DIR = Path(root) / "rebuild"
+  os.environ[compile_cache.CACHE_ENV] = store_root
+  LEDGER.reset()
+  try:
+    rebuilt = _build.build("cseg")
+    log = _build.BUILD_LOG["cseg"]
+  finally:
+    os.environ.pop(compile_cache.CACHE_ENV, None)
+    _build.BUILD_DIR = saved[0]
+    _build.BUILD_LOG["cseg"] = saved[1]
+  cache = LEDGER.snapshot()["compile_cache"]
+  quarantined = list(Path(root, "library_store", "quarantine").rglob("*.bin"))
+  after = sorted(Path(root, "library_store", "libraries", "cseg").rglob("*.bin"))
+  good = len(after) == 1 and after[0].read_bytes() != bytes(data)
+  body = compile_cache.decode_entry(after[0].read_bytes(), _entry_meta(after[0]))[0] if good else b""
+  print(f"store corrupt: cseg entry bit-flipped, quarantined {len(quarantined)}, rebuilt in "
+        f"{log['seconds']:.1f} s, put back {good and body == rebuilt.read_bytes()}, "
+        f"counts {json.dumps(cache)}", flush=True)
+  if len(quarantined) != 1 or "store" in log or cache["corrupt"] != 1 or cache["puts"] != 1 \
+     or not good or body != rebuilt.read_bytes():
+    fail("store: the corrupt entry was not quarantined, rebuilt and put back")
+  print(f"store: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _entry_meta(path) -> dict:
+  """The key an entry's header carries."""
+  data = path.read_bytes()
+  hlen = int.from_bytes(data[8:12], "big")
+  return json.loads(data[12:12 + hlen])["meta"]
+
+
+def tune_phase(root: str) -> None:
+  """``tune.run(size=64, budget_sec=60)`` on the card: each candidate's
+  time, every one byte for byte the default's, ``tuned/<device kind>.json``
+  written, and ``resolve`` picking each winner (and no value where the
+  default stood). The tuned root is unset afterwards."""
+  import os
+
+  from igneous_tpu_torch import tune
+  from igneous_tpu_torch.storage import CloudFiles
+
+  t_phase = time.perf_counter()
+  pinned = [n for n in tune.TUNABLE if os.environ.get(n)]
+  if pinned:
+    fail(f"tune: {pinned} pinned in the environment")
+  tuned_root = f"file://{root}/tuned_root"
+  os.environ[tune.CONFIG_ENV] = tuned_root
+  tune.reset_cache()
+  try:
+    try:
+      config = tune.run(size=TUNE_SIZE, budget_sec=TUNE_BUDGET_S,
+                        log=lambda m: print(f"tune: {m}", flush=True))
+    except AssertionError as e:
+      fail(f"tune: {e}")
+    kind = tune.device_kind()
+    written = CloudFiles(tuned_root).get_json(f"tuned/{kind}.json")
+    if not kind.startswith("NVIDIA") or written is None or written["knobs"] != config["knobs"]:
+      fail(f"tune: tuned/{kind}.json not written as swept")
+    for name in tune.TUNABLE:
+      rows = config["measurements"][name]
+      if not all(r.get("identical") for r in rows if "seconds" in r):
+        fail(f"tune: {name}: a candidate differs from the default")
+      if tune.resolve(name) != config["knobs"].get(name):
+        fail(f"tune: resolve({name}) = {tune.resolve(name)}, swept {config['knobs'].get(name)}")
+    print(f"tune: size {TUNE_SIZE}, budget {TUNE_BUDGET_S:.0f} s, tuned/{kind}.json with "
+          f"{json.dumps(config['knobs'])}, every timed candidate byte for byte the default's, "
+          f"resolve picks each winner; best over default "
+          f"{config['tune_best_vs_default_ratio']:.4f}; skipped "
+          f"{sum('skipped' in r for rows in config['measurements'].values() for r in rows)}",
+          flush=True)
+  finally:
+    os.environ.pop(tune.CONFIG_ENV, None)
+    tune.reset_cache()
+  print(f"tune: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
   import argparse
 
@@ -2749,6 +3125,7 @@ def main() -> int:
     print(card_line())
     print("compared with " + ", ".join(args.baseline) + "; e2e phases not run")
     return 0
+  span_cost(torch, dev)
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches = e2e_phase(root, cp, torch, dev)
     codec_phase(root)
@@ -2795,6 +3172,9 @@ def main() -> int:
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     x6 = morphology_phase(root, cp, cc, ce, torch, dev)
   programs += [x5, x6, x7]
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+    store_phase(root, torch, dev)
+    tune_phase(root)
 
   kernels = []
   replaces = {

@@ -2,12 +2,13 @@
 {downsample [--batched],xfer,infer}``, ``python -m igneous_tpu_torch image
 voxels {count,sum}``, ``python -m igneous_tpu_torch image ccl {faces,links,
 calc-labels,relabel,clean,auto}``, ``python -m igneous_tpu_torch mesh
-{forge,merge}`` and ``python -m igneous_tpu_torch skeleton {forge,merge}``.
+{forge,merge}``, ``python -m igneous_tpu_torch skeleton {forge,merge}`` and
+``python -m igneous_tpu_torch tune``.
 
 A minimal counterpart of ``igneous-tpu image downsample|xfer|infer``,
 ``igneous-tpu image voxels count|sum``, ``igneous-tpu image ccl``,
-``igneous-tpu mesh forge|merge`` and ``igneous-tpu skeleton forge|merge``
-(``igneous_tpu/cli.py``), with the same option names; an
+``igneous-tpu mesh forge|merge``, ``igneous-tpu skeleton forge|merge`` and
+``igneous-tpu tune`` (``igneous_tpu/cli.py``), with the same option names; an
 option the port does not have is refused by the parser, and the ones it
 does not run yet raise ``NotImplementedError`` before anything is written. Tasks run in a ``LocalTaskQueue`` on the
 port's device (cuda; ``IGNEOUS_TORCH_DEVICE=cpu`` asks for the CPU).
@@ -117,7 +118,54 @@ def build_parser() -> argparse.ArgumentParser:
     dest="command", required=True))
   _add_skeleton(groups.add_parser("skeleton", help="Skeleton forging.").add_subparsers(
     dest="command", required=True))
+  _add_tune(groups.add_parser(
+    "tune", help="Autotune the kernel knobs for this device kind."))
   return parser
+
+
+def _add_tune(cmd) -> None:
+  cmd.add_argument("--out", default=None,
+                   help="Config root to write tuned/<device_kind>.json under "
+                        "(default: IGNEOUS_TUNE_CONFIG or IGNEOUS_COMPILE_CACHE).")
+  cmd.add_argument("--budget", dest="budget_sec", type=float, default=None,
+                   help="Wall-clock budget of the whole sweep in seconds "
+                        "(default: IGNEOUS_TUNE_BUDGET_SEC; unset: none).")
+  cmd.add_argument("--repeats", type=int, default=None,
+                   help="Timed runs per candidate, best of (default: IGNEOUS_TUNE_REPEATS or 2).")
+  cmd.add_argument("--size", type=int, default=48,
+                   help="Edge length of the seeded sweep workloads.")
+  cmd.add_argument("--knob", dest="only", action="append", default=[],
+                   help="Sweep only this knob (repeatable; default: all).")
+  cmd.add_argument("--json", dest="as_json", action="store_true",
+                   help="Print the whole tuned config as JSON.")
+
+
+def _run_tune(parser, args) -> int:
+  """Sweep the tunable knobs (``tune.run``); refused while a swept knob is
+  pinned in the environment, which would always outrank the result."""
+  import json
+  import os
+
+  from . import tune
+
+  for name in args.only:
+    if name not in tune.TUNABLE:
+      parser.error(f"unknown tunable {name!r}; choose from {', '.join(tune.TUNABLE)}")
+  pinned = [n for n in (args.only or tune.TUNABLE) if os.environ.get(n, "").strip()]
+  if pinned:
+    parser.error(
+      f"refusing to tune while {', '.join(pinned)} is pinned in the environment: "
+      "the environment always outranks tuned configs, so the sweep could never "
+      "take effect; unset it first"
+    )
+  config = tune.run(out=args.out, budget_sec=args.budget_sec, repeats=args.repeats,
+                    size=args.size, only=args.only or None, log=print)
+  if args.as_json:
+    print(json.dumps(config, indent=2, sort_keys=True))
+  elif config["knobs"]:
+    print(f"tuned {len(config['knobs'])} knob(s): "
+          + ", ".join(f"{k}={v}" for k, v in config["knobs"].items()))
+  return 0
 
 
 def _add_xfer(cmd) -> None:
@@ -562,6 +610,8 @@ def _run_batched(parser, args, factor) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
   parser = build_parser()
   args = parser.parse_args(argv)
+  if args.group == "tune":
+    return _run_tune(parser, args)
   if args.group == "mesh":
     return _run_mesh(args)
   if args.group == "skeleton":

@@ -30,7 +30,8 @@ zero and edge patches keep full authority over their exclusive voxels.
 Counters (``telemetry``): ``infer.patches`` (real patches dispatched),
 ``infer.padded_slots`` (zero patches that filled the last group),
 ``infer.dispatches``. Stages: tile (the host's patch gather), the
-executor's h2d, infer and d2h, and blend.
+executor's h2d, infer and d2h, and blend. The device ledger records the
+filled group's zero patches as pad waste, in the JAX package's bytes.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from .. import telemetry
+from ..observability.device import LEDGER
 from .registry import InferenceModel
 
 
@@ -167,6 +169,10 @@ def infer_cutout(
       if fill:
         stack.extend(np.zeros_like(stack[0]) for _ in range(fill))
         padded_slots += fill
+        patch_nbytes = int(stack[0].nbytes)
+        LEDGER.record_pad_waste(
+          padded_bytes=fill * patch_nbytes, real_bytes=len(group) * patch_nbytes,
+        )
       batch = np.stack(stack)
     out = executor(batch, consts=dev_params)
     dispatches += 1

@@ -14,7 +14,9 @@ here each is an ``nn.Module`` built from the spec, and ``load_params``
 maps the flat ``{"layer{i}/w", "layer{i}/b"}`` dict onto its parameters.
 ``InferenceModel.executor()`` is a ``parallel.executor.BatchKernelExecutor``
 whose kernel runs the module with the parameters staged on the device
-once (``put_consts``) and passed in by ``torch.func.functional_call``.
+once (``put_consts``) and passed in by ``torch.func.functional_call``;
+the executor's device-ledger spans carry the model's ``kernel_name``
+(``infer.<architecture>``), as the JAX package's do.
 
 Every convolution runs under ``torch.backends.cudnn.flags(enabled=True,
 benchmark=False, deterministic=True, allow_tf32=False)``: cuDNN would
@@ -258,7 +260,9 @@ class InferenceModel:
     key = str(get_device())
     with self._lock:
       if key not in self._executors:
-        self._executors[key] = BatchKernelExecutor(self.apply, stage="infer")
+        self._executors[key] = BatchKernelExecutor(
+          self.apply, stage="infer", name=self.kernel_name
+        )
       return self._executors[key]
 
   def device_params(self):

@@ -8,6 +8,11 @@ and the compiler flags, so a library built from other source is never
 loaded. A build that fails raises: no caller falls back to another
 implementation. Nothing here runs at import: the CPU tests import every
 module and there is no nvcc there.
+
+With ``IGNEOUS_COMPILE_CACHE`` set, a library missing here is first
+fetched from that store (``compile_cache``), and a library built here is
+put there; each compiler run is charged to the device ledger as a
+compile (``record_compile``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict
+
+from .. import compile_cache
+from ..observability.device import LEDGER
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -36,8 +44,10 @@ GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # per-source build record: seconds spent in the compiler (0 when the
-# library was already current) and what it reported on stderr (for nvcc,
-# ptxas's registers, shared memory and spills)
+# library was already current or came from the store) and what it
+# reported on stderr (for nvcc, ptxas's registers, shared memory and
+# spills); a library fetched from the store also has "store": "hit", its
+# fetch seconds and the producer's build seconds ("saved_s")
 BUILD_LOG: Dict[str, dict] = {}
 
 
@@ -71,17 +81,25 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str) -> Path:
-  """Compile ``name``'s source unless its library already exists."""
+  """Compile ``name``'s source unless its library already exists here or
+  in the library store."""
   out = library_path(name)
   if out.exists():
     BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": ""})
     return out
   src, flags, compiler = _source(name)
+  kind = "nvcc" if src.suffix == ".cu" else "g++"
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  store = compile_cache.get_active()
+  if store is not None:
+    record = compile_cache.fetch(store, name, src, flags, kind, compiler, out)
+    if record is not None:
+      BUILD_LOG[name] = record
+      return out
   tmp = out.with_suffix(f".so.tmp{os.getpid()}")
-  cmd = [compiler(), *flags, "-o", str(tmp), str(src)]
-  t0 = time.perf_counter()
   try:
+    cmd = [compiler(), *flags, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
   except FileNotFoundError as e:
     raise RuntimeError(f"cannot build {src}: {e}") from e
@@ -89,9 +107,11 @@ def build(name: str) -> Path:
     tmp.unlink(missing_ok=True)
     raise RuntimeError(f"{cmd[0]} failed for {src}:\n{proc.stderr}")
   os.replace(tmp, out)
-  BUILD_LOG[name] = {
-    "seconds": time.perf_counter() - t0, "ptxas": proc.stderr,
-  }
+  seconds = time.perf_counter() - t0
+  BUILD_LOG[name] = {"seconds": seconds, "ptxas": proc.stderr}
+  LEDGER.record_compile(name, seconds)
+  if store is not None:
+    compile_cache.publish(store, name, src, flags, kind, compiler, out, seconds)
   return out
 
 

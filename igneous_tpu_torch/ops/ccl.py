@@ -21,7 +21,6 @@ only on the partition.
 
 from __future__ import annotations
 
-import os
 from functools import partial
 from typing import Optional, Tuple
 
@@ -30,6 +29,8 @@ import torch
 
 from .. import telemetry
 from ..device import get_device
+from ..observability.device import execute_span, transfer_span
+from ..tune import resolve
 from . import cuda_ccl
 from .cuda_ccl import neighbor_offsets  # noqa: F401  (the port's ops.ccl API)
 
@@ -44,9 +45,10 @@ _DEFAULT_TILE_CUDA = (16, 16, 32)
 
 
 def _tile_shape(device: Optional[torch.device] = None) -> Tuple[int, int, int]:
-  """(tz, ty, tx) of the block-local resolve; ``IGNEOUS_CCL_TILE=tz,ty,tx``
+  """(tz, ty, tx) of the block-local resolve; ``IGNEOUS_CCL_TILE=tz,ty,tx``,
+  from the environment or the device kind's tuned file (``tune.resolve``),
   overrides the device's default."""
-  spec = os.environ.get("IGNEOUS_CCL_TILE", "").strip()
+  spec = resolve("IGNEOUS_CCL_TILE") or ""
   if not spec:
     device = get_device() if device is None else device
     return _DEFAULT_TILE_CUDA if device.type == "cuda" else _DEFAULT_TILE_CPU
@@ -124,13 +126,15 @@ def _ccl_tiled(
   on ``dev`` (default: the port's device)."""
   dev = get_device() if dev is None else dev
   tile = _tile_shape(dev)
-  with telemetry.stage("h2d"):
+  with telemetry.stage("h2d"), transfer_span("h2d", labels_zyx.nbytes, dev):
     lab = torch.from_numpy(labels_zyx).to(dev)
   with telemetry.stage("kernel"):
-    roots = _ccl_tiled_roots(lab, connectivity, tile)
+    with execute_span("ccl.tiled", lab.numel(), 8 * lab.numel(), dev,
+                      signature=(tuple(lab.shape), connectivity, tile)):
+      roots = _ccl_tiled_roots(lab, connectivity, tile)
     if dev.type == "cuda":
       torch.cuda.synchronize(dev)
-  with telemetry.stage("d2h"):
+  with telemetry.stage("d2h"), transfer_span("d2h", roots.numel() * 4, dev):
     roots = roots.cpu().numpy()
   del lab
   with telemetry.stage("tile_merge"):
@@ -240,7 +244,8 @@ def _batch_executor(connectivity: int):
   from ..parallel.executor import BatchKernelExecutor
 
   return BatchKernelExecutor(
-    partial(_ccl_tiled_roots, connectivity=connectivity, tile=_tile_shape())
+    partial(_ccl_tiled_roots, connectivity=connectivity, tile=_tile_shape()),
+    name="ccl.tiled",
   )
 
 

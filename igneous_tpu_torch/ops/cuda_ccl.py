@@ -12,7 +12,9 @@ keeps its own index (the caller masks it).
 
 The wrapper takes its plain version only for a tensor that lies on the
 CPU; for a CUDA tensor it launches the kernel or raises. ``LAUNCHES``
-counts kernel launches, one per launch and nowhere else.
+counts kernel launches, one per launch and nowhere else. The device
+ledger's execute span (``observability.device``) goes around each launch
+and each plain call, under the kernel's name.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import ctypes
 
 import torch
 
+from ..observability.device import execute_span
 from . import _build
 
 LAUNCHES = {"tile_resolve": 0}
@@ -175,8 +178,13 @@ def _lib():
 
 def tile_resolve(labt: torch.Tensor, connectivity: int = 6) -> torch.Tensor:
   """(T, tz, ty, tx) int32 tiles -> (T, tz, ty, tx) int32 local roots."""
+  span = execute_span(
+    "tile_resolve", labt.numel(), 8 * labt.numel(), labt.device,
+    signature=(tuple(labt.shape), connectivity),
+  )
   if labt.device.type == "cpu":
-    return tile_resolve_plain(labt, connectivity)
+    with span:
+      return tile_resolve_plain(labt, connectivity)
   _check(labt, connectivity)
   if labt.device.type != "cuda":
     raise ValueError(f"tile_resolve takes CPU or CUDA tensors, not {labt.device}")
@@ -192,15 +200,17 @@ def tile_resolve(labt: torch.Tensor, connectivity: int = 6) -> torch.Tensor:
   out = torch.empty_like(labt)
   if out.numel() == 0:
     return out
+  lib = _lib()
   with torch.cuda.device(labt.device):
     stream = torch.cuda.current_stream(labt.device).cuda_stream
     fixed = fixed_instance((tz, ty, tx), labt.data_ptr(), out.data_ptr())
-    rc = _lib().igt_tile_resolve(
-      labt.data_ptr(), out.data_ptr(), T, tz, ty, tx, connectivity, int(fixed),
-      stream,
-    )
-  if rc != 0:
-    msg = _lib().igt_error_string(rc).decode()
-    raise RuntimeError(f"tile_resolve kernel failed: CUDA error {rc} ({msg})")
+    with span:
+      rc = lib.igt_tile_resolve(
+        labt.data_ptr(), out.data_ptr(), T, tz, ty, tx, connectivity, int(fixed),
+        stream,
+      )
+      if rc != 0:
+        msg = lib.igt_error_string(rc).decode()
+        raise RuntimeError(f"tile_resolve kernel failed: CUDA error {rc} ({msg})")
   LAUNCHES["tile_resolve"] += 1
   return out

@@ -30,7 +30,9 @@ design where a block's run-start and stack bitmasks fit in
 ``SMEM_BUDGET`` bytes (``smem_bytes``), else the long-line kernel with
 its stacks in device scratch (``scratch_bytes``), chosen from the shape
 before the launch and never after a failure. ``LAUNCHES`` counts kernel launches, one per launch
-and nowhere else.
+and nowhere else. The device ledger's execute span
+(``observability.device``) goes around each launch and each plain call,
+under the kernel's name.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..observability.device import execute_span
 from . import _build
 
 LAUNCHES = {"edt_pass": 0}
@@ -265,8 +268,12 @@ def scratch_bytes(shape, axis: int, first: bool = False) -> int:
 
 def edt_pass(labels, val_in, val_out, axis: int, w: float, first: bool):
   """One axis pass (see the module docstring); returns ``val_out``."""
+  nbytes = labels.numel() * (labels.element_size() + 4 + (0 if first else 4))
+  span = execute_span("edt_pass", labels.numel(), nbytes, labels.device,
+                      signature=(tuple(labels.shape), str(labels.dtype), axis, first))
   if labels.device.type == "cpu":
-    return edt_pass_plain(labels, val_in, val_out, axis, w, first)
+    with span:
+      return edt_pass_plain(labels, val_in, val_out, axis, w, first)
   if labels.device.type != "cuda":
     raise ValueError(f"edt_pass runs on cuda or cpu tensors, not {labels.device}")
   _check(labels, val_in, val_out, axis, first)
@@ -286,16 +293,18 @@ def edt_pass(labels, val_in, val_out, axis: int, w: float, first: bool):
     stream = torch.cuda.current_stream(dev).cuda_stream
     if not long_line(labels.shape, axis, first):
       fn = lib.edt_pass_i64 if i64 else lib.edt_pass_i32
-      rc = fn(labels.data_ptr(), src.data_ptr(), val_out.data_ptr(), *args, stream)
+      ptrs = (labels.data_ptr(), src.data_ptr(), val_out.data_ptr())
     else:
       size = 0 if first else lines * n
       vbuf = torch.empty(size, dtype=torch.int32, device=dev)
       hbuf = torch.empty(size, dtype=torch.float64, device=dev)
       zbuf = torch.empty(size + (0 if first else lines), dtype=torch.float64, device=dev)
       fn = lib.edt_pass_long_i64 if i64 else lib.edt_pass_long_i32
-      rc = fn(labels.data_ptr(), src.data_ptr(), val_out.data_ptr(), vbuf.data_ptr(),
-              hbuf.data_ptr(), zbuf.data_ptr(), *args, stream)
-  if rc != 0:
-    raise RuntimeError(f"edt_pass: CUDA error {rc} at launch")
+      ptrs = (labels.data_ptr(), src.data_ptr(), val_out.data_ptr(), vbuf.data_ptr(),
+              hbuf.data_ptr(), zbuf.data_ptr())
+    with span:
+      rc = fn(*ptrs, *args, stream)
+      if rc != 0:
+        raise RuntimeError(f"edt_pass: CUDA error {rc} at launch")
   LAUNCHES["edt_pass"] += 1
   return val_out

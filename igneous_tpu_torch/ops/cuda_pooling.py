@@ -11,7 +11,9 @@ kernels become the two hand-written CUDA kernels of ``csrc/pooling.cu``:
 
 Each wrapper takes its plain version only for a tensor that lies on the
 CPU; for a CUDA tensor it launches the kernel or raises. ``LAUNCHES``
-counts kernel launches, one per launch and nowhere else.
+counts kernel launches, one per launch and nowhere else. The device
+ledger's execute span (``observability.device``) goes around each launch
+and each plain call, under the kernel's name.
 
 Types: average on 8- and 16-bit integers (an int32 sum is exact there);
 mode on 8-, 16-, 32- and 64-bit integers. The sums and votes are those of
@@ -25,6 +27,7 @@ from typing import List
 
 import torch
 
+from ..observability.device import execute_span
 from . import _build
 
 LAUNCHES = {"pool2x2x1": 0, "pyramid2x2x1": 0}
@@ -206,24 +209,35 @@ def _cuda_input(x: torch.Tensor, method: str):
   return codes[x.dtype], P, Y, X
 
 
+def _span(name: str, x: torch.Tensor, method: str, out_elements: int):
+  """The ledger's execute span of one launch or plain call on ``x``."""
+  nbytes = (x.numel() + out_elements) * x.element_size()
+  sig = (tuple(x.shape), str(x.dtype), method)
+  return execute_span(name, x.numel(), nbytes, x.device, signature=sig)
+
+
 def pool2x2x1(x: torch.Tensor, method: str = "average") -> torch.Tensor:
   """One 2x2x1 step: (..., Y, X) -> (..., ceil(Y/2), ceil(X/2))."""
   if x.device.type == "cpu":
-    return pool2x2x1_plain(x, method)
+    _check(x, method)
+    with _span("pool2x2x1", x, method, x.numel() // 4):
+      return pool2x2x1_plain(x, method)
   code, P, Y, X = _cuda_input(x, method)
   out = torch.empty(
     x.shape[:-2] + ((Y + 1) // 2, (X + 1) // 2), dtype=x.dtype, device=x.device
   )
   if out.numel() == 0:
     return out
+  lib = _lib()
   with torch.cuda.device(x.device):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     vec = row_vector_bytes(X, x.element_size(), x.data_ptr(), out.data_ptr())
-    rc = _lib().igt_pool2x2x1(
-      _METHOD_CODES[method], code, x.data_ptr(), out.data_ptr(), P, Y, X, vec,
-      stream,
-    )
-  _raise_on(rc, "pool2x2x1")
+    with _span("pool2x2x1", x, method, out.numel()):
+      rc = lib.igt_pool2x2x1(
+        _METHOD_CODES[method], code, x.data_ptr(), out.data_ptr(), P, Y, X, vec,
+        stream,
+      )
+      _raise_on(rc, "pool2x2x1")
   LAUNCHES["pool2x2x1"] += 1
   return out
 
@@ -242,13 +256,15 @@ def _pyramid_launch(x: torch.Tensor, levels: int, method: str) -> List[torch.Ten
     t.data_ptr() % 16 == 0 for t in [x] + outs
   ))
   ptrs = (ctypes.c_void_p * levels)(*[o.data_ptr() for o in outs])
+  lib = _lib()
   with torch.cuda.device(x.device):
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _lib().igt_pyramid2x2x1(
-      _METHOD_CODES[method], code, x.data_ptr(), ptrs, levels, P, Y, X, S,
-      vec, stream,
-    )
-  _raise_on(rc, "pyramid2x2x1")
+    with _span("pyramid2x2x1", x, method, sum(o.numel() for o in outs)):
+      rc = lib.igt_pyramid2x2x1(
+        _METHOD_CODES[method], code, x.data_ptr(), ptrs, levels, P, Y, X, S,
+        vec, stream,
+      )
+      _raise_on(rc, "pyramid2x2x1")
   LAUNCHES["pyramid2x2x1"] += 1
   return outs
 
@@ -264,7 +280,9 @@ def pyramid2x2x1(
     raise ValueError("levels must be >= 1")
   if x.device.type == "cpu":
     _check(x, method)
-    return pyramid2x2x1_plain(x, levels, method)
+    out_elements = sum(x.numel() >> (2 * l) for l in range(1, levels + 1))
+    with _span("pyramid2x2x1", x, method, out_elements):
+      return pyramid2x2x1_plain(x, levels, method)
   if not fused_aligned(x.shape, levels):
     outs = []
     for _ in range(levels):

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..device import get_device
+from ..observability.device import execute_span, transfer_span
 from .cuda_edt import edt_pass
 
 
@@ -99,9 +100,14 @@ def edt(
     raise ValueError("labels must be 3d")
   lab = host_labels(np.asarray(labels))
   zyx = np.ascontiguousarray(lab.transpose(2, 1, 0))
-  t = torch.from_numpy(zyx).to(get_device())
-  out = distance_field(t, anisotropy, black_border)
-  return out.cpu().numpy().transpose(2, 1, 0)
+  dev = get_device()
+  with transfer_span("h2d", zyx.nbytes, dev):
+    t = torch.from_numpy(zyx).to(dev)
+  with execute_span("edt.sq", t.numel(), t.numel() * (t.element_size() + 4), dev,
+                    signature=(tuple(t.shape), str(t.dtype))):
+    out = distance_field(t, anisotropy, black_border)
+  with transfer_span("d2h", out.numel() * 4, dev):
+    return out.cpu().numpy().transpose(2, 1, 0)
 
 
 def batch_edt_executor(anisotropy, black_border: bool = False):
@@ -111,7 +117,8 @@ def batch_edt_executor(anisotropy, black_border: bool = False):
 
   anis = tuple(float(a) for a in anisotropy)
   return BatchKernelExecutor(
-    partial(distance_field, anisotropy=anis, black_border=black_border)
+    partial(distance_field, anisotropy=anis, black_border=black_border),
+    name="edt.sq_blocked",
   )
 
 

@@ -33,6 +33,7 @@ import torch
 
 from .. import telemetry
 from ..device import get_device
+from ..observability.device import execute_span, transfer_span
 
 # cube corner i sits at offset (i&1, i>>1&1, i>>2&1)
 CORNER_OFFSETS = np.array(
@@ -341,17 +342,18 @@ def _mc_emit_batch(case, ntri, real_cells) -> List[Optional[np.ndarray]]:
   for k0 in range(0, K, per):
     c, n = case[k0 : k0 + per], ntri[k0 : k0 + per]
     with telemetry.stage("emit"):
-      _drop_pad_ring(n, real_cells[k0 : k0 + per])
-      counts = n.reshape(len(n), -1).sum(1, dtype=torch.int64).tolist()
-      total = sum(counts)
-      if total == 0:
-        continue
-      cell, kk = _emit_slots(n.reshape(-1), total)
-      tris = _mc_tris(c, cell, kk)
-      del cell, kk
+      with execute_span("mesh.mc_emit", int(n.numel()), device=n.device):
+        _drop_pad_ring(n, real_cells[k0 : k0 + per])
+        counts = n.reshape(len(n), -1).sum(1, dtype=torch.int64).tolist()
+        total = sum(counts)
+        if total == 0:
+          continue
+        cell, kk = _emit_slots(n.reshape(-1), total)
+        tris = _mc_tris(c, cell, kk)
+        del cell, kk
       if tris.is_cuda:
         torch.cuda.synchronize(tris.device)
-    with telemetry.stage("d2h"):
+    with telemetry.stage("d2h"), transfer_span("d2h", tris.numel() * 4, tris.device):
       tris = tris.cpu().numpy()
     for j, part in enumerate(np.split(tris, np.cumsum(counts)[:-1])):
       if len(part):
@@ -412,7 +414,8 @@ def _mt_emit_batch(cases, per_tet, totals, shape, real_cells):
   for k, total in enumerate(totals):
     if total == 0:
       continue
-    with telemetry.stage("d2h"):
+    nbytes = sum(t[k].numel() * t.element_size() for t in (*cases, *per_tet))
+    with telemetry.stage("d2h"), transfer_span("d2h", nbytes, cases[0].device):
       cases_np = [c[k].cpu().numpy() for c in cases]
       per_np = [p[k].cpu().numpy() for p in per_tet]
     with telemetry.stage("emit"):
@@ -596,7 +599,11 @@ def _isosurface_batch(masks, anisotropy, offsets, batch_size, mesher):
     for g0 in range(0, len(idxs), batch_size):
       gidx = idxs[g0 : g0 + batch_size]
       real = [tuple(s - 1 for s in masks.shape(i)) for i in gidx]
-      with telemetry.stage("count"):
+      with telemetry.stage("count"), execute_span(
+        "mesh.mc_count" if mesher == "cubes" else "mesh.mt_count",
+        len(gidx) * bz * by * bx, device=masks.device,
+        signature=((len(gidx), bz, by, bx), mesher),
+      ):
         batch = torch.empty(
           (len(gidx), bz, by, bx), dtype=torch.uint8, device=masks.device
         )
@@ -676,14 +683,17 @@ def labels_on_device(img: np.ndarray, pad_lo, pad_hi, dev):
   unsigned = zyx.dtype.kind == "u" and width > 1
   if unsigned:
     zyx = zyx.view(f"i{width}")
-  src = torch.from_numpy(zyx).to(dev).to(torch.int64)
-  if unsigned and width < 8:
-    src &= (1 << (8 * width)) - 1
+  with transfer_span("h2d", zyx.nbytes, dev):
+    src = torch.from_numpy(zyx).to(dev)
   Z, Y, X = (s + lo + hi for s, lo, hi in zip(src.shape, pad_lo[::-1], pad_hi[::-1]))
-  seg = torch.zeros((Z, Y, X), dtype=torch.int64, device=dev)
-  seg[
-    pad_lo[2] : Z - pad_hi[2], pad_lo[1] : Y - pad_hi[1], pad_lo[0] : X - pad_hi[0]
-  ] = src
+  with execute_span("labels.widen", Z * Y * X, 8 * Z * Y * X, dev):
+    src = src.to(torch.int64)
+    if unsigned and width < 8:
+      src &= (1 << (8 * width)) - 1
+    seg = torch.zeros((Z, Y, X), dtype=torch.int64, device=dev)
+    seg[
+      pad_lo[2] : Z - pad_hi[2], pad_lo[1] : Y - pad_hi[1], pad_lo[0] : X - pad_hi[0]
+    ] = src
   if seg.is_cuda:
     torch.cuda.synchronize(seg.device)
   return seg, flip
@@ -704,6 +714,12 @@ def label_boxes(seg: torch.Tensor, flip_sign: bool):
   (x, y, z) least and greatest coordinate plus one of each dense id, as
   ``ndimage.find_objects``'s slices).
   """
+  with execute_span("labels.boxes", seg.numel(), seg.numel() * 8, seg.device,
+                    signature=(tuple(seg.shape),)):
+    return _label_boxes(seg, flip_sign)
+
+
+def _label_boxes(seg: torch.Tensor, flip_sign: bool):
   key = torch.bitwise_xor(seg, _SIGN) if flip_sign else seg
   uniq, inverse, counts = torch.unique(
     key.reshape(-1), sorted=True, return_inverse=True, return_counts=True
@@ -745,9 +761,24 @@ def unique_on_device(img: np.ndarray, dev, return_inverse: bool = False,
   Returns a tuple: the unique labels (numpy, ``img``'s dtype, in numpy's
   ascending order: uint64 ids at or above 2^63 last), then, as asked, the
   inverse ((z, y, x) int64 on ``dev``: each voxel's index into the
-  labels) and the voxel counts (int64 numpy)."""
+  labels) and the voxel counts (int64 numpy).
+
+  Float labels take ``np.unique`` on the host, as the JAX package does:
+  its equal floats (-0.0 and 0.0) and the representative it keeps of them
+  are what the callers (the census, ``dilate``) must reproduce."""
+  if img.dtype.kind == "f":
+    res = np.unique(img, return_inverse=return_inverse, return_counts=return_counts)
+    res = res if isinstance(res, tuple) else (res,)
+    out = [res[0]]
+    rest = list(res[1:])
+    if return_inverse:
+      inv = rest.pop(0).reshape(img.shape).transpose(2, 1, 0)
+      out.append(torch.from_numpy(np.ascontiguousarray(inv)).to(dev))
+    if return_counts:
+      out.append(rest.pop(0).astype(np.int64))
+    return tuple(out)
   if img.dtype.kind not in "biu":
-    raise ValueError(f"labels must be integers, not {img.dtype}")
+    raise ValueError(f"labels must be integers or floats, not {img.dtype}")
   seg, flip = labels_on_device(img, (0, 0, 0), (0, 0, 0), dev)
   key = torch.bitwise_xor(seg, _SIGN) if flip else seg
   del seg

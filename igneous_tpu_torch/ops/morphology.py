@@ -10,6 +10,13 @@ box (scipy), as in the JAX package; its level 3 closes cracks with a
 dilation and an erosion first. Every output equals the JAX package's bit
 for bit.
 
+Float labels are taken as the JAX package takes them: ``dilate``'s dense
+ids come from ``np.unique`` on the host (so -0.0 and 0.0 are one label,
+background, represented as ``np.unique`` picks), the steps run on the
+dense ids, and the ids map back through the same table; ``erode``
+compares the float values themselves on the device (-0.0 equals 0.0, NaN
+equals nothing) and writes +0.0 where a voxel is eroded.
+
 Stage timers (``telemetry``): dilate and erode (the device work with its
 copies; each ends in a copy to the host), fill_holes (the host flood
 fill).
@@ -24,6 +31,7 @@ from scipy import ndimage
 
 from .. import telemetry
 from ..device import get_device
+from ..observability.device import execute_span
 from .mesh import labels_on_device, unique_on_device
 from .remap import renumber
 
@@ -91,8 +99,8 @@ def _to_host(t: torch.Tensor, dtype: np.dtype) -> np.ndarray:
 
 
 def dilate(labels: np.ndarray, iterations: int = 1) -> np.ndarray:
-  """Multilabel 6-connected dilation of (x, y, z) integer labels, each
-  step ``dilate_step`` on the device."""
+  """Multilabel 6-connected dilation of (x, y, z) integer or float
+  labels, each step ``dilate_step`` on the device."""
   if labels.ndim != 3:
     raise ValueError("labels must be (x, y, z)")
   dev = get_device()
@@ -105,8 +113,11 @@ def dilate(labels: np.ndarray, iterations: int = 1) -> np.ndarray:
       # bare [0] would promote uint64 to float64)
       dense += 1
       uniq = np.concatenate([np.zeros(1, dtype=uniq.dtype), uniq])
-    for _ in range(int(iterations)):
-      dense = dilate_step(dense)
+    with execute_span("morphology.dilate", dense.numel(), 8 * dense.numel(), dev):
+      for _ in range(int(iterations)):
+        dense = dilate_step(dense)
+    if uniq.dtype.kind == "f":
+      return uniq[dense.cpu().numpy()].transpose(2, 1, 0)
     table = uniq.view(np.int64) if uniq.dtype == np.uint64 else uniq.astype(np.int64)
     out = torch.from_numpy(table).to(dev)[dense.long()]
     del dense
@@ -114,16 +125,23 @@ def dilate(labels: np.ndarray, iterations: int = 1) -> np.ndarray:
 
 
 def erode(labels: np.ndarray, iterations: int = 1) -> np.ndarray:
-  """Multilabel erosion of (x, y, z) integer labels on the device: a voxel
-  keeps its label only if all 6 neighbors share it (array borders count
-  as background)."""
-  if labels.dtype.kind not in "biu":
-    raise ValueError(f"labels must be integers, not {labels.dtype}")
+  """Multilabel erosion of (x, y, z) integer or float labels on the
+  device: a voxel keeps its label only if all 6 neighbors share it (array
+  borders count as background)."""
+  if labels.dtype.kind not in "biuf":
+    raise ValueError(f"labels must be integers or floats, not {labels.dtype}")
   dev = get_device()
   with telemetry.stage("erode"):
+    if labels.dtype.kind == "f":
+      seg = torch.from_numpy(np.ascontiguousarray(labels.transpose(2, 1, 0))).to(dev)
+      with execute_span("morphology.erode", seg.numel(), 2 * labels.nbytes, dev):
+        for _ in range(int(iterations)):
+          seg = erode_step(seg)
+      return seg.cpu().numpy().transpose(2, 1, 0)
     seg, _ = labels_on_device(labels, (0, 0, 0), (0, 0, 0), dev)
-    for _ in range(int(iterations)):
-      seg = erode_step(seg)
+    with execute_span("morphology.erode", seg.numel(), 16 * seg.numel(), dev):
+      for _ in range(int(iterations)):
+        seg = erode_step(seg)
     return _to_host(seg, labels.dtype)
 
 

@@ -33,6 +33,7 @@ import torch
 
 from .. import telemetry
 from ..device import get_device
+from ..observability.device import execute_span, transfer_span
 from . import cuda_pooling
 from .cuda_pooling import SIGNED_VIEW
 
@@ -291,13 +292,16 @@ def downsample(
 
   # an F-ordered cutout's (c,z,y,x) transpose is already C-contiguous: it
   # goes to the device as one copy, and any reordering happens there
-  with telemetry.stage("h2d"):
+  with telemetry.stage("h2d"), transfer_span("h2d", work.nbytes, dev):
     x = torch.from_numpy(work.transpose(3, 2, 1, 0)).to(dev).contiguous()
   with telemetry.stage("kernel"):
-    outs = device_pyramid(x, factors, method, sparse)
+    with execute_span(f"pooling.pyramid[{method}]", x.numel(), work.nbytes, dev,
+                      signature=(tuple(x.shape), str(x.dtype), factors, sparse)):
+      outs = device_pyramid(x, factors, method, sparse)
     if dev.type == "cuda":
       torch.cuda.synchronize(dev)
-  with telemetry.stage("d2h"):
+  out_bytes = sum(o.numel() for o in outs) * x.element_size()
+  with telemetry.stage("d2h"), transfer_span("d2h", out_bytes, dev):
     results = []
     for o in outs:
       r = o.contiguous().cpu().numpy().transpose(3, 2, 1, 0)

@@ -44,6 +44,7 @@ from scipy.sparse.csgraph import dijkstra
 
 from .. import telemetry
 from ..device import get_device
+from ..observability.device import execute_span, transfer_span
 from ..skeleton_io import Skeleton
 from . import _build
 from .edt import distance_field
@@ -534,7 +535,9 @@ def cutout_labels(labels: np.ndarray, anisotropy, edt_field=None):
   field = None
   if edt_field is None:
     with telemetry.stage("edt"):
-      field = distance_field(seg, anisotropy, black_border=True)
+      with execute_span("edt.sq", seg.numel(), seg.numel() * 12, dev,
+                        signature=(tuple(seg.shape),)):
+        field = distance_field(seg, anisotropy, black_border=True)
       if seg.is_cuda:
         torch.cuda.synchronize(dev)
   with telemetry.stage("labels"):
@@ -542,7 +545,8 @@ def cutout_labels(labels: np.ndarray, anisotropy, edt_field=None):
     del dense, seg
   with telemetry.stage("d2h"):
     if field is not None:
-      edt_field = field.cpu().numpy().transpose(2, 1, 0)
+      with transfer_span("d2h", field.numel() * 4, dev):
+        edt_field = field.cpu().numpy().transpose(2, 1, 0)
       del field
   ids = uniq.view(np.uint64) if flip else uniq.astype(labels.dtype)
   nonzero = ids != 0

@@ -33,6 +33,7 @@ from ..ops import pooling
 from ..task_creation.common import get_bounds
 from ..tasks.image import DownsampleTask
 from ..volume import Volume
+from ..observability.device import LEDGER, execute_span, transfer_span
 from .executor import cached_chunk_executor, to_host
 
 
@@ -44,16 +45,20 @@ def device_pyramid_batch(executor, imgs):
   64-bit words."""
   dev = executor.device
   works = [pooling._work_array(img, executor.method) for img in imgs]
-  with telemetry.stage("h2d"):
+  nbytes = sum(w.nbytes for w in works)
+  with telemetry.stage("h2d"), transfer_span("h2d", nbytes, dev):
     first = works[0].transpose(3, 2, 1, 0)
     x = torch.empty((len(works),) + first.shape, dtype=torch.from_numpy(first).dtype, device=dev)
     for k, w in enumerate(works):
       x[k].copy_(torch.from_numpy(w.transpose(3, 2, 1, 0)))
   with telemetry.stage("kernel"):
-    outs, _ = executor.run(x)
+    with execute_span(executor.name, x.numel(), nbytes, dev,
+                      signature=(tuple(x.shape), str(x.dtype), executor.factors)):
+      outs, _ = executor.run(x)
     if dev.type == "cuda":
       torch.cuda.synchronize(dev)
-  with telemetry.stage("d2h"):
+  out_bytes = sum(o.numel() * o.element_size() for o in outs)
+  with telemetry.stage("d2h"), transfer_span("d2h", out_bytes, dev):
     return [to_host(o) for o in outs]
 
 
@@ -217,6 +222,11 @@ def batched_downsample(
         compress=compress, downsample_method=method,
       ).execute()
       stats["edge_cutouts"] += 1
+  # paged edges ride device rounds too: only the solo task path counts as
+  # host deliveries
+  LEDGER.record_fastpath(
+    batched=stats["batched_cutouts"] + stats["paged_cutouts"], host=stats["edge_cutouts"]
+  )
   return stats
 
 
@@ -296,6 +306,7 @@ def batched_ccl_faces(
     for preps in _prefetched(_chunked(tasks, batch_size), prep):
       store(preps, paged_ccl([p[1] for p in preps], 6))
       stats["dispatches"] += 1
+    LEDGER.record_fastpath(batched=stats["batched_cutouts"])
     return stats
 
   executor = _batch_executor(6)
@@ -314,6 +325,7 @@ def batched_ccl_faces(
       imgs = np.stack([p[1] for p in preps])
       store(preps, connected_components_batch(imgs, executor=executor))
       stats["dispatches"] += 1
+  LEDGER.record_fastpath(batched=stats["batched_cutouts"], host=stats["edge_cutouts"])
   return stats
 
 
@@ -359,4 +371,5 @@ def batched_skeleton_forge(
     for (task, prepared), field in zip(preps, fields):
       task.execute(_prepared=prepared, _edt_field=field)
       stats["batched_cutouts"] += 1
+  LEDGER.record_fastpath(batched=stats["batched_cutouts"], host=stats["solo_cutouts"])
   return stats

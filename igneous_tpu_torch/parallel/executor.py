@@ -25,6 +25,7 @@ import torch
 
 from .. import telemetry
 from ..device import get_device
+from ..observability.device import elements_of, execute_span, nbytes_of, transfer_span
 from ..ops.cuda_pooling import SIGNED_VIEW
 from ..ops.pooling import device_pyramid
 
@@ -72,12 +73,15 @@ class BatchKernelExecutor:
   are copied at every call.
 
   ``stage``: the telemetry stage that times the kernel (``infer`` for a
-  model's dispatches).
+  model's dispatches). ``name``: the device ledger's name for a dispatch
+  (default: the kernel function's name), whose h2d, execute and d2h spans
+  it records.
   """
 
-  def __init__(self, kernel: Callable, stage: str = "kernel"):
+  def __init__(self, kernel: Callable, stage: str = "kernel", name: str = None):
     self.kernel = kernel
     self.stage = stage
+    self.name = name or getattr(kernel, "__name__", "kernel").lstrip("_")
     self.device = get_device()
     self._consts: Dict = {}
 
@@ -86,7 +90,7 @@ class BatchKernelExecutor:
     such as the model's path); returns the device nest to pass back as
     ``consts=``."""
     if key not in self._consts:
-      with telemetry.stage("h2d"):
+      with telemetry.stage("h2d"), transfer_span("h2d", nbytes_of(consts), self.device):
         self._consts[key] = _tree_map(lambda a: to_device(a, self.device), consts)
     return self._consts[key]
 
@@ -94,15 +98,27 @@ class BatchKernelExecutor:
     """batch: a nest of (K, ...) arrays or tensors -> the kernel's nest of
     (K, ...) numpy arrays."""
     dev = self.device
-    with telemetry.stage("h2d"):
+    host_consts = consts is not None and not _on_device(consts)
+    nbytes = nbytes_of(batch) + (nbytes_of(consts) if host_consts else 0)
+    with telemetry.stage("h2d"), transfer_span("h2d", nbytes, dev):
       xs = _tree_map(lambda a: to_device(a, dev), batch)
       if consts is not None:
         consts = _tree_map(lambda a: to_device(a, dev), consts)
     with telemetry.stage(self.stage):
-      out = self.kernel(xs) if consts is None else self.kernel(consts, xs)
+      with execute_span(self.name, elements_of(xs), nbytes_of(xs), dev):
+        out = self.kernel(xs) if consts is None else self.kernel(consts, xs)
       sync(dev)
-    with telemetry.stage("d2h"):
+    with telemetry.stage("d2h"), transfer_span("d2h", nbytes_of(out), dev):
       return _tree_map(to_host, out)
+
+
+def _on_device(tree) -> bool:
+  """True when every leaf of a nest is a tensor (staged by ``put_consts``)."""
+  if isinstance(tree, dict):
+    return all(_on_device(v) for v in tree.values())
+  if isinstance(tree, (tuple, list)):
+    return all(_on_device(v) for v in tree)
+  return isinstance(tree, torch.Tensor)
 
 
 def join_planes(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -150,6 +166,7 @@ class ChunkExecutor:
     if self.planes == 2 and method != "mode":
       raise ValueError("plane pairs are only meaningful for mode pooling")
     self.device = get_device()
+    self.name = f"pooling.pyramid[{method}]"
 
   def run(self, x: torch.Tensor):
     """(K, c, z, y, x) tensor on the device -> (per-mip (K, ...) tensors,
@@ -166,15 +183,17 @@ class ChunkExecutor:
     arrs = batch if isinstance(batch, tuple) else (batch,)
     if len(arrs) != self.planes:
       raise ValueError(f"expected {self.planes} plane(s), got {len(arrs)}")
-    with telemetry.stage("h2d"):
+    with telemetry.stage("h2d"), transfer_span("h2d", nbytes_of(arrs), self.device):
       xs = [to_device(a, self.device) for a in arrs]
     with telemetry.stage("kernel"):
-      x = join_planes(*xs) if self.planes == 2 else xs[0]
-      outs, nonzero = self.run(x)
-      if self.planes == 2:
-        outs = [split_planes(o) for o in outs]
+      with execute_span(self.name, elements_of(xs), nbytes_of(xs), self.device,
+                        signature=(tuple(xs[0].shape), str(xs[0].dtype), self.factors)):
+        x = join_planes(*xs) if self.planes == 2 else xs[0]
+        outs, nonzero = self.run(x)
+        if self.planes == 2:
+          outs = [split_planes(o) for o in outs]
       sync(self.device)
-    with telemetry.stage("d2h"):
+    with telemetry.stage("d2h"), transfer_span("d2h", nbytes_of(outs), self.device):
       if self.planes == 2:
         result = [(to_host(lo), to_host(hi)) for lo, hi in outs]
       else:

@@ -36,13 +36,14 @@ of it: PyTorch compiles no signatures, and the outputs are the same.
 
 Knobs: ``IGNEOUS_PAGE_SHAPE=pz,py,px`` (default 32,32,32) and
 ``IGNEOUS_PAGE_BATCH`` (pages a round, default 32, rounded up to a power
-of two). ``PagedGlobalRunner``, the JAX package's multi-process runner,
+of two), each resolved as ``tune.resolve`` says: the environment, then
+the tuned file of this device kind, then the default. The device ledger
+records each round's page slack as pad waste (``record_pad_waste``). ``PagedGlobalRunner``, the JAX package's multi-process runner,
 is not ported.
 """
 
 from __future__ import annotations
 
-import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,9 +51,11 @@ import torch
 
 from .. import telemetry
 from ..device import get_device
+from ..observability.device import LEDGER, execute_span, transfer_span
 from ..ops import cuda_pooling
 from ..ops.cuda_pooling import SIGNED_VIEW
 from ..ops.pooling import _normalize_factors, _pool_once, _work_array, route
+from ..tune import resolve
 from .executor import sync
 
 _DEFAULT_PAGE = (32, 32, 32)
@@ -65,7 +68,7 @@ def page_shape() -> Tuple[int, int, int]:
 
   The default 32^3 is divided by every standard mip factor chain up to
   five halvings and by both CCL tile defaults."""
-  raw = os.environ.get("IGNEOUS_PAGE_SHAPE", "")
+  raw = resolve("IGNEOUS_PAGE_SHAPE") or ""
   if not raw:
     return _DEFAULT_PAGE
   parts = tuple(int(v) for v in raw.replace(" ", "").split(","))
@@ -80,7 +83,7 @@ def page_round_cap() -> int:
   """Pages a round: ``IGNEOUS_PAGE_BATCH`` rounded up to a power of two
   (the reference's power-of-two multiple of the device count, on one
   card)."""
-  want = int(os.environ.get("IGNEOUS_PAGE_BATCH") or _DEFAULT_PAGE_BATCH)
+  want = int(resolve("IGNEOUS_PAGE_BATCH") or _DEFAULT_PAGE_BATCH)
   if want <= 0:
     raise ValueError("IGNEOUS_PAGE_BATCH must be positive")
   cap = 1
@@ -260,7 +263,8 @@ class PagedPyramid:
     self._entries = []  # (item, page index, (ez, ey, ex))
     self._left = []
     pz, py, px = self.page
-    with telemetry.stage("h2d"):
+    nbytes = sum(img.nbytes for img in imgs)
+    with telemetry.stage("h2d"), transfer_span("h2d", nbytes, self.device):
       for i, img in enumerate(imgs):
         work = _work_array(img, method)
         self._work_dtype = work.dtype
@@ -319,22 +323,32 @@ class PagedPyramid:
       return []
     self._next += len(todo)
     runs = _runs(todo)
+    # the page packer's own slack: pages beyond each cutout's valid extent
+    # (no filler pages: rounds are not padded to the cap)
+    pz, py, px = self.page
+    itemsize = self._work_dtype.itemsize * self._c
+    real = sum(ez * ey * ex for _, _, (ez, ey, ex) in todo) * itemsize
+    LEDGER.record_pad_waste(len(todo) * pz * py * px * itemsize - real, real)
     with telemetry.stage("kernel"):
-      pages = torch.cat([self._grids[i][j0:j1] for i, j0, j1 in runs])
-      ext = torch.tensor([e for _, _, e in todo], dtype=torch.int64).to(self.device)
-      outs = page_pyramid(
-        pages.view(self._dtype), ext, self.factors, self.method, self.sparse
-      )
-      outs = [o.view(self._signed) for o in outs]
-      r = 0
-      for i, j0, j1 in runs:
-        if self._outs[i] is None:
-          n = len(self._grids[i])
-          self._outs[i] = [torch.empty((n,) + o.shape[1:], dtype=o.dtype, device=o.device)
-                           for o in outs]
-        for dst, o in zip(self._outs[i], outs):
-          dst[j0:j1] = o[r : r + j1 - j0]
-        r += j1 - j0
+      with execute_span(
+        f"pooling.paged_pyramid[{self.method}]", len(todo) * pz * py * px * self._c,
+        device=self.device, signature=(len(todo), self.page, self.factors),
+      ):
+        pages = torch.cat([self._grids[i][j0:j1] for i, j0, j1 in runs])
+        ext = torch.tensor([e for _, _, e in todo], dtype=torch.int64).to(self.device)
+        outs = page_pyramid(
+          pages.view(self._dtype), ext, self.factors, self.method, self.sparse
+        )
+        outs = [o.view(self._signed) for o in outs]
+        r = 0
+        for i, j0, j1 in runs:
+          if self._outs[i] is None:
+            n = len(self._grids[i])
+            self._outs[i] = [torch.empty((n,) + o.shape[1:], dtype=o.dtype, device=o.device)
+                             for o in outs]
+          for dst, o in zip(self._outs[i], outs):
+            dst[j0:j1] = o[r : r + j1 - j0]
+          r += j1 - j0
       sync(self.device)
     done = []
     for i, j0, j1 in runs:
@@ -348,7 +362,8 @@ class PagedPyramid:
     """Reassemble item ``i`` on the card and copy each mip to the host."""
     grid = tuple(-(-s // p) for s, p in zip(self._shapes[i], self.page))
     results = []
-    with telemetry.stage("d2h"):
+    nbytes = sum(o.numel() * o.element_size() for o in self._outs[i])
+    with telemetry.stage("d2h"), transfer_span("d2h", nbytes, self.device):
       for pages, e in zip(self._outs[i], _ceil_chain(self._shapes[i], self.factors)):
         vol = from_pages(pages, grid)[:, : e[0], : e[1], : e[2]]
         r = vol.contiguous().cpu().numpy().view(self._work_dtype)
@@ -427,7 +442,7 @@ def paged_ccl(
       raise ValueError("labels must be (x, y, z)")
     with telemetry.stage("dense_relabel"):
       zyx = np.ascontiguousarray(_dense_relabel(np.asarray(img)).transpose(2, 1, 0))
-    with telemetry.stage("h2d"):
+    with telemetry.stage("h2d"), transfer_span("h2d", zyx.nbytes, dev):
       padded = _padded(torch.from_numpy(zyx).to(dev), page)
       Zp, Yp, Xp = padded.shape
       if Zp * Yp * Xp > _BIG:
@@ -445,34 +460,39 @@ def paged_ccl(
             entries.append((i, j, (oz, oy, ox), (Yp, Xp)))
             j += 1
 
+  # page slack beside the real voxels (no filler pages)
+  real = sum(v[0].nbytes for v in vols)
+  LEDGER.record_pad_waste(len(entries) * pz * py * px * 4 - real, real)
   with telemetry.stage("kernel"):
     for r0 in range(0, len(entries), cap):
       todo = entries[r0 : r0 + cap]
       runs = _runs(todo)
-      pages = torch.cat([grids[i][j0:j1] for i, j0, j1 in runs])
-      local = _ccl_tiled_roots(pages, connectivity, tile_eff)
-      # page-local flat root -> volume-global flat root: without this,
-      # roots of different pages of one volume collide in the merge
-      meta = torch.tensor(
-        [o + d for _, _, o, d in todo], dtype=torch.int32
-      ).to(dev).view(-1, 5, 1, 1, 1)
-      oz, oy, ox, Yp, Xp = meta.unbind(1)
-      lz = torch.div(local, py * px, rounding_mode="floor")
-      ly = torch.div(local, px, rounding_mode="floor") - lz * py
-      lx = local - torch.div(local, px, rounding_mode="floor") * px
-      g = ((oz + lz) * Yp + (oy + ly)) * Xp + (ox + lx)
-      g = torch.where(local != _BIG, g, _BIG)
-      r = 0
-      for i, j0, j1 in runs:
-        roots[i][j0:j1] = g[r : r + j1 - j0]
-        r += j1 - j0
+      with execute_span("ccl.paged", len(todo) * pz * py * px, device=dev,
+                        signature=(len(todo), page, connectivity)):
+        pages = torch.cat([grids[i][j0:j1] for i, j0, j1 in runs])
+        local = _ccl_tiled_roots(pages, connectivity, tile_eff)
+        # page-local flat root -> volume-global flat root: without this,
+        # roots of different pages of one volume collide in the merge
+        meta = torch.tensor(
+          [o + d for _, _, o, d in todo], dtype=torch.int32
+        ).to(dev).view(-1, 5, 1, 1, 1)
+        oz, oy, ox, Yp, Xp = meta.unbind(1)
+        lz = torch.div(local, py * px, rounding_mode="floor")
+        ly = torch.div(local, px, rounding_mode="floor") - lz * py
+        lx = local - torch.div(local, px, rounding_mode="floor") * px
+        g = ((oz + lz) * Yp + (oy + ly)) * Xp + (ox + lx)
+        g = torch.where(local != _BIG, g, _BIG)
+        r = 0
+        for i, j0, j1 in runs:
+          roots[i][j0:j1] = g[r : r + j1 - j0]
+          r += j1 - j0
     sync(dev)
 
   results = []
   for i, (zyx, (Zp, Yp, Xp)) in enumerate(vols):
     Z, Y, X = zyx.shape
     grid = (Zp // pz, Yp // py, Xp // px)
-    with telemetry.stage("d2h"):
+    with telemetry.stage("d2h"), transfer_span("d2h", roots[i].numel() * 4, dev):
       vol_roots = from_pages(roots[i], grid).cpu().numpy()
     padded = np.zeros((Zp, Yp, Xp), np.int32)
     padded[:Z, :Y, :X] = zyx
@@ -526,17 +546,22 @@ def paged_edt(
   dtype = torch.int64 if any(l.dtype == np.int64 for l in labs) else torch.int32
   canon = canonical_shape([l.shape for l in labs], page)
   dev = get_device()
-  with telemetry.stage("h2d"):
+  itemsize = torch.empty(0, dtype=dtype).element_size()
+  real = sum(l.size for l in labs) * itemsize
+  LEDGER.record_pad_waste(len(labs) * int(np.prod(canon)) * itemsize - real, real)
+  with telemetry.stage("h2d"), transfer_span("h2d", sum(l.nbytes for l in labs), dev):
     work = torch.zeros((len(labs),) + canon, dtype=dtype, device=dev)
     for k, l in enumerate(labs):
       Z, Y, X = l.shape
       work[k, 1 : Z + 1, 1 : Y + 1, 1 : X + 1] = torch.from_numpy(l).to(dev)
   with telemetry.stage("edt"):
-    field = distance_field(work, anisotropy)
+    with execute_span("edt.sq_paged", work.numel(), work.numel() * (itemsize + 4), dev,
+                      signature=(tuple(work.shape), str(dtype))):
+      field = distance_field(work, anisotropy)
     del work
     sync(dev)
   outs = []
-  with telemetry.stage("d2h"):
+  with telemetry.stage("d2h"), transfer_span("d2h", 4 * sum(l.size for l in labs), dev):
     for k, l in enumerate(labs):
       Z, Y, X = l.shape
       f = field[k, 1 : Z + 1, 1 : Y + 1, 1 : X + 1].contiguous().cpu().numpy()

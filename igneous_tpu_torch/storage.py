@@ -5,7 +5,8 @@ downsample and connected-components paths use. It keeps the CloudFiles
 file layout: an object compressed with gzip is stored under ``<key>.gz``
 and read, listed and deleted under ``<key>``. Gzip is written with
 ``mtime=0``, so a chunk or scratch file written by either package is
-byte-identical. gs://, s3:// and http(s)://, zstd, integrity manifests and
+byte-identical. ``compress="gzip-N"`` writes gzip at level N under the same
+``.gz`` name. gs://, s3:// and http(s)://, zstd, integrity manifests and
 trace hooks are not ported yet (ROADMAP.md).
 """
 
@@ -20,6 +21,10 @@ from typing import Dict, Iterable, Iterator, Optional, Tuple, Union
 from .lib import jsonify
 
 COMPRESSION_EXTS = {"gzip": ".gz", None: "", False: "", "": ""}
+# explicit-level gzip ("gzip-1" ... "gzip-9") shares the .gz wire format:
+# readers cannot tell levels apart, only writers choose
+for _lvl in range(1, 10):
+  COMPRESSION_EXTS[f"gzip-{_lvl}"] = ".gz"
 _EXT_TO_COMPRESSION = {".gz": "gzip"}
 
 
@@ -44,27 +49,47 @@ def method_for_ext(ext: str) -> Optional[str]:
 def compress_bytes(data: bytes, method) -> bytes:
   if method in (None, False, ""):
     return data
-  if method == "gzip":
+  if method == "gzip" or (isinstance(method, str) and method in COMPRESSION_EXTS
+                          and method.startswith("gzip-")):
+    level = 6 if method == "gzip" else int(method[5:])
     # mtime=0: re-running a task writes byte-identical objects
-    return gzip.compress(data, compresslevel=6, mtime=0)
-  raise ValueError(f"Unsupported compression: {method} (the port writes gzip or none)")
+    return gzip.compress(data, compresslevel=level, mtime=0)
+  raise ValueError(
+    f"Unsupported compression: {method} (the port writes gzip, gzip-1..gzip-9 or none)"
+  )
 
 
-def scratch_gzip_level(default: int) -> int:
-  """Gzip level of scratch files that callers compress themselves (the CCL
-  face planes): ``IGNEOUS_SCRATCH_COMPRESS=gzip-N`` picks N, ``gzip`` picks
-  6; unset, or any other method, keeps ``default``."""
+def scratch_compression(default="gzip"):
+  """Compression of intermediate files that a later task reads and deletes
+  (skeleton fragments, CCL face planes): ``IGNEOUS_SCRATCH_COMPRESS`` picks
+  gzip (level 6), gzip-1..gzip-9 or none; unset keeps ``default``. zstd
+  keeps ``default`` too, as the JAX package does where its codec is not
+  installed: the port has none."""
   val = os.environ.get("IGNEOUS_SCRATCH_COMPRESS", "").strip().lower()
-  if val == "gzip":
-    return 6
-  if val.startswith("gzip-") and val[5:] in "123456789" and len(val) == 6:
-    return int(val[5:])
-  if val in ("", "none", "raw", "0", "off", "zstd"):
+  if not val:
     return default
+  if val in ("none", "raw", "0", "off"):
+    return None
+  if val == "zstd":
+    return default
+  if val == "gzip" or (val.startswith("gzip-") and val in COMPRESSION_EXTS):
+    return val
   raise ValueError(
     f"IGNEOUS_SCRATCH_COMPRESS={val!r} unsupported: use "
     "gzip-1..gzip-9, gzip, zstd, or none"
   )
+
+
+def scratch_gzip_level(default: int) -> int:
+  """Gzip level of scratch files that callers compress themselves (the CCL
+  face planes): the level ``scratch_compression`` picks, or ``default``
+  where it picks no gzip level."""
+  method = scratch_compression(f"gzip-{default}")
+  if method == "gzip":
+    return 6
+  if isinstance(method, str) and method.startswith("gzip-"):
+    return int(method[5:])
+  return default
 
 
 def decompress_bytes(data: bytes, method) -> bytes:
@@ -120,6 +145,9 @@ class _FileBackend:
     except FileNotFoundError:
       pass
 
+  def exists(self, key: str) -> bool:
+    return os.path.isfile(os.path.join(self.root, key))
+
   def list(self, prefix: str = "") -> Iterator[str]:
     # prefix is a path prefix, not necessarily a directory
     directory = os.path.dirname(prefix)
@@ -156,6 +184,10 @@ class _MemBackend:
   def delete(self, key: str):
     with _MEM_LOCK:
       self.files.pop(key, None)
+
+  def exists(self, key: str) -> bool:
+    with _MEM_LOCK:
+      return key in self.files
 
   def list(self, prefix: str = "") -> Iterator[str]:
     with _MEM_LOCK:
@@ -208,6 +240,10 @@ class CloudFiles:
   def get(self, key: str) -> Optional[bytes]:
     data, method = self.get_stored(key)
     return None if data is None else decompress_bytes(data, method)
+
+  def exists(self, key: str) -> bool:
+    """True when ``key`` is stored, compressed or not."""
+    return any(self.backend.exists(key + ext) for ext in ("", *_EXT_TO_COMPRESSION))
 
   def get_json(self, key: str):
     data = self.get(key)

@@ -49,7 +49,7 @@ from ..ops.skeletonize import TeasarParams, skeletonize
 from ..queues.registry import RegisteredTask
 from ..skeleton_io import Skeleton, postprocess
 from ..spatial_index import SpatialIndex
-from ..storage import CloudFiles
+from ..storage import CloudFiles, scratch_compression
 from ..volume import Volume
 from .stats import globally_small_labels
 
@@ -331,9 +331,12 @@ class SkeletonTask(RegisteredTask):
     res = np.asarray(vol.resolution, dtype=np.int64)
     # the .spatial file is named by the task's physical box
     physical = Bbox(core.minpt * res, core.maxpt * res)
+    # fragments are intermediate: a merge task reads and deletes them, so
+    # IGNEOUS_SCRATCH_COMPRESS picks their compression (unset: gzip)
+    compress = scratch_compression("gzip")
     for label, s in skels.items():
       cf.put(f"{sdir}/{label}:{core.to_filename()}.sk", s.to_precomputed(),
-             compress="gzip")
+             compress=compress)
     if self.spatial_index:
       label_bounds = {}
       for label, s in skels.items():

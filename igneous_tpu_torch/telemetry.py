@@ -6,9 +6,11 @@ stages here so a caller can split a task's wall time. ``stage`` only reads
 the host clock; the device stages synchronise where they end (ops.pooling,
 ops.ccl, ops.mesh). ``add`` counts work items (the mesh path's labels and
 faces, the chunk cache's hits and misses). ``observe`` adds a duration
-measured elsewhere to a stage (the staged pipeline's stall seconds), and
-``gauge_max`` keeps the highest value a gauge has shown (its buffer's
-bytes in flight).
+measured elsewhere to a stage (the staged pipeline's stall seconds, the
+device ledger's resolved spans), ``gauge_max`` keeps the highest value a
+gauge has shown (its buffer's bytes in flight) and ``gauge_set`` its
+latest (the device ledger's ratios and memory). The device ledger
+(``observability.device``) records here under the ``device.*`` names.
 """
 
 from __future__ import annotations
@@ -51,8 +53,14 @@ def gauge_max(name: str, value: float) -> None:
       _GAUGES[name] = value
 
 
+def gauge_set(name: str, value: float) -> None:
+  with _LOCK:
+    _GAUGES[name] = value
+
+
 def gauges() -> Dict[str, float]:
-  """{gauge: highest value} since the last reset."""
+  """{gauge: value} since the last reset: the highest for a ``gauge_max``
+  gauge, the latest for a ``gauge_set`` one."""
   with _LOCK:
     return dict(_GAUGES)
 

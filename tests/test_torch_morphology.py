@@ -5,7 +5,8 @@ torch ``dilate_step``), ``erode`` and ``fill_holes`` at levels 1-3 must
 equal the JAX package's bit for bit, on seeded random multilabel volumes
 of 1-19 voxels a side (uint8, uint32, uint64 ids at or above 2^63, int16
 with negative ids, bool), with and without background, with ties on
-several axes and with extents of 1.
+several axes and with extents of 1; and on float32 and float64 labels
+(both zeros, ties), compared on the bits.
 """
 
 import numpy as np
@@ -132,12 +133,66 @@ def test_erode_matches_reference(seed, dtype_name):
   assert np.array_equal(got, ref)
 
 
-def test_morphology_refuses_float_labels():
-  labels = np.zeros((4, 4, 4), np.float32)
-  with pytest.raises(ValueError, match="integers"):
-    morph.erode(labels)
-  with pytest.raises(ValueError, match="integers"):
-    morph.dilate(labels)
+FLOAT_IDS = [0.0, -0.0, 1.5, 1.5000001, 2.25, -3.0, 1e30]
+
+
+def float_labels(seed: int, dtype) -> np.ndarray:
+  """(x, y, z) float labels 1-13 voxels a side: both zeros, values that
+  differ in the last bits of float32 and of neither, and a negative."""
+  rng = np.random.default_rng(seed)
+  shape = tuple(int(v) for v in rng.integers(1, 14, 3))
+  p = np.asarray([4, 3, 1, 1, 1, 1, 1], np.float64)
+  return rng.choice(np.asarray(FLOAT_IDS, dtype), size=shape, p=p / p.sum()).astype(dtype)
+
+
+def bits(a: np.ndarray) -> np.ndarray:
+  """The integer view of a float array: -0.0 and 0.0 differ there."""
+  return a.view(f"u{a.itemsize}")
+
+
+FLOAT_CASES = [(seed, dt) for seed in range(3) for dt in ("float32", "float64")]
+
+
+@pytest.mark.parametrize("seed,dtype_name", FLOAT_CASES)
+def test_dilate_and_erode_on_float_labels_match_reference(seed, dtype_name):
+  """Float labels as the JAX package takes them, bit for bit: -0.0 is
+  background beside 0.0, NaN-free values that float32 tells apart stay
+  apart, and the representative zero is the one ``np.unique`` keeps."""
+  labels = float_labels(seed, np.dtype(dtype_name))
+  for iterations in (1, 2):
+    for fn, ref_fn in ((morph.dilate, jax_morph.dilate), (morph.erode, jax_morph.erode)):
+      got, ref = fn(labels, iterations), ref_fn(labels, iterations)
+      assert got.dtype == ref.dtype and got.shape == ref.shape
+      assert np.array_equal(bits(got), bits(ref))
+
+
+@pytest.mark.parametrize("seed,dtype_name", FLOAT_CASES)
+def test_fill_holes_on_float_labels_matches_reference(seed, dtype_name):
+  labels = float_labels(seed + 7, np.dtype(dtype_name))
+  for level in (1, 3):
+    got = morph.fill_holes(labels, return_fill_count=True, level=level)
+    ref = jax_morph.fill_holes(labels, return_fill_count=True, level=level)
+    assert got[0].dtype == ref[0].dtype
+    assert np.array_equal(bits(got[0]), bits(ref[0])) and got[1] == ref[1]
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+def test_float_dilate_ties_and_negative_zero_match_reference(dtype_name):
+  """Ties between float labels follow the axis order, and a -0.0 voxel
+  is background that the dilation fills (with no negative label, zero is
+  the first of ``np.unique``'s ids)."""
+  dtype = np.dtype(dtype_name)
+  lab = np.zeros((5, 5, 5), dtype)
+  c = (2, 2, 2)
+  lab[c] = -0.0
+  lab[2, 2, 1] = lab[2, 2, 3] = 1.5
+  lab[1, 2, 2] = lab[3, 2, 2] = 2.25
+  lab[0, 0, 0] = -0.0
+  got, ref = morph.dilate(lab), jax_morph.dilate(lab)
+  assert got.dtype == ref.dtype and np.array_equal(bits(got), bits(ref))
+  assert got[c] == 1.5
+  got, ref = morph.erode(lab), jax_morph.erode(lab)
+  assert np.array_equal(bits(got), bits(ref))
 
 
 def shell(dtype=np.uint64, crack: bool = False) -> np.ndarray:

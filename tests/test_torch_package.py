@@ -59,6 +59,8 @@ import igneous_tpu_torch.pipeline, igneous_tpu_torch.pipeline.encoder, igneous_t
 import igneous_tpu_torch.ops.morphology, igneous_tpu_torch.tasks.stats
 import igneous_tpu_torch.infer, igneous_tpu_torch.infer.registry, igneous_tpu_torch.infer.engine
 import igneous_tpu_torch.tasks.inference, igneous_tpu_torch.task_creation.inference
+import igneous_tpu_torch.observability.device, igneous_tpu_torch.compile_cache
+import igneous_tpu_torch.tune
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'igneous_tpu')]
 assert not bad, bad
 from igneous_tpu_torch.ops import _build

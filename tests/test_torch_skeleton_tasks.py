@@ -9,7 +9,8 @@ layer's info must be byte-identical. Also: payloads the JAX package
 serialized run in the port, the border pins follow the JAX package's
 plane numbering, the command lines agree, ``fill_holes`` and
 ``dust_global`` (after a voxel-count census) write the same fragments,
-and the options the port does not run yet raise before anything is read
+``IGNEOUS_SCRATCH_COMPRESS`` (unset, none, gzip-1) picks the fragments'
+compression in both, and the options the port does not run yet raise before anything is read
 or written.
 """
 
@@ -172,6 +173,46 @@ def test_each_package_reads_the_others_fragments(tmp_path):
     f"file://{paths['port']}", shape=(32, 24, 24), **FORGE))
   JaxQueue(parallel=1, progress=False).insert(jax_tc.create_skeletonizing_tasks(
     f"file://{paths['jax']}", shape=(32, 24, 24), **FORGE))
+  JaxQueue(parallel=1, progress=False).insert(
+    jax_tc.create_unsharded_skeleton_merge_tasks(f"file://{paths['port']}", **MERGE))
+  LocalTaskQueue().insert(tc.create_unsharded_skeleton_merge_tasks(
+    f"file://{paths['jax']}", **MERGE))
+  merged = {k: v for k, v in _skel_files(paths["port"]).items() if ":" not in k}
+  assert len(merged) > 3
+  assert merged == {k: v for k, v in _skel_files(paths["jax"]).items() if ":" not in k}
+
+
+SCRATCH_KNOB = [None, "none", "gzip-1"]
+
+
+@pytest.mark.parametrize("knob", SCRATCH_KNOB, ids=lambda v: v or "unset")
+def test_fragments_follow_the_scratch_compression(knob, tmp_path, monkeypatch):
+  """``IGNEOUS_SCRATCH_COMPRESS`` picks the fragments' compression in both
+  packages (``.sk`` raw for none, ``.sk.gz`` at level 1 for gzip-1):
+  forge and merge write the same files."""
+  if knob is None:
+    monkeypatch.delenv("IGNEOUS_SCRATCH_COMPRESS", raising=False)
+  else:
+    monkeypatch.setenv("IGNEOUS_SCRATCH_COMPRESS", knob)
+  paths = _forge_both(tmp_path / "forge", tubes(), (32, 48, 24), merge=False)
+  ref, got = _skel_files(paths["jax"]), _skel_files(paths["port"])
+  frags = [k for k in got if ":" in k]
+  assert len(frags) > 5
+  assert all(k.endswith(".sk" if knob == "none" else ".sk.gz") for k in frags)
+  assert got == ref
+  paths = _forge_both(tmp_path / "merge", tubes(), (32, 48, 24))
+  assert _skel_files(paths["port"]) == _skel_files(paths["jax"])
+
+
+@pytest.mark.parametrize("knob", ["none", "gzip-1"])
+def test_each_package_merges_the_others_scratch_fragments(knob, tmp_path, monkeypatch):
+  monkeypatch.setenv("IGNEOUS_SCRATCH_COMPRESS", knob)
+  paths = _layers(tmp_path, tubes(seed=3))
+  LocalTaskQueue().insert(tc.create_skeletonizing_tasks(
+    f"file://{paths['port']}", shape=(32, 24, 24), **FORGE))
+  JaxQueue(parallel=1, progress=False).insert(jax_tc.create_skeletonizing_tasks(
+    f"file://{paths['jax']}", shape=(32, 24, 24), **FORGE))
+  assert _skel_files(paths["port"]) == _skel_files(paths["jax"])
   JaxQueue(parallel=1, progress=False).insert(
     jax_tc.create_unsharded_skeleton_merge_tasks(f"file://{paths['port']}", **MERGE))
   LocalTaskQueue().insert(tc.create_unsharded_skeleton_merge_tasks(

@@ -215,6 +215,36 @@ def test_cli_voxels_sum_without_compression(tmp_path):
   assert "stats/voxel_counts/0/voxel_counts.im" in _census_files(paths["port"])
 
 
+@pytest.mark.parametrize("compress", ["gzip-1", "gzip-9"])
+def test_cli_voxels_sum_at_a_gzip_level(tmp_path, compress):
+  paths = _layers(tmp_path, labels(np.uint64, seed=5))
+  runner = CliRunner()
+  for args in (["count", f"file://{paths['jax']}"],
+               ["sum", f"file://{paths['jax']}", "--compress", compress]):
+    res = runner.invoke(jax_cli, ["image", "voxels", *args])
+    assert res.exit_code == 0, res.output
+  assert cli_main(["image", "voxels", "count", f"file://{paths['port']}"]) == 0
+  assert cli_main(["image", "voxels", "sum", f"file://{paths['port']}",
+                   "--compress", compress]) == 0
+  files = _census_files(paths["port"])
+  assert "stats/voxel_counts/0/voxel_counts.im.gz" in files
+  assert files == _census_files(paths["jax"])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=lambda d: np.dtype(d).name)
+def test_census_of_float_labels_matches_reference(dtype, tmp_path):
+  """Float labels count as the JAX package counts them: np.unique's values,
+  keyed ``str(int(label))``, so 1.25 and 1.75 meet under "1"."""
+  rng = np.random.default_rng(6)
+  ids = np.asarray([0.0, -0.0, 1.25, 1.75, 3.0, 2.0**40 + 0.5, 7.5], dtype)
+  data = np.asfortranarray(rng.choice(ids, size=(10, 9, 5)).repeat(4, 0).repeat(4, 1)
+                           .repeat(4, 2))
+  paths = _layers(tmp_path, data)
+  ref, got = _census_both(paths)
+  assert got == ref and 1 in got
+  assert _census_files(paths["port"]) == _census_files(paths["jax"])
+
+
 def test_reference_payload_runs_in_the_port(tmp_path):
   paths = _layers(tmp_path, labels(np.uint64, seed=4))
   tasks = list(jax_tc.create_voxel_counting_tasks(f"file://{paths['jax']}", shape=TASK))

@@ -7,7 +7,7 @@ every file the run writes byte for byte (chunks, ``info``, and
 compressed_segmentation (uint32, uint64), compresso, jpeg and png layers;
 create_transfer_tasks from raw into compressed_segmentation with a
 rechunk and each of its options, into the image codecs with an encoding
-level, with compress none, gzip and auto (the reference with its
+level, with compress none, gzip, gzip-1, gzip-9 and auto (the reference with its
 compressed-domain passthrough off, and once at its default on a
 passthrough-eligible transfer, which the port moves the same way); mesh and skeleton
 forge+merge from a compressed_segmentation source; a TransferTask payload
@@ -131,6 +131,10 @@ DS_LAYERS = {
                       dict(compress=False)),
   "raw_to_cseg_scales": (lambda: segmentation((96, 80, 32), seed=4), {},
                          dict(encoding="compressed_segmentation", compress="auto")),
+  # gzip at an explicit level: the same .gz names, other deflate bytes
+  "raw_uint8_gzip1": (lambda: image((96, 80, 32)), {}, dict(compress="gzip-1")),
+  "cseg_uint64_gzip9": (lambda: segmentation((96, 80, 32), seed=5),
+                        dict(encoding="compressed_segmentation"), dict(compress="gzip-9")),
 }
 
 
@@ -193,6 +197,9 @@ XFER_CASES = {
   "png_uint16_volumetric": ("image16", 0, dict(encoding="png", num_mips=1, factor=(2, 2, 2),
                                                chunk_size=(32, 32, 16))),
   "raw_average_rechunk": ("image", 0, dict(chunk_size=(16, 16, 16), num_mips=2)),
+  "rechunk_cseg_gzip1": ("seg", 0, dict(**CSEG, num_mips=2, compress="gzip-1")),
+  "raw_average_gzip9": ("image", 0, dict(chunk_size=(32, 32, 16), num_mips=1,
+                                         compress="gzip-9")),
 }
 
 
@@ -284,6 +291,26 @@ def test_passthrough_eligible_transfer_matches_the_reference_default(tmp_path, m
   LocalTaskQueue().insert(tc.create_transfer_tasks(
     f"file://{roots['port'] / 'src'}", f"file://{roots['port'] / 'dest'}", **kw))
   assert_same_tree(roots["port"], roots["jax"], min_files=12)
+
+
+@pytest.mark.parametrize("compress", ["gzip-1", "gzip-9"])
+def test_passthrough_recompresses_at_the_gzip_level(tmp_path, compress):
+  """An uncompressed source copied with compress="gzip-N": both packages'
+  passthroughs deflate every stored chunk at level N, to the same bytes."""
+  data = segmentation(SRC_SHAPE, seed=6)
+  roots = {}
+  for who in ("jax", "port"):
+    roots[who] = tmp_path / who
+    JaxVolume.from_numpy(data, f"file://{roots[who] / 'src'}", resolution=(8, 8, 40),
+                         chunk_size=(64, 64, 32), compress=False)
+  kw = dict(skip_downsamples=True, shape=(64, 64, 32), compress=compress)
+  JaxQueue(parallel=1, progress=False).insert(jax_tc.create_transfer_tasks(
+    f"file://{roots['jax'] / 'src'}", f"file://{roots['jax'] / 'dest'}", **kw))
+  LocalTaskQueue().insert(tc.create_transfer_tasks(
+    f"file://{roots['port'] / 'src'}", f"file://{roots['port'] / 'dest'}", **kw))
+  assert_same_tree(roots["port"], roots["jax"], min_files=12)
+  chunks = sorted((roots["port"] / "dest" / "8_8_40").iterdir())
+  assert chunks and all(p.suffix == ".gz" for p in chunks)
 
 
 @pytest.mark.parametrize("case,error", [
