@@ -139,10 +139,11 @@ Phases, each reported on its own line:
      level-3 fill count above the level-1 count above 0, each task's
      stage split (fill_holes on the host, dilate and erode on the card);
      no pooling, CCL or EDT kernel launched;
-  9. inference (after phase 3d, on phase 3's image, bounds 1024x1024x64):
+  9. inference (after phase 3d, on phase 3's image, bounds 1024x512x64,
+     half its width before phase 11):
      the repo's inference model (convnet3d 1 -> 8 -> 2, patch 64x64x32,
      overlap 16x16x8, init_params(seed=0)) through create_inference_tasks
-     -> LocalTaskQueue -> InferenceTask, 16 tasks of 108 patches at batch
+     -> LocalTaskQueue -> InferenceTask, 8 tasks of 108 patches at batch
      4, pipelined with postprocess none, again with IGNEOUS_PIPELINE=off
      and with batch 7 (both byte for byte the first), and with argmax
      (equal to the argmax of the first's floats); the identity model on
@@ -174,10 +175,31 @@ Phases, each reported on its own line:
      and put back; and the tuner, tune.run(size=64, budget_sec=60): each
      candidate's time, all byte for byte the default's, the tuned file
      of the card's kind written and read back by resolve;
+  11. the queue worker (after phase 3d, and after the batched parts of
+     phases 4 and 6): (a) phase 3d's two 16-task streams inserted with
+     `image downsample --queue fq://...` and drained by two workers at
+     once, a worker process (`python -m igneous_tpu_torch execute
+     --batch 4 -x`) and, once it holds leases, `execute --batch 8 -x
+     --time` in this process (its launches and device ledger read):
+     each task completed once (16 tallies, none leased or dead-lettered),
+     every chunk of the new mips equal to phase 3's solo output, the walls
+     beside phase 3d's; (b) phase 3's ragged image as 16 tasks of
+     256x256x64 through a queue at batch 8 (full members through
+     pyramid2x2x1, clamped ones through the pages and pool2x2x1), CCL pass
+     1 of phase 4's segmentation through `ccl faces --queue` at batch 4
+     (one paged_ccl group, every face file the task path's) and phase 6's
+     skeleton forge through a queue at batch 2 (one paged_edt group,
+     every fragment phase 6's), no member solo, failed or fallen back;
+     (c) eight downsample tasks and a FailTask at --max-deliveries 2 (the
+     dead-letter queue holds the FailTask alone, with its reason twice),
+     a worker process drained by its --drain-sentinel mid-run (exit 83,
+     no lease held) and a second worker finishing its queue, and a 6 s
+     task at --lease-sec 2 held by its heartbeat (a second worker finds
+     nothing to lease; one completion, no zombie count);
   7. the card's name and power limit, the programs line (X1-X3, X5-X7),
      the kernels line (each kernel's launches on the main paths, the
-     transfer, the batched phase and the pipelined streams), and the
-     result.
+     transfer, the batched phase, the pipelined streams and the worker
+     phase, where each of the four must have launched), and the result.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside it.
@@ -194,6 +216,7 @@ the 515^3 field), and runs phases 1 and 2 only.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -2029,8 +2052,9 @@ def morphology_phase(root, cp, cc, ce, torch, dev):
 # the repo's own inference configuration (bench.py:942-946)
 INFER_SPEC = dict(architecture="convnet3d", in_channels=1, out_channels=2,
                   patch_shape=(64, 64, 32), overlap=(16, 16, 8), hidden=(8,))
-INFER_BOUNDS = ((0, 0, 0), (1024, 1024, 64))  # of phase 3's image
-INFER_TASKS = 16  # of the default 256x256x64
+# of phase 3's image; half the width it had before the worker phase
+INFER_BOUNDS = ((0, 0, 0), (1024, 512, 64))
+INFER_TASKS = 8  # of the default 256x256x64
 INFER_PATCHES = 108  # a task's 288x288x80 halo'd cutout: 6 x 6 x 3 patches
 INFER_BATCH = 4
 # card against the CPU route: |a - b| <= RTOL |b| + ATOL max|b| (the two
@@ -2051,10 +2075,10 @@ def layer_files(path: str) -> dict:
 
 
 def inference_phase(root, cp, cc, ce, torch, dev):
-  """Phase 9 on phase 3's image (bounds 1024x1024x64): the repo's
+  """Phase 9 on phase 3's image (bounds 1024x512x64): the repo's
   inference model (``INFER_SPEC``, ``init_params(seed=0)``) through
   ``create_inference_tasks`` -> ``LocalTaskQueue`` -> ``InferenceTask``,
-  16 tasks of 108 patches at batch 4: pipelined with postprocess none,
+  8 tasks of 108 patches at batch 4: pipelined with postprocess none,
   the same with ``IGNEOUS_PIPELINE=off`` and with batch 7 (both byte for
   byte the first), argmax (equal to the argmax of the first's floats);
   the identity model on the card and on the CPU route, byte for byte, and
@@ -2427,7 +2451,7 @@ def pipelined_phase(root, cp, cc, ce, torch, dev):
   verbatim and no kernel launched; then the same copies down the decode
   route (``IGNEOUS_TRANSFER_PASSTHROUGH=off``; the cseg layer's once more
   with ``IGNEOUS_CHUNK_CACHE=off``), with the same bytes. Returns the
-  pooling kernels' launches in the pipelined runs."""
+  pooling kernels' launches in the pipelined runs and each run's wall."""
   import os
 
   from igneous_tpu_torch import Volume, chunk_cache, telemetry
@@ -2529,7 +2553,7 @@ def pipelined_phase(root, cp, cc, ce, torch, dev):
       if moved["verbatim"] != want or moved["chunks"] != want:
         fail(f"passthrough {name} {route}: moved {moved}, expected {want} chunks verbatim")
   print(f"pipelined: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
-  return pipelined
+  return pipelined, walls
 
 
 def page_kernel_program(root, cp, torch, dev):
@@ -2635,6 +2659,8 @@ def batched_ccl_phase(root, cc, torch, dev):
     fail(f"batched ccl: stats {stats} for {len(tasks)} tasks")
   if launched != rounds:
     fail(f"batched ccl: tile_resolve launched {launched} times for {rounds} page rounds")
+  # the task path's faces stay for the worker phase's comparison
+  shutil.move(faces, os.path.join(root, "faces_task"))
   shutil.rmtree(os.path.join(root, name, "ccl"))
   return launched
 
@@ -3062,8 +3088,439 @@ def tune_phase(root: str) -> None:
   print(f"tune: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the queue worker (phase 11)
+
+WORKER_SUMMARY = re.compile(
+  r"executed (\d+) tasks \((\d+) batched in (\d+) dispatches, (\d+) solo, "
+  r"(\d+) failed, (\d+) released\)"
+)
+WORKER_LEASE_SEC = 600
+# a card's worker process reaches the card in 8-10 s; the drain, the
+# dead letters and the heartbeat each wait on short leases
+WORKER_START_S, WORKER_EXIT_S = 180.0, 600.0
+DRAIN_POLL_SEC = "0.2"
+HEARTBEAT_LEASE_SEC, HEARTBEAT_TASK_S = 2, 6.0
+POISON = "chip smoke poison"
+
+
+def zero_counts(*modules) -> None:
+  for m in modules:
+    for key in m.LAUNCHES:
+      m.LAUNCHES[key] = 0
+
+
+def run_cli(args) -> str:
+  """The port's command line in this process; fails on a non-zero exit.
+  Returns what it printed."""
+  import contextlib
+  import io
+
+  from igneous_tpu_torch.cli import main as cli_main
+
+  out = io.StringIO()
+  with contextlib.redirect_stdout(out):
+    rc = cli_main([str(a) for a in args])
+  if rc != 0:
+    fail(f"`{' '.join(map(str, args))}` exited {rc}: {out.getvalue()[-2000:]}")
+  return out.getvalue()
+
+
+def worker_summary(text: str, label: str) -> dict:
+  """The counts of an ``execute --batch`` run's summary line, and its
+  rounds and dispatches by kind from its ``--time`` lines (when there)."""
+  m = WORKER_SUMMARY.search(text)
+  if m is None:
+    fail(f"worker {label}: no summary line in {text[-2000:]!r}")
+  keys = ("executed", "batched", "dispatches", "solo", "failed", "released")
+  got = dict(zip(keys, map(int, m.groups())))
+  rounds = [json.loads(l) for l in text.splitlines() if l.startswith('{"round_members"')]
+  by_kind = {}
+  for r in rounds:
+    for k, v in r["dispatches"].items():
+      by_kind[k] = by_kind.get(k, 0) + v
+  got["rounds"], got["by_kind"] = len(rounds), by_kind
+  got["round_solo"] = sum(r["solo"] for r in rounds)
+  got["group_fallbacks"] = sum(r["group_fallbacks"] for r in rounds)
+  return got
+
+
+def start_worker(root: str, label: str, args, env=()):
+  """``python -m igneous_tpu_torch execute ...`` as a worker process on the
+  card, its output in files under ``root``. Returns (process, out path)."""
+  import os
+
+  here = os.path.dirname(os.path.abspath(__file__))
+  out = os.path.join(root, f"worker_{label}.out")
+  environ = dict(os.environ, PYTHONPATH=here, **dict(env))
+  with open(out, "w") as fo, open(out + ".err", "w") as fe:
+    proc = subprocess.Popen(
+      [sys.executable, "-m", "igneous_tpu_torch", "execute", *map(str, args)],
+      cwd=here, env=environ, stdout=fo, stderr=fe,
+    )
+  return proc, out
+
+
+def finish_worker(proc, out: str, label: str, codes=(0,)) -> str:
+  """Wait for a worker process (killed after ``WORKER_EXIT_S``); fails on
+  an exit code outside ``codes``. Returns its standard output."""
+  try:
+    proc.wait(timeout=WORKER_EXIT_S)
+  except subprocess.TimeoutExpired:
+    proc.kill()
+    proc.wait()
+    fail(f"worker {label}: still running after {WORKER_EXIT_S:.0f} s")
+  text = open(out).read()
+  if proc.returncode not in codes:
+    fail(f"worker {label}: exit {proc.returncode}: {open(out + '.err').read()[-3000:]}")
+  return text
+
+
+def wait_for(pred, seconds: float, what: str, proc=None) -> None:
+  t0 = time.perf_counter()
+  while not pred():
+    if proc is not None and proc.poll() is not None:
+      return  # it ended: the caller reads its exit
+    if time.perf_counter() - t0 > seconds:
+      fail(f"worker: {what} not within {seconds:.0f} s")
+    time.sleep(0.05)
+
+
+def mip_files_equal(src: str, dst: str, mips: int, complete: bool = True) -> int:
+  """Every chunk file of mips 1..mips under ``dst`` byte for byte the same
+  file under ``src`` (phase 3's solo output); with ``complete`` the two
+  hold the same files. Returns how many."""
+  import os
+
+  from igneous_tpu_torch import Volume
+
+  n = 0
+  for scale in Volume(f"file://{dst}").info["scales"][1 : mips + 1]:
+    a, b = os.path.join(src, scale["key"]), os.path.join(dst, scale["key"])
+    if complete:
+      n += same_files(a, b)
+      continue
+    for name in os.listdir(b):
+      with open(os.path.join(a, name), "rb") as fa, open(os.path.join(b, name), "rb") as fb:
+        if fa.read() != fb.read():
+          fail(f"{b}/{name} differs from phase 3's {a}/{name}")
+      n += 1
+  return n
+
+
+def worker_streams(root, cp, cc, ce, walls3d, torch, dev) -> dict:
+  """(a) Phase 3d's two 16-task streams through ``image downsample
+  --queue`` and two workers at once: a worker process (``execute --batch
+  4 -x --time``) and, once it holds leases, ``execute --batch 8 -x
+  --time`` in this process, whose launches and ledger are read. No group
+  of either falls back to solo. The written mips byte
+  for byte phase 3's solo output (and so phase 3d's), each task completed
+  once (16 tallies, none leased or dead-lettered), and the walls beside
+  phase 3d's. Returns this process's launches."""
+  import os
+
+  from igneous_tpu_torch.queues import FileQueue
+
+  launches = {}
+  for name, target, ntasks, shape, mips in PIPELINED_RUNS:
+    src, dst = os.path.join(root, name), os.path.join(root, f"{name}_worker")
+    spec = f"fq://{root}/queue_{name}"
+    link_layer(src, dst)
+    run_cli(["image", "downsample", f"file://{dst}", "--num-mips", mips,
+             "--memory", target, "--queue", spec])
+    q = FileQueue(spec)
+    if q.inserted != ntasks or q.queue_files != ntasks:
+      fail(f"worker {name}: {q.inserted} tasks in {q.queue_files} files, expected {ntasks}")
+    proc, out = start_worker(root, name, [spec, "--batch", 4, "-x", "--time", "--lease-sec",
+                                          WORKER_LEASE_SEC])
+    try:
+      wait_for(lambda: q.leased or q.completed, WORKER_START_S,
+               f"the worker process of {name} leasing", proc)
+      zero_counts(cp, cc, ce)
+      ledger_reset(torch, dev)
+      t0 = time.perf_counter()
+      text = run_cli(["execute", spec, "--batch", 8, "-x", "--time", "--lease-sec",
+                      WORKER_LEASE_SEC])
+      wall = time.perf_counter() - t0
+      launched = launch_counts(cp, cc, ce)
+      other = worker_summary(finish_worker(proc, out, name), f"{name} process")
+    finally:
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    wall_all = time.perf_counter() - t0
+    mine = worker_summary(text, name)
+    snap = ledger_line(f"worker {name}", wall, launched)
+    depth = q.depth_snapshot()
+    print(f"worker {name}: {ntasks} tasks of {shape[0]}x{shape[1]}x{shape[2]}, {mips} mips, "
+          f"this process {json.dumps(mine)} in {wall:.3f} s (busy "
+          f"{100 * snap['busy_s'] / wall:.2f}%), the worker process {json.dumps(other)}, "
+          f"both done {wall_all:.3f} s after this one began; phase 3d serial "
+          f"{walls3d[(name, 'serial')]:.3f} s, pipelined {walls3d[(name, 'pipelined')]:.3f} s; "
+          f"launches {json.dumps(launched)}, queue {json.dumps(depth)}", flush=True)
+    if mine["executed"] + other["executed"] != ntasks or mine["failed"] or other["failed"] \
+       or other["group_fallbacks"] or other["round_solo"] != other["solo"]:
+      fail(f"worker {name}: executed {mine['executed']} + {other['executed']} of {ntasks}, "
+           f"the worker process {other}")
+    if depth["completed"] != ntasks or depth["enqueued"] or depth["dlq"] or depth["inserted"] != ntasks:
+      fail(f"worker {name}: queue {depth} after the workers, expected {ntasks} completions")
+    if not mine["executed"]:
+      fail(f"worker {name}: this process executed no task")
+    # a round that leased one task (the other worker took the rest) runs it
+    # solo, which is one pyramid2x2x1 launch too; a group that fell back is
+    # a failure
+    if mine["group_fallbacks"] or mine["round_solo"] != mine["solo"] \
+       or launched["pyramid2x2x1"] != mine["by_kind"].get("downsample", 0) + mine["solo"] \
+       or launched["pool2x2x1"] or mine["by_kind"].get("downsample_paged"):
+      fail(f"worker {name}: launches {launched} for dispatches {mine['by_kind']}, "
+           f"{mine['solo']} solo, {mine['group_fallbacks']} group fallbacks")
+    n = mip_files_equal(src, dst, mips)
+    print(f"worker {name}: {n} chunk files of mips 1-{mips} equal to phase 3's solo "
+          f"output byte for byte", flush=True)
+    for k, v in launched.items():
+      launches[k] = launches.get(k, 0) + v
+  return launches
+
+
+def worker_ragged(root, cp, cc, ce) -> dict:
+  """(b) Phase 3's ragged image as 16 tasks of 256x256x64 (2 mips) through
+  a queue and ``poll_batched`` at batch 8 (``execute --batch 8``): full
+  members through ``pyramid2x2x1``, clamped ones through the pages
+  (``pool2x2x1``); no group falls back; mips 1-2 equal phase 3's."""
+  import os
+
+  from igneous_tpu_torch.parallel.lease_batcher import poll_batched
+  from igneous_tpu_torch.queues import FileQueue
+
+  name = "ragged_image"
+  src, dst = os.path.join(root, name), os.path.join(root, f"{name}_worker")
+  spec = f"fq://{root}/queue_{name}"
+  link_layer(src, dst)
+  run_cli(["image", "downsample", f"file://{dst}", "--num-mips", 2, "--memory", 2**23,
+           "--queue", spec])
+  q = FileQueue(spec)
+  zero_counts(cp, cc, ce)
+  t0 = time.perf_counter()
+  executed, stats = poll_batched(q, batch_size=8, lease_seconds=WORKER_LEASE_SEC,
+                                 verbose=False, stop_fn=lambda executed, empty: empty)
+  wall = time.perf_counter() - t0
+  launched = launch_counts(cp, cc, ce)
+  stats = dict(stats, dispatches=dict(stats["dispatches"]))
+  print(f"worker {name}: 16 tasks, wall {wall:.3f} s, stats {json.dumps(stats)}, launches "
+        f"{json.dumps(launched)}", flush=True)
+  check_groups(name, stats, executed, 16)
+  if not (launched["pyramid2x2x1"] and launched["pool2x2x1"]) \
+     or stats["dispatches"].get("downsample_paged", 0) < 1:
+    fail(f"worker {name}: the full and the paged members did not both launch: {launched}")
+  n = mip_files_equal(src, dst, 2)
+  print(f"worker {name}: {n} chunk files of mips 1-2 equal to phase 3's solo output "
+        f"byte for byte", flush=True)
+  return launched
+
+
+def check_groups(name: str, stats: dict, executed: int, ntasks: int) -> None:
+  """A clean queue: every task batched in a group, none solo, failed,
+  released or fallen back."""
+  if executed != ntasks or stats["batched"] != ntasks or stats["solo"] \
+     or stats["failed"] or stats["released"] or stats["group_fallbacks"]:
+    fail(f"worker {name}: {stats} for {ntasks} tasks; every one must ride a group")
+
+
+def worker_lifecycle(root, cp, cc, ce) -> dict:
+  """(c) On phase 3's segmentation: eight downsample tasks and a
+  ``FailTask`` through ``execute --batch 8 --max-deliveries 2
+  --lease-sec 2``: the dead-letter queue holds the ``FailTask`` alone
+  with its reason twice, the eight complete and their chunks equal phase
+  3's. Then 16 tasks drained by a worker process whose
+  ``--drain-sentinel`` appears mid-run: it exits 83 holding no lease,
+  and a second worker finishes the queue, every chunk equal. Then a task
+  longer than ``--lease-sec 2`` (a ``SleepTask``) runs once under the
+  heartbeat: a second worker started after its first lease would have
+  expired finds nothing to lease. Returns this process's launches."""
+  import os
+  import threading
+
+  from igneous_tpu_torch import telemetry
+  from igneous_tpu_torch.cli import main as cli_main
+  from igneous_tpu_torch.queues import FileQueue
+  from igneous_tpu_torch.task_creation import create_downsampling_tasks
+  from igneous_tpu_torch.tasks import FailTask, SleepTask
+
+  name, target, ntasks, shape, mips = PIPELINED_RUNS[1]
+  src = os.path.join(root, name)
+  launches = {}
+
+  def add(counts):
+    for k, v in counts.items():
+      launches[k] = launches.get(k, 0) + v
+
+  # dead letters
+  dst, spec = os.path.join(root, f"{name}_dlq"), f"fq://{root}/queue_dlq"
+  link_layer(src, dst)
+  tasks = list(create_downsampling_tasks(f"file://{dst}", mip=0, num_mips=mips,
+                                         memory_target=target))[:8]
+  q = FileQueue(spec)
+  q.insert(tasks + [FailTask(POISON)])
+  zero_counts(cp, cc, ce)
+  t0 = time.perf_counter()
+  text = run_cli(["execute", spec, "--batch", 8, "-x", "--max-deliveries", 2,
+                  "--lease-sec", 2])
+  wall = time.perf_counter() - t0
+  add(launch_counts(cp, cc, ce))
+  dlq = q.dlq_ls()
+  mine = worker_summary(text, "dlq")
+  reasons = [f["error"] for rec in dlq for f in rec["failures"]]
+  print(f"worker dead letters: 8 tasks and a FailTask, wall {wall:.3f} s, {json.dumps(mine)}, "
+        f"dlq {[json.loads(r['payload'])['class'] for r in dlq]}, deliveries "
+        f"{[r['deliveries'] for r in dlq]}, reasons {reasons}, queue "
+        f"{json.dumps(q.depth_snapshot())}", flush=True)
+  if len(dlq) != 1 or json.loads(dlq[0]["payload"])["class"] != "FailTask" \
+     or reasons != [f"RuntimeError: {POISON}"] * 2 or dlq[0]["deliveries"] != 2:
+    fail(f"worker dead letters: dlq {dlq}")
+  if q.completed != 8 or q.enqueued or mine["executed"] != 8:
+    fail(f"worker dead letters: {q.completed} of 8 completed, {q.enqueued} left")
+  n = mip_files_equal(src, dst, mips, complete=False)
+
+  # a drain mid-run, then a second worker
+  dst, spec = os.path.join(root, f"{name}_drain"), f"fq://{root}/queue_drain"
+  sentinel = os.path.join(root, "drain_sentinel")
+  link_layer(src, dst)
+  run_cli(["image", "downsample", f"file://{dst}", "--num-mips", mips, "--memory", target,
+           "--queue", spec])
+  q = FileQueue(spec)
+  proc, out = start_worker(root, "drain", [spec, "--batch", 2, "--drain-sentinel", sentinel,
+                                           "--lease-sec", WORKER_LEASE_SEC],
+                           env={"IGNEOUS_PREEMPT_POLL_SEC": DRAIN_POLL_SEC})
+  try:
+    wait_for(lambda: q.completed >= 2, WORKER_START_S, "two completions before the drain",
+             proc)
+    open(sentinel, "w").close()
+    t0 = time.perf_counter()
+    drained = finish_worker(proc, out, "drain", codes=(83,))
+    t_drain = time.perf_counter() - t0
+  finally:
+    if proc.poll() is None:
+      proc.kill()
+      proc.wait()
+  before = q.depth_snapshot()
+  zero_counts(cp, cc, ce)
+  text = run_cli(["execute", spec, "--batch", 8, "-x", "--lease-sec", WORKER_LEASE_SEC])
+  add(launch_counts(cp, cc, ce))
+  after = q.depth_snapshot()
+  print(f"worker drain: exit 83 {t_drain:.3f} s after the sentinel, its last line "
+        f"{drained.strip().splitlines()[-1]!r}; queue then {json.dumps(before)}; the second "
+        f"worker {json.dumps(worker_summary(text, 'after the drain'))}, queue "
+        f"{json.dumps(after)}", flush=True)
+  if before["leased"] or not 2 <= before["completed"] < ntasks:
+    fail(f"worker drain: queue {before} after the drained worker exited")
+  if after["completed"] != ntasks or after["enqueued"] or after["dlq"]:
+    fail(f"worker drain: queue {after} after the second worker")
+  n += mip_files_equal(src, dst, mips)
+
+  # the heartbeat
+  spec = f"fq://{root}/queue_heartbeat"
+  q = FileQueue(spec)
+  q.insert([SleepTask(HEARTBEAT_TASK_S)])
+  telemetry.reset()
+  codes = []
+  # quiet, so that only the second worker prints (run_cli takes stdout)
+  first = threading.Thread(target=lambda: codes.append(cli_main(
+    ["execute", spec, "-x", "-q", "--lease-sec", str(HEARTBEAT_LEASE_SEC)])))
+  t0 = time.perf_counter()
+  first.start()
+  time.sleep(HEARTBEAT_LEASE_SEC + 1.0)
+  ages = q.lease_ages()
+  second = run_cli(["execute", spec, "-x", "--lease-sec", HEARTBEAT_LEASE_SEC])
+  first.join()
+  wall = time.perf_counter() - t0
+  zombies = {k: v for k, v in telemetry.counters().items() if k.startswith("zombie")}
+  print(f"worker heartbeat: a {HEARTBEAT_TASK_S:.0f} s task at --lease-sec "
+        f"{HEARTBEAT_LEASE_SEC}, lease expiry in {ages} s at {HEARTBEAT_LEASE_SEC + 1} s, the "
+        f"second worker {second.strip()!r}, wall {wall:.3f} s, completions {q.completed}, "
+        f"zombie counts {zombies}", flush=True)
+  if not ages or min(ages) <= 0 or "executed 0 tasks" not in second or q.completed != 1 \
+     or zombies or q.enqueued or codes != [0]:
+    fail("worker heartbeat: the long task was not held by its heartbeat exactly once")
+  print(f"worker lifecycle: {n} chunk files equal to phase 3's solo output", flush=True)
+  return launches
+
+
+def worker_ccl(root, cc, cp, ce, faces_task: str) -> dict:
+  """(b) CCL pass 1 over phase 4's segmentation layer through ``ccl faces
+  --queue`` and ``poll_batched`` at batch 4: one group (``paged_ccl``,
+  ``tile_resolve`` once a page round), every face file byte for byte the
+  task path's. Returns the launches."""
+  import os
+  import shutil
+
+  from igneous_tpu_torch.parallel.lease_batcher import poll_batched
+  from igneous_tpu_torch.queues import FileQueue
+
+  name = "ccl_segmentation"
+  spec = f"fq://{root}/queue_ccl"
+  shape = ",".join(map(str, CCL_TASK_SHAPE))
+  run_cli(["image", "ccl", "faces", f"file://{root}/{name}", "--shape", shape, "--queue", spec])
+  q = FileQueue(spec)
+  ntasks = q.inserted
+  zero_counts(cp, cc, ce)
+  t0 = time.perf_counter()
+  executed, stats = poll_batched(q, batch_size=4, lease_seconds=WORKER_LEASE_SEC,
+                                 verbose=False, stop_fn=lambda executed, empty: empty)
+  wall = time.perf_counter() - t0
+  launched = launch_counts(cp, cc, ce)
+  stats = dict(stats, dispatches=dict(stats["dispatches"]))
+  faces = os.path.join(root, name, "ccl", "0", "faces")
+  n = same_files(faces_task, faces)
+  print(f"worker ccl faces: {ntasks} tasks, wall {wall:.3f} s, stats {json.dumps(stats)}, "
+        f"launches {json.dumps(launched)}, {n} face files equal to the task path's byte for "
+        f"byte", flush=True)
+  check_groups("ccl faces", stats, executed, ntasks)
+  if stats["dispatches"] != {"ccl_faces": 1} or not launched["tile_resolve"]:
+    fail(f"worker ccl faces: dispatches {stats['dispatches']}, launches {launched}")
+  shutil.rmtree(os.path.join(root, name, "ccl"))
+  return launched
+
+
+def worker_skeleton(root, ce, cp, cc) -> dict:
+  """(b) Phase 6's skeleton forge through a queue (its two default tasks,
+  8 tracing threads each, into ``skeletons_worker``) and
+  ``poll_batched`` at batch 2: one group (``paged_edt``, three
+  ``edt_pass`` launches), every fragment and spatial file byte for byte
+  phase 6's. Returns the launches."""
+  import os
+
+  from igneous_tpu_torch import Volume
+  from igneous_tpu_torch.parallel.lease_batcher import poll_batched
+  from igneous_tpu_torch.queues import FileQueue
+  from igneous_tpu_torch.task_creation import create_skeletonizing_tasks
+
+  path = f"file://{root}/skeleton_segmentation"
+  sdir = Volume(path).info["skeletons"]
+  q = FileQueue(f"fq://{root}/queue_skeleton")
+  tasks = list(create_skeletonizing_tasks(path, skel_dir="skeletons_worker",
+                                          parallel=SKEL_TRACE_THREADS))
+  q.insert_batch(tasks, total=len(tasks))
+  zero_counts(cp, cc, ce)
+  t0 = time.perf_counter()
+  executed, stats = poll_batched(q, batch_size=2, lease_seconds=WORKER_LEASE_SEC,
+                                 verbose=False, stop_fn=lambda executed, empty: empty)
+  wall = time.perf_counter() - t0
+  launched = launch_counts(cp, cc, ce)
+  stats = dict(stats, dispatches=dict(stats["dispatches"]))
+  a, b = (os.path.join(root, "skeleton_segmentation", d) for d in (sdir, "skeletons_worker"))
+  frags = same_files(a, b, keep=lambda n: not n.split(".")[0].isdigit())
+  print(f"worker skeleton forge: {len(tasks)} tasks, wall {wall:.3f} s, stats "
+        f"{json.dumps(stats)}, launches {json.dumps(launched)}, {frags} fragment and spatial "
+        f"files equal to phase 6's byte for byte", flush=True)
+  check_groups("skeleton forge", stats, executed, len(tasks))
+  if stats["dispatches"] != {"skeleton": 1} or launched["edt_pass"] != 3:
+    fail(f"worker skeleton forge: dispatches {stats['dispatches']}, launches {launched}")
+  return launched
+
+
 def main() -> int:
   import argparse
+  import os
 
   parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   parser.add_argument(
@@ -3143,13 +3600,24 @@ def main() -> int:
     # measured after the counts were read: its launches are no path's
     x5 = page_kernel_program(root, cp, torch, dev)
     t_batched = time.perf_counter() - t_phase
-    pipelined_launches = pipelined_phase(root, cp, cc, ce, torch, dev)
+    pipelined_launches, walls3d = pipelined_phase(root, cp, cc, ce, torch, dev)
+    # the queue worker (phase 11): its own counts, set to 0 just before each part
+    t_worker = time.perf_counter()
+    worker_launches = worker_streams(root, cp, cc, ce, walls3d, torch, dev)
+    for part in (worker_ragged(root, cp, cc, ce), worker_lifecycle(root, cp, cc, ce)):
+      for key, n in part.items():
+        worker_launches[key] += n
+    t_worker = time.perf_counter() - t_worker
     x7 = inference_phase(root, cp, cc, ce, torch, dev)
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches["tile_resolve"] = ccl_e2e_phase(root, cc, cp, torch, dev)
     t_phase = time.perf_counter()
     batched_launches["tile_resolve"] = batched_ccl_phase(root, cc, torch, dev)
     t_batched += time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    worker_launches["tile_resolve"] = worker_ccl(
+      root, cc, cp, ce, os.path.join(root, "faces_task"))["tile_resolve"]
+    t_worker += time.perf_counter() - t_phase
   for counts in (cc.LAUNCHES, cp.LAUNCHES, ce.LAUNCHES):
     for key in counts:
       counts[key] = 0
@@ -3168,7 +3636,14 @@ def main() -> int:
     t_phase = time.perf_counter()
     batched_launches["edt_pass"] = batched_skeleton_phase(root, ce, edt_ops, torch, dev)
     t_batched += time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    worker_launches["edt_pass"] = worker_skeleton(root, ce, cp, cc)["edt_pass"]
+    t_worker += time.perf_counter() - t_phase
   print(f"batched: phase wall {t_batched:.1f} s", flush=True)
+  print(f"worker: phase wall {t_worker:.1f} s", flush=True)
+  missing = [k for k in HAND_KERNELS if not worker_launches.get(k)]
+  if missing:
+    fail(f"worker: {missing} launched no time on the worker's paths")
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     x6 = morphology_phase(root, cp, cc, ce, torch, dev)
   programs += [x5, x6, x7]
@@ -3190,6 +3665,7 @@ def main() -> int:
       "launches_xfer": xfer_launches[name],
       "launches_batched": batched_launches[name],
       "launches_pipelined": pipelined_launches[name],
+      "launches_worker": worker_launches[name],
       "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == name),
       "ms": first["ms"], "plain_ms": first["plain_ms"],
       "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -3202,6 +3678,7 @@ def main() -> int:
     "replaces": "igneous_tpu/ops/pallas_ccl.py:118",
     "launches": launches["tile_resolve"],
     "launches_batched": batched_launches["tile_resolve"],
+    "launches_worker": worker_launches["tile_resolve"],
     "max_abs_err": max(c["max_abs_err"] for c in ccl_cases),
     "ms": first["ms"], "plain_ms": first["plain_ms"],
     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -3213,6 +3690,7 @@ def main() -> int:
     "source": "igneous_tpu_torch/csrc/edt.cu",
     "replaces": EDT_REPLACES, "launches": launches["edt_pass"],
     "launches_batched": batched_launches["edt_pass"],
+    "launches_worker": worker_launches["edt_pass"],
     "max_abs_err": max(c["max_abs_err"] for c in edt_cases),
     "ms": first["ms"], "plain_ms": first["plain_ms"],
     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

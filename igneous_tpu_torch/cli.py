@@ -2,16 +2,21 @@
 {downsample [--batched],xfer,infer}``, ``python -m igneous_tpu_torch image
 voxels {count,sum}``, ``python -m igneous_tpu_torch image ccl {faces,links,
 calc-labels,relabel,clean,auto}``, ``python -m igneous_tpu_torch mesh
-{forge,merge}``, ``python -m igneous_tpu_torch skeleton {forge,merge}`` and
-``python -m igneous_tpu_torch tune``.
+{forge,merge}``, ``python -m igneous_tpu_torch skeleton {forge,merge}``,
+``python -m igneous_tpu_torch execute``, ``python -m igneous_tpu_torch
+queue {status,wait,release,purge,rezero,fsck,cp,mv,dlq {ls,retry,purge}}``
+and ``python -m igneous_tpu_torch tune``.
 
 A minimal counterpart of ``igneous-tpu image downsample|xfer|infer``,
 ``igneous-tpu image voxels count|sum``, ``igneous-tpu image ccl``,
-``igneous-tpu mesh forge|merge``, ``igneous-tpu skeleton forge|merge`` and
-``igneous-tpu tune`` (``igneous_tpu/cli.py``), with the same option names; an
-option the port does not have is refused by the parser, and the ones it
-does not run yet raise ``NotImplementedError`` before anything is written. Tasks run in a ``LocalTaskQueue`` on the
-port's device (cuda; ``IGNEOUS_TORCH_DEVICE=cpu`` asks for the CPU).
+``igneous-tpu mesh forge|merge``, ``igneous-tpu skeleton forge|merge``,
+``igneous-tpu execute``, ``igneous-tpu queue`` and ``igneous-tpu tune``
+(``igneous_tpu/cli.py``), with the same option names; an option the port
+does not have is refused by the parser, and the ones it does not run yet
+raise ``NotImplementedError`` before anything is written. A command that
+makes tasks runs them in a ``LocalTaskQueue`` on the port's device (cuda;
+``IGNEOUS_TORCH_DEVICE=cpu`` asks for the CPU), or, with ``--queue
+fq://...`` (or ``sqs://``), inserts them there for ``execute`` workers.
 """
 
 from __future__ import annotations
@@ -42,6 +47,25 @@ def _resolve_compress(compress: str, encoding):
   if encoding and encoding.lower() in ("jpeg", "jxl", "png", "fpzip", "zfpc"):
     return False
   return compress
+
+
+def _queue_opt(cmd) -> None:
+  cmd.add_argument("--queue", "-q", default=None,
+                   help="fq:// (or sqs://) queue to insert the tasks into "
+                        "for `execute` workers (local execution if omitted).")
+
+
+def enqueue(queue_spec: Optional[str], tasks, parallel: int = 1) -> None:
+  """Run ``tasks`` in a ``LocalTaskQueue``, or insert them into the queue
+  at ``queue_spec`` (as segments, sized by the task count when the
+  iterator knows it)."""
+  from .queues import LocalTaskQueue, TaskQueue
+
+  if queue_spec is None:
+    LocalTaskQueue(parallel=parallel).insert(tasks)
+    return
+  total = len(tasks) if hasattr(tasks, "__len__") else None
+  TaskQueue(queue_spec).insert_batch(tasks, total=total)
 
 
 def _range_opts(cmd) -> None:
@@ -85,6 +109,7 @@ def build_parser() -> argparse.ArgumentParser:
   image = groups.add_parser("image").add_subparsers(dest="command", required=True)
   ds = image.add_parser("downsample", help="Build the downsample pyramid of PATH.")
   ds.add_argument("path")
+  _queue_opt(ds)
   ds.add_argument("--mip", type=int, default=0)
   ds.add_argument("--num-mips", type=int, default=5)
   ds.add_argument("--factor", type=_tuple3, default=None, help="e.g. 2,2,1")
@@ -120,6 +145,11 @@ def build_parser() -> argparse.ArgumentParser:
     dest="command", required=True))
   _add_tune(groups.add_parser(
     "tune", help="Autotune the kernel knobs for this device kind."))
+  _add_execute(groups.add_parser(
+    "execute", help="Worker poll loop: lease -> run -> delete."))
+  _add_queue(groups.add_parser(
+    "queue", help="Queue inspection and maintenance.").add_subparsers(
+      dest="command", required=True))
   return parser
 
 
@@ -168,9 +198,321 @@ def _run_tune(parser, args) -> int:
   return 0
 
 
+def _add_execute(cmd) -> None:
+  cmd.add_argument("queue_spec", nargs="?", default=None,
+                   help="fq:// or sqs:// queue [default: $QUEUE_URL].")
+  cmd.add_argument("--aws-region", default=None,
+                   help="AWS region of the SQS queue [default: $SQS_REGION_NAME].")
+  cmd.add_argument("--lease-sec", type=int, default=None,
+                   help="Visibility timeout [default: $LEASE_SECONDS or 600].")
+  cmd.add_argument("--tally", dest="tally", action="store_true", default=True,
+                   help="Tally completed fq:// tasks (default).")
+  cmd.add_argument("--no-tally", dest="tally", action="store_false")
+  cmd.add_argument("-n", "--num-tasks", type=int, default=None,
+                   help="Stop after N tasks.")
+  cmd.add_argument("-x", "--exit-on-empty", action="store_true")
+  cmd.add_argument("--min-sec", type=float, default=-1.0,
+                   help="Keep polling at least this long (<0: forever; 0: at "
+                        "most one task).")
+  cmd.add_argument("-q", "--quiet", action="store_true",
+                   help="Suppress per-task status messages.")
+  cmd.add_argument("--time", dest="timing", action="store_true",
+                   help="Log per-task (per-round with --batch) wall time and "
+                        "stages as JSON lines.")
+  cmd.add_argument("--batch", dest="batch_size", type=int, default=1,
+                   help="Lease up to K compatible tasks per round and run "
+                        "their device stage as one dispatch; each lease still "
+                        "completes or recycles on its own.")
+  cmd.add_argument("--max-deliveries", type=int, default=None,
+                   help="Quarantine a task in the queue's dlq/ after this many "
+                        "deliveries [default: retry forever].")
+  cmd.add_argument("--task-deadline", type=float, default=None,
+                   help="Per-task wall-clock deadline in seconds; an overrun "
+                        "counts as a failed delivery.")
+  cmd.add_argument("--heartbeat-sec", type=float, default=None,
+                   help="Renew held leases at this interval [default: "
+                        "$IGNEOUS_HEARTBEAT_SEC or lease/3; 0 disables].")
+  cmd.add_argument("--drain-sentinel", default=None,
+                   help="Drain (finish the task in flight, release the rest, "
+                        "exit 83) when this file appears [default: "
+                        "$IGNEOUS_PREEMPT_SENTINEL; SIGTERM, SIGINT and "
+                        "$IGNEOUS_PREEMPT_URL drain too].")
+  cmd.add_argument("--pipeline", dest="pipeline", action="store_true", default=None,
+                   help="Thread each task's chunk encodes and uploads (joined "
+                        "before every lease delete) [default: $IGNEOUS_PIPELINE].")
+  cmd.add_argument("--no-pipeline", dest="pipeline", action="store_false")
+
+
+def _run_execute(parser, args) -> int:
+  """The worker: lease -> run -> delete (``queues.poll_loop``, or the
+  lease batcher with ``--batch K``). ``-p N`` spawns N workers and
+  forwards a drain request (SIGTERM, SIGINT) to each; a drained worker
+  exits 83 (``lifecycle.EXIT_PREEMPTED``)."""
+  import os
+
+  from . import lifecycle, secrets
+  from .device import get_device
+
+  queue_spec = args.queue_spec or secrets.queue_url()
+  if not queue_spec:
+    parser.error("provide QUEUE_SPEC or set $QUEUE_URL")
+  lease_sec = secrets.lease_seconds() if args.lease_sec is None else args.lease_sec
+  if args.aws_region:
+    os.environ["SQS_REGION_NAME"] = args.aws_region
+  if args.pipeline is not None:
+    # the environment, so that spawned workers inherit the choice
+    os.environ["IGNEOUS_PIPELINE"] = "1" if args.pipeline else "off"
+  worker_args = (
+    queue_spec, lease_sec, args.num_tasks, args.exit_on_empty, args.min_sec,
+    args.timing, args.quiet, args.batch_size, args.max_deliveries,
+    args.task_deadline, args.heartbeat_sec, args.drain_sentinel,
+  )
+  # resolved here, so a worker without CUDA raises before anything leases
+  device = str(get_device())
+  if args.parallel <= 1:
+    return _execute_worker(*worker_args)
+
+  import multiprocessing as mp
+  import time
+
+  ctx = mp.get_context("spawn")
+  procs = [
+    ctx.Process(target=_execute_child, args=(device,) + worker_args)
+    for _ in range(args.parallel)
+  ]
+  for p in procs:
+    p.start()
+  flag = lifecycle.StopFlag()
+  restore = lifecycle.install_signal_handlers(flag)
+  try:
+    while any(p.is_alive() for p in procs):
+      if flag.is_set():
+        for p in procs:
+          if p.is_alive():
+            p.terminate()  # SIGTERM: the child's own drain path
+        break
+      time.sleep(0.2)
+    for p in procs:
+      p.join()
+  finally:
+    restore()
+  codes = [p.exitcode for p in procs]
+  if flag.is_set() or lifecycle.EXIT_PREEMPTED in codes:
+    return lifecycle.EXIT_PREEMPTED
+  return 0 if all(c == 0 for c in codes) else 1
+
+
+def _execute_child(device: str, *worker_args) -> None:
+  """A spawned worker: the parent's device, then the worker loop."""
+  import sys
+
+  from .device import set_device
+
+  set_device(device)
+  sys.exit(_execute_worker(*worker_args))
+
+
+def _execute_worker(queue_spec, lease_sec, num_tasks, exit_on_empty, min_sec,
+                    timing=False, quiet=False, batch_size=1,
+                    max_deliveries=None, task_deadline=None,
+                    heartbeat_sec=None, drain_sentinel=None) -> int:
+  import time
+
+  from . import lifecycle
+  from .queues import TaskQueue
+
+  import igneous_tpu_torch.tasks  # noqa: F401  (registers the port's tasks)
+
+  flag = lifecycle.StopFlag()
+  restore = lifecycle.install_signal_handlers(flag)
+  watcher = lifecycle.PreemptionWatcher(flag, sentinel=drain_sentinel)
+  watcher.start()
+  tq = TaskQueue(queue_spec, max_deliveries=max_deliveries)
+  start = time.time()
+
+  def drained() -> bool:
+    # with a delivery budget the worker outlives failed leases, so every
+    # task ends completed or dead-lettered, not stranded mid-recycle
+    if max_deliveries is None:
+      return True
+    try:
+      return tq.enqueued == 0
+    except (NotImplementedError, AttributeError):
+      return True
+
+  def stop_fn(executed: int, empty: bool) -> bool:
+    if num_tasks is not None and 0 <= num_tasks <= executed:
+      return True
+    if min_sec == 0 and (executed >= 1 or empty):
+      return True  # the special value: at most a single task
+    if empty and exit_on_empty and drained():
+      return True
+    if empty and 0 <= min_sec <= (time.time() - start) and drained():
+      return True
+    return False
+
+  try:
+    if batch_size > 1:
+      from .parallel.lease_batcher import poll_batched
+
+      # --num-tasks and --min-sec 0 bound the leases, not just the rounds
+      task_budget = None
+      if num_tasks is not None and num_tasks >= 0:
+        task_budget = num_tasks
+      if min_sec == 0:
+        task_budget = 1 if task_budget is None else min(task_budget, 1)
+      executed, stats = poll_batched(
+        tq, batch_size=batch_size, lease_seconds=lease_sec,
+        verbose=not quiet, stop_fn=stop_fn, task_budget=task_budget,
+        timing=timing, task_deadline_seconds=task_deadline,
+        heartbeat_seconds=heartbeat_sec, drain_flag=flag,
+      )
+      if not quiet:
+        print(
+          f"executed {executed} tasks ({stats['batched']} batched in "
+          f"{sum(stats['dispatches'].values())} dispatches, "
+          f"{stats['solo']} solo, {stats['failed']} failed, "
+          f"{stats['released']} released)", flush=True,
+        )
+    else:
+      before_fn = after_fn = None
+      if timing:
+        from .telemetry import timed_poll_hooks
+
+        before_fn, after_fn = timed_poll_hooks()
+      executed = tq.poll(
+        lease_seconds=lease_sec, verbose=not quiet, stop_fn=stop_fn,
+        before_fn=before_fn, after_fn=after_fn,
+        task_deadline_seconds=task_deadline,
+        heartbeat_seconds=heartbeat_sec, drain_flag=flag,
+      )
+      if not quiet:
+        print(f"executed {executed} tasks", flush=True)
+  finally:
+    watcher.stop()
+    restore()
+  if flag.is_set():
+    print(f"drained ({flag.reason}) after {executed} tasks", flush=True)
+    return lifecycle.EXIT_PREEMPTED
+  return 0
+
+
+def _add_queue(queue) -> None:
+  cmd = queue.add_parser("status", help="Counts of a queue.")
+  cmd.add_argument("queue_spec")
+  cmd = queue.add_parser("wait", help="Block until the queue is empty.")
+  cmd.add_argument("queue_spec")
+  cmd.add_argument("--interval", "--rate", dest="interval", type=float, default=5.0,
+                   help="seconds between checks")
+  cmd.add_argument("--timeout", type=float, default=None,
+                   help="give up after this many seconds")
+  cmd.add_argument("--aws-region", default=None, help="AWS region of the SQS queue.")
+  cmd = queue.add_parser("release", help="Drop all leases (crashed workers' "
+                                         "tasks return at once).")
+  cmd.add_argument("queue_spec")
+  cmd.add_argument("--reset-deliveries", action="store_true",
+                   help="Also zero the delivery counts of tasks still in "
+                        "rotation (fq:// only; DLQ'd tasks keep theirs).")
+  for name, help_ in (("purge", "Drop every task and counter."),
+                      ("rezero", "Reset the insert and completion counters.")):
+    queue.add_parser(name, help=help_).add_argument("queue_spec")
+  cmd = queue.add_parser("fsck", help="Audit queue consistency.")
+  cmd.add_argument("queue_spec")
+  cmd.add_argument("--repair", action="store_true",
+                   help="Quarantine malformed tasks, recycle bad leases.")
+  for name, help_ in (("cp", "Copy pending tasks between queues."),
+                      ("mv", "Move pending tasks between queues.")):
+    cmd = queue.add_parser(name, help=help_)
+    cmd.add_argument("src")
+    cmd.add_argument("dest")
+  dlq = queue.add_parser("dlq", help="Dead-letter queue (fq:// only).").add_subparsers(
+    dest="dlq_command", required=True)
+  dlq.add_parser("ls", help="One JSON line per quarantined task.").add_argument(
+    "queue_spec")
+  cmd = dlq.add_parser("retry", help="Requeue with a fresh delivery budget.")
+  cmd.add_argument("queue_spec")
+  cmd.add_argument("--name", dest="names", action="append", default=[],
+                   help="Specific task file(s); default: all.")
+  dlq.add_parser("purge", help="Drop all quarantined tasks.").add_argument(
+    "queue_spec")
+
+
+def _run_queue(parser, args) -> int:
+  """``queue status|wait|release|purge|rezero|fsck|cp|mv|dlq``, printing
+  what ``igneous-tpu queue`` prints."""
+  import json
+  import os
+  import sys
+  import time
+
+  from .queues import TaskQueue, copy_queue, move_queue
+
+  cmd = args.command
+  if cmd == "cp":
+    print(f"copied {copy_queue(args.src, args.dest)} tasks")
+    return 0
+  if cmd == "mv":
+    print(f"moved {move_queue(args.src, args.dest)} tasks")
+    return 0
+  if cmd == "wait" and args.aws_region:
+    os.environ["SQS_REGION_NAME"] = args.aws_region
+  tq = TaskQueue(args.queue_spec)
+  if cmd == "status":
+    print(f"inserted: {tq.inserted}")
+    print(f"enqueued: {tq.enqueued}")
+    print(f"leased: {tq.leased}")
+    print(f"completed: {tq.completed}")
+    if hasattr(tq, "queue_files"):
+      print(f"queue files: {tq.queue_files}")
+    if hasattr(tq, "dlq_count"):
+      print(f"dead-lettered: {tq.dlq_count}")
+    if hasattr(tq, "stale_leases"):
+      print(f"stale leases: {tq.stale_leases}")
+    if hasattr(tq, "lease_ages"):
+      ages = tq.lease_ages()
+      if ages:
+        print(f"lease_expiry_sec (min/max): {ages[0]:.0f}/{ages[-1]:.0f}")
+  elif cmd == "wait":
+    deadline = None if args.timeout is None else time.monotonic() + args.timeout
+    while not tq.is_empty():
+      now = time.monotonic()
+      if deadline is not None and now >= deadline:
+        print(f"Error: queue not empty after {args.timeout}s", file=sys.stderr)
+        return 1
+      time.sleep(args.interval if deadline is None
+                 else min(args.interval, deadline - now))
+    print("queue empty")
+  elif cmd == "release":
+    tq.release_all()
+    if args.reset_deliveries:
+      if not hasattr(tq, "reset_deliveries"):
+        parser.error("--reset-deliveries supports fq:// queues only")
+      print(f"reset delivery counts for {tq.reset_deliveries()} tasks")
+  elif cmd == "purge":
+    tq.purge()
+  elif cmd == "rezero":
+    tq.rezero()
+  elif cmd == "fsck":
+    if not hasattr(tq, "fsck"):
+      parser.error("fsck supports fq:// queues only")
+    print(json.dumps(tq.fsck(repair=args.repair), indent=2))
+  else:
+    if not hasattr(tq, "dlq_ls"):
+      parser.error("queue dlq supports fq:// queues only")
+    if args.dlq_command == "ls":
+      for rec in tq.dlq_ls():
+        print(json.dumps(rec))
+    elif args.dlq_command == "retry":
+      print(f"requeued {tq.dlq_retry(args.names or None)} tasks")
+    else:
+      print(f"purged {tq.dlq_purge()} tasks")
+  return 0
+
+
 def _add_xfer(cmd) -> None:
   cmd.add_argument("src")
   cmd.add_argument("dest")
+  _queue_opt(cmd)
   cmd.add_argument("--mip", type=int, default=0)
   cmd.add_argument("--chunk-size", type=_tuple3, default=None)
   cmd.add_argument("--shape", type=_tuple3, default=None,
@@ -212,7 +554,6 @@ def _add_xfer(cmd) -> None:
 
 
 def _run_xfer(args) -> int:
-  from .queues import LocalTaskQueue
   from .task_creation import create_transfer_tasks
 
   if args.sharded:
@@ -239,13 +580,14 @@ def _run_xfer(args) -> int:
     bounds=_cli_bounds(args.src, bounds_mip, args), bounds_mip=bounds_mip,
     cutout=args.cutout,
   )
-  LocalTaskQueue(parallel=args.parallel).insert(tasks)
+  enqueue(args.queue, tasks, args.parallel)
   return 0
 
 
 def _add_infer(cmd) -> None:
   cmd.add_argument("src")
   cmd.add_argument("dest")
+  _queue_opt(cmd)
   cmd.add_argument("--model", dest="model_path", required=True,
                    help="Cloudpath of a saved model (model.json + params.npz).")
   cmd.add_argument("--mip", type=int, default=0)
@@ -269,7 +611,6 @@ def _add_infer(cmd) -> None:
 
 
 def _run_infer(args) -> int:
-  from .queues import LocalTaskQueue
   from .task_creation import create_inference_tasks
 
   bounds_mip = args.mip if args.bounds_mip is None else args.bounds_mip
@@ -280,13 +621,14 @@ def _run_infer(args) -> int:
     batch_size=args.batch_size, postprocess=args.postprocess,
     compress=args.compress, chunk_size=args.chunk_size,
   )
-  LocalTaskQueue(parallel=args.parallel).insert(tasks)
+  enqueue(args.queue, tasks, args.parallel)
   return 0
 
 
 def _add_voxels(voxels) -> None:
   cmd = voxels.add_parser("count", help="Census phase; run `voxels sum` afterwards.")
   cmd.add_argument("path")
+  _queue_opt(cmd)
   cmd.add_argument("--mip", type=int, default=0)
   cmd.add_argument("--shape", type=_tuple3, default=(512, 512, 512))
   cmd.add_argument("--fill-missing", action="store_true")
@@ -301,12 +643,11 @@ def _add_voxels(voxels) -> None:
 
 def _run_voxels(args) -> int:
   from . import task_creation as tc
-  from .queues import LocalTaskQueue
 
   if args.voxels_command == "count":
-    LocalTaskQueue(parallel=args.parallel).insert(tc.create_voxel_counting_tasks(
+    enqueue(args.queue, tc.create_voxel_counting_tasks(
       args.path, mip=args.mip, shape=args.shape, fill_missing=args.fill_missing,
-    ))
+    ), args.parallel)
     return 0
   totals = tc.accumulate_voxel_counts(
     args.path, args.mip, compress=_resolve_compress(args.compress, None) or None,
@@ -328,6 +669,7 @@ def _id_list(text: str):
 def _add_mesh(mesh) -> None:
   cmd = mesh.add_parser("forge", help="Stage 1: mesh every label of PATH.")
   cmd.add_argument("path")
+  _queue_opt(cmd)
   cmd.add_argument("--mip", type=int, default=0)
   cmd.add_argument("--shape", type=_tuple3, default=(448, 448, 448))
   cmd.add_argument("--simplify", dest="simplify", action="store_true", default=True,
@@ -367,6 +709,7 @@ def _add_mesh(mesh) -> None:
                    help="threads for per-label simplification inside each task")
   cmd = mesh.add_parser("merge", help="Stage 2: write the legacy manifests.")
   cmd.add_argument("path")
+  _queue_opt(cmd)
   cmd.add_argument("--magnitude", type=int, default=2)
   cmd.add_argument("--mesh-dir", "--dir", dest="mesh_dir", default=None)
   cmd.add_argument("--nlod", type=int, default=0,
@@ -378,21 +721,19 @@ def _add_mesh(mesh) -> None:
 
 def _run_mesh(args) -> int:
   from . import task_creation as tc
-  from .queues import LocalTaskQueue
 
-  queue = LocalTaskQueue(parallel=args.parallel)
   if args.command == "merge":
     if args.nlod > 0:
       raise NotImplementedError(
         "multires meshes (--nlod > 0) are not ported to igneous_tpu_torch yet"
       )
-    queue.insert(tc.create_mesh_manifest_tasks(
-      args.path, magnitude=args.magnitude, mesh_dir=args.mesh_dir))
+    enqueue(args.queue, tc.create_mesh_manifest_tasks(
+      args.path, magnitude=args.magnitude, mesh_dir=args.mesh_dir), args.parallel)
     return 0
   compress = args.compress
   if compress.lower() in ("none", "false"):
     compress = None
-  queue.insert(tc.create_meshing_tasks(
+  enqueue(args.queue, tc.create_meshing_tasks(
     args.path, mip=args.mip, shape=args.shape, simplification=args.simplify,
     simplification_factor=args.simplify_factor,
     max_simplification_error=args.max_error, mesh_dir=args.mesh_dir,
@@ -402,13 +743,14 @@ def _run_mesh(args) -> int:
     closed_dataset_edges=args.closed_edge, object_ids=args.obj_ids,
     exclude_object_ids=args.exclude_obj_ids, mesher=args.mesher,
     parallel=args.simplify_parallel, compress=compress,
-  ))
+  ), args.parallel)
   return 0
 
 
 def _add_skeleton(skel) -> None:
   cmd = skel.add_parser("forge", help="Stage 1: skeletonize every label of PATH.")
   cmd.add_argument("path")
+  _queue_opt(cmd)
   cmd.add_argument("--mip", type=int, default=0)
   cmd.add_argument("--shape", type=_tuple3, default=(512, 512, 512))
   cmd.add_argument("--scale", type=float, default=4.0, help="TEASAR scale")
@@ -452,6 +794,7 @@ def _add_skeleton(skel) -> None:
   cmd.add_argument("--root-ids", default=None, help="(graphene) not ported yet: raises.")
   cmd = skel.add_parser("merge", help="Stage 2: fuse each label's fragments.")
   cmd.add_argument("path")
+  _queue_opt(cmd)
   cmd.add_argument("--magnitude", type=int, default=1)
   cmd.add_argument("--skel-dir", default=None)
   cmd.add_argument("--dust-threshold", "--min-cable-length", dest="dust_threshold",
@@ -464,22 +807,20 @@ def _add_skeleton(skel) -> None:
 
 def _run_skeleton(args) -> int:
   from . import task_creation as tc
-  from .queues import LocalTaskQueue
 
-  queue = LocalTaskQueue(parallel=args.parallel)
   if args.command == "merge":
-    queue.insert(tc.create_unsharded_skeleton_merge_tasks(
+    enqueue(args.queue, tc.create_unsharded_skeleton_merge_tasks(
       args.path, magnitude=args.magnitude, skel_dir=args.skel_dir,
       dust_threshold=args.dust_threshold, tick_threshold=args.tick_threshold,
       delete_fragments=args.delete_fragments,
       max_cable_length=args.max_cable_length,
-    ))
+    ), args.parallel)
     return 0
   if args.timestamp is not None:
     raise NotImplementedError(
       "--timestamp (graphene layers) is not ported to igneous_tpu_torch yet"
     )
-  queue.insert(tc.create_skeletonizing_tasks(
+  enqueue(args.queue, tc.create_skeletonizing_tasks(
     args.path, mip=args.mip, shape=args.shape,
     teasar_params={
       "scale": args.scale, "const": args.const,
@@ -497,7 +838,7 @@ def _run_skeleton(args) -> int:
     fix_autapses=args.fix_autapses, object_ids=args.labels,
     cross_sectional_area=args.cross_section > 0,
     frag_path=args.output, root_ids_cloudpath=args.root_ids,
-  ))
+  ), args.parallel)
   return 0
 
 
@@ -525,6 +866,7 @@ def _add_ccl(ccl) -> None:
                       ("links", "Pass 2: link the faces of adjacent tasks.")):
     cmd = ccl.add_parser(name, help=help_)
     cmd.add_argument("path")
+    _queue_opt(cmd)
     _ccl_opts(cmd)
   cmd = ccl.add_parser("calc-labels", help="Single-machine global union-find (pass 3).")
   cmd.add_argument("path")
@@ -535,14 +877,18 @@ def _add_ccl(ccl) -> None:
   cmd = ccl.add_parser("relabel", help="Pass 4: write the destination layer.")
   cmd.add_argument("path")
   cmd.add_argument("dest")
+  _queue_opt(cmd)
   _ccl_opts(cmd)
   _dest_opts(cmd)
   cmd = ccl.add_parser("clean", help="Delete the scratch files.")
   cmd.add_argument("path")
   cmd.add_argument("--mip", type=int, default=0)
-  cmd = ccl.add_parser("auto", help="All four passes locally.")
+  cmd = ccl.add_parser("auto", help="All four passes, each drained before the next.")
   cmd.add_argument("path")
   cmd.add_argument("dest")
+  cmd.add_argument("--queue", "-q", default=None,
+                   help="Lease queue to drain each pass through "
+                        "(local execution if omitted).")
   _ccl_opts(cmd)
   _dest_opts(cmd)
   cmd.add_argument("--clean", dest="clean", action="store_true", default=True,
@@ -552,9 +898,8 @@ def _add_ccl(ccl) -> None:
 
 def _run_ccl(args) -> int:
   from . import task_creation as tc
-  from .queues import LocalTaskQueue
+  from .queues import LocalTaskQueue, TaskQueue
 
-  queue = LocalTaskQueue(parallel=args.parallel)
   cmd = args.ccl_command
   if cmd == "calc-labels":
     print(f"max_label: {tc.create_relabeling(args.path, args.mip, args.shape)}")
@@ -567,15 +912,21 @@ def _run_ccl(args) -> int:
     threshold_lte=args.threshold_lte, dust_threshold=args.dust_threshold,
   )
   if cmd == "faces":
-    queue.insert(tc.create_ccl_face_tasks(args.path, args.mip, args.shape, **kw))
+    enqueue(args.queue, tc.create_ccl_face_tasks(
+      args.path, args.mip, args.shape, **kw), args.parallel)
   elif cmd == "links":
-    queue.insert(tc.create_ccl_equivalence_tasks(args.path, args.mip, args.shape, **kw))
+    enqueue(args.queue, tc.create_ccl_equivalence_tasks(
+      args.path, args.mip, args.shape, **kw), args.parallel)
   elif cmd == "relabel":
-    queue.insert(tc.create_ccl_relabel_tasks(
+    enqueue(args.queue, tc.create_ccl_relabel_tasks(
       args.path, args.dest, args.mip, args.shape, encoding=args.encoding,
       chunk_size=args.chunk_size, **kw,
-    ))
+    ), args.parallel)
   else:
+    queue = (
+      TaskQueue(args.queue) if args.queue
+      else LocalTaskQueue(parallel=args.parallel)
+    )
     max_label = tc.ccl_auto(
       args.path, args.dest, mip=args.mip, shape=args.shape, queue=queue,
       encoding=args.encoding, chunk_size=args.chunk_size, clean=args.clean,
@@ -612,6 +963,10 @@ def main(argv: Optional[List[str]] = None) -> int:
   args = parser.parse_args(argv)
   if args.group == "tune":
     return _run_tune(parser, args)
+  if args.group == "execute":
+    return _run_execute(parser, args)
+  if args.group == "queue":
+    return _run_queue(parser, args)
   if args.group == "mesh":
     return _run_mesh(args)
   if args.group == "skeleton":
@@ -624,7 +979,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     return _run_infer(args)
   if args.command == "voxels":
     return _run_voxels(args)
-  from .queues import LocalTaskQueue
   from .task_creation import create_downsampling_tasks
 
   factor = args.factor
@@ -645,5 +999,5 @@ def main(argv: Optional[List[str]] = None) -> int:
     downsample_method=args.downsample_method,
     bounds=_cli_bounds(args.path, args.mip, args), bounds_mip=args.mip,
   )
-  LocalTaskQueue(parallel=args.parallel).insert(tasks)
+  enqueue(args.queue, tasks, args.parallel)
   return 0

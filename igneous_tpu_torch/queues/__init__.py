@@ -1,4 +1,19 @@
-"""Task queues for the port: the JSON task wire format and local execution."""
+"""Task queues for the port: the JSON task wire format, local execution,
+the lease queues (``fq://`` and ``sqs://``) and their worker loop."""
 
-from .registry import TASK_REGISTRY, RegisteredTask, deserialize, serialize
+from .registry import TASK_REGISTRY, PrintTask, RegisteredTask, deserialize, serialize
 from .local import LocalTaskQueue
+from .filequeue import (
+  FileQueue,
+  StaleLeaseError,
+  SurvivalSidecarError,
+  TaskDeadlineError,
+  failure_reason,
+  poll_loop,
+)
+from .heartbeat import LeaseHeartbeat
+from .ranges import RangeLease, RangeSub
+from .queue import TaskQueue, copy_queue, move_queue, register_queue_protocol
+from .sqs import FakeSQSTransport, SQSQueue
+
+register_queue_protocol("sqs", SQSQueue)

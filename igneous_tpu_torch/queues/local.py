@@ -14,21 +14,17 @@ kernels again, so one worker per card is the rule on a GPU.
 
 from __future__ import annotations
 
+import functools
 import multiprocessing as mp
 from typing import Iterable, Optional
 
+from .filequeue import failure_reason, iter_tasks
 from .registry import deserialize, serialize
 
 
 def _execute_payload(payload: str) -> bool:
   deserialize(payload).execute()
   return True
-
-
-def failure_reason(exc: BaseException) -> str:
-  """The one-line failure record of a dead letter."""
-  msg = str(exc)
-  return f"{type(exc).__name__}: {msg}" if msg else type(exc).__name__
 
 
 def _execute_payload_contained(payload: str, max_deliveries: int):
@@ -53,21 +49,17 @@ def _worker_init(device: str) -> None:
 class LocalTaskQueue:
   """Executes tasks on insert; parallel > 1 uses a spawn process pool.
 
-  At ``parallel=1``: ``max_deliveries`` gives each task that many
-  attempts; a task that still fails goes to ``self.dead_letters``
-  (payload and failure reason) instead of ending the insert. The default
-  (None) is fail-fast: the first exception propagates. ``drain_flag``
-  (anything with ``is_set()``): once set, the task in flight finishes,
-  the rest are left unexecuted and ``self.drained`` is True.
-  ``self.pipeline_stats`` holds the staged runner's counts of the last
-  pipelined insert. The spawn pool takes neither option."""
+  ``max_deliveries`` gives each task that many attempts; a task that
+  still fails goes to ``self.dead_letters`` (payload and failure reason)
+  instead of ending the insert. The default (None) is fail-fast: the
+  first exception propagates. ``drain_flag`` (anything with
+  ``is_set()``): once set, the task in flight finishes, the rest are left
+  unexecuted and ``self.drained`` is True (the spawn pool checks it as
+  each result arrives and stops the workers). ``self.pipeline_stats``
+  holds the staged runner's counts of the last pipelined insert."""
 
   def __init__(self, parallel: int = 1, max_deliveries: Optional[int] = None,
                drain_flag=None):
-    if int(parallel) > 1 and (max_deliveries or drain_flag is not None):
-      raise NotImplementedError(
-        "max_deliveries and drain_flag are ported for parallel=1 only"
-      )
     self.parallel = max(int(parallel), 1)
     self.inserted = 0
     self.completed = 0
@@ -98,7 +90,7 @@ class LocalTaskQueue:
 
       if pipeline_config.enabled(default=True):
         return self._insert_pipelined(tasks)
-    payloads = (serialize(t) for t in self._iter(tasks))
+    payloads = (serialize(t) for t in iter_tasks(tasks))
     if self.parallel == 1:
       for payload in payloads:
         if self._draining():
@@ -119,9 +111,24 @@ class LocalTaskQueue:
     with ctx.Pool(
       self.parallel, initializer=_worker_init, initargs=(str(get_device()),)
     ) as pool:
-      for _ in pool.imap_unordered(_execute_payload, payloads, chunksize=1):
+      if self.max_deliveries is None:
+        for _ in pool.imap_unordered(_execute_payload, payloads, chunksize=1):
+          self.inserted += 1
+          self.completed += 1
+          if self._draining():
+            break  # the pool's exit terminates; unconsumed payloads stay
+        return
+      runner = functools.partial(
+        _execute_payload_contained, max_deliveries=self.max_deliveries
+      )
+      for payload, err in pool.imap_unordered(runner, payloads, chunksize=1):
         self.inserted += 1
-        self.completed += 1
+        if err is not None:
+          self._record_dead_letter(payload, err)
+        else:
+          self.completed += 1
+        if self._draining():
+          break
 
   def _insert_pipelined(self, tasks: Iterable):
     """``parallel=1`` insert through the staged pipeline, with the serial
@@ -133,7 +140,7 @@ class LocalTaskQueue:
     from ..pipeline import run_tasks_pipelined
 
     def stream():
-      for t in self._iter(tasks):
+      for t in iter_tasks(tasks):
         payload = serialize(t)
         self.inserted += 1
         yield deserialize(payload)
@@ -161,9 +168,3 @@ class LocalTaskQueue:
     )
     if self.pipeline_stats["drained"]:
       self.drained = True
-
-  @staticmethod
-  def _iter(tasks):
-    if hasattr(tasks, "__iter__") and not isinstance(tasks, (str, bytes, dict)):
-      return iter(tasks)
-    return iter([tasks])

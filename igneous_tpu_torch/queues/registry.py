@@ -94,3 +94,14 @@ def deserialize(payload: Union[str, bytes, dict]) -> RegisteredTask:
     )
   return TASK_REGISTRY[name](**payload.get("params", {}))
 
+
+
+class PrintTask(RegisteredTask):
+  """Debug and smoke-test task: prints its text."""
+
+  def __init__(self, txt: str = ""):
+    self.txt = txt
+
+  def execute(self):
+    print(self.txt or "PrintTask")
+    return self.txt

@@ -197,14 +197,22 @@ def ccl_auto(
 ):
   """Run all four passes with a barrier between each (the
   ``igneous image ccl auto`` capability). ``queue`` is a LocalTaskQueue
-  (one is made when omitted), which executes each pass on insert."""
+  (one is made when omitted), which executes each pass on insert, or a
+  lease queue (``fq://``, ``sqs://``), whose passes are inserted and then
+  drained here by polling before the next pass begins."""
   from ..queues import LocalTaskQueue
 
   tq = queue if queue is not None else LocalTaskQueue()
-  tq.insert(create_ccl_face_tasks(src_path, mip, shape, **kw))
-  tq.insert(create_ccl_equivalence_tasks(src_path, mip, shape, **kw))
+
+  def run_pass(tasks):
+    tq.insert(tasks)
+    if hasattr(tq, "poll"):  # a lease queue: drain before moving on
+      tq.poll(lease_seconds=600, stop_fn=lambda executed, empty: empty)
+
+  run_pass(create_ccl_face_tasks(src_path, mip, shape, **kw))
+  run_pass(create_ccl_equivalence_tasks(src_path, mip, shape, **kw))
   max_label = create_relabeling(src_path, mip)
-  tq.insert(create_ccl_relabel_tasks(
+  run_pass(create_ccl_relabel_tasks(
     src_path, dest_path, mip, shape,
     encoding=encoding, chunk_size=chunk_size, **kw,
   ))

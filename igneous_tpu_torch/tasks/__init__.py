@@ -1,5 +1,7 @@
 """The port's tasks; importing this package registers them."""
 
+from ..queues.registry import PrintTask, RegisteredTask
+
 from .ccl import (
   CCLEquivalancesTask,
   CCLFacesTask,
@@ -11,3 +13,39 @@ from .inference import InferenceTask
 from .mesh import MeshManifestFilesystemTask, MeshManifestPrefixTask, MeshTask
 from .skeleton import SkeletonTask, UnshardedSkeletonMergeTask
 from .stats import CountVoxelsTask
+
+
+class TouchFileTask(RegisteredTask):
+  """Creates an empty file; used for queue smoke tests and liveness probes."""
+
+  def __init__(self, path: str):
+    self.path = path
+
+  def execute(self):
+    import os
+
+    os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+    with open(self.path, "a"):
+      pass
+
+
+class FailTask(RegisteredTask):
+  """Always raises; exercises lease recycling and dead letters."""
+
+  def __init__(self, message: str = "intentional failure"):
+    self.message = message
+
+  def execute(self):
+    raise RuntimeError(self.message)
+
+
+class SleepTask(RegisteredTask):
+  """Sleeps for a fixed duration: a task whose true cost is known."""
+
+  def __init__(self, seconds: float = 0.05):
+    self.seconds = seconds
+
+  def execute(self):
+    import time
+
+    time.sleep(float(self.seconds))

@@ -331,6 +331,95 @@ class MeshTask(RegisteredTask):
         SpatialIndex(cf, mdir).put(physical, label_bounds)
 
 
+class _StreamMasks(LabelMasks):
+  """The label masks of several tasks as one stream: item i is job
+  ``index`` of that task's ``LabelMasks`` (each task's renumbered cutout
+  stays on the device where ``prepare_jobs`` put it)."""
+
+  def __init__(self, parts):
+    self.parts = list(parts)  # (LabelMasks, index)
+    self.boxes = [m.boxes[i] for m, i in self.parts]
+    self.device = self.parts[0][0].device
+
+  def fill(self, i: int, out) -> None:
+    masks, j = self.parts[i]
+    masks.fill(j, out)
+
+
+def execute_mesh_tasks_batched(tasks) -> int:
+  """Run K MeshTasks with the count pass batched ACROSS tasks: every
+  task's per-label masks feed one stream, cut into groups of
+  ``MeshTask.MESH_BATCH`` and launched one count pass a
+  mask bucket, instead of each task filling its own partial groups. The
+  host stages (weld, simplification, upload) stay per task and write the
+  bytes of solo execution.
+
+  Callers group tasks by (layer, mip, mesher), so resolution and kernel
+  agree across the stream (``parallel.lease_batcher``). A task's failure
+  is stashed on ``task._batch_error`` (the lease batcher re-raises it for
+  that member alone). Returns the number of count-pass dispatches."""
+  from ..ops.mesh import _bucket_shape
+
+  bs = MeshTask.MESH_BATCH
+  for t in tasks:
+    t._batch_error = None
+
+  def prep(task):
+    try:
+      return task.prepare_jobs()
+    except Exception as e:  # noqa: BLE001 - stashed, re-raised per lease
+      task._batch_error = e
+      return None
+
+  # the download and label work reach the device: one task at a time on
+  # this thread, in task order
+  ctxs = [prep(t) for t in tasks]
+  stream = []
+  for task, ctx in zip(tasks, ctxs):
+    if ctx is None:
+      continue
+    masks = task.group_masks(ctx, ctx["jobs"])
+    for j, job in enumerate(ctx["jobs"]):
+      stream.append((task, ctx, job, masks, j))
+
+  mesher_batch = (
+    marching_cubes_batch if tasks[0].mesher == "cubes"
+    else marching_tetrahedra_batch
+  )
+  dispatches = 0
+  for g0 in range(0, len(stream), bs):
+    grp = [e for e in stream[g0 : g0 + bs] if e[0]._batch_error is None]
+    if not grp:
+      continue
+    masks = _StreamMasks([(m, j) for _, _, _, m, j in grp])
+    dispatches += len({_bucket_shape(masks.shape(i)) for i in range(len(masks))})
+    offsets = [t.group_offsets(ctx, [job])[0] for t, ctx, job, _, _ in grp]
+    results = mesher_batch(
+      masks, anisotropy=grp[0][1]["resolution"], offsets=offsets,
+      batch_size=bs,
+    )
+    # hand each task its own labels' results
+    per_task = {}
+    for (task, ctx, job, _, _), res in zip(grp, results):
+      per_task.setdefault(id(task), (task, ctx, [], []))
+      per_task[id(task)][2].append(job)
+      per_task[id(task)][3].append(res)
+    for task, ctx, jobs, ress in per_task.values():
+      try:
+        task.finish_group(ctx, jobs, ress)
+      except Exception as e:  # noqa: BLE001
+        task._batch_error = e
+
+  for task, ctx in zip(tasks, ctxs):
+    if ctx is None or task._batch_error is not None:
+      continue
+    try:
+      task.finalize(ctx)
+    except Exception as e:  # noqa: BLE001
+      task._batch_error = e
+  return dispatches
+
+
 class MeshManifestPrefixTask(RegisteredTask):
   """Stage 2 (legacy format): group the fragment files of the labels
   under one decimal prefix and write their ``<label>:0`` manifests."""

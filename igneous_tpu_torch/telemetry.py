@@ -7,7 +7,9 @@ the host clock; the device stages synchronise where they end (ops.pooling,
 ops.ccl, ops.mesh). ``add`` counts work items (the mesh path's labels and
 faces, the chunk cache's hits and misses). ``observe`` adds a duration
 measured elsewhere to a stage (the staged pipeline's stall seconds, the
-device ledger's resolved spans), ``gauge_max`` keeps the highest value a
+device ledger's resolved spans; the queues' and the worker's
+``tasks.failed``, ``dlq.promoted``, ``zombie.*`` and ``drain.released``
+count under the JAX package's names), ``gauge_max`` keeps the highest value a
 gauge has shown (its buffer's bytes in flight) and ``gauge_set`` its
 latest (the device ledger's ratios and memory). The device ledger
 (``observability.device``) records here under the ``device.*`` names.
@@ -82,3 +84,38 @@ def reset() -> None:
     _STAGES.clear()
     _COUNTS.clear()
     _GAUGES.clear()
+
+
+def timed_poll_hooks(verbose: bool = True):
+  """(before_fn, after_fn) for ``FileQueue.poll`` (``execute --time``):
+  one JSON line per completed task with its wall time and the stage
+  seconds it added, in the JAX package's record shape
+  (``{"task", "wall_s", "stages": {name: {"seconds", "count"}}}``)."""
+  import json
+
+  state = {}
+
+  def before(task):
+    state["t0"] = time.perf_counter()
+    state["stages"] = snapshot()
+
+  def after(task):
+    base = state.get("stages", {})
+    stages = {}
+    for name, v in sorted(snapshot().items()):
+      b = base.get(name, {"seconds": 0.0, "count": 0})
+      if v["count"] > b["count"]:
+        stages[name] = {
+          "seconds": round(v["seconds"] - b["seconds"], 4),
+          "count": v["count"] - b["count"],
+        }
+    record = {
+      "task": type(task).__name__,
+      "wall_s": round(time.perf_counter() - state["t0"], 4),
+      "stages": stages,
+    }
+    if verbose:
+      print(json.dumps(record), flush=True)
+    return record
+
+  return before, after

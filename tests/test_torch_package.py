@@ -61,6 +61,10 @@ import igneous_tpu_torch.infer, igneous_tpu_torch.infer.registry, igneous_tpu_to
 import igneous_tpu_torch.tasks.inference, igneous_tpu_torch.task_creation.inference
 import igneous_tpu_torch.observability.device, igneous_tpu_torch.compile_cache
 import igneous_tpu_torch.tune
+import igneous_tpu_torch.secrets, igneous_tpu_torch.lifecycle, igneous_tpu_torch.queues
+import igneous_tpu_torch.queues.filequeue, igneous_tpu_torch.queues.ranges
+import igneous_tpu_torch.queues.heartbeat, igneous_tpu_torch.queues.sqs
+import igneous_tpu_torch.queues.queue, igneous_tpu_torch.parallel.lease_batcher
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'igneous_tpu')]
 assert not bad, bad
 from igneous_tpu_torch.ops import _build

@@ -485,10 +485,13 @@ def test_local_queue_drain_flag_stops_admission(tmp_path, monkeypatch, forced_th
 
 
 def test_spawn_pool_refuses_the_options_it_lacks():
-  with pytest.raises(NotImplementedError):
-    LocalTaskQueue(parallel=2, max_deliveries=3)
-  with pytest.raises(NotImplementedError):
-    LocalTaskQueue(parallel=2, drain_flag=StopFlag())
+  """The spawn pool now takes both options (as the JAX package's does);
+  ``tests/test_torch_lifecycle.py`` runs it with dead letters."""
+  q = LocalTaskQueue(parallel=2, max_deliveries=3)
+  assert q.parallel == 2 and q.max_deliveries == 3 and q.dead_letters == []
+  flag = StopFlag()
+  q = LocalTaskQueue(parallel=2, drain_flag=flag)
+  assert q.drain_flag is flag and not q.drained
 
 
 def test_execute_with_sink_writes_what_execute_writes(tmp_path, monkeypatch, forced_threads):

@@ -384,9 +384,10 @@ def test_unported_options_raise_before_reading_or_writing(option, tmp_path, monk
 
 
 def test_cli_refuses_options_it_does_not_have(tmp_path, capsys):
+  # --queue is ported now; the cross-section repair budget is not
   with pytest.raises(SystemExit):
-    cli_main(["skeleton", "forge", str(tmp_path), "--queue", "fq://q"])
-  assert "unrecognized arguments: --queue" in capsys.readouterr().err
+    cli_main(["skeleton", "forge", str(tmp_path), "--cross-section-label-repair-sec", "5"])
+  assert "unrecognized arguments: --cross-section-label-repair-sec" in capsys.readouterr().err
 
 
 def test_skeleton_task_without_cuda_raises_unless_the_cpu_is_asked_for(tmp_path, monkeypatch):
