@@ -1,6 +1,7 @@
 """Drive igneous_tpu_torch's downsample, transfer, connected-components,
-meshing, skeleton, morphology, census and inference paths, solo, batched
-and pipelined, on one NVIDIA GPU and check them.
+meshing, skeleton, morphology, census and inference paths, solo, batched,
+pipelined, through the queue worker and on gs:// and s3://, on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -85,8 +86,8 @@ Phases, each reported on its own line:
      the cseg layer once more with IGNEOUS_CHUNK_CACHE=off) writes the
      same bytes; every wall printed;
   4. e2e ccl: two file:// layers (an 896x448x224 thresholded smooth image
-     and an 896x448x224 uint64 segmentation of 750 balls, both at half
-     the task's depth, two tasks each) through ccl_auto (the four passes on a
+     at half the task's depth and an 896x448x112 uint64 segmentation of
+     375 balls at a quarter of it, two tasks each) through ccl_auto (the four passes on a
      LocalTaskQueue, task shape 448^3, raw destination), with the wall time
      of every pass and the stage split of its tasks; the launch counts are
      set to 0 just before each layer and read just after, tile_resolve must
@@ -108,10 +109,10 @@ Phases, each reported on its own line:
      kernels may launch; the device programs of the path (the XLA
      programs X1-X3 the port runs as torch ops) timed at the first
      task's largest count pass against their bytes bound;
-  6. e2e skeleton: a 1024x512x256 uint64 layer of 150 neurite-like tubes
+  6. e2e skeleton: a 1024x512x128 uint64 layer of 75 neurite-like tubes
      (radius 3-12 voxels along random polylines, ids above 2^32 and 2^63,
-     many across x = 512; half the depth and tubes of the 1024x512x512
-     layer it had before phases 8 and 9) through
+     many across x = 512; a quarter of the depth and tubes of the
+     1024x512x512 layer it had before phases 8 and 9) through
      create_skeletonizing_tasks -> LocalTaskQueue -> SkeletonTask (two
      tasks of the default 512^3 shape with every default, 8 tracing
      threads) and
@@ -124,14 +125,14 @@ Phases, each reported on its own line:
      for bit, and 32 of its labels (seed 1) plus its largest skeletonized
      to the same bytes on the card and on the CPU route, and equal to the
      written fragments;
-  8. morphology and the census (after phase 6): a 448x448x224 uint64
-     "hollow cells" layer (150 Voronoi cells with cavities, every third
-     opened by a one-voxel channel, and 400 specks, a quarter across
+  8. morphology and the census (after phase 6): a 448x448x112 uint64
+     "hollow cells" layer (75 Voronoi cells with cavities, every third
+     opened by a one-voxel channel, and 200 specks, a quarter across
      x = 224): dilate and erode of the first mesh task's cutout on the
      card and on the CPU route, bit for bit, and X6 (the dilation step)
-     timed against its bound; create_voxel_counting_tasks (224^3) ->
-     LocalTaskQueue -> CountVoxelsTask and accumulate_voxel_counts, the
-     totals equal to numpy's over the layer; two MeshTasks of 224x448x224
+     timed against its bound; create_voxel_counting_tasks (224x224x112)
+     -> LocalTaskQueue -> CountVoxelsTask and accumulate_voxel_counts, the
+     totals equal to numpy's over the layer; two MeshTasks of 224x448x112
      with fill_holes=3, dust_threshold=100 and dust_global (8
      simplification threads): the meshed labels exactly those of 100 or
      more voxels in the census, the first task's labels (32 and its
@@ -196,10 +197,31 @@ Phases, each reported on its own line:
      no lease held) and a second worker finishing its queue, and a 6 s
      task at --lease-sec 2 held by its heartbeat (a second worker finds
      nothing to lease; one completion, no zombie count);
+  12. the storage plane (after phase 9, on phase 3's layers), with the
+     repo's fake GCS and S3 servers (tests/fake_cloud_servers.py) in this
+     process: (a) a 2048x2048x64 crop of the image uploaded to gs:// in
+     128x128x64 gzip chunks, `image downsample --queue` (4 tasks of
+     1024x1024x64, 4 mips in 64^3 chunks) and `execute --batch 4` here (one
+     group, one pyramid2x2x1 launch, two injected 503s retried), every
+     chunk byte for byte the same crop's on file:// by the solo route and
+     every stored chunk in the integrity manifests with its digest;
+     (b) a 1024x512x64 crop of the segmentation on s3:// (SigV4, mip 0 in
+     multipart parts) through LocalTaskQueue, byte for byte the file://
+     route's; (c) (a)'s layer damaged three ways (a flipped byte at mip 1,
+     a truncated chunk at mip 2, a deleted one at mip 3): `audit --queue`
+     names exactly those and exits 2, `audit --heal --queue` repairs them
+     with three DownsampleTasks (pyramid2x2x1 three times), its second
+     round clean, exit 0, every healed chunk its bytes before the damage;
+     a flipped mip-0 chunk is UNHEALABLE, exit 2; (d) phase 3d's pipelined
+     image stream with IGNEOUS_INTEGRITY=off, at the default and with
+     IGNEOUS_INTEGRITY_VERIFY_AFTER_WRITE=1: walls, busy shares, every
+     run's chunks phase 3's byte for byte. Each part prints its wall, requests per server, bytes up and
+     down per protocol and the retries.* and integrity.* counters;
   7. the card's name and power limit, the programs line (X1-X3, X5-X7),
      the kernels line (each kernel's launches on the main paths, the
-     transfer, the batched phase, the pipelined streams and the worker
-     phase, where each of the four must have launched), and the result.
+     transfer, the batched phase, the pipelined streams, the worker phase,
+     where each of the four must have launched, and the storage phase),
+     and the result.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside it.
@@ -470,9 +492,11 @@ def layer_data(kind: str, rng, torch, dev) -> np.ndarray:
     return np.asfortranarray(img)
   if kind == "smooth":
     return smooth_image((4096, 4096, 64), rng, torch, dev)
-  # uniform noise: incompressible, the worst case for gzip
+  # uniform noise: incompressible, the worst case for gzip (random bytes:
+  # a bounded draw of 2^30 uint8 values takes the host some 30 s)
   shape = (4096, 4096, 64) if kind == "image" else (1000, 1000, 64)
-  return np.asfortranarray(rng.integers(0, 256, shape, dtype=np.uint8))
+  data = bytearray(rng.bytes(int(np.prod(shape))))
+  return np.frombuffer(data, np.uint8).reshape(shape, order="F")
 
 
 LAYERS = [
@@ -872,15 +896,17 @@ def blobs(shape, n_labels: int, n_blobs: int, rng, torch, dev) -> np.ndarray:
 
 
 CCL_LAYERS = [
-  # name, shape (x, y, z), dtype, ccl_auto options; both layers run at half
-  # the depth of the default 448^3 task (the mask layer since the mesh
-  # phase, the segmentation since phases 8 and 9), and the mask layer at
-  # half its width since the device plane's phase 10, so that the whole
-  # script stays inside its time limit
+  # name, shape (x, y, z), dtype, ccl_auto options, cut so that the whole
+  # script stays inside its time limit: the mask layer at half the depth of
+  # the default 448^3 task (since the mesh phase) and half its width (since
+  # the device plane's phase 10), the segmentation at half that depth since
+  # phases 8 and 9 and a quarter since the storage phase 12. The mask layer
+  # keeps its depth: its first task is the traced one of phase 10, whose
+  # tile_resolve must outlast a launch's host path (the ledger check)
   ("ccl_mask", (896, 448, 224), "uint8", {"threshold_gte": 128}),
-  ("ccl_segmentation", (896, 448, 224), "uint64", {}),
+  ("ccl_segmentation", (896, 448, 112), "uint64", {}),
 ]
-CCL_BLOBS = 750  # balls of the segmentation layer (1500 at its full depth)
+CCL_BLOBS = 375  # balls of the segmentation layer (1500 at its full depth)
 
 
 def oracle(data: np.ndarray, kw: dict, torch, dev):
@@ -1328,10 +1354,11 @@ def mesh_e2e_phase(root, torch, dev, shape=MESH_SHAPE, n_seeds=MESH_SEEDS,
 # ---------------------------------------------------------------------------
 # EDT and skeletons
 
-# (x, y, z): two tasks of the default 512^3 shape at half its depth (and
-# half the tubes of the full depth), so that phases 8 and 9 fit the run
-SKEL_SHAPE = (1024, 512, 256)
-SKEL_TUBES = 150
+# (x, y, z): two tasks of the default 512^3 shape at a quarter of its depth
+# (and a quarter of the tubes of the full depth; half since phases 8 and 9,
+# a quarter since the storage phase 12), so that the run fits its limit
+SKEL_SHAPE = (1024, 512, 128)
+SKEL_TUBES = 75
 SKEL_SAMPLE = 32  # labels of the first task held card against CPU, + its largest
 SKEL_MIN_CROSSING = 10  # boundary-crossing tube components the merge check needs
 # threads for the per-label tracing of each task (the task's ``parallel``;
@@ -1862,12 +1889,15 @@ def skeleton_e2e_phase(root, ce, edt_ops, torch, dev):
 # ---------------------------------------------------------------------------
 # morphology and the voxel-count census (phase 8)
 
-HOLLOW_SHAPE = (448, 448, 224)  # (x, y, z): two mesh tasks of 224x448x224
-HOLLOW_TASK = (224, 448, 224)
-HOLLOW_SEEDS = 150
-HOLLOW_SPECKS = 400  # a quarter of them across x = 224
+# (x, y, z): two mesh tasks of 224x448x112; half the depth, seeds and specks
+# of the layer it had before the storage phase 12, so that the run fits its
+# limit
+HOLLOW_SHAPE = (448, 448, 112)
+HOLLOW_TASK = (224, 448, 112)
+HOLLOW_SEEDS = 75
+HOLLOW_SPECKS = 200  # a quarter of them across x = 224
 HOLLOW_DUST = 100  # the forge's dust threshold, applied to the census counts
-HOLLOW_CENSUS_TASK = (224, 224, 224)
+HOLLOW_CENSUS_TASK = (224, 224, 112)
 HOLLOW_SAMPLE = 32  # labels of the first task held card against CPU, + its largest
 X6_REPLACES = "igneous_tpu/ops/morphology.py:19"  # _dilate_kernel (XLA)
 
@@ -1918,9 +1948,9 @@ def morphology_phase(root, cp, cc, ce, torch, dev):
   """Phase 8 on a "hollow cells" layer (``hollow_cells``): ``dilate`` and
   ``erode`` of the first mesh task's cutout on the card and on the CPU
   route, bit for bit, and X6 (``dilate_step``) timed against its bound;
-  the census (``create_voxel_counting_tasks`` at 224^3 on a
+  the census (``create_voxel_counting_tasks`` at 224x224x112 on a
   ``LocalTaskQueue``, then ``accumulate_voxel_counts``), its totals equal
-  to numpy's over the whole layer; the mesh forge of two 224x448x224
+  to numpy's over the whole layer; the mesh forge of two 224x448x112
   tasks with ``fill_holes=3``, ``dust_threshold=100`` and
   ``dust_global``: the meshed labels exactly those whose census count is
   100 or more, the first task's labels (32 and its largest) card against
@@ -3518,6 +3548,448 @@ def worker_skeleton(root, ce, cp, cc) -> dict:
   return launched
 
 
+# ---------------------------------------------------------------------------
+# the storage plane (phase 12): gs:// and s3:// on the repo's in-process
+# fakes, the integrity envelope, audit --heal
+
+# (a) a crop of phase 3's image on gs://: 4 tasks of 1024x1024x64 with 4
+# mips, the new mips in 64^3 chunks (a task's mip 4 is 64 voxels wide)
+GS_CROP = (2048, 2048, 64)
+GS_CHUNK = (128, 128, 64)
+GS_NEW_CHUNK = (64, 64, 64)
+GS_MIPS, GS_TASKS, GS_TARGET = 4, 4, 2**27
+# (b) a crop of phase 3's segmentation on s3://, one task of 3 mips; its
+# gzip chunks are larger than the multipart threshold, so mip 0 goes up in
+# parts
+S3_CROP = (1024, 512, 64)
+S3_MIPS = 3
+S3_MULTIPART = 64 * 1024
+# (c) the damage: (mip, chunk, how); each in another task cell of (a)
+DAMAGE = [
+  (1, "64-128_0-64_0-64", "flip"),
+  (2, "256-320_0-64_0-64", "truncate"),
+  (3, "0-64_128-192_0-64", "delete"),
+]
+UNHEALABLE_CHUNK = "0-128_0-128_0-64"  # mip 0, flipped after the heal
+# (d) phase 3d's image stream under each setting of the envelope
+ENVELOPE_MODES = {
+  "off": {"IGNEOUS_INTEGRITY": "off"},
+  "default": {},
+  "verify": {"IGNEOUS_INTEGRITY_VERIFY_AFTER_WRITE": "1"},
+}
+FAKE_PAGE_SIZE = 1000  # listing page of the fakes (the tests force 3)
+FAKE_BACKLOG = 128  # their listen backlog (socketserver's default is 5)
+
+
+class StorageCounter:
+  """A ``storage.set_backend_wrapper`` wrapper: counts each protocol's
+  bytes put (up) and got (down) through the backends it wraps."""
+
+  def __init__(self):
+    import threading
+
+    self.lock = threading.Lock()
+    self.bytes = {}
+
+  def __call__(self, backend, pth):
+    return CountedBackend(backend, pth.protocol, self)
+
+  def add(self, protocol, way, n):
+    with self.lock:
+      per = self.bytes.setdefault(protocol, {"up": 0, "down": 0})
+      per[way] += n
+
+  def take(self) -> dict:
+    with self.lock:
+      out, self.bytes = self.bytes, {}
+    return out
+
+
+class CountedBackend:
+  """A storage backend whose puts and gets a ``StorageCounter`` counts."""
+
+  def __init__(self, backend, protocol: str, counter: StorageCounter):
+    self.backend, self.protocol, self.counter = backend, protocol, counter
+
+  def __getattr__(self, name):
+    return getattr(self.backend, name)
+
+  def put(self, key, data):
+    self.counter.add(self.protocol, "up", len(data))
+    return self.backend.put(key, data)
+
+  def get(self, key):
+    data = self.backend.get(key)
+    self.counter.add(self.protocol, "down", len(data or b""))
+    return data
+
+  def get_range(self, key, start, length):
+    data = self.backend.get_range(key, start, length)
+    self.counter.add(self.protocol, "down", len(data or b""))
+    return data
+
+
+class MonotonicIds(dict):
+  """A dict whose ``len`` counts every key ever set. The fakes name a new
+  upload session ``<kind>-<len(sessions)>``: once one session completes,
+  two concurrent ones could get the same name. Phase 12 uploads from
+  several threads, so its fakes keep their sessions in one of these."""
+
+  created = 0
+
+  def __setitem__(self, key, value):
+    self.created += 1
+    super().__setitem__(key, value)
+
+  def __len__(self):
+    return self.created
+
+
+def fake_servers():
+  """The repo's fake GCS and S3 servers (``tests/fake_cloud_servers.py``),
+  in this process. The S3 fake checks every signature with
+  ``igneous_tpu.storage_s3.SigV4``, which it imports when a request comes
+  in: that name is bound to the port's own module first, so that nothing
+  of the JAX package is imported (the CPU tests hold the port's signer
+  against the JAX package's verifier)."""
+  import os
+
+  from igneous_tpu_torch import storage_s3
+
+  sys.modules.setdefault("igneous_tpu.storage_s3", storage_s3)
+  tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+  if tests not in sys.path:
+    sys.path.insert(0, tests)
+  import fake_cloud_servers
+
+  fake_cloud_servers.PAGE_SIZE = FAKE_PAGE_SIZE
+  gcs = fake_cloud_servers.FakeCloudServer("gcs")
+  s3 = fake_cloud_servers.FakeCloudServer("s3", s3_creds=("AKIACHIPSMOKE", "chip-smoke-secret"))
+  for srv in (gcs, s3):
+    srv.httpd.socket.listen(FAKE_BACKLOG)
+    srv.state.sessions, srv.state.mpu = MonotonicIds(), MonotonicIds()
+  return gcs, s3
+
+
+def server_line(srvs: dict, counter: StorageCounter) -> str:
+  """Requests each server logged since the last call, and the bytes up and
+  down each protocol moved."""
+  reqs = {}
+  for name, srv in srvs.items():
+    with srv.state.lock:
+      reqs[name] = len(srv.state.requests)
+      srv.state.requests.clear()
+  return f"requests {json.dumps(reqs)}, bytes {json.dumps(counter.take())}"
+
+
+def plane_counters() -> dict:
+  from igneous_tpu_torch import telemetry
+
+  return {k: v for k, v in sorted(telemetry.counters().items())
+          if k.startswith(("retries.", "integrity."))}
+
+
+def stored_objects(srv, prefix: str) -> dict:
+  """{key under ``prefix``: stored bytes} on a fake server, integrity
+  sidecars, info and provenance left out."""
+  from igneous_tpu_torch import integrity
+
+  with srv.state.lock:
+    items = list(srv.state.objects.items())
+  out = {}
+  for name, data in items:
+    if name.startswith(prefix + "/"):
+      key = name[len(prefix) + 1:]
+      if not integrity.exempt(key):
+        out[key] = bytes(data)
+  return out
+
+
+def check_envelope(label: str, path: str, objects: dict) -> int:
+  """Every stored chunk has a manifest record whose digest is its bytes'."""
+  from igneous_tpu_torch import integrity
+
+  integrity.flush_all()
+  man = integrity.load_manifest(path)
+  bad = [k for k, data in objects.items()
+         if k not in man or man[k]["digest"] != integrity.digest_hex(data)
+         or man[k]["n"] != len(data)]
+  if bad or not objects:
+    fail(f"storage {label}: {len(bad)} of {len(objects)} stored chunks lack a matching "
+         f"manifest record ({bad[:3]})")
+  return len(objects)
+
+
+def file_objects(root: str, mips) -> dict:
+  """{"<mip key>/<file>": bytes} of a file:// layer's chunk files at ``mips``."""
+  import os
+
+  info = json.load(open(os.path.join(root, "info")))
+  out = {}
+  for mip in mips:
+    key = info["scales"][mip]["key"]
+    for name in os.listdir(os.path.join(root, key)):
+      with open(os.path.join(root, key, name), "rb") as f:
+        out[f"{key}/{name}"] = f.read()
+  return out
+
+
+def audit_cli(args, codes=(0,)):
+  """``audit`` in this process: (exit code, output); fails outside ``codes``."""
+  import contextlib
+  import io
+
+  from igneous_tpu_torch.cli import main as cli_main
+
+  out = io.StringIO()
+  with contextlib.redirect_stdout(out):
+    rc = cli_main([str(a) for a in args])
+  if rc not in codes:
+    fail(f"`{' '.join(map(str, args))}` exited {rc}: {out.getvalue()[-2000:]}")
+  return rc, out.getvalue()
+
+
+def storage_phase(root, cp, cc, ce, torch, dev) -> dict:
+  """Phase 12 on phase 3's layers (see the module docstring). Returns the
+  pooling kernels' launches of (a)-(d)."""
+  import os
+
+  from igneous_tpu_torch import Volume, integrity, storage, telemetry
+  from igneous_tpu_torch.lib import Bbox
+  from igneous_tpu_torch.queues import FileQueue, LocalTaskQueue
+  from igneous_tpu_torch.task_creation import create_downsampling_tasks
+
+  t_phase = time.perf_counter()
+  launches = {k: 0 for k in cp.LAUNCHES}
+  gcs, s3 = fake_servers()
+  srvs = {"gcs": gcs, "s3": s3}
+  counter = StorageCounter()
+  env = {
+    "GCS_ENDPOINT_URL": gcs.endpoint, "S3_ENDPOINT_URL": s3.endpoint,
+    "AWS_ACCESS_KEY_ID": "AKIACHIPSMOKE", "AWS_SECRET_ACCESS_KEY": "chip-smoke-secret",
+    "IGNEOUS_S3_MULTIPART_THRESHOLD": str(S3_MULTIPART),
+    "IGNEOUS_S3_MULTIPART_CHUNK": str(S3_MULTIPART),
+  }
+  saved = {k: os.environ.get(k) for k in env}
+  os.environ.update(env)
+  storage.set_backend_wrapper(counter)
+  try:
+    with gcs, s3:
+      try:
+        # (a) the image crop on gs://, downsampled by a queue and execute --batch 4
+        telemetry.reset()
+        t0 = time.perf_counter()
+        crop = Volume(f"file://{root}/image").download(Bbox((0, 0, 0), GS_CROP))
+        gs_path, ref = "gs://chip-smoke/image", f"{root}/image_gs_ref"
+        for path in (gs_path, f"file://{ref}"):
+          Volume.from_numpy(crop, path, resolution=(8, 8, 40), chunk_size=GS_CHUNK,
+                            compress="gzip")
+        del crop
+        t_up = time.perf_counter() - t0
+        spec = f"fq://{root}/queue_gs"
+        run_cli(["image", "downsample", gs_path, "--num-mips", GS_MIPS, "--chunk-size",
+                 ",".join(map(str, GS_NEW_CHUNK)), "--memory", GS_TARGET, "--queue", spec])
+        q = FileQueue(spec)
+        if q.inserted != GS_TASKS:
+          fail(f"storage gs: {q.inserted} tasks queued, expected {GS_TASKS}")
+        gcs.state.fail_next = 2  # two 503s: the first requests retry
+        zero_counts(cp, cc, ce)
+        ledger_reset(torch, dev)
+        t1 = time.perf_counter()
+        text = run_cli(["execute", spec, "--batch", GS_TASKS, "-x", "--time"])
+        wall = time.perf_counter() - t1
+        launched = launch_counts(cp, cc, ce)
+        snap = ledger_line("storage gs execute", wall, launched)
+        stats = worker_summary(text, "storage gs")
+        if stats["executed"] != GS_TASKS or stats["dispatches"] != 1 or stats["solo"] \
+           or launched["pyramid2x2x1"] != 1 or launched["pool2x2x1"]:
+          fail(f"storage gs: {json.dumps(stats)}, launches {launched}: expected one group "
+               f"of {GS_TASKS} and one pyramid2x2x1 launch")
+        for k in launches:
+          launches[k] += launched[k]
+        counters = plane_counters()
+        if counters.get("retries.storage_http", 0) < 2:
+          fail(f"storage gs: the injected 503s were not retried ({counters})")
+        print(f"storage gs: upload {t_up:.3f} s ({GS_CROP[0]}x{GS_CROP[1]}x{GS_CROP[2]} uint8 "
+              f"to gs:// and file://), execute --batch {GS_TASKS} {wall:.3f} s (busy "
+              f"{100 * snap['busy_s'] / wall:.2f}%), {json.dumps(stats)}, launches "
+              f"{json.dumps(launched)}, {server_line(srvs, counter)}, counters "
+              f"{json.dumps(counters)}", flush=True)
+        t1 = time.perf_counter()
+        LocalTaskQueue(parallel=1).insert(create_downsampling_tasks(
+          f"file://{ref}", mip=0, num_mips=GS_MIPS, chunk_size=GS_NEW_CHUNK,
+          memory_target=GS_TARGET))
+        t_ref = time.perf_counter() - t1
+        want = file_objects(ref, range(GS_MIPS + 1))
+        before = stored_objects(gcs, "image")
+        if before != want:
+          diff = sorted(set(before) ^ set(want)) or [k for k in want if before[k] != want[k]]
+          fail(f"storage gs: {len(before)} chunks on gs://, {len(want)} on the file:// solo "
+               f"route; differing {diff[:3]}")
+        n = check_envelope("gs", gs_path, before)
+        print(f"storage gs: {len(want)} chunks of mips 0-{GS_MIPS} byte for byte the file:// "
+              f"solo route's ({t_ref:.3f} s), {n} with a matching manifest record; part wall "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+        # (b) the segmentation crop on s3://, through LocalTaskQueue
+        telemetry.reset()
+        t0 = time.perf_counter()
+        seg = Volume(f"file://{root}/segmentation").download(Bbox((0, 0, 0), S3_CROP))
+        s3_path, sref = "s3://chip-smoke/segmentation", f"{root}/segmentation_s3_ref"
+        for path in (s3_path, f"file://{sref}"):
+          Volume.from_numpy(seg, path, resolution=(8, 8, 40), chunk_size=GS_CHUNK,
+                            layer_type="segmentation", compress="gzip")
+        del seg
+        parts = sum("partNumber" in p for m, p, _a in s3.state.requests if m == "PUT")
+        t_up = time.perf_counter() - t0
+        walls = {}
+        for path in (s3_path, f"file://{sref}"):
+          zero_counts(cp, cc, ce)
+          t1 = time.perf_counter()
+          LocalTaskQueue(parallel=1).insert(create_downsampling_tasks(path, mip=0,
+                                                                      num_mips=S3_MIPS))
+          walls[path] = time.perf_counter() - t1
+          launched = launch_counts(cp, cc, ce)
+          if launched["pyramid2x2x1"] + launched["pool2x2x1"] < 1:
+            fail(f"storage s3: no pooling kernel launched for {path} ({launched})")
+          if path == s3_path:
+            for k in launches:
+              launches[k] += launched[k]
+            s3_launched = launched
+        got, want = stored_objects(s3, "segmentation"), file_objects(sref, range(S3_MIPS + 1))
+        if got != want:
+          fail(f"storage s3: {len(got)} chunks on s3://, {len(want)} on file://, not equal")
+        if not parts:
+          fail("storage s3: mip 0 went up in no multipart part")
+        n = check_envelope("s3", s3_path, got)
+        print(f"storage s3: upload {t_up:.3f} s ({S3_CROP[0]}x{S3_CROP[1]}x{S3_CROP[2]} uint64, "
+              f"{parts} multipart parts), downsample {walls[s3_path]:.3f} s (file:// "
+              f"{walls[f'file://{sref}']:.3f} s), launches {json.dumps(s3_launched)}, "
+              f"{len(want)} chunks byte for byte the file:// route's, {n} with a matching "
+              f"manifest record, {server_line(srvs, counter)}, counters "
+              f"{json.dumps(plane_counters())}; part wall {time.perf_counter() - t0:.3f} s",
+              flush=True)
+
+        # (c) audit --heal on (a)'s layer
+        telemetry.reset()
+        t0 = time.perf_counter()
+        vol = Volume(gs_path)
+        intact = stored_objects(gcs, "image")
+        with gcs.state.lock:
+          for mip, chunk, how in DAMAGE:
+            name = f"image/{vol.meta.key(mip)}/{chunk}.gz"
+            data = gcs.state.objects[name]
+            if how == "flip":
+              gcs.state.objects[name] = data[:-9] + bytes([data[-9] ^ 0x01]) + data[-8:]
+            elif how == "truncate":
+              gcs.state.objects[name] = data[: len(data) // 2]
+            else:
+              del gcs.state.objects[name]
+        spec = f"fq://{root}/queue_audit"
+        rc, text = audit_cli(["audit", gs_path, "--queue", spec], codes=(2,))
+        named = sorted(l for l in text.splitlines() if l.startswith("CORRUPT"))
+        want = sorted(f"CORRUPT {'missing' if how == 'delete' else 'decode_error'} mip={mip} "
+                      f"{vol.meta.key(mip)}/{chunk}" for mip, chunk, how in DAMAGE)
+        if named != want:
+          fail(f"storage audit: named {named}, expected {want}")
+        t_audit = time.perf_counter() - t0
+        zero_counts(cp, cc, ce)
+        ledger_reset(torch, dev)
+        t1 = time.perf_counter()
+        rc, text = audit_cli(["audit", gs_path, "--heal", "--queue", spec])
+        wall = time.perf_counter() - t1
+        launched = launch_counts(cp, cc, ce)
+        snap = ledger_line("storage audit --heal", wall, launched)
+        rounds = [l for l in text.splitlines() if l.startswith("heal round")]
+        report = storage.CloudFiles(gs_path).get_json("integrity/audit/report.json")
+        if rounds != ["heal round 1: 3 findings -> 3 repair tasks"] or report["rounds"] != 2 \
+           or report["findings"] or not report["complete"]:
+          fail(f"storage audit --heal: exit {rc}, {text.splitlines()[-6:]}, report rounds "
+               f"{report['rounds']}, findings {report['findings']}")
+        if launched["pyramid2x2x1"] != 3:
+          fail(f"storage audit --heal: launches {launched}, expected pyramid2x2x1 once a "
+               f"repair task (3)")
+        for k in launches:
+          launches[k] += launched[k]
+        healed = stored_objects(gcs, "image")
+        if healed != intact:
+          fail(f"storage audit --heal: the healed layer differs from its bytes before the "
+               f"damage ({sorted(k for k in intact if healed.get(k) != intact[k])[:3]})")
+        print(f"storage audit: exit 2 naming {named} ({t_audit:.3f} s); audit --heal: "
+              f"{rounds[0]}, round 2 clean, exit {rc}, {report['chunks_checked']} chunks "
+              f"checked, wall {wall:.3f} s (busy "
+              f"{100 * snap['busy_s'] / wall:.2f}%), launches {json.dumps(launched)}, every "
+              f"healed chunk its bytes before the damage; {server_line(srvs, counter)}, "
+              f"counters {json.dumps(plane_counters())}", flush=True)
+        name = f"image/{vol.meta.key(0)}/{UNHEALABLE_CHUNK}.gz"
+        with gcs.state.lock:
+          data = gcs.state.objects[name]
+          gcs.state.objects[name] = data[:-9] + bytes([data[-9] ^ 0x01]) + data[-8:]
+        t1 = time.perf_counter()
+        rc, text = audit_cli(["audit", gs_path, "--mip", 0, "--heal", "--queue", spec],
+                             codes=(2,))
+        want_line = f"UNHEALABLE decode_error mip=0 {vol.meta.key(0)}/{UNHEALABLE_CHUNK}"
+        if want_line not in text.splitlines():
+          fail(f"storage audit: no `{want_line}` line in {text[-1000:]!r}")
+        print(f"storage audit: a damaged mip-0 chunk reported `{want_line}`, exit {rc}, "
+              f"{time.perf_counter() - t1:.3f} s; {server_line(srvs, counter)}; "
+              f"part wall {time.perf_counter() - t0:.3f} s", flush=True)
+      finally:
+        # the buffered records of the fakes' layers, while they answer
+        integrity.flush_all(swallow=True)
+  finally:
+    storage.set_backend_wrapper(None)
+    for k, v in saved.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+  print(f"storage: phase wall (a)-(c) {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+  # (d) the envelope's cost: phase 3d's pipelined image stream once in each
+  # mode
+  t0 = time.perf_counter()
+  name, target, ntasks, shape, mips = PIPELINED_RUNS[0]
+  src = os.path.join(root, name)
+  runs = {mode: [] for mode in ENVELOPE_MODES}
+  for i, mode in enumerate(ENVELOPE_MODES):
+    menv = ENVELOPE_MODES[mode]
+    dst = os.path.join(root, f"{name}_envelope_{i}_{mode}")
+    link_layer(src, dst)
+    tasks = list(create_downsampling_tasks(f"file://{dst}", mip=0, num_mips=mips,
+                                           memory_target=target))
+    telemetry.reset()
+    zero_counts(cp, cc, ce)
+    os.environ.update(menv)
+    ledger_reset(torch, dev)
+    t1 = time.perf_counter()
+    try:
+      LocalTaskQueue(parallel=1).insert(tasks)
+      integrity.flush_all()
+    finally:
+      for k in menv:
+        os.environ.pop(k, None)
+    wall = time.perf_counter() - t1
+    launched = launch_counts(cp, cc, ce)
+    snap = ledger_line(f"storage envelope {mode}", wall, launched)
+    if launched["pyramid2x2x1"] != ntasks:
+      fail(f"storage envelope {mode}: launches {launched}, expected {ntasks}")
+    for k in launches:
+      launches[k] += launched[k]
+    has_manifests = os.path.isdir(os.path.join(dst, "integrity", "manifests"))
+    if has_manifests != (mode != "off"):
+      fail(f"storage envelope {mode}: manifests {'written' if has_manifests else 'missing'}")
+    n = mip_files_equal(src, dst, mips)
+    runs[mode].append((wall, 100 * snap["busy_s"] / wall, plane_counters()))
+  print("storage envelope: " + "; ".join(
+    f"{mode} wall {r[0][0]:.3f} s, busy {r[0][1]:.2f}%, counters {json.dumps(r[0][2])}"
+    for mode, r in runs.items())
+    + f"; each run's {n} chunk files of mips 1-{mips} phase 3's byte for byte; part wall "
+      f"{time.perf_counter() - t0:.3f} s", flush=True)
+  print(f"storage: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+  return launches
+
+
 def main() -> int:
   import argparse
   import os
@@ -3609,6 +4081,7 @@ def main() -> int:
         worker_launches[key] += n
     t_worker = time.perf_counter() - t_worker
     x7 = inference_phase(root, cp, cc, ce, torch, dev)
+    storage_launches = storage_phase(root, cp, cc, ce, torch, dev)
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches["tile_resolve"] = ccl_e2e_phase(root, cc, cp, torch, dev)
     t_phase = time.perf_counter()
@@ -3666,6 +4139,7 @@ def main() -> int:
       "launches_batched": batched_launches[name],
       "launches_pipelined": pipelined_launches[name],
       "launches_worker": worker_launches[name],
+      "launches_storage": storage_launches[name],
       "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == name),
       "ms": first["ms"], "plain_ms": first["plain_ms"],
       "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -4,16 +4,18 @@ voxels {count,sum}``, ``python -m igneous_tpu_torch image ccl {faces,links,
 calc-labels,relabel,clean,auto}``, ``python -m igneous_tpu_torch mesh
 {forge,merge}``, ``python -m igneous_tpu_torch skeleton {forge,merge}``,
 ``python -m igneous_tpu_torch execute``, ``python -m igneous_tpu_torch
-queue {status,wait,release,purge,rezero,fsck,cp,mv,dlq {ls,retry,purge}}``
-and ``python -m igneous_tpu_torch tune``.
+queue {status,wait,release,purge,rezero,fsck,cp,mv,dlq {ls,retry,purge}}``,
+``python -m igneous_tpu_torch audit`` and ``python -m igneous_tpu_torch
+tune``.
 
 A minimal counterpart of ``igneous-tpu image downsample|xfer|infer``,
 ``igneous-tpu image voxels count|sum``, ``igneous-tpu image ccl``,
 ``igneous-tpu mesh forge|merge``, ``igneous-tpu skeleton forge|merge``,
-``igneous-tpu execute``, ``igneous-tpu queue`` and ``igneous-tpu tune``
-(``igneous_tpu/cli.py``), with the same option names; an option the port
-does not have is refused by the parser, and the ones it does not run yet
-raise ``NotImplementedError`` before anything is written. A command that
+``igneous-tpu execute``, ``igneous-tpu queue``, ``igneous-tpu audit`` and
+``igneous-tpu tune`` (``igneous_tpu/cli.py``), with the same option
+names; an option the port does not have is refused by the parser, and the
+ones it does not run yet raise ``NotImplementedError`` before anything is
+written. A command that
 makes tasks runs them in a ``LocalTaskQueue`` on the port's device (cuda;
 ``IGNEOUS_TORCH_DEVICE=cpu`` asks for the CPU), or, with ``--queue
 fq://...`` (or ``sqs://``), inserts them there for ``execute`` workers.
@@ -150,6 +152,8 @@ def build_parser() -> argparse.ArgumentParser:
   _add_queue(groups.add_parser(
     "queue", help="Queue inspection and maintenance.").add_subparsers(
       dest="command", required=True))
+  _add_audit(groups.add_parser(
+    "audit", help="Verify a campaign's outputs: presence, decode, manifest digests."))
   return parser
 
 
@@ -389,6 +393,10 @@ def _execute_worker(queue_spec, lease_sec, num_tasks, exit_on_empty, min_sec,
       if not quiet:
         print(f"executed {executed} tasks", flush=True)
   finally:
+    # an audit must find the digests of everything this worker stored
+    from . import integrity
+
+    integrity.flush_all(swallow=True)
     watcher.stop()
     restore()
   if flag.is_set():
@@ -507,6 +515,152 @@ def _run_queue(parser, args) -> int:
     else:
       print(f"purged {tq.dlq_purge()} tasks")
   return 0
+
+
+def _add_audit(cmd) -> None:
+  cmd.add_argument("path")
+  cmd.add_argument("--queue", "-q", dest="queue_spec", default=None,
+                   help="fq:// queue to fan the audit grid through (this process "
+                        "drains it); runs locally if omitted.")
+  cmd.add_argument("--mip", dest="mips", action="append", type=int, default=[],
+                   help="Mip level(s) to audit [default: every mip the layer's "
+                        "recorded downsample campaign produced].")
+  cmd.add_argument("--report-dir", default=None,
+                   help="Findings location [default: <path>/integrity/audit].")
+  cmd.add_argument("--out", default=None,
+                   help="Also write the report JSON to this local file.")
+  cmd.add_argument("--heal", action="store_true",
+                   help="Re-run the producing DownsampleTask of each damaged cell "
+                        "and audit again, until clean or --max-rounds.")
+  cmd.add_argument("--max-rounds", type=int, default=5, help="Heal rounds at most.")
+  cmd.add_argument("--no-digest", action="store_true",
+                   help="Skip the manifest digest checks (presence and decode only).")
+  cmd.add_argument("--allow-missing", action="store_true",
+                   help="Missing chunks are not findings.")
+  cmd.add_argument("--lease-sec", type=float, default=60.0)
+  cmd.add_argument("--drain-sec", type=float, default=600.0,
+                   help="Deadline for each queued round to drain.")
+
+
+def _audit_round(path, mips, report_dir, queue_spec, parallel,
+                 check_digest, require_present, lease_sec, drain_sec):
+  """One audit pass: the grid of every mip, drained; its findings."""
+  from . import integrity
+  from .task_creation.audit import create_integrity_audit_tasks, load_findings
+
+  integrity.flush_all()
+  for mip in mips:
+    enqueue(queue_spec, create_integrity_audit_tasks(
+      path, mip=mip, report_dir=report_dir,
+      check_digest=check_digest, require_present=require_present,
+    ), parallel)
+  if queue_spec is not None:
+    _drain_inline(queue_spec, lease_sec, drain_sec)
+  return load_findings(report_dir)
+
+
+def _drain_inline(queue_spec, lease_sec, deadline_sec) -> None:
+  """Lease, run and delete the queue's tasks in this process until it is
+  empty (workers leasing the same queue just finish it sooner)."""
+  import time
+
+  from .queues import TaskQueue
+
+  import igneous_tpu_torch.tasks  # noqa: F401  (registers the port's tasks)
+
+  tq = TaskQueue(queue_spec)
+  deadline = time.monotonic() + deadline_sec
+
+  def stop_fn(executed, empty):
+    return (empty and tq.enqueued == 0) or time.monotonic() > deadline
+
+  tq.poll(lease_seconds=lease_sec, verbose=False, stop_fn=stop_fn,
+          max_backoff_window=0.25)
+  if tq.enqueued > 0:
+    raise SystemExit(
+      f"Error: audit queue failed to drain within {deadline_sec:.0f}s "
+      f"({tq.enqueued} tasks left)"
+    )
+
+
+def _run_audit(args) -> int:
+  """Replay PATH's chunk grid against the write envelope and report every
+  missing, undecodable or digest-mismatched chunk: exit 0 when complete
+  and intact, 2 while findings remain (each printed as a CORRUPT line).
+  ``--heal`` re-runs the producing DownsampleTask of exactly the damaged
+  cells and audits again; a finding with no producer is UNHEALABLE."""
+  import json
+  import sys
+  import time
+
+  from . import chunk_cache, integrity
+  from .storage import CloudFiles
+  from .task_creation.audit import downsample_provenance, downsample_repair_tasks
+  from .volume import Volume
+
+  path = args.path.rstrip("/")
+  report_dir = args.report_dir or f"{path}/{integrity.INTEGRITY_PREFIX}/audit"
+  prov = downsample_provenance(Volume(path, mip=0))
+  if args.mips:
+    mips = sorted(set(args.mips))
+  elif prov is not None:
+    src = int(prov["mip"])
+    mips = list(range(src + 1, src + int(prov["num_mips"]) + 1))
+  else:
+    print("Error: no recorded downsample campaign in provenance: pass --mip "
+          "explicitly to name the levels to audit", file=sys.stderr)
+    return 1
+
+  round_args = (path, mips, report_dir, args.queue_spec, args.parallel,
+                not args.no_digest, not args.allow_missing, args.lease_sec,
+                args.drain_sec)
+  findings, totals = _audit_round(*round_args)
+  rounds = 1
+  repaired = 0
+  while findings and args.heal and rounds <= args.max_rounds:
+    tasks, unhealable = downsample_repair_tasks(path, findings, prov)
+    if unhealable:
+      for f in unhealable:
+        print(f"UNHEALABLE {f['kind']} mip={f['mip']} {f['key']}")
+      break
+    if not tasks:
+      break
+    print(f"heal round {rounds}: {len(findings)} findings -> {len(tasks)} repair tasks",
+          flush=True)
+    enqueue(args.queue_spec, tasks, args.parallel)
+    if args.queue_spec is not None:
+      _drain_inline(args.queue_spec, args.lease_sec, args.drain_sec)
+    repaired += len(tasks)
+    # repaired chunks are read afresh
+    for mip in mips:
+      chunk_cache.invalidate(path, mip)
+    findings, totals = _audit_round(*round_args)
+    rounds += 1
+
+  report = {
+    "layer": path,
+    "mips": list(mips),
+    "rounds": rounds,
+    "repair_tasks": repaired,
+    "chunks_checked": totals["chunks"],
+    "unmanifested": totals["unmanifested"],
+    "findings": findings,
+    "complete": not findings,
+    "ts": time.time(),
+  }
+  CloudFiles(report_dir).put_json("report.json", report)
+  if args.out:
+    with open(args.out, "w") as f:
+      json.dump(report, f, indent=2, sort_keys=True)
+
+  for f in findings:
+    print(f"CORRUPT {f['kind']} mip={f['mip']} {f['key']}")
+  print(
+    f"audited {totals['chunks']} chunks across mips {list(mips)}: "
+    + ("complete and intact" if not findings else f"{len(findings)} findings")
+    + (f" ({repaired} repair tasks over {rounds} rounds)" if repaired else "")
+  )
+  return 2 if findings else 0
 
 
 def _add_xfer(cmd) -> None:
@@ -967,6 +1121,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     return _run_execute(parser, args)
   if args.group == "queue":
     return _run_queue(parser, args)
+  if args.group == "audit":
+    return _run_audit(args)
   if args.group == "mesh":
     return _run_mesh(args)
   if args.group == "skeleton":

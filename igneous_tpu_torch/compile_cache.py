@@ -43,8 +43,8 @@ store unreadable or       error counter, build (no quiet fallback: a
 unwritable                build that fails still raises)
 ========================  =============================================
 
-The root is ``IGNEOUS_COMPILE_CACHE``, on the port's ``CloudFiles``
-(file:// and mem://). Counters: ``device.compile_cache.hit|miss|put|
+The root is ``IGNEOUS_COMPILE_CACHE``, on the port's ``CloudFiles`` (any
+of its protocols: file://, mem://, gs://, s3://). Counters: ``device.compile_cache.hit|miss|put|
 corrupt|error`` and the device ledger's ``compile_cache`` record; a hit
 credits the producer's build seconds as saved. Tuned configurations live
 beside the entries under ``tuned/`` (``igneous_tpu_torch.tune``).
@@ -63,6 +63,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from .observability.device import LEDGER
+from .storage_http import HttpError
 
 CACHE_ENV = "IGNEOUS_COMPILE_CACHE"
 MAGIC = b"IGXL0001"
@@ -217,15 +218,20 @@ class CompileCache:
 
 def get_active() -> Optional[CompileCache]:
   """The store at ``IGNEOUS_COMPILE_CACHE``; None where it is unset, or
-  where its storage scheme is not ported (the error counter ticks)."""
+  where no storage backend serves its scheme (the error counter ticks)."""
   spec = os.environ.get(CACHE_ENV, "").strip()
   if not spec:
     return None
   try:
     return CompileCache(spec)
-  except NotImplementedError:
+  except ValueError:
     LEDGER.record_cache_event("errors")
     return None
+
+
+# a store that cannot be read or written: the filesystem's errors, and a
+# gs:// or s3:// request refused or out of retries
+STORE_ERRORS = (OSError, HttpError)
 
 
 def fetch(store: CompileCache, name: str, src: Path, flags: List[str], kind: str,
@@ -237,7 +243,7 @@ def fetch(store: CompileCache, name: str, src: Path, flags: List[str], kind: str
   try:
     meta = library_meta(name, src, flags, kind, compiler_version(exe))
     hit = store.get(meta)
-  except OSError:
+  except STORE_ERRORS:
     LEDGER.record_cache_event("errors", name)
     return None
   if hit is None:
@@ -262,6 +268,6 @@ def publish(store: CompileCache, name: str, src: Path, flags: List[str], kind: s
   try:
     meta = library_meta(name, src, flags, kind, compiler_version(exe))
     return store.put(meta, out.read_bytes(), build_s)
-  except OSError:
+  except STORE_ERRORS:
     LEDGER.record_cache_event("errors", name)
     return False

@@ -76,6 +76,11 @@ class Bbox:
     self.dtype = dtype
 
   @classmethod
+  def from_list(cls, lst: Sequence[int]) -> "Bbox":
+    n = len(lst) // 2
+    return cls(lst[:n], lst[n:])
+
+  @classmethod
   def from_filename(cls, filename: str) -> "Bbox":
     """Parse the Precomputed chunk-name convention ``x0-x1_y0-y1_z0-z1``."""
     m = cls._FILENAME_RE.search(filename)

@@ -22,6 +22,8 @@ import os
 import threading
 from typing import Optional
 
+from .secrets import env_number
+
 # distinct from any Python or argparse failure code, so a pod spec can map
 # it: preempted workers restart quietly, real failures alarm
 EXIT_PREEMPTED = 83
@@ -83,14 +85,6 @@ def install_signal_handlers(flag: StopFlag, signals=None):
   return restore
 
 
-def _env_float(name: str, default: float) -> float:
-  val = os.environ.get(name, "")
-  try:
-    return float(val) if val != "" else default
-  except ValueError:
-    return default
-
-
 class PreemptionWatcher:
   """Daemon thread that sets ``flag`` when preemption is announced.
 
@@ -120,7 +114,7 @@ class PreemptionWatcher:
       else os.environ.get("IGNEOUS_PREEMPT_URL") or None
     )
     if interval is None:
-      interval = _env_float("IGNEOUS_PREEMPT_POLL_SEC", 1.0)
+      interval = env_number("IGNEOUS_PREEMPT_POLL_SEC", 1.0, float)
     self.interval = float(interval)
     self._stop = threading.Event()
     self._thread: Optional[threading.Thread] = None

@@ -27,6 +27,8 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+from ..secrets import env_number
+
 # the downsample planner's default task byte target
 # (task_creation.image.create_downsampling_tasks memory_target)
 DEFAULT_MEMORY_TARGET = int(3.5e9)
@@ -44,17 +46,6 @@ def _cores() -> int:
 
 def _env_str(name: str) -> str:
   return os.environ.get(name, "").strip().lower()
-
-
-def _env_number(name: str, cast):
-  """``cast(value)`` of a set, parseable variable; None otherwise."""
-  val = os.environ.get(name, "")
-  if val == "":
-    return None
-  try:
-    return cast(float(val))
-  except ValueError:
-    return None
 
 
 def enabled(default: Optional[bool] = None) -> bool:
@@ -75,7 +66,7 @@ def memory_budget_bytes(
   """Byte budget of the stage buffers: ``IGNEOUS_PIPELINE_MEM_MB`` when
   set, else the memory target (at most twice ``task_nbytes``, a known
   cutout size)."""
-  mb = _env_number("IGNEOUS_PIPELINE_MEM_MB", float)
+  mb = env_number("IGNEOUS_PIPELINE_MEM_MB", None, float)
   if mb:
     return max(int(mb * 1e6), 1)
   base = memory_target if memory_target else DEFAULT_MEMORY_TARGET
@@ -85,7 +76,7 @@ def memory_budget_bytes(
 
 
 def prefetch_depth() -> int:
-  depth = _env_number("IGNEOUS_PIPELINE_PREFETCH", int)
+  depth = env_number("IGNEOUS_PIPELINE_PREFETCH", None, int)
   return max(2 if depth is None else depth, 1)
 
 
@@ -102,14 +93,14 @@ def use_threads() -> bool:
 
 
 def io_threads() -> int:
-  env = _env_number("IGNEOUS_PIPELINE_IO_THREADS", int)
+  env = env_number("IGNEOUS_PIPELINE_IO_THREADS", None, int)
   if env:
     return max(env, 1)
   return min(8, _cores() * 2)
 
 
 def encode_threads() -> int:
-  env = _env_number("IGNEOUS_PIPELINE_ENCODE_THREADS", int)
+  env = env_number("IGNEOUS_PIPELINE_ENCODE_THREADS", None, int)
   if env:
     return max(env, 1)
   return min(8, max(_cores(), 1))

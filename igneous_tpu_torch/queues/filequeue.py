@@ -43,6 +43,7 @@ import uuid
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from .. import telemetry
+from ..secrets import env_number
 from .ranges import RangeLease, RangeSub
 from .registry import RegisteredTask, deserialize, serialize
 
@@ -58,18 +59,6 @@ DEFAULT_RECYCLE_SEC = 5.0
 
 # mid-range failures and DLQ expansions carve per-index classic files
 _CARVE_RE = re.compile(r"^task_([0-9a-f]+)_(\d+)\.json$")
-
-
-def _env_number(name: str, default, cast):
-  """``cast`` of a set, parseable variable, else ``default`` (the JAX
-  package's knob parse: ints go through float first)."""
-  val = os.environ.get(name, "")
-  if val != "":
-    try:
-      return cast(float(val))
-    except ValueError:
-      pass
-  return default
 
 
 def default_worker_id() -> str:
@@ -694,11 +683,11 @@ class FileQueue:
     sizes segments so the batch spreads over ``IGNEOUS_QUEUE_SHARDS``
     (16) files; unknown totals stream at the cap.
     ``IGNEOUS_QUEUE_SEG_TASKS=0`` falls back to the classic layout."""
-    seg_cap = _env_number("IGNEOUS_QUEUE_SEG_TASKS", DEFAULT_SEG_TASKS, int)
+    seg_cap = env_number("IGNEOUS_QUEUE_SEG_TASKS", DEFAULT_SEG_TASKS, int)
     if seg_cap <= 0:
       return self.insert(tasks, total=total)
     shards = max(
-      _env_number("IGNEOUS_QUEUE_SHARDS", DEFAULT_QUEUE_SHARDS, int)
+      env_number("IGNEOUS_QUEUE_SHARDS", DEFAULT_QUEUE_SHARDS, int)
       or DEFAULT_QUEUE_SHARDS, 1,
     )
     if total:
@@ -738,7 +727,7 @@ class FileQueue:
     it. Returns the number of files returned to the pool."""
     now = time.time()
     if not force:
-      interval = _env_number(
+      interval = env_number(
         "IGNEOUS_QUEUE_RECYCLE_SEC", DEFAULT_RECYCLE_SEC, float
       )
       if interval > 0 and now - self._last_recycle < interval:

@@ -4,7 +4,10 @@ The port's own copy of ``igneous_tpu/secrets.py``: ``QUEUE_URL`` (or
 ``SQS_URL``), ``LEASE_SECONDS`` (600), the SQS region and endpoint, the
 heartbeat interval (``IGNEOUS_HEARTBEAT_SEC``) and the secrets directory
 (``IGNEOUS_TPU_SECRETS``), read straight from the environment with the same
-parses and defaults.
+parses and defaults. ``env_number`` and ``env_flag`` parse a numeric or
+on/off knob as the JAX package's knob registry does
+(``igneous_tpu/analysis/knobs.py``); the queues, the lifecycle, the
+pipeline and the storage plane read their knobs through them.
 """
 
 from __future__ import annotations
@@ -32,16 +35,33 @@ def lease_seconds() -> int:
 def heartbeat_seconds() -> Optional[float]:
   """Lease-renewal interval for workers. None (unset or unparseable) lets
   the heartbeat default to lease/3; 0 disables renewal."""
-  val = os.environ.get("IGNEOUS_HEARTBEAT_SEC", "")
-  if val == "":
-    return None
-  try:
-    return float(val)
-  except ValueError:
-    return None
+  return env_number("IGNEOUS_HEARTBEAT_SEC", None, float)
 
 
 def secrets_dir() -> str:
   return os.environ.get("IGNEOUS_TPU_SECRETS") or os.path.expanduser(
     "~/.cloudfiles/secrets"
   )
+
+
+_FALSE_WORDS = ("0", "off", "false", "no")
+
+
+def env_number(name: str, default, cast):
+  """``cast`` of a set, parseable variable, else ``default`` (ints go
+  through float first, as the knob registry parses them)."""
+  val = os.environ.get(name, "")
+  if val != "":
+    try:
+      return cast(float(val))
+    except ValueError:
+      pass
+  return default
+
+
+def env_flag(name: str, default: bool) -> bool:
+  """Unset or empty: ``default``; else anything but 0, off, false, no."""
+  val = os.environ.get(name, "")
+  if val == "":
+    return default
+  return val.strip().lower() not in _FALSE_WORDS

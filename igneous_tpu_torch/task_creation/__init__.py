@@ -1,5 +1,11 @@
 """Task factories of the port."""
 
+from .audit import (
+  create_integrity_audit_tasks,
+  downsample_provenance,
+  downsample_repair_tasks,
+  load_findings,
+)
 from .ccl import (
   ccl_auto,
   clean_ccl_files,

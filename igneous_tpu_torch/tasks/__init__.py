@@ -2,6 +2,7 @@
 
 from ..queues.registry import PrintTask, RegisteredTask
 
+from .audit import IntegrityAuditTask
 from .ccl import (
   CCLEquivalancesTask,
   CCLFacesTask,

@@ -9,18 +9,21 @@ reads of boxes that reach past the bounds, background outside) and
 Pure host numpy: the device work happens in
 ``igneous_tpu_torch.ops`` on arrays produced here. Chunk reads go
 through the process-wide decode cache (``chunk_cache.py``), and uploads
-invalidate it. Integrity manifests, sharded scales and graphene are not
-ported yet.
+invalidate it. A chunk that fails to inflate or decode raises
+``integrity.CorruptChunkError``, ticks ``integrity.corrupt_reads`` and is
+quarantined, and never reaches the cache. Sharded scales and graphene are
+not ported yet.
 """
 
 from __future__ import annotations
 
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
 
 import numpy as np
 
-from . import chunk_cache, codecs
+from . import chunk_cache, codecs, integrity, telemetry
 from .lib import Bbox, chunk_bboxes
 from .meta import PrecomputedMetadata
 from .storage import decompress_bytes
@@ -54,7 +57,7 @@ def _io_map(fn, items, parallel: int):
 
 
 class Volume:
-  """A Precomputed volume rooted at ``cloudpath`` (file:// or mem://)."""
+  """A Precomputed volume rooted at ``cloudpath`` (any ``storage`` protocol)."""
 
   def __init__(
     self,
@@ -183,10 +186,18 @@ class Volume:
     encoding = self.meta.encoding(mip)
 
     def decode():
-      return codecs.decode(
-        decompress_bytes(data, method), encoding, shape, self.dtype,
-        block_size=self.meta.cseg_block_size(mip), writable=False,
-      )
+      try:
+        return codecs.decode(
+          decompress_bytes(data, method), encoding, shape, self.dtype,
+          block_size=self.meta.cseg_block_size(mip), writable=False,
+        )
+      except (OSError, EOFError, ValueError, zlib.error) as e:
+        # a torn or bit-flipped object: typed, counted and quarantined
+        key = self.meta.chunk_name(mip, chunk_bbx)
+        telemetry.add("integrity.corrupt_reads", 1)
+        reason = f"{type(e).__name__}: {e}"
+        integrity.quarantine(self.cloudpath, key, reason)
+        raise integrity.CorruptChunkError(self.cloudpath, key, reason) from e
 
     # an uncompressed raw chunk decodes as a view of its bytes: caching it
     # would spend budget to save nothing
@@ -198,7 +209,7 @@ class Volume:
     key, arr = chunk_cache.lookup(self.cloudpath, mip, bbox_key, data)
     if arr is not None:
       return arr
-    # a chunk that fails to decode raises here, before it could be stored
+    # a corrupt chunk raises here, before it could be stored
     return chunk_cache.store(key, decode())
 
   def download(self, bbox: Bbox, mip: Optional[int] = None) -> np.ndarray:

@@ -8,8 +8,10 @@ store set is put there, and a second build directory then loads it with
 the compiler made to raise, encoding the same bytes as the JAX package; a
 truncated or bit-flipped entry is quarantined and the library rebuilt
 and put back; concurrent writers converge on one entry; an unset store
-changes nothing; an unreadable store counts an error and builds; a build
-that fails still raises.
+changes nothing; an unreadable store (a file in its place, or an s3://
+store whose requests are refused) counts an error and builds; a store on
+s3:// (the repo's fake server) round trips; a build that fails still
+raises.
 """
 
 import threading
@@ -212,9 +214,42 @@ def test_unreadable_store_counts_an_error_and_builds(tmp_path, monkeypatch):
 
 
 def test_unported_store_scheme_counts_an_error(monkeypatch):
-  monkeypatch.setenv(cc.CACHE_ENV, "gs://bucket/cache")
+  # https:// has no storage backend in either package (gs:// and s3:// do)
+  monkeypatch.setenv(cc.CACHE_ENV, "https://host/cache")
   assert cc.get_active() is None
   assert telemetry.counters()["device.compile_cache.error"] == 1
+
+
+@pytest.fixture
+def s3_store(monkeypatch):
+  """A store on the fake S3 server (the envelope off: its buffered records
+  would outlive the server)."""
+  from fake_cloud_servers import FakeCloudServer
+
+  with FakeCloudServer("s3", s3_creds=("AKIAFAKE", "fakesecret")) as srv:
+    for k, v in {"S3_ENDPOINT_URL": srv.endpoint, "AWS_ACCESS_KEY_ID": "AKIAFAKE",
+                 "AWS_SECRET_ACCESS_KEY": "fakesecret", "IGNEOUS_INTEGRITY": "off",
+                 cc.CACHE_ENV: "s3://store-bucket/cc"}.items():
+      monkeypatch.setenv(k, v)
+    yield srv
+
+
+def test_store_on_s3_round_trips(s3_store, tmp_path, monkeypatch):
+  first = _build.build("cseg")
+  keys = [k for k in s3_store.state.objects if k.startswith("cc/libraries/cseg/")]
+  assert len(keys) == 1 and keys[0].endswith(".bin")
+  monkeypatch.setattr(_build, "_LIBS", {})
+  monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build2")
+  _no_compiler(monkeypatch)
+  assert _build.build("cseg").read_bytes() == first.read_bytes()
+  assert LEDGER.snapshot()["compile_cache"]["hits"] == 1
+
+
+def test_refused_cloud_store_counts_an_error_and_builds(s3_store, monkeypatch):
+  monkeypatch.setenv("AWS_SECRET_ACCESS_KEY", "wrong-secret")  # every request 403s
+  path = _build.build("cseg")
+  assert path.exists() and _build.BUILD_LOG["cseg"]["seconds"] > 0
+  assert LEDGER.snapshot()["compile_cache"]["errors"] >= 1
 
 
 def test_a_miss_without_a_compiler_still_raises(tmp_path, monkeypatch):

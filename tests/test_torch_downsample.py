@@ -23,6 +23,8 @@ from igneous_tpu_torch.ops import cuda_pooling, pooling
 from igneous_tpu_torch.queues import LocalTaskQueue
 from igneous_tpu_torch.task_creation import create_downsampling_tasks
 
+from test_torch_integrity import flush_local, sidecars
+
 
 @pytest.fixture(autouse=True)
 def _torch_cpu(monkeypatch):
@@ -129,9 +131,13 @@ def test_route_splits_a_leading_2x2x1_run():
 
 def _layer_files(root):
   """{relative path: bytes} of the info file and every chunk under a scale
-  key (integrity sidecars and provenance are not compared)."""
+  key, and the integrity sidecars normalised (``sidecars``; both packages'
+  buffered manifest records written first, ``flush_local``). Provenance is
+  not compared."""
+  flush_local()
   info = json.loads(open(os.path.join(root, "info")).read())
-  out = {"info": info}
+  out = {"info": info, "integrity": sidecars(root)}
+  assert out["integrity"], f"no integrity sidecars under {root}"
   for scale in info["scales"]:
     d = os.path.join(root, scale["key"])
     for name in sorted(os.listdir(d)):

@@ -65,6 +65,9 @@ import igneous_tpu_torch.secrets, igneous_tpu_torch.lifecycle, igneous_tpu_torch
 import igneous_tpu_torch.queues.filequeue, igneous_tpu_torch.queues.ranges
 import igneous_tpu_torch.queues.heartbeat, igneous_tpu_torch.queues.sqs
 import igneous_tpu_torch.queues.queue, igneous_tpu_torch.parallel.lease_batcher
+import igneous_tpu_torch.retry, igneous_tpu_torch.storage_http, igneous_tpu_torch.storage_gcs
+import igneous_tpu_torch.storage_s3, igneous_tpu_torch.integrity
+import igneous_tpu_torch.tasks.audit, igneous_tpu_torch.task_creation.audit
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'igneous_tpu')]
 assert not bad, bad
 from igneous_tpu_torch.ops import _build

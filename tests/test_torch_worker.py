@@ -11,7 +11,8 @@ queue; ``ccl auto --queue`` and the CCL passes with ``faces`` batched,
 merges write the JAX package's files; a poisoned member falls back to
 solo and dead-letters after ``--max-deliveries``; ``-n 3`` and
 ``--min-sec 0`` stop exactly. Layer comparisons leave out ``provenance``
-(a date) and the JAX package's integrity sidecars.
+(a date) and compare the integrity sidecars normalised (records without
+their ``ts``, segment names without ``w<pid>_<seq>``).
 """
 
 import pathlib
@@ -36,6 +37,7 @@ from igneous_tpu_torch.parallel.lease_batcher import poll_batched
 from igneous_tpu_torch.queues import FileQueue, filequeue as port_filequeue
 from igneous_tpu_torch.tasks import TouchFileTask
 
+from test_torch_integrity import flush_local, layer_tree
 from test_torch_mesh_tasks import IDS, voronoi
 from test_torch_skeleton_tasks import tubes
 
@@ -50,6 +52,7 @@ def _torch_cpu(monkeypatch):
   monkeypatch.setenv("IGNEOUS_POOL_HOST", "0")
   monkeypatch.setenv("IGNEOUS_EDT_BACKEND", "native")
   monkeypatch.setenv("IGNEOUS_QUEUE_RECYCLE_SEC", "0")
+  flush_local()  # the JAX package's `execute` flushes every buffered layer
   for name in ("IGNEOUS_PAGE_SHAPE", "IGNEOUS_PAGE_BATCH", "IGNEOUS_PIPELINE",
                "IGNEOUS_MESH_EMIT", "IGNEOUS_CCL_TILE"):
     monkeypatch.delenv(name, raising=False)
@@ -59,13 +62,9 @@ def _torch_cpu(monkeypatch):
 
 
 def _files(root: pathlib.Path) -> dict:
-  """Every file of a layer but its provenance and integrity sidecars."""
-  return {
-    str(p.relative_to(root)): p.read_bytes()
-    for p in sorted(root.rglob("*"))
-    if p.is_file() and p.name != "provenance"
-    and "integrity" not in p.relative_to(root).parts
-  }
+  """Every file of a layer but its provenance, with the integrity sidecars
+  normalised (``test_torch_integrity.layer_tree``)."""
+  return layer_tree(root)
 
 
 def _data(kind):
