@@ -1,7 +1,7 @@
 """Drive igneous_tpu_torch's downsample, transfer, connected-components,
 meshing, skeleton, morphology, census and inference paths, solo, batched,
-pipelined, through the queue worker and on gs:// and s3://, on one NVIDIA
-GPU and check them.
+pipelined, through the queue worker, on gs:// and s3:// and into sharded
+scales, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -72,12 +72,13 @@ Phases, each reported on its own line:
      batched grid) and the segmentation as 16 tasks of 512x512x64 with 2
      mips, each through create_downsampling_tasks -> LocalTaskQueue into
      new layers that share phase 3's mip 0, once with IGNEOUS_PIPELINE=off
-     (the serial loop) and once at the default (the staged pipeline): per
+     (the serial loop, on the first 8 tasks of each stream since phase 13)
+     and once at the default (the staged pipeline): per
      run its wall, stage split (thread-seconds), the caller's waits, the
      prefetch buffer's stalls and high-water bytes and the chunk cache's
      counts; pyramid2x2x1 once a task (counts set to 0 just before each
      run), the runner's stats 16 staged, none solo or failed, every chunk
-     and the info's scales equal to phase 3's solo output; then phase 3b's
+     written and the info's scales equal to phase 3's solo output; then phase 3b's
      cseg layer and phase 3's image (its mip 0 stored uncompressed, so
      compress none) through create_transfer_tasks with skip_downsamples
      into layers of the same chunking and encoding: the passthrough moves
@@ -146,9 +147,11 @@ Phases, each reported on its own line:
      overlap 16x16x8, init_params(seed=0)) through create_inference_tasks
      -> LocalTaskQueue -> InferenceTask, 8 tasks of 108 patches at batch
      4, pipelined with postprocess none, again with IGNEOUS_PIPELINE=off
-     and with batch 7 (both byte for byte the first), and with argmax
+     and with batch 7 (each on the first 4 tasks since phase 13, byte for
+     byte the first's same files), and with argmax
      (equal to the argmax of the first's floats); the identity model on
-     the card and on the CPU route, byte for byte; the first task on the
+     the card and on the CPU route (4 tasks each since phase 13), byte for
+     byte; the first task on the
      card and on the CPU route within rtol 1e-5 and atol 1e-5 of the
      largest output, argmax differences only at margins within it; per
      run its wall, stage split, the caller's waits, patches, padded slots
@@ -213,14 +216,34 @@ Phases, each reported on its own line:
      with three DownsampleTasks (pyramid2x2x1 three times), its second
      round clean, exit 0, every healed chunk its bytes before the damage;
      a flipped mip-0 chunk is UNHEALABLE, exit 2; (d) phase 3d's pipelined
-     image stream with IGNEOUS_INTEGRITY=off, at the default and with
+     image stream (its first 8 tasks since phase 13) with
+     IGNEOUS_INTEGRITY=off, at the default and with
      IGNEOUS_INTEGRITY_VERIFY_AFTER_WRITE=1: walls, busy shares, every
      run's chunks phase 3's byte for byte. Each part prints its wall, requests per server, bytes up and
      down per protocol and the retries.* and integrity.* counters;
+  13. sharded scales (after phase 12, on phase 3's layers): (a) the smooth
+     image through `image xfer --sharded` (one task, one shard file) and
+     `image downsample --sharded --num-mips 5` (one ImageShardDownsampleTask,
+     one pyramid2x2x1 launch of L=5); (b) a 1024x1024x64 crop of the
+     segmentation through `image xfer --sharded --memory 2^26` (8 shard
+     files) and `image downsample --sharded --memory 2^26 --num-mips 2
+     --queue fq://...` (4 tasks of 512x512x64) drained by `execute --batch
+     4` in this process: each task
+     completed once, every member solo, pyramid2x2x1 once a member; (c) a
+     2048x2048x64 crop of the smooth image through `image downsample
+     --isotropic` (2x2x1 twice, then 2x2x2), each mip equal to the plain
+     pyramid of the same schedule on the card, pyramid2x2x1 launched for the
+     leading 2x2x1 run. Every shard file decoded by a reader of the format
+     kept in this script (not the port's ShardReader), every chunk id of the
+     grid there once, the mip-0 chunks the source's bytes, every mip of (a)
+     and (b) read back through Volume equal to phase 3's solo mips; each run
+     prints its wall, stage split, the card's busy share (device ledger) and
+     peak card memory;
   7. the card's name and power limit, the programs line (X1-X3, X5-X7),
      the kernels line (each kernel's launches on the main paths, the
      transfer, the batched phase, the pipelined streams, the worker phase,
-     where each of the four must have launched, and the storage phase),
+     where each of the four must have launched, the storage phase and the
+     sharded phase),
      and the result.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -2087,6 +2110,10 @@ INFER_BOUNDS = ((0, 0, 0), (1024, 512, 64))
 INFER_TASKS = 8  # of the default 256x256x64
 INFER_PATCHES = 108  # a task's 288x288x80 halo'd cutout: 6 x 6 x 3 patches
 INFER_BATCH = 4
+# tasks of the reruns held against the first campaign (IGNEOUS_PIPELINE=off
+# and batch 7) and of the identity model's campaigns (card and CPU route):
+# half of them since phase 13, to make room for it in the time limit
+INFER_RERUN_TASKS = 4
 # card against the CPU route: |a - b| <= RTOL |b| + ATOL max|b| (the two
 # sum 27 float32 products a channel in different orders)
 INFER_RTOL = INFER_ATOL = 1e-5
@@ -2111,8 +2138,8 @@ def inference_phase(root, cp, cc, ce, torch, dev):
   8 tasks of 108 patches at batch 4: pipelined with postprocess none,
   the same with ``IGNEOUS_PIPELINE=off`` and with batch 7 (both byte for
   byte the first), argmax (equal to the argmax of the first's floats);
-  the identity model on the card and on the CPU route, byte for byte, and
-  equal to the image; the first task's halo'd cutout on the card and on
+  the identity model on the card and on the CPU route (4 tasks each),
+  byte for byte, and equal to the image; the first task's halo'd cutout on the card and on
   the CPU route within the stated tolerance, argmax mismatches only at
   margins within it; X7 (one dispatch) against its bound and cuDNN's
   batched call; the card's busy share over one task from a profiler
@@ -2135,12 +2162,13 @@ def inference_phase(root, cp, cc, ce, torch, dev):
   save_model(ident_path, ModelSpec("identity", 1, 1, spec.patch_shape, spec.overlap), {})
   bounds = Bbox(*INFER_BOUNDS)
 
-  def campaign(name, model, env=(), batch_size=INFER_BATCH, **kw):
+  def campaign(name, model, env=(), batch_size=INFER_BATCH, ntasks=INFER_TASKS, **kw):
     dest = f"file://{root}/infer_{name}"
     tasks = list(create_inference_tasks(src, dest, model, bounds=bounds,
                                         batch_size=batch_size, **kw))
     if len(tasks) != INFER_TASKS:
       fail(f"infer {name}: planned {len(tasks)} tasks, expected {INFER_TASKS}")
+    tasks = tasks[:ntasks]
     for counts in (cp.LAUNCHES, cc.LAUNCHES, ce.LAUNCHES):
       for key in counts:
         counts[key] = 0
@@ -2159,9 +2187,9 @@ def inference_phase(root, cp, cc, ce, torch, dev):
     ledger_line(f"infer {name}", wall, launch_counts(cp, cc, ce))
     counters = telemetry.counters()
     dispatches = -(-INFER_PATCHES // batch_size)
-    want = {"infer.patches": INFER_TASKS * INFER_PATCHES,
-            "infer.dispatches": INFER_TASKS * dispatches,
-            "infer.padded_slots": INFER_TASKS * (dispatches * batch_size - INFER_PATCHES)}
+    want = {"infer.patches": ntasks * INFER_PATCHES,
+            "infer.dispatches": ntasks * dispatches,
+            "infer.padded_slots": ntasks * (dispatches * batch_size - INFER_PATCHES)}
     got = {k: counters.get(k, 0) for k in want}
     print(f"infer {name}: {len(tasks)} tasks, batch {batch_size}, wall {wall:.3f} s, "
           f"{json.dumps(got)}, runner {json.dumps(queue.pipeline_stats)}, peak "
@@ -2169,8 +2197,8 @@ def inference_phase(root, cp, cc, ce, torch, dev):
           f"{pipeline_line(telemetry.snapshot(), telemetry.gauges(), counters)}", flush=True)
     if got != want:
       fail(f"infer {name}: counted {got}, expected {want}")
-    if queue.completed != INFER_TASKS:
-      fail(f"infer {name}: {queue.completed} of {INFER_TASKS} tasks completed")
+    if queue.completed != ntasks:
+      fail(f"infer {name}: {queue.completed} of {ntasks} tasks completed")
     if any(any(c.values()) for c in (cp.LAUNCHES, cc.LAUNCHES, ce.LAUNCHES)):
       fail(f"infer {name}: a pooling, CCL or EDT kernel launched")
     return dest, tasks
@@ -2179,10 +2207,14 @@ def inference_phase(root, cp, cc, ce, torch, dev):
   ref_files = layer_files(first)
   for name, kw in (("none_serial", {"env": (("IGNEOUS_PIPELINE", "off"),)}),
                    ("none_batch7", {"batch_size": 7})):
+    kw["ntasks"] = INFER_RERUN_TASKS
     dest, _ = campaign(name, model_path, **kw)
-    if layer_files(dest) != ref_files:
+    files = layer_files(dest)
+    if len(files) * INFER_TASKS != len(ref_files) * INFER_RERUN_TASKS or any(
+      ref_files.get(n) != data for n, data in files.items()
+    ):
       fail(f"infer {name}: the files differ from the pipelined batch-4 run's")
-    print(f"infer {name}: {len(ref_files)} chunk files byte for byte the pipelined "
+    print(f"infer {name}: {len(files)} chunk files byte for byte the pipelined "
           f"batch-4 run's", flush=True)
   out = Volume(first)
   floats = out.download(bounds)
@@ -2195,16 +2227,18 @@ def inference_phase(root, cp, cc, ce, torch, dev):
     fail("infer argmax: differs from the argmax of the float run on the card")
 
   # the identity model: the engine alone, the card against the CPU route
-  ident, _ = campaign("identity", ident_path)
+  ident, ran = campaign("identity", ident_path, ntasks=INFER_RERUN_TASKS)
   set_device("cpu")
   try:
-    ident_cpu, _ = campaign("identity_cpu", ident_path)
+    ident_cpu, _ = campaign("identity_cpu", ident_path, ntasks=INFER_RERUN_TASKS)
   finally:
     set_device(dev)
   if layer_files(ident) != layer_files(ident_cpu):
     fail("infer identity: the card's files differ from the CPU route's")
-  img = Volume(src).download(bounds)[..., :1].astype(np.float32)
-  got = Volume(ident).download(bounds)
+  box = Bbox(np.min([t.offset for t in ran], axis=0),
+             np.max([t.offset + t.shape for t in ran], axis=0))
+  img = Volume(src).download(box)[..., :1].astype(np.float32)
+  got = Volume(ident).download(box)
   if not np.allclose(got, img, rtol=1e-6, atol=1e-3):
     fail("infer identity: the blend does not give the image back")
   print("infer identity: card and CPU route byte for byte, equal to the image within "
@@ -2446,6 +2480,9 @@ PIPELINED_RUNS = [
   ("image", 2**27, 16, (1024, 1024, 64), 3),
   ("segmentation", 2**28, 16, (512, 512, 64), 2),
 ]
+# tasks of each stream the serial loop runs: half of them since phase 13,
+# to make room for it in the time limit (the pipelined runs keep all 16)
+SERIAL_TASKS = 8
 # (source layer, compress): phase 3b's cseg layer (gzip chunks) and phase
 # 3's image, whose mip 0 is stored uncompressed
 PASSTHROUGH_RUNS = [("segmentation_cseg", "gzip"), ("image", None)]
@@ -2502,6 +2539,8 @@ def pipelined_phase(root, cp, cc, ce, torch, dev):
         fail(f"pipelined {name}: planned {len(tasks)} tasks of {tasks[0].shape}")
       if mode == "serial":
         os.environ["IGNEOUS_PIPELINE"] = "off"
+        tasks = tasks[:SERIAL_TASKS]
+      nrun = len(tasks)
       telemetry.reset()
       chunk_cache.clear()
       for key in cp.LAUNCHES:
@@ -2517,16 +2556,16 @@ def pipelined_phase(root, cp, cc, ce, torch, dev):
       launched = dict(cp.LAUNCHES)
       ledger_line(f"pipelined {name} {mode}", wall, launched)
       walls[(name, mode)] = wall
-      print(f"pipelined {name} {mode}: {ntasks} tasks of {shape[0]}x{shape[1]}x{shape[2]}, "
+      print(f"pipelined {name} {mode}: {nrun} tasks of {shape[0]}x{shape[1]}x{shape[2]}, "
             f"{mips} mips, wall {wall:.3f} s, stats {json.dumps(queue.pipeline_stats)}, "
             f"launches {json.dumps(launched)}, "
             f"{pipeline_line(telemetry.snapshot(), telemetry.gauges(), telemetry.counters())}",
             flush=True)
-      if queue.completed != ntasks:
-        fail(f"pipelined {name} {mode}: {queue.completed} of {ntasks} tasks completed")
-      if launched["pyramid2x2x1"] != ntasks or launched["pool2x2x1"] != 0:
+      if queue.completed != nrun:
+        fail(f"pipelined {name} {mode}: {queue.completed} of {nrun} tasks completed")
+      if launched["pyramid2x2x1"] != nrun or launched["pool2x2x1"] != 0:
         fail(f"pipelined {name} {mode}: launches {launched}, expected pyramid2x2x1 "
-             f"once for each of {ntasks} tasks")
+             f"once for each of {nrun} tasks")
       if mode == "pipelined":
         want = {"executed": ntasks, "staged": ntasks, "solo": 0, "failed": 0,
                 "drained": False}
@@ -2537,12 +2576,11 @@ def pipelined_phase(root, cp, cc, ce, torch, dev):
       solo, got = Volume(f"file://{src}").info, Volume(f"file://{dst}").info
       if got["scales"] != solo["scales"][: mips + 1]:
         fail(f"pipelined {name} {mode}: the info's scales differ from phase 3's")
-      n = sum(same_files(os.path.join(src, sc["key"]), os.path.join(dst, sc["key"]))
-              for sc in got["scales"][1:])
+      n = mip_files_equal(src, dst, mips, complete=nrun == ntasks)
       print(f"pipelined {name} {mode}: {n} chunk files of mips 1-{mips} equal to phase "
             f"3's solo output byte for byte", flush=True)
-    print(f"pipelined {name}: serial {walls[(name, 'serial')]:.3f} s, pipelined "
-          f"{walls[(name, 'pipelined')]:.3f} s", flush=True)
+    print(f"pipelined {name}: serial {walls[(name, 'serial')]:.3f} s ({SERIAL_TASKS} tasks), "
+          f"pipelined {walls[(name, 'pipelined')]:.3f} s ({ntasks} tasks)", flush=True)
 
   for name, compress in PASSTHROUGH_RUNS:
     src = f"file://{root}/{name}"
@@ -3286,7 +3324,8 @@ def worker_streams(root, cp, cc, ce, walls3d, torch, dev) -> dict:
           f"this process {json.dumps(mine)} in {wall:.3f} s (busy "
           f"{100 * snap['busy_s'] / wall:.2f}%), the worker process {json.dumps(other)}, "
           f"both done {wall_all:.3f} s after this one began; phase 3d serial "
-          f"{walls3d[(name, 'serial')]:.3f} s, pipelined {walls3d[(name, 'pipelined')]:.3f} s; "
+          f"{walls3d[(name, 'serial')]:.3f} s ({SERIAL_TASKS} tasks), pipelined "
+          f"{walls3d[(name, 'pipelined')]:.3f} s; "
           f"launches {json.dumps(launched)}, queue {json.dumps(depth)}", flush=True)
     if mine["executed"] + other["executed"] != ntasks or mine["failed"] or other["failed"] \
        or other["group_fallbacks"] or other["round_solo"] != other["solo"]:
@@ -3577,6 +3616,9 @@ ENVELOPE_MODES = {
   "default": {},
   "verify": {"IGNEOUS_INTEGRITY_VERIFY_AFTER_WRITE": "1"},
 }
+# tasks of phase 3d's image stream each envelope mode runs: half of them
+# since phase 13, to make room for it in the time limit
+ENVELOPE_TASKS = 8
 FAKE_PAGE_SIZE = 1000  # listing page of the fakes (the tests force 3)
 FAKE_BACKLOG = 128  # their listen backlog (socketserver's default is 5)
 
@@ -3946,10 +3988,10 @@ def storage_phase(root, cp, cc, ce, torch, dev) -> dict:
         os.environ[k] = v
   print(f"storage: phase wall (a)-(c) {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-  # (d) the envelope's cost: phase 3d's pipelined image stream once in each
-  # mode
+  # (d) the envelope's cost: the first ENVELOPE_TASKS of phase 3d's
+  # pipelined image stream once in each mode
   t0 = time.perf_counter()
-  name, target, ntasks, shape, mips = PIPELINED_RUNS[0]
+  name, target, _, _, mips = PIPELINED_RUNS[0]
   src = os.path.join(root, name)
   runs = {mode: [] for mode in ENVELOPE_MODES}
   for i, mode in enumerate(ENVELOPE_MODES):
@@ -3957,7 +3999,7 @@ def storage_phase(root, cp, cc, ce, torch, dev) -> dict:
     dst = os.path.join(root, f"{name}_envelope_{i}_{mode}")
     link_layer(src, dst)
     tasks = list(create_downsampling_tasks(f"file://{dst}", mip=0, num_mips=mips,
-                                           memory_target=target))
+                                           memory_target=target))[:ENVELOPE_TASKS]
     telemetry.reset()
     zero_counts(cp, cc, ce)
     os.environ.update(menv)
@@ -3972,14 +4014,14 @@ def storage_phase(root, cp, cc, ce, torch, dev) -> dict:
     wall = time.perf_counter() - t1
     launched = launch_counts(cp, cc, ce)
     snap = ledger_line(f"storage envelope {mode}", wall, launched)
-    if launched["pyramid2x2x1"] != ntasks:
-      fail(f"storage envelope {mode}: launches {launched}, expected {ntasks}")
+    if launched["pyramid2x2x1"] != ENVELOPE_TASKS:
+      fail(f"storage envelope {mode}: launches {launched}, expected {ENVELOPE_TASKS}")
     for k in launches:
       launches[k] += launched[k]
     has_manifests = os.path.isdir(os.path.join(dst, "integrity", "manifests"))
     if has_manifests != (mode != "off"):
       fail(f"storage envelope {mode}: manifests {'written' if has_manifests else 'missing'}")
-    n = mip_files_equal(src, dst, mips)
+    n = mip_files_equal(src, dst, mips, complete=False)
     runs[mode].append((wall, 100 * snap["busy_s"] / wall, plane_counters()))
   print("storage envelope: " + "; ".join(
     f"{mode} wall {r[0][0]:.3f} s, busy {r[0][1]:.2f}%, counters {json.dumps(r[0][2])}"
@@ -3987,6 +4029,288 @@ def storage_phase(root, cp, cc, ce, torch, dev) -> dict:
     + f"; each run's {n} chunk files of mips 1-{mips} phase 3's byte for byte; part wall "
       f"{time.perf_counter() - t0:.3f} s", flush=True)
   print(f"storage: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+  return launches
+
+
+# ---------------------------------------------------------------------------
+# sharded image scales (phase 13)
+
+# (b): a crop of the segmentation (a quarter of it, at the origin) and the
+# shard byte budget (--memory) of `image xfer --sharded` and `image
+# downsample --sharded` on it: 8 shard files of 8 chunks at mip 0, then 4
+# downsample tasks of 512x512x64 with 2 mips
+SHARD_SEG_CROP = (1024, 1024, 64)
+SHARD_SEG_MEMORY = 2**26
+SHARD_SEG_MIPS = 2
+SHARD_SEG_FILES = 8
+SHARD_SEG_TASKS = 4
+# (c): the crop of the smooth image downsampled with --isotropic (5 mips at
+# its 8x8x40 nm: 2x2x1 twice, then 2x2x2)
+ISO_CROP = (2048, 2048, 64)
+ISO_KEYS = ["8_8_40", "16_16_40", "32_32_40", "64_64_80", "128_128_160", "256_256_320"]
+
+
+def morton_id(pt, grid) -> int:
+  """Neuroglancer's compressed morton code of a chunk's grid point: the
+  bits of x, y and z interleaved, x lowest, each axis dropping out once
+  its ceil(log2(grid)) bits are spent."""
+  bits = [max(int(g) - 1, 0).bit_length() for g in grid]
+  code = out = 0
+  for j in range(max(bits)):
+    for d in range(3):
+      if j < bits[d]:
+        code |= ((int(pt[d]) >> j) & 1) << out
+        out += 1
+  return code
+
+
+def read_shard_file(data: bytes, spec: dict, name: str) -> dict:
+  """{chunk id: chunk bytes} of one neuroglancer_uint64_sharded_v1 shard
+  file of an image scale (identity hash), decoded here from the format,
+  not by the port's ShardReader: the fixed index of (start, end) byte
+  pairs a minishard, each minishard index (ids delta coded, each start
+  relative to the previous chunk's end, sizes), then the chunks. Fails on
+  an id listed twice or filed under the wrong minishard."""
+  import gzip
+
+  def unpack(raw, encoding):
+    return gzip.decompress(raw) if encoding == "gzip" else raw
+
+  n = 1 << spec["minishard_bits"]
+  base = 16 * n
+  fixed = np.frombuffer(data[:base], "<u8").reshape(n, 2)
+  chunks = {}  # id -> its stored bytes, inflated on threads below
+  for ms, (a, b) in enumerate(fixed.tolist()):
+    if a == b:
+      continue  # an empty minishard
+    index = np.frombuffer(
+      unpack(data[base + a : base + b], spec["minishard_index_encoding"]), "<u8"
+    ).reshape(3, -1)
+    end = 0
+    for cid, delta, size in zip(np.cumsum(index[0]).tolist(), index[1].tolist(),
+                                index[2].tolist()):
+      start, end = end + delta, end + delta + size
+      if cid in chunks or (cid >> spec["preshift_bits"]) % n != ms:
+        fail(f"shard {name}: chunk id {cid} listed twice or in minishard {ms}")
+      chunks[cid] = data[base + start : base + end]
+  with ThreadPoolExecutor(8) as pool:
+    return dict(zip(chunks, pool.map(
+      lambda raw: unpack(raw, spec["data_encoding"]), chunks.values())))
+
+
+def shard_chunks(path: str, mip: int) -> dict:
+  """Every shard file of a sharded scale through ``read_shard_file``: fails
+  unless each chunk id of the scale's grid is there exactly once, in the
+  file its shard number names. Returns {grid point: chunk bytes} and the
+  number of shard files."""
+  import itertools
+  import os
+
+  from igneous_tpu_torch import Volume
+
+  meta = Volume(path).meta
+  spec = meta.sharding(mip)
+  grid = -(-np.asarray(meta.volume_size(mip)) // np.asarray(meta.chunk_size(mip)))
+  want = {morton_id(pt, grid): pt for pt in itertools.product(*(range(int(g)) for g in grid))}
+  d = os.path.join(path[len("file://"):], meta.key(mip))
+  digits = max(1, -(-spec["shard_bits"] // 4))
+  got, files = {}, sorted(os.listdir(d))
+  for name in files:
+    with open(os.path.join(d, name), "rb") as f:
+      chunks = read_shard_file(f.read(), spec, name)
+    for cid, data in chunks.items():
+      shard = (cid >> (spec["preshift_bits"] + spec["minishard_bits"])) % (1 << spec["shard_bits"])
+      if cid in got or name != f"{shard:0{digits}x}.shard":
+        fail(f"sharded {path} mip {mip}: chunk id {cid} twice or in {name} (shard {shard})")
+      got[cid] = data
+  if set(got) != set(want):
+    fail(f"sharded {path} mip {mip}: {len(set(want) - set(got))} chunk ids of the grid "
+         f"missing, {len(set(got) - set(want))} not of the grid")
+  return {want[cid]: data for cid, data in got.items()}, len(files)
+
+
+def same_mip0_chunks(src_dir: str, chunks: dict, chunk) -> None:
+  """Each decoded mip-0 chunk byte for byte the source's chunk file (phase
+  3's mip 0 is stored as uncompressed raw chunks, full at the origin)."""
+  import os
+
+  key = json.load(open(os.path.join(src_dir, "info")))["scales"][0]["key"]
+  for pt, data in chunks.items():
+    lo = [p * c for p, c in zip(pt, chunk)]
+    name = "_".join(f"{a}-{a + c}" for a, c in zip(lo, chunk))
+    with open(os.path.join(src_dir, key, name), "rb") as f:
+      if f.read() != data:
+        fail(f"sharded: the chunk at {lo} differs from {src_dir}'s {name}")
+
+
+def same_mips(path: str, ref: str, mips) -> None:
+  """Each mip of ``path`` read back through the port's Volume, voxel for
+  voxel the same box of ``ref``'s same mip (phase 3's solo output; a crop
+  at the origin holds a box of it)."""
+  from igneous_tpu_torch import Volume
+
+  for mip in mips:
+    got, want = Volume(path, mip=mip), Volume(ref, mip=mip)
+    if not want.bounds.contains_bbox(got.bounds) or not np.array_equal(
+      got.download(got.bounds), want.download(got.bounds)
+    ):
+      fail(f"sharded {path} mip {mip}: differs from {ref}'s solo mip")
+
+
+def crop_layer(src: str, dst: str, size) -> None:
+  """A new layer at ``dst`` holding the crop [0, size) of ``src``'s mip 0:
+  the chunk files inside it hard-linked, the info cut to mip 0 and
+  ``size``."""
+  import os
+
+  info = json.load(open(os.path.join(src, "info")))
+  info["scales"] = info["scales"][:1]
+  info["scales"][0]["size"] = list(size)
+  key = info["scales"][0]["key"]
+  os.makedirs(os.path.join(dst, key))
+  for name in os.listdir(os.path.join(src, key)):
+    ends = [int(r.split("-")[1]) for r in name.split("_")]
+    if all(e <= s for e, s in zip(ends, size)):
+      os.link(os.path.join(src, key, name), os.path.join(dst, key, name))
+  with open(os.path.join(dst, "info"), "w") as f:
+    json.dump(info, f)
+
+
+def sharded_phase(root, cp, cc, ce, torch, dev) -> dict:
+  """Phase 13 on phase 3's layers: (a) the smooth image through `image xfer
+  --sharded` (one task, one shard file) and `image downsample --sharded
+  --num-mips 5` (one ImageShardDownsampleTask, one pyramid2x2x1 launch);
+  (b) a 1024x1024x64 crop of the segmentation through `image xfer
+  --sharded --memory M` (8 shard files) and `image downsample --sharded
+  --memory M --queue fq://` (4 tasks) drained by `execute --batch 4` here,
+  every member solo, once;
+  (c) a 2048x2048x64 crop of the smooth image through `image downsample
+  --isotropic`. Every shard file decoded by ``read_shard_file``, every
+  chunk id there once; the mip-0 chunks the source's bytes; every mip read
+  back through Volume, voxel for voxel phase 3's solo mips, or (c) the
+  plain pyramid of the same schedule on the card. Each run prints its
+  wall, stage split, the card's busy share (device ledger) and peak
+  memory. Returns the pooling kernels' launches (counts set to 0 just
+  before each run)."""
+  import os
+
+  from igneous_tpu_torch import Volume, chunk_cache, telemetry
+  from igneous_tpu_torch.downsample_scales import near_isotropic_factor_sequence
+  from igneous_tpu_torch.ops import pooling
+  from igneous_tpu_torch.queues import FileQueue
+
+  t_phase = time.perf_counter()
+  launches = {k: 0 for k in cp.LAUNCHES}
+
+  def run(label, args, card=True):
+    """One command, timed; ``card=False``: a copy, which puts no work on
+    the card (the ledger records none)."""
+    zero_counts(cp, cc, ce)
+    telemetry.reset()
+    chunk_cache.clear()
+    ledger_reset(torch, dev)
+    t0 = time.perf_counter()
+    text = run_cli(args)
+    wall = time.perf_counter() - t0
+    launched = launch_counts(cp, cc, ce)
+    busy = ledger_line(f"sharded {label}", wall, launched)["busy_s"] if card else 0.0
+    print(f"sharded {label}: wall {wall:.3f} s, card busy {100 * busy / wall:.2f}% "
+          f"(ledger), peak card memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, "
+          f"launches {json.dumps(launched)}, stages (thread-s) "
+          f"{json.dumps(stage_split(telemetry.snapshot()))}", flush=True)
+    if any(cc.LAUNCHES.values()) or any(ce.LAUNCHES.values()):
+      fail(f"sharded {label}: a CCL or EDT kernel launched")
+    for k in launches:
+      launches[k] += cp.LAUNCHES[k]
+    return text, launched
+
+  # (a) the full-width image: one task a pass
+  t0 = time.perf_counter()
+  src, dst = f"file://{root}/smooth_image", f"file://{root}/smooth_sharded"
+  _, launched = run("(a) image xfer --sharded", ["image", "xfer", src, dst, "--sharded"],
+                    card=False)
+  if any(launched.values()):
+    fail(f"sharded (a): the transfer launched {launched}")
+  chunks, nfiles = shard_chunks(dst, 0)
+  if nfiles != 1:
+    fail(f"sharded (a): {nfiles} shard files at mip 0, expected 1")
+  same_mip0_chunks(os.path.join(root, "smooth_image"), chunks, (128, 128, 64))
+  n0 = len(chunks)
+  del chunks
+  _, launched = run("(a) image downsample --sharded --num-mips 5",
+                    ["image", "downsample", dst, "--sharded", "--num-mips", 5])
+  if launched["pyramid2x2x1"] != 1 or launched["pool2x2x1"] != 0:
+    fail(f"sharded (a): launches {launched}, expected one pyramid2x2x1 (one task, L=5)")
+  method = Volume(dst).meta.refresh_provenance()["processing"][-1]["method"]
+  if method["task"] != "ImageShardDownsampleTask" or method["num_mips"] != 5:
+    fail(f"sharded (a): planned {method}")
+  counts = [len(shard_chunks(dst, mip)[0]) for mip in range(1, 6)]
+  same_mips(dst, src, range(1, 6))
+  print(f"sharded (a): {n0} mip-0 chunks in one shard file, each the source's bytes; "
+        f"mips 1-5 ({counts} chunks, each id once) voxel for voxel phase 3's solo mips; "
+        f"part wall {time.perf_counter() - t0:.3f} s", flush=True)
+
+  # (b) many shards through the worker, on a crop of the segmentation
+  t0 = time.perf_counter()
+  crop_layer(os.path.join(root, "segmentation"), os.path.join(root, "segmentation_crop"),
+             SHARD_SEG_CROP)
+  src, dst = f"file://{root}/segmentation_crop", f"file://{root}/segmentation_sharded"
+  _, launched = run("(b) image xfer --sharded", ["image", "xfer", src, dst, "--sharded",
+                                                "--memory", SHARD_SEG_MEMORY], card=False)
+  if any(launched.values()):
+    fail(f"sharded (b): the transfer launched {launched}")
+  chunks, nfiles = shard_chunks(dst, 0)
+  if nfiles != SHARD_SEG_FILES:
+    fail(f"sharded (b): {nfiles} shard files at mip 0, expected {SHARD_SEG_FILES}")
+  same_mip0_chunks(os.path.join(root, "segmentation_crop"), chunks, (128, 128, 64))
+  del chunks
+  spec = f"fq://{root}/queue_sharded"
+  run_cli(["image", "downsample", dst, "--sharded", "--memory", SHARD_SEG_MEMORY,
+           "--num-mips", SHARD_SEG_MIPS, "--queue", spec])
+  queue = FileQueue(spec)
+  if queue.enqueued != SHARD_SEG_TASKS:
+    fail(f"sharded (b): {queue.enqueued} tasks queued, expected {SHARD_SEG_TASKS}")
+  text, launched = run("(b) execute --batch 4", ["execute", spec, "--batch", 4, "-x", "--time"])
+  got = worker_summary(text, "sharded (b)")
+  if (got["executed"], got["solo"], got["batched"], got["dispatches"], got["failed"],
+      got["group_fallbacks"]) != (SHARD_SEG_TASKS, SHARD_SEG_TASKS, 0, 0, 0, 0):
+    fail(f"sharded (b): worker {got}, expected every member solo, once")
+  if queue.completed != SHARD_SEG_TASKS or queue.enqueued != 0:
+    fail(f"sharded (b): tallies {queue.completed} completed, {queue.enqueued} queued")
+  if launched["pyramid2x2x1"] != SHARD_SEG_TASKS or launched["pool2x2x1"] != 0:
+    fail(f"sharded (b): launches {launched}, expected pyramid2x2x1 once a member")
+  files = [shard_chunks(dst, mip)[1] for mip in range(1, SHARD_SEG_MIPS + 1)]
+  same_mips(dst, f"file://{root}/segmentation", range(1, SHARD_SEG_MIPS + 1))
+  print(f"sharded (b): {SHARD_SEG_FILES} shard files at mip 0, each chunk the source's bytes; "
+        f"{SHARD_SEG_TASKS} tasks, each completed once and solo (rounds {got['rounds']}); "
+        f"mips 1-{SHARD_SEG_MIPS} in {files} shard files, voxel for voxel phase 3's mode "
+        f"pyramid; part wall {time.perf_counter() - t0:.3f} s", flush=True)
+
+  # (c) isotropic factors on a crop of the smooth image
+  t0 = time.perf_counter()
+  crop = os.path.join(root, "smooth_crop")
+  crop_layer(os.path.join(root, "smooth_image"), crop, ISO_CROP)
+  _, launched = run("(c) image downsample --isotropic",
+                    ["image", "downsample", f"file://{crop}", "--isotropic"])
+  vol = Volume(f"file://{crop}")
+  keys = [s["key"] for s in vol.info["scales"]]
+  if keys != ISO_KEYS:
+    fail(f"sharded (c): scales {keys}, expected {ISO_KEYS}")
+  if launched["pyramid2x2x1"] != 1:
+    fail(f"sharded (c): launches {launched}, expected pyramid2x2x1 for the leading 2x2x1 run")
+  factors = near_isotropic_factor_sequence((8, 8, 40), len(ISO_KEYS) - 1)
+  x = torch.from_numpy(vol.download(vol.bounds)[..., 0].transpose(2, 1, 0)).to(dev)[None]
+  refs = pooling._pyramid_impl(x.contiguous(), factors, "average", False)
+  for mip, ref in enumerate(refs, start=1):
+    got = Volume(f"file://{crop}", mip=mip)
+    if not np.array_equal(got.download(got.bounds)[..., 0],
+                          ref[0].cpu().numpy().transpose(2, 1, 0)):
+      fail(f"sharded (c): mip {mip} differs from the plain pyramid of {factors}")
+  del x, refs
+  torch.cuda.empty_cache()
+  print(f"sharded (c): factors {factors}, every mip voxel for voxel the plain pyramid on "
+        f"the card; part wall {time.perf_counter() - t0:.3f} s", flush=True)
+  print(f"sharded: phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
   return launches
 
 
@@ -4082,6 +4406,7 @@ def main() -> int:
     t_worker = time.perf_counter() - t_worker
     x7 = inference_phase(root, cp, cc, ce, torch, dev)
     storage_launches = storage_phase(root, cp, cc, ce, torch, dev)
+    sharded_launches = sharded_phase(root, cp, cc, ce, torch, dev)
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches["tile_resolve"] = ccl_e2e_phase(root, cc, cp, torch, dev)
     t_phase = time.perf_counter()
@@ -4140,6 +4465,7 @@ def main() -> int:
       "launches_pipelined": pipelined_launches[name],
       "launches_worker": worker_launches[name],
       "launches_storage": storage_launches[name],
+      "launches_sharded": sharded_launches[name],
       "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == name),
       "ms": first["ms"], "plain_ms": first["plain_ms"],
       "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -1,6 +1,7 @@
 """The port's command line: ``python -m igneous_tpu_torch image
-{downsample [--batched],xfer,infer}``, ``python -m igneous_tpu_torch image
-voxels {count,sum}``, ``python -m igneous_tpu_torch image ccl {faces,links,
+{downsample [--batched|--sharded|--isotropic],xfer [--sharded],infer,rm}``,
+``python -m igneous_tpu_torch image voxels {count,sum}``,
+``python -m igneous_tpu_torch image ccl {faces,links,
 calc-labels,relabel,clean,auto}``, ``python -m igneous_tpu_torch mesh
 {forge,merge}``, ``python -m igneous_tpu_torch skeleton {forge,merge}``,
 ``python -m igneous_tpu_torch execute``, ``python -m igneous_tpu_torch
@@ -8,7 +9,7 @@ queue {status,wait,release,purge,rezero,fsck,cp,mv,dlq {ls,retry,purge}}``,
 ``python -m igneous_tpu_torch audit`` and ``python -m igneous_tpu_torch
 tune``.
 
-A minimal counterpart of ``igneous-tpu image downsample|xfer|infer``,
+A minimal counterpart of ``igneous-tpu image downsample|xfer|infer|rm``,
 ``igneous-tpu image voxels count|sum``, ``igneous-tpu image ccl``,
 ``igneous-tpu mesh forge|merge``, ``igneous-tpu skeleton forge|merge``,
 ``igneous-tpu execute``, ``igneous-tpu queue``, ``igneous-tpu audit`` and
@@ -116,7 +117,11 @@ def build_parser() -> argparse.ArgumentParser:
   ds.add_argument("--num-mips", type=int, default=5)
   ds.add_argument("--factor", type=_tuple3, default=None, help="e.g. 2,2,1")
   ds.add_argument("--volumetric", action="store_true", help="Use 2x2x2 downsampling.")
+  ds.add_argument("--isotropic", action="store_true",
+                  help="Per-mip factors driving the resolution toward isotropy.")
   ds.add_argument("--sparse", action="store_true")
+  ds.add_argument("--sharded", action="store_true",
+                  help="Write the new mips as sharded scales.")
   ds.add_argument("--fill-missing", action="store_true")
   ds.add_argument("--chunk-size", type=_tuple3, default=None)
   _encoding_opts(ds)
@@ -136,6 +141,7 @@ def build_parser() -> argparse.ArgumentParser:
   _add_xfer(image.add_parser("xfer", help="Transfer/rechunk/re-encode SRC into DEST."))
   _add_infer(image.add_parser(
     "infer", help="Run conv-net inference over SRC into DEST."))
+  _add_rm(image.add_parser("rm", help="Delete image chunks at mip (... mip+num-mips)."))
   _add_voxels(image.add_parser("voxels", help="Voxel statistics.").add_subparsers(
     dest="voxels_command", required=True))
   _add_ccl(image.add_parser(
@@ -673,7 +679,8 @@ def _add_xfer(cmd) -> None:
                    help="(overrides --memory) Task shape in voxels.")
   cmd.add_argument("--translate", type=_tuple3, default=(0, 0, 0))
   cmd.add_argument("--fill-missing", action="store_true")
-  cmd.add_argument("--sharded", action="store_true", help="Not ported yet: raises.")
+  cmd.add_argument("--sharded", action="store_true",
+                   help="Write the destination scale sharded.")
   _encoding_opts(cmd)
   cmd.add_argument("--downsample", dest="do_downsample", action="store_true",
                    default=True, help="Produce downsamples from transfer tiles (default).")
@@ -708,16 +715,25 @@ def _add_xfer(cmd) -> None:
 
 
 def _run_xfer(args) -> int:
-  from .task_creation import create_transfer_tasks
+  from .task_creation import create_image_shard_transfer_tasks, create_transfer_tasks
 
-  if args.sharded:
-    raise NotImplementedError(
-      "sharded transfers (--sharded) are not ported to igneous_tpu_torch yet"
-    )
   bounds_mip = args.mip if args.bounds_mip is None else args.bounds_mip
+  bounds = _cli_bounds(args.src, bounds_mip, args)
   max_mips = args.max_mips if args.num_mips is None else args.num_mips
   if not args.do_downsample:
     max_mips = 0
+  if args.sharded:
+    tasks = create_image_shard_transfer_tasks(
+      args.src, args.dest, mip=args.mip, chunk_size=args.chunk_size,
+      encoding=args.encoding, encoding_level=args.encoding_level,
+      encoding_effort=args.encoding_effort, translate=args.translate,
+      fill_missing=args.fill_missing, dest_voxel_offset=args.dest_voxel_offset,
+      bounds=bounds, bounds_mip=bounds_mip,
+      uncompressed_shard_bytesize=args.memory_target, cutout=args.cutout,
+      clean_info=args.clean_info, truncate_scales=args.truncate_scales,
+    )
+    enqueue(args.queue, tasks, args.parallel)
+    return 0
   tasks = create_transfer_tasks(
     args.src, args.dest, chunk_size=args.chunk_size, shape=args.shape,
     mip=args.mip, translate=args.translate, fill_missing=args.fill_missing,
@@ -731,10 +747,28 @@ def _run_xfer(args) -> int:
     dest_voxel_offset=args.dest_voxel_offset, clean_info=args.clean_info,
     no_src_update=args.no_src_update, truncate_scales=args.truncate_scales,
     use_https_for_source=args.use_https_src,
-    bounds=_cli_bounds(args.src, bounds_mip, args), bounds_mip=bounds_mip,
-    cutout=args.cutout,
+    bounds=bounds, bounds_mip=bounds_mip, cutout=args.cutout,
   )
   enqueue(args.queue, tasks, args.parallel)
+  return 0
+
+
+def _add_rm(cmd) -> None:
+  cmd.add_argument("path")
+  _queue_opt(cmd)
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--num-mips", type=int, default=0)
+  cmd.add_argument("--shape", type=_tuple3, default=None, help="Task shape in voxels.")
+  _range_opts(cmd)
+
+
+def _run_rm(args) -> int:
+  from .task_creation import create_deletion_tasks
+
+  enqueue(args.queue, create_deletion_tasks(
+    args.path, mip=args.mip, num_mips=args.num_mips, shape=args.shape,
+    bounds=_cli_bounds(args.path, args.mip, args), bounds_mip=args.mip,
+  ), args.parallel)
   return 0
 
 
@@ -1091,6 +1125,8 @@ def _run_ccl(args) -> int:
 
 
 def _run_batched(parser, args, factor) -> int:
+  if args.sharded or args.queue:
+    parser.error("--batched runs unsharded on this host (no -q)")
   if args.encoding or args.chunk_size:
     parser.error(
       "--batched downsamples in place; --encoding/--chunk-size apply "
@@ -1135,15 +1171,36 @@ def main(argv: Optional[List[str]] = None) -> int:
     return _run_infer(args)
   if args.command == "voxels":
     return _run_voxels(args)
-  from .task_creation import create_downsampling_tasks
+  if args.command == "rm":
+    return _run_rm(args)
+  from .task_creation import create_downsampling_tasks, create_image_shard_downsample_tasks
 
   factor = args.factor
-  if args.volumetric:
+  if args.isotropic:
+    if factor is not None or args.volumetric:
+      parser.error("--isotropic excludes --factor/--volumetric")
+    if args.sharded or args.batched:
+      parser.error("--isotropic plans per-mip factors, which only the unsharded "
+                   "task factory supports")
+    factor = "isotropic"
+  elif args.volumetric:
     if factor is not None:
       raise SystemExit("--volumetric and --factor are exclusive")
     factor = (2, 2, 2)
   if args.batched:
     return _run_batched(parser, args, factor)
+  bounds = _cli_bounds(args.path, args.mip, args)
+  if args.sharded:
+    tasks = create_image_shard_downsample_tasks(
+      args.path, mip=args.mip, fill_missing=args.fill_missing, sparse=args.sparse,
+      chunk_size=args.chunk_size, encoding=args.encoding,
+      encoding_level=args.encoding_level, encoding_effort=args.encoding_effort,
+      factor=factor or (2, 2, 1), memory_target=args.memory_target,
+      downsample_method=args.downsample_method, bounds=bounds, bounds_mip=args.mip,
+      num_mips=args.num_mips,
+    )
+    enqueue(args.queue, tasks, args.parallel)
+    return 0
   tasks = create_downsampling_tasks(
     args.path, mip=args.mip, num_mips=args.num_mips,
     fill_missing=args.fill_missing, sparse=args.sparse,
@@ -1152,8 +1209,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     delete_black_uploads=args.delete_bg, background_color=args.bg_color,
     compress=_resolve_compress(args.compress, args.encoding), factor=factor,
     memory_target=args.memory_target,
-    downsample_method=args.downsample_method,
-    bounds=_cli_bounds(args.path, args.mip, args), bounds_mip=args.mip,
+    downsample_method=args.downsample_method, bounds=bounds, bounds_mip=args.mip,
   )
   enqueue(args.queue, tasks, args.parallel)
   return 0

@@ -97,6 +97,22 @@ def truncate_writable_factors(task_shape, factors, per_mip):
   return out
 
 
+def near_isotropic_factor_sequence(
+  resolution: Sequence[int], num_mips: int
+) -> List[Tuple[int, int, int]]:
+  """Per-mip 2x factors that drive the resolution toward isotropy: at each
+  level, halve every axis whose resolution is within 2x of the smallest,
+  so a coarse axis (EM z, say) waits until the fine axes catch up."""
+  res = np.asarray(resolution, dtype=np.float64)
+  out: List[Tuple[int, int, int]] = []
+  for _ in range(num_mips):
+    # the smallest axis always halves; coarser axes join once within 2x
+    f = np.where(res < 2 * res.min(), 2, 1).astype(np.int64)
+    out.append(tuple(int(v) for v in f))
+    res = res * f
+  return out
+
+
 def pyramid_memory_bytes(
   shape: Sequence[int],
   data_width: int,

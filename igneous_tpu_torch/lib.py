@@ -125,6 +125,13 @@ class Bbox:
     f = np.asarray(factor)
     return Bbox(self.minpt * f, self.maxpt * f)
 
+  def clamp(self, other: "Bbox") -> "Bbox":
+    return Bbox.intersection(self, other)
+
+  def translate(self, delta: VecLike) -> "Bbox":
+    d = Vec(*delta)
+    return Bbox(self.minpt + d, self.maxpt + d)
+
   # -- chunk alignment ------------------------------------------------------
 
   def expand_to_chunk_size(self, chunk_size: VecLike, offset: VecLike = (0, 0, 0)) -> "Bbox":

@@ -139,6 +139,9 @@ class PrecomputedMetadata:
         return i
     raise KeyError(key)
 
+  def mip_from_resolution(self, resolution) -> int:
+    return self.mip_from_key("_".join(str(int(r)) for r in resolution))
+
   def resolution(self, mip: int) -> Vec:
     return Vec(*self.scale(mip)["resolution"])
 
@@ -183,8 +186,11 @@ class PrecomputedMetadata:
         f"validate its bitstream against; see ROADMAP.md)"
       )
 
+  def sharding(self, mip: int) -> Optional[dict]:
+    return self.scale(mip).get("sharding")
+
   def is_sharded(self, mip: int) -> bool:
-    return self.scale(mip).get("sharding") is not None
+    return self.sharding(mip) is not None
 
   def cseg_block_size(self, mip: int) -> Vec:
     return Vec(*self.scale(mip).get("compressed_segmentation_block_size", [8, 8, 8]))
@@ -199,15 +205,20 @@ class PrecomputedMetadata:
     factor: Sequence[int],
     chunk_size: Optional[Sequence[int]] = None,
     encoding: Optional[str] = None,
+    sharding: Optional[dict] = None,
   ) -> dict:
     """Add (or fetch) the scale at ``factor`` relative to mip 0:
-    size = ceil(size0 / factor), voxel_offset = offset0 // factor."""
+    size = ceil(size0 / factor), voxel_offset = offset0 // factor.
+    ``sharding`` (a sharding spec dict) is set on the scale, also on one
+    that exists already."""
     factor = np.asarray(factor, dtype=np.int64)
     base = self.scale(0)
     resolution = np.asarray(base["resolution"], dtype=np.int64) * factor
     key = "_".join(str(int(r)) for r in resolution)
     for s in self.info["scales"]:
       if s["key"] == key:
+        if sharding is not None:
+          s["sharding"] = sharding
         return s
 
     if chunk_size is None:
@@ -229,6 +240,8 @@ class PrecomputedMetadata:
       new_scale["compressed_segmentation_block_size"] = list(
         base.get("compressed_segmentation_block_size", [8, 8, 8])
       )
+    if sharding is not None:
+      new_scale["sharding"] = sharding
     # keep scales sorted by total resolution volume (finest first)
     self.info["scales"].append(new_scale)
     self.info["scales"].sort(

@@ -15,7 +15,15 @@ from .ccl import (
   create_relabeling,
 )
 from .image import (
+  create_blackout_tasks,
+  create_deletion_tasks,
   create_downsampling_tasks,
+  create_fixup_downsample_tasks,
+  create_image_shard_downsample_tasks,
+  create_image_shard_transfer_tasks,
+  create_quantize_tasks,
+  create_quantized_affinity_info,
+  create_touch_tasks,
   create_transfer_tasks,
   create_voxel_counting_tasks,
 )

@@ -1,12 +1,17 @@
-"""Image task factories: the downsample pyramid, the transfer and the
-voxel-count census.
+"""Image task factories: the downsample pyramid (isotropic factors
+included), the transfer, their sharded forms, the layer-maintenance
+tasks and the voxel-count census.
 
-Counterpart of ``create_downsampling_tasks``, ``create_transfer_tasks``
-and ``create_voxel_counting_tasks`` in
-``igneous_tpu/task_creation/image.py``: the same task shapes, scales,
-``info`` and provenance, and the same DownsampleTask, TransferTask and
-CountVoxelsTask payloads. Graphene sources (agglomerate / timestamp / stop_layer) and
-sharded scales are refused before anything is written.
+Counterpart of ``igneous_tpu/task_creation/image.py``'s
+``create_downsampling_tasks``, ``create_transfer_tasks``,
+``create_image_shard_transfer_tasks``,
+``create_image_shard_downsample_tasks``, ``create_deletion_tasks``,
+``create_blackout_tasks``, ``create_touch_tasks``,
+``create_quantized_affinity_info``, ``create_quantize_tasks``,
+``create_fixup_downsample_tasks`` and ``create_voxel_counting_tasks``:
+the same task shapes, scales, sharding specs, ``info`` and provenance,
+and the same payloads. Graphene sources (agglomerate / timestamp /
+stop_layer) are refused before anything is written.
 """
 
 from __future__ import annotations
@@ -22,10 +27,21 @@ from ..downsample_scales import (
   chunk_writable_factors,
   create_downsample_scales,
   downsample_shape_from_memory_target,
+  near_isotropic_factor_sequence,
 )
-from ..lib import Bbox, Vec, jsonify
+from ..lib import Bbox, Vec, chunk_bboxes, jsonify
 from ..meta import PrecomputedMetadata
-from ..tasks.image import DownsampleTask, TransferTask
+from ..sharding import create_sharded_image_info, image_shard_shape_from_spec
+from ..tasks.image import (
+  BlackoutTask,
+  DeleteTask,
+  DownsampleTask,
+  QuantizeTask,
+  TouchTask,
+  TransferTask,
+  refuse_graphene,
+)
+from ..tasks.image_sharded import ImageShardDownsampleTask, ImageShardTransferTask
 from ..tasks.stats import CountVoxelsTask, refuse_unported as refuse_graphene_census
 from ..volume import Volume
 from .common import GridTaskIterator, get_bounds, operator_contact
@@ -67,12 +83,45 @@ def _provenance(vol: Volume, method: dict):
   vol.meta.commit_provenance()
 
 
-def _refuse_sharded(vol: Volume, what: str):
-  if any("sharding" in scale for scale in vol.info["scales"]):
-    raise NotImplementedError(
-      f"sharded scales ({what} {vol.cloudpath}) are not ported to "
-      "igneous_tpu_torch yet"
+def _transfer_destination(
+  dest_path: str, dest_info: dict, src: Volume, mip: int, chunk_size, encoding,
+  truncate_scales: bool, cutout: bool, bounds: Optional[Bbox], bounds_mip: int,
+  clean_info: bool, mip_voxel_offset=None,
+) -> Volume:
+  """A transfer's destination. An existing layer's info wins. A new one
+  (``dest_info``) mirrors the source's scales through ``mip``, so that the
+  mip indices line up (all of them unless ``truncate_scales``), with
+  ``chunk_size``; then ``mip_voxel_offset`` sets scale ``mip``'s offset,
+  ``cutout`` restricts every scale to ``bounds`` (given at the source's
+  ``bounds_mip``) and ``clean_info`` scrubs the mesh and skeleton fields."""
+  try:
+    return Volume(dest_path)
+  except FileNotFoundError:
+    pass
+  dest = Volume.create(dest_path, dest_info)
+  for m in range(1, mip + 1 if truncate_scales else src.meta.num_mips):
+    dest.meta.add_scale(
+      np.asarray(src.meta.downsample_ratio(m)),
+      chunk_size=chunk_size,
+      encoding=encoding or src.meta.encoding(m),
     )
+  if mip_voxel_offset is not None:
+    dest.meta.scale(mip)["voxel_offset"] = list(mip_voxel_offset)
+  if cutout and bounds is not None:
+    bounds_res = np.asarray(src.meta.resolution(bounds_mip), dtype=float)
+    for i in range(len(dest.info["scales"])):
+      ratio = bounds_res / np.asarray(dest.meta.resolution(i), dtype=float)
+      sc = dest.info["scales"][i]
+      sc["voxel_offset"] = [
+        int(v) for v in np.asarray(bounds.minpt, dtype=float) * ratio
+      ]
+      sc["size"] = [
+        int(np.ceil(v)) for v in np.asarray(bounds.size3(), float) * ratio
+      ]
+  if clean_info:
+    for key in ("mesh", "meshing", "skeletons"):
+      dest.info.pop(key, None)
+  return dest
 
 
 def _pick_task_shape(
@@ -142,13 +191,19 @@ def create_downsampling_tasks(
 ):
   """Grid of DownsampleTasks; creates the destination scales first.
 
-  ``factor`` is one triple or a per-mip sequence of triples."""
+  ``factor`` is one triple, a per-mip sequence of triples, or the string
+  "isotropic" (per-mip factors that drive the resolution toward
+  isotropy, ``near_isotropic_factor_sequence``)."""
   vol = Volume(layer_path, mip=mip)
   compress = _resolve_auto_compress(compress, encoding, vol, mip)
   if (not preserve_chunk_size and chunk_size is None
       and vol.meta.num_mips > mip + 1):
     # reuse the NEXT mip's existing chunking for the new scales
     chunk_size = [int(v) for v in vol.meta.chunk_size(mip + 1)]
+  if isinstance(factor, str):
+    if factor != "isotropic":
+      raise ValueError(f"unknown factor spec {factor!r}")
+    factor = near_isotropic_factor_sequence([int(v) for v in vol.resolution], num_mips)
   if factor is None:
     factor = axis_to_factor(axis) if axis != "z" else DEFAULT_FACTOR
   cs = chunk_size if chunk_size is not None else vol.meta.chunk_size(mip)
@@ -253,15 +308,10 @@ def create_transfer_tasks(
   ``no_src_update`` skips the source provenance note.
   ``use_https_for_source`` only implies ``no_src_update``.
   ``agglomerate``, ``timestamp`` and ``stop_layer`` (graphene sources)
-  and sharded scales raise NotImplementedError before anything is
-  written."""
-  if agglomerate or timestamp is not None or stop_layer is not None:
-    raise NotImplementedError(
-      "graphene transfers (agglomerate/timestamp/stop_layer) are not "
-      "ported to igneous_tpu_torch"
-    )
+  raise NotImplementedError before anything is written. A sharded source
+  scale reads through ``Volume``."""
+  refuse_graphene(agglomerate, timestamp, stop_layer)
   src = Volume(src_layer_path, mip=mip)
-  _refuse_sharded(src, "source")
   compress = _resolve_auto_compress(compress, encoding, src, mip)
   if max_mips is not None:
     num_mips = max_mips  # the reference's keyword for the same cap
@@ -293,40 +343,10 @@ def create_transfer_tasks(
   )
   if use_https_for_source:
     no_src_update = True  # a read-only source gets no provenance note
-  try:
-    dest = Volume(dest_layer_path)  # an existing destination's info wins
-    _refuse_sharded(dest, "destination")
-  except FileNotFoundError:
-    dest = Volume.create(dest_layer_path, dest_info)
-    for m in range(1, mip + 1):
-      dest.meta.add_scale(
-        np.asarray(src.meta.downsample_ratio(m)),
-        chunk_size=dest_chunk,
-        encoding=encoding or src.meta.encoding(m),
-      )
-    if not truncate_scales:
-      # keep the source's scale structure above `mip` too
-      for m in range(mip + 1, src.meta.num_mips):
-        dest.meta.add_scale(
-          np.asarray(src.meta.downsample_ratio(m)),
-          chunk_size=dest_chunk,
-          encoding=encoding or src.meta.encoding(m),
-        )
-    if cutout and bounds is not None:
-      # restrict the new volume to the requested bounds
-      bounds_res = np.asarray(src.meta.resolution(bounds_mip), dtype=float)
-      for i in range(len(dest.info["scales"])):
-        ratio = bounds_res / np.asarray(dest.meta.resolution(i), dtype=float)
-        sc = dest.info["scales"][i]
-        sc["voxel_offset"] = [
-          int(v) for v in np.asarray(bounds.minpt, dtype=float) * ratio
-        ]
-        sc["size"] = [
-          int(np.ceil(v)) for v in np.asarray(bounds.size3(), float) * ratio
-        ]
-    if clean_info:
-      for key in ("mesh", "meshing", "skeletons"):
-        dest.info.pop(key, None)
+  dest = _transfer_destination(
+    dest_layer_path, dest_info, src, mip, dest_chunk, encoding, truncate_scales,
+    cutout, bounds, bounds_mip, clean_info,
+  )
 
   if shape is None:
     shape = downsample_shape_from_memory_target(
@@ -406,6 +426,452 @@ def create_transfer_tasks(
       })
 
   return GridTaskIterator(task_bounds, shape, make_task, finish)
+
+
+def _shard_data_encoding(compress) -> Optional[str]:
+  """The shard ``data_encoding`` of the ``compress`` knob: None ("auto")
+  leaves it to the encoding, gzip unless the codec compresses itself."""
+  if compress == "auto":
+    return None
+  if compress in (None, False, 0) or str(compress).lower() in ("none", "false"):
+    return "raw"
+  if compress is True or str(compress).lower() == "gzip":
+    return "gzip"
+  raise ValueError(f"unsupported shard compress: {compress!r}")
+
+
+def create_image_shard_transfer_tasks(
+  src_layer_path: str,
+  dest_layer_path: str,
+  mip: int = 0,
+  chunk_size: Optional[Sequence[int]] = None,
+  encoding: Optional[str] = None,
+  encoding_level: Optional[int] = None,
+  encoding_effort: Optional[int] = None,
+  translate: Sequence[int] = (0, 0, 0),
+  dest_voxel_offset: Optional[Sequence[int]] = None,
+  fill_missing: bool = False,
+  bounds: Optional[Bbox] = None,
+  bounds_mip: int = 0,
+  uncompressed_shard_bytesize: int = MEMORY_TARGET,
+  memory_target: Optional[int] = None,
+  cutout: bool = False,
+  clean_info: bool = False,
+  truncate_scales: bool = True,
+  agglomerate: bool = False,
+  timestamp: Optional[float] = None,
+  stop_layer: Optional[int] = None,
+  compress="auto",
+  minishard_index_encoding: str = "gzip",
+  use_https_for_source: bool = False,
+):
+  """Transfer into a SHARDED destination scale, one task per shard-aligned
+  region. ``memory_target`` is another name for
+  ``uncompressed_shard_bytesize``; ``compress`` False forces raw shard
+  data. ``use_https_for_source`` has no effect (sharded transfers write no
+  source provenance)."""
+  del use_https_for_source
+  refuse_graphene(agglomerate, timestamp, stop_layer)
+  src = Volume(src_layer_path, mip=mip)
+  if memory_target is not None:
+    uncompressed_shard_bytesize = memory_target
+  data_encoding = _shard_data_encoding(compress)
+  src_scale = src.meta.scale(mip)
+  dest_chunk = list(chunk_size) if chunk_size else src_scale["chunk_sizes"][0]
+  dest_offset = (
+    list(dest_voxel_offset)
+    if dest_voxel_offset is not None
+    else (np.asarray(src_scale.get("voxel_offset", [0, 0, 0]))
+          + np.asarray(translate)).tolist()
+  )
+  spec = create_sharded_image_info(
+    dataset_size=src_scale["size"],
+    chunk_size=dest_chunk,
+    encoding=encoding or src_scale["encoding"],
+    dtype=src.meta.data_type,
+    uncompressed_shard_bytesize=uncompressed_shard_bytesize,
+    minishard_index_encoding=minishard_index_encoding,
+    data_encoding=data_encoding,
+  )
+  # the destination mirrors the source's scales through `mip`, so that the
+  # mip indices line up; dest_voxel_offset is at mip 0's geometry
+  base_scale = src.meta.scale(0)
+  dest_info = PrecomputedMetadata.create_info(
+    num_channels=src.num_channels,
+    layer_type=src.layer_type,
+    data_type=src.meta.data_type,
+    encoding=encoding or base_scale["encoding"],
+    resolution=base_scale["resolution"],
+    voxel_offset=(
+      dest_offset if mip == 0
+      else base_scale.get("voxel_offset", [0, 0, 0])
+    ),
+    volume_size=base_scale["size"],
+    chunk_size=dest_chunk,
+  )
+  dest = _transfer_destination(
+    dest_layer_path, dest_info, src, mip, dest_chunk, encoding, truncate_scales,
+    cutout, bounds, bounds_mip, clean_info,
+    mip_voxel_offset=dest_voxel_offset if mip > 0 else None,
+  )
+  # the spec lands on the scale the tasks write, also of an existing layer
+  dest.meta.scale(mip)["sharding"] = spec
+  if encoding_level is not None or encoding_effort is not None:
+    dest.meta.set_encoding(mip, None, encoding_level, encoding_effort)
+  dest.commit_info()
+
+  shape = Vec(*image_shard_shape_from_spec(spec, src_scale["size"], dest_chunk))
+  # shard files are written once: the task grid is shard aligned, so no
+  # two tasks write the same file
+  task_bounds = get_bounds(src, bounds, mip, bounds_mip).expand_to_chunk_size(
+    shape, src.meta.voxel_offset(mip)
+  ).clamp(src.meta.bounds(mip))
+
+  def make_task(shape_: Vec, offset: Vec):
+    return ImageShardTransferTask(
+      src_path=src_layer_path,
+      dest_path=dest_layer_path,
+      shape=shape_.tolist(),
+      offset=offset.tolist(),
+      mip=mip,
+      fill_missing=fill_missing,
+      translate=tuple(translate),
+      agglomerate=agglomerate,
+      timestamp=timestamp,
+      stop_layer=stop_layer,
+    )
+
+  def finish():
+    _provenance(dest, {
+      "task": "ImageShardTransferTask",
+      "src": src_layer_path, "dest": dest_layer_path,
+      "mip": mip, "shape": shape.tolist(),
+      "sharding": spec,
+      "bounds": task_bounds.to_list(),
+    })
+
+  return GridTaskIterator(task_bounds, shape, make_task, finish)
+
+
+def create_image_shard_downsample_tasks(
+  layer_path: str,
+  mip: int = 0,
+  fill_missing: bool = False,
+  sparse: bool = False,
+  chunk_size: Optional[Sequence[int]] = None,
+  encoding: Optional[str] = None,
+  encoding_level: Optional[int] = None,
+  encoding_effort: Optional[int] = None,
+  factor: Sequence[int] = (2, 2, 1),
+  bounds: Optional[Bbox] = None,
+  bounds_mip: int = 0,
+  memory_target: int = MEMORY_TARGET,
+  downsample_method: str = "auto",
+  num_mips: int = 1,
+  agglomerate: bool = False,
+  timestamp: Optional[float] = None,
+  truncate_scales: bool = False,
+):
+  """Downsampled SHARDED mips, several a pass. Each of the ``num_mips``
+  new scales gets its own sharding spec, sized so that a task holds the
+  source region of one shard of it; the task stride is the largest
+  per-mip shard extent (shard extents are powers of two per axis, so the
+  largest contains them all), and ``num_mips`` is clamped so that every
+  produced mip stays chunk aligned within the stride."""
+  refuse_graphene(agglomerate, timestamp)
+  vol = Volume(layer_path, mip=mip)
+  if truncate_scales:
+    # drop the scales above mip before making them again
+    vol.info["scales"] = vol.info["scales"][: mip + 1]
+  factor = tuple(int(v) for v in factor)
+  num_mips = max(int(num_mips), 1)
+  cs = list(chunk_size) if chunk_size else [int(v) for v in vol.meta.chunk_size(mip)]
+
+  base_ratio = np.asarray(vol.meta.downsample_ratio(mip), dtype=np.int64)
+  specs = []
+  dest_mips = []
+  stride = np.zeros(3, dtype=np.int64)
+  cum = np.ones(3, dtype=np.int64)
+  for _ in range(num_mips):
+    cum = cum * np.asarray(factor, dtype=np.int64)
+    dest_size = [int(v) for v in -(-np.asarray(vol.meta.volume_size(mip)) // cum)]
+    spec = create_sharded_image_info(
+      dataset_size=dest_size,
+      chunk_size=cs,
+      encoding=encoding or vol.meta.encoding(mip),
+      dtype=vol.meta.data_type,
+      # a task holds the SOURCE region of one shard: a voxel at mip+i
+      # costs prod(cum) source voxels, plus the pyramid
+      uncompressed_shard_bytesize=max(
+        int(memory_target // (int(np.prod(cum)) + 1)), int(1e6)
+      ),
+    )
+    vol.meta.add_scale(base_ratio * cum, chunk_size=cs, encoding=encoding, sharding=spec)
+    dmip = vol.meta.mip_from_resolution(
+      np.asarray(vol.meta.scale(0)["resolution"]) * base_ratio * cum
+    )
+    if encoding_level is not None or encoding_effort is not None:
+      vol.meta.set_encoding(dmip, None, encoding_level, encoding_effort)
+    specs.append(spec)
+    dest_mips.append(dmip)
+    shard_shape = np.asarray(
+      image_shard_shape_from_spec(spec, dest_size, cs), dtype=np.int64
+    )
+    stride = np.maximum(stride, shard_shape * cum)
+
+  # clamp num_mips so that every produced mip's region inside the stride
+  # is chunk aligned
+  max_mips = num_mips
+  for axis in range(3):
+    if factor[axis] == 1:
+      continue
+    chunks_per_dim = stride[axis] // cs[axis]
+    max_mips = min(max_mips, int(
+      np.floor(np.log2(max(chunks_per_dim, 1)) / np.log2(factor[axis]))
+    ))
+  max_mips = max(max_mips, 1)
+  if max_mips < num_mips:
+    # the unreachable scales go again
+    for dmip in sorted(dest_mips[max_mips:], reverse=True):
+      del vol.info["scales"][dmip]
+    dest_mips = dest_mips[:max_mips]
+    specs = specs[:max_mips]
+  if max_mips > 1 and (encoding or vol.meta.encoding(mip)) == "jpeg":
+    # a lossy pyramid keeps its top mip lossless, so that a later pass
+    # can build on it
+    vol.meta.set_encoding(dest_mips[-1], "png", 9)
+  vol.commit_info()
+
+  shape = Vec(*stride)
+  # shard files are written once: the task grid is shard aligned
+  task_bounds = get_bounds(vol, bounds, mip, bounds_mip).expand_to_chunk_size(
+    shape, vol.meta.voxel_offset(mip)
+  ).clamp(vol.meta.bounds(mip))
+
+  def make_task(shape_: Vec, offset: Vec):
+    return ImageShardDownsampleTask(
+      src_path=layer_path,
+      shape=shape_.tolist(),
+      offset=offset.tolist(),
+      mip=mip,
+      fill_missing=fill_missing,
+      sparse=sparse,
+      factor=list(factor),
+      downsample_method=downsample_method,
+      num_mips=max_mips,
+      agglomerate=agglomerate,
+      timestamp=timestamp,
+    )
+
+  def finish():
+    _provenance(vol, {
+      "task": "ImageShardDownsampleTask",
+      "mip": mip, "dest_mips": [int(m) for m in dest_mips],
+      "num_mips": max_mips,
+      "factor": list(factor), "sharding": specs[0],
+      "bounds": task_bounds.to_list(),
+    })
+
+  return GridTaskIterator(task_bounds, shape, make_task, finish)
+
+
+def create_deletion_tasks(
+  layer_path: str,
+  mip: int = 0,
+  num_mips: int = 0,
+  shape: Optional[Sequence[int]] = None,
+  bounds: Optional[Bbox] = None,
+  bounds_mip: int = 0,
+):
+  """Grid of DeleteTasks over ``bounds`` (default: the whole layer), each
+  deleting its chunks at mip ... mip+num_mips."""
+  vol = Volume(layer_path, mip=mip)
+  if shape is None:
+    shape = vol.meta.chunk_size(mip) * 4
+  shape = Vec(*shape)
+  task_bounds = get_bounds(vol, bounds, mip, bounds_mip)
+
+  def make_task(shape_: Vec, offset: Vec):
+    return DeleteTask(
+      layer_path=layer_path,
+      shape=shape_.tolist(),
+      offset=offset.tolist(),
+      mip=mip,
+      num_mips=num_mips,
+    )
+
+  def finish():
+    _provenance(vol, {
+      "task": "DeleteTask", "mip": mip, "num_mips": num_mips,
+      "bounds": task_bounds.to_list(),
+    })
+
+  return GridTaskIterator(task_bounds, shape, make_task, finish)
+
+
+def create_blackout_tasks(
+  cloudpath: str,
+  bounds: Bbox,
+  mip: int = 0,
+  shape: Sequence[int] = (2048, 2048, 64),
+  value: int = 0,
+  non_aligned_writes: bool = False,
+):
+  """Grid of BlackoutTasks writing ``value`` over ``bounds``, expanded to
+  the chunk grid unless ``non_aligned_writes``."""
+  vol = Volume(cloudpath, mip=mip)
+  shape = Vec(*shape)
+  if not non_aligned_writes:
+    bounds = bounds.expand_to_chunk_size(
+      vol.meta.chunk_size(mip), vol.meta.voxel_offset(mip)
+    )
+  bounds = Bbox.intersection(bounds, vol.meta.bounds(mip))
+
+  def make_task(shape_: Vec, offset: Vec):
+    return BlackoutTask(
+      cloudpath=cloudpath,
+      mip=mip,
+      shape=np.minimum(
+        np.asarray(shape_), np.asarray(bounds.maxpt) - np.asarray(offset)
+      ).tolist(),
+      offset=offset.tolist(),
+      value=value,
+      non_aligned_writes=non_aligned_writes,
+    )
+
+  return GridTaskIterator(bounds, shape, make_task)
+
+
+def create_touch_tasks(
+  cloudpath: str,
+  mip: int = 0,
+  shape: Sequence[int] = (2048, 2048, 64),
+  bounds: Optional[Bbox] = None,
+):
+  """Grid of TouchTasks: read every chunk, a missing one raising."""
+  vol = Volume(cloudpath, mip=mip)
+  shape = Vec(*shape)
+  task_bounds = get_bounds(vol, bounds, mip, mip)
+
+  def make_task(shape_: Vec, offset: Vec):
+    return TouchTask(
+      cloudpath=cloudpath, mip=mip,
+      shape=shape_.tolist(), offset=offset.tolist(),
+    )
+
+  def finish():
+    _provenance(vol, {
+      "task": "TouchTask", "mip": mip, "bounds": task_bounds.to_list(),
+    })
+
+  return GridTaskIterator(task_bounds, shape, make_task, finish)
+
+
+def create_quantized_affinity_info(
+  src_layer: str,
+  dest_layer: str,
+  shape: Sequence[int],
+  mip: int,
+  chunk_size: Sequence[int],
+  encoding: str = "raw",
+) -> dict:
+  """The info of a one-channel uint8 image layer with the geometry of
+  ``src_layer``'s scale at ``mip``."""
+  scale = Volume(src_layer, mip=mip).meta.scale(mip)
+  return PrecomputedMetadata.create_info(
+    num_channels=1,
+    layer_type="image",
+    data_type="uint8",
+    encoding=encoding,
+    resolution=scale["resolution"],
+    voxel_offset=scale.get("voxel_offset", [0, 0, 0]),
+    volume_size=scale["size"],
+    chunk_size=chunk_size,
+  )
+
+
+def create_quantize_tasks(
+  src_layer: str,
+  dest_layer: str,
+  shape: Sequence[int],
+  mip: int = 0,
+  fill_missing: bool = False,
+  chunk_size: Sequence[int] = (128, 128, 64),
+  encoding: str = "raw",
+  bounds: Optional[Bbox] = None,
+  bounds_mip: int = 0,
+):
+  """Create the quantized destination and a grid of QuantizeTasks."""
+  shape = Vec(*shape)
+  info = create_quantized_affinity_info(
+    src_layer, dest_layer, shape, mip, chunk_size, encoding=encoding,
+  )
+  dest = Volume.create(dest_layer, info)
+  src = Volume(src_layer, mip=mip)
+  task_bounds = get_bounds(src, bounds, mip, bounds_mip)
+
+  def make_task(shape_: Vec, offset: Vec):
+    return QuantizeTask(
+      source_layer_path=src_layer,
+      dest_layer_path=dest_layer,
+      shape=shape_.tolist(),
+      offset=offset.tolist(),
+      mip=mip,
+      fill_missing=fill_missing,
+    )
+
+  def finish():
+    _provenance(dest, {
+      "task": "QuantizeTask", "mip": mip, "bounds": task_bounds.to_list(),
+    })
+
+  return GridTaskIterator(task_bounds, shape, make_task, finish)
+
+
+def create_fixup_downsample_tasks(
+  layer_path: str,
+  bad_bboxes: Optional[Sequence[Bbox]] = None,
+  mip: int = 0,
+  shape: Sequence[int] = (2048, 2048, 64),
+  fill_missing: bool = True,
+  num_mips: int = 1,
+  sparse: bool = False,
+  points: Optional[Sequence[Sequence[int]]] = None,
+  axis: str = "z",
+):
+  """DownsampleTasks that run again over damaged regions: the task cells
+  of ``shape`` that meet each bbox, or each mip-0 point in ``points``
+  (one inside each black spot), each cell once."""
+  vol = Volume(layer_path, mip=mip)
+  bad_bboxes = list(bad_bboxes or [])
+  if points:
+    ratio = np.asarray(vol.meta.downsample_ratio(mip), dtype=np.int64)
+    bad_bboxes += [
+      Bbox(Vec(*(np.asarray(p, np.int64) // ratio)),
+           Vec(*(np.asarray(p, np.int64) // ratio)) + 1)
+      for p in points
+    ]
+  shape = Vec(*shape)
+  seen = set()
+  for bbx in bad_bboxes:
+    aligned = Bbox.intersection(
+      bbx.expand_to_chunk_size(shape, vol.meta.voxel_offset(mip)), vol.meta.bounds(mip)
+    )
+    for task_box in chunk_bboxes(aligned, shape, vol.meta.voxel_offset(mip), clamp=False):
+      key = task_box.to_filename()
+      if key in seen:
+        continue
+      seen.add(key)
+      yield DownsampleTask(
+        layer_path=layer_path,
+        mip=mip,
+        shape=shape.tolist(),
+        offset=[int(v) for v in task_box.minpt],
+        fill_missing=fill_missing,
+        sparse=sparse,
+        num_mips=num_mips,
+        factor=tuple(int(v) for v in axis_to_factor(axis)),
+      )
 
 
 def create_voxel_counting_tasks(

@@ -9,7 +9,16 @@ from .ccl import (
   RelabelCCLTask,
   create_relabeling,
 )
-from .image import DownsampleTask, TransferTask, downsample_and_upload
+from .image import (
+  BlackoutTask,
+  DeleteTask,
+  DownsampleTask,
+  QuantizeTask,
+  TouchTask,
+  TransferTask,
+  downsample_and_upload,
+)
+from .image_sharded import ImageShardDownsampleTask, ImageShardTransferTask
 from .inference import InferenceTask
 from .mesh import MeshManifestFilesystemTask, MeshManifestPrefixTask, MeshTask
 from .skeleton import SkeletonTask, UnshardedSkeletonMergeTask

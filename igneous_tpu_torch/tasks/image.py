@@ -1,4 +1,5 @@
-"""Image tasks: transfer and downsample.
+"""Image tasks: transfer and downsample, and the layer-maintenance tasks
+(delete, blackout, touch, quantize).
 
 Counterpart of ``igneous_tpu/tasks/image.py``: the same constructor
 signatures (so payloads serialized by the JAX package run here), the same
@@ -39,6 +40,16 @@ def _passthrough_enabled() -> bool:
   transfers down the decode and re-encode route."""
   val = os.environ.get("IGNEOUS_TRANSFER_PASSTHROUGH", "")
   return val == "" or val.strip().lower() not in ("0", "off", "false", "no")
+
+
+def refuse_graphene(agglomerate, timestamp, stop_layer=None) -> None:
+  """Graphene sources are not ported: refuse their options before
+  anything is read or written."""
+  if agglomerate or timestamp is not None or stop_layer is not None:
+    raise NotImplementedError(
+      "graphene transfers (agglomerate/timestamp/stop_layer) are not "
+      "ported to igneous_tpu_torch"
+    )
 
 
 def _cutout_nbytes(vol: Volume, bounds: Bbox) -> int:
@@ -143,11 +154,7 @@ class TransferTask(RegisteredTask):
     timestamp: Optional[float] = None,
     stop_layer: Optional[int] = None,
   ):
-    if agglomerate or stop_layer is not None or timestamp is not None:
-      raise NotImplementedError(
-        "graphene transfers (agglomerate/timestamp/stop_layer) are not "
-        "ported to igneous_tpu_torch"
-      )
+    refuse_graphene(agglomerate, timestamp, stop_layer)
     self.src_path = src_path
     self.dest_path = dest_path
     self.mip = int(mip)
@@ -408,3 +415,110 @@ class DownsampleTask(TransferTask):
       num_mips=num_mips,
       factor=factor,
     )
+
+
+class DeleteTask(RegisteredTask):
+  """Delete the chunks covering a bbox at mip ... mip+num_mips."""
+
+  def __init__(
+    self,
+    layer_path: str,
+    shape: Sequence[int],
+    offset: Sequence[int],
+    mip: int = 0,
+    num_mips: int = 0,
+  ):
+    self.layer_path = layer_path
+    self.shape = Vec(*shape)
+    self.offset = Vec(*offset)
+    self.mip = int(mip)
+    self.num_mips = int(num_mips)
+
+  def execute(self):
+    vol = Volume(self.layer_path, mip=self.mip)
+    bounds = Bbox.intersection(Bbox(self.offset, self.offset + self.shape), vol.bounds)
+    if bounds.empty():
+      return
+    for mip in range(self.mip, min(self.mip + self.num_mips + 1, vol.meta.num_mips)):
+      mip_bounds = vol.meta.bbox_to_mip(bounds, self.mip, mip)
+      mip_bounds = mip_bounds.expand_to_chunk_size(
+        vol.meta.chunk_size(mip), vol.meta.voxel_offset(mip)
+      ).clamp(vol.meta.bounds(mip))
+      vol.delete(mip_bounds, mip=mip)
+
+
+class BlackoutTask(RegisteredTask):
+  """Overwrite a bbox with a constant value."""
+
+  def __init__(
+    self,
+    cloudpath: str,
+    mip: int,
+    shape: Sequence[int],
+    offset: Sequence[int],
+    value: int = 0,
+    non_aligned_writes: bool = False,
+  ):
+    self.cloudpath = cloudpath
+    self.mip = int(mip)
+    self.shape = Vec(*shape)
+    self.offset = Vec(*offset)
+    self.value = value
+    self.non_aligned_writes = non_aligned_writes
+
+  def execute(self):
+    vol = Volume(self.cloudpath, mip=self.mip, non_aligned_writes=self.non_aligned_writes)
+    bounds = Bbox.intersection(Bbox(self.offset, self.offset + self.shape), vol.bounds)
+    if bounds.empty():
+      return
+    img = np.full(
+      tuple(int(v) for v in bounds.size3()) + (vol.num_channels,),
+      self.value, dtype=vol.dtype,
+    )
+    vol.upload(bounds, img)
+
+
+class TouchTask(RegisteredTask):
+  """Read a bbox with ``fill_missing`` off: a missing or corrupt chunk
+  raises."""
+
+  def __init__(self, cloudpath: str, mip: int, shape: Sequence[int], offset: Sequence[int]):
+    self.cloudpath = cloudpath
+    self.mip = int(mip)
+    self.shape = Vec(*shape)
+    self.offset = Vec(*offset)
+
+  def execute(self):
+    vol = Volume(self.cloudpath, mip=self.mip, fill_missing=False)
+    vol.download(Bbox.intersection(Bbox(self.offset, self.offset + self.shape), vol.bounds))
+
+
+class QuantizeTask(RegisteredTask):
+  """The first channel of a float affinity layer as uint8:
+  ``clip(float32(x) * 255, 0, 255)``, truncated."""
+
+  def __init__(
+    self,
+    source_layer_path: str,
+    dest_layer_path: str,
+    shape: Sequence[int],
+    offset: Sequence[int],
+    mip: int = 0,
+    fill_missing: bool = False,
+  ):
+    self.source_layer_path = source_layer_path
+    self.dest_layer_path = dest_layer_path
+    self.shape = Vec(*shape)
+    self.offset = Vec(*offset)
+    self.mip = int(mip)
+    self.fill_missing = fill_missing
+
+  def execute(self):
+    src = Volume(self.source_layer_path, mip=self.mip, fill_missing=self.fill_missing)
+    dest = Volume(self.dest_layer_path, mip=self.mip)
+    bounds = Bbox.intersection(Bbox(self.offset, self.offset + self.shape), src.bounds)
+    if bounds.empty():
+      return
+    image = src.download(bounds)[..., :1]
+    image = np.clip(image.astype(np.float32) * 255.0, 0, 255).astype(np.uint8)
+    dest.upload(bounds, image)

@@ -1,18 +1,18 @@
 """Chunked Precomputed volume IO: the port's host data plane.
 
 The port's own copy of the parts of ``igneous_tpu/volume.py`` that the
-downsample, transfer, connected-components, meshing, skeleton, census
-and inference paths use: ``from_numpy``, ``download`` (``bounded=False``
-reads of boxes that reach past the bounds, background outside) and
-``upload`` of bbox cutouts at a mip in any of the ported encodings
-(``codecs.py``), and the info accessors.
+ported paths use: ``from_numpy``, ``download`` (``bounded=False`` reads
+of boxes that reach past the bounds, background outside; a sharded scale
+reads through ``sharded_image.download_sharded``), ``upload`` of bbox
+cutouts at a mip in any of the ported encodings (``codecs.py``; partial
+chunks read-modify-written with ``non_aligned_writes``; a sharded scale
+refuses direct writes), ``exists``, ``delete`` and the info accessors.
 Pure host numpy: the device work happens in
 ``igneous_tpu_torch.ops`` on arrays produced here. Chunk reads go
 through the process-wide decode cache (``chunk_cache.py``), and uploads
-invalidate it. A chunk that fails to inflate or decode raises
+and deletes invalidate it. A chunk that fails to inflate or decode raises
 ``integrity.CorruptChunkError``, ticks ``integrity.corrupt_reads`` and is
-quarantined, and never reaches the cache. Sharded scales and graphene are
-not ported yet.
+quarantined, and never reaches the cache. Graphene is not ported yet.
 """
 
 from __future__ import annotations
@@ -65,6 +65,7 @@ class Volume:
     mip: int = 0,
     fill_missing: bool = False,
     bounded: bool = True,
+    non_aligned_writes: bool = False,
     delete_black_uploads: bool = False,
     background_color: int = 0,
     info: Optional[dict] = None,
@@ -76,6 +77,8 @@ class Volume:
     self.mip = mip
     # False: downloads may reach past the bounds and read background there
     self.bounded = bounded
+    # True: uploads may cover chunks partially (read-modify-write)
+    self.non_aligned_writes = non_aligned_writes
     self.fill_missing = fill_missing
     self.delete_black_uploads = delete_black_uploads
     self.background_color = background_color
@@ -236,8 +239,7 @@ class Volume:
     if inner.empty():
       return out
 
-    def place(c):
-      img = self._decode(self.cf.get_stored(self.meta.chunk_name(mip, c)), c, mip)
+    def place(c, img):
       isect = Bbox.intersection(c, bbox)
       dst = tuple(
         slice(int(a), int(b))
@@ -249,8 +251,24 @@ class Volume:
       )
       out[dst] = img[src]  # disjoint regions: threads never overlap
 
-    _io_map(place, self._chunks(inner, mip), self.parallel)
+    if self.meta.is_sharded(mip):
+      from .sharded_image import download_sharded
+
+      for c, img in download_sharded(self, inner, mip):
+        place(c, img)
+      return out
+
+    def fetch(c):
+      place(c, self._decode(self.cf.get_stored(self.meta.chunk_name(mip, c)), c, mip))
+
+    _io_map(fetch, self._chunks(inner, mip), self.parallel)
     return out
+
+  def exists(self, bbox: Bbox, mip: Optional[int] = None) -> dict:
+    """Chunk key -> whether it is stored, for the chunks covering ``bbox``."""
+    mip = self.mip if mip is None else mip
+    keys = [self.meta.chunk_name(mip, c) for c in self._chunks(bbox, mip)]
+    return {key: self.cf.exists(key) for key in keys}
 
   # -- upload ---------------------------------------------------------------
 
@@ -293,29 +311,41 @@ class Volume:
     cs = self.meta.chunk_size(mip)
     offset = self.meta.voxel_offset(mip)
     expanded = bbox.expand_to_chunk_size(cs, offset)
-    if Bbox.intersection(expanded, bounds) != bbox:
+    if Bbox.intersection(expanded, bounds) != bbox and not self.non_aligned_writes:
       raise AlignmentError(
         f"{bbox} is not chunk-aligned (chunk {list(map(int, cs))}, "
         f"offset {list(map(int, offset))}) nor clipped to bounds {bounds}"
       )
+    if self.meta.is_sharded(mip):
+      raise VolumeException(
+        "Direct writes to sharded scales are not supported; "
+        "use ImageShardTransferTask / make_shard."
+      )
 
-    encoding = self.meta.encoding(mip)
-    block_size = self.meta.cseg_block_size(mip)
-    # the scale's quality knob (meta.set_encoding)
-    enc_kw = {}
-    scale = self.meta.scale(mip)
-    if encoding == "jpeg" and "jpeg_quality" in scale:
-      enc_kw["jpeg_quality"] = int(scale["jpeg_quality"])
-    elif encoding == "png" and "png_level" in scale:
-      enc_kw["png_level"] = int(scale["png_level"])
+    encoding, block_size, enc_kw = self._codec_args(mip)
     jobs, deletes = [], []
     for chunk_bbx in self._chunks(bbox, mip):
+      isect = Bbox.intersection(chunk_bbx, bbox)
       src = tuple(
         slice(int(a), int(b))
-        for a, b in zip(chunk_bbx.minpt - bbox.minpt, chunk_bbx.maxpt - bbox.minpt)
+        for a, b in zip(isect.minpt - bbox.minpt, isect.maxpt - bbox.minpt)
       )
       key = self.meta.chunk_name(mip, chunk_bbx)
-      cutout = img[src]
+      if isect == chunk_bbx:
+        cutout = img[src]
+      else:
+        # a partial chunk: read-modify-write it, so that the stored file
+        # keeps its canonical key and the voxels outside bbox survive
+        shape = tuple(int(v) for v in chunk_bbx.size3()) + (self.num_channels,)
+        data = self.cf.get(key)
+        if data is None:
+          cutout = np.full(shape, self.background_color, dtype=self.dtype)
+        else:
+          cutout = codecs.decode(data, encoding, shape, self.dtype, block_size=block_size)
+        cutout[tuple(
+          slice(int(a), int(b))
+          for a, b in zip(isect.minpt - chunk_bbx.minpt, isect.maxpt - chunk_bbx.minpt)
+        )] = img[src]
       if self.delete_black_uploads and np.all(cutout == self.background_color):
         deletes.append(key)
         continue
@@ -339,6 +369,33 @@ class Volume:
     # keeps later reads right; this frees their memory now). Puts routed
     # through a sink may still be in flight: the pipeline runner
     # invalidates again when it joins the ticket.
+    chunk_cache.invalidate(self.cloudpath, mip)
+
+  def _codec_args(self, mip: int):
+    """(encoding, cseg block size, codec keywords) of a scale's chunk
+    writes: the quality knob recorded by ``meta.set_encoding``."""
+    encoding = self.meta.encoding(mip)
+    enc_kw = {}
+    scale = self.meta.scale(mip)
+    if encoding == "jpeg" and "jpeg_quality" in scale:
+      enc_kw["jpeg_quality"] = int(scale["jpeg_quality"])
+    elif encoding == "png" and "png_level" in scale:
+      enc_kw["png_level"] = int(scale["png_level"])
+    return encoding, self.meta.cseg_block_size(mip), enc_kw
+
+  # -- deletion -------------------------------------------------------------
+
+  def delete(self, bbox: Bbox, mip: Optional[int] = None):
+    """Delete every chunk file covering ``bbox``, which must be chunk
+    aligned (or clipped at the bounds)."""
+    mip = self.mip if mip is None else mip
+    cs = self.meta.chunk_size(mip)
+    offset = self.meta.voxel_offset(mip)
+    if bbox != bbox.expand_to_chunk_size(cs, offset).clamp(self.meta.bounds(mip)):
+      raise AlignmentError(f"delete bbox {bbox} must be chunk aligned")
+    self.cf.delete([
+      self.meta.chunk_name(mip, c) for c in chunk_bboxes(bbox, cs, offset=offset)
+    ])
     chunk_cache.invalidate(self.cloudpath, mip)
 
   def __repr__(self):

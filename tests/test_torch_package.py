@@ -68,6 +68,8 @@ import igneous_tpu_torch.queues.queue, igneous_tpu_torch.parallel.lease_batcher
 import igneous_tpu_torch.retry, igneous_tpu_torch.storage_http, igneous_tpu_torch.storage_gcs
 import igneous_tpu_torch.storage_s3, igneous_tpu_torch.integrity
 import igneous_tpu_torch.tasks.audit, igneous_tpu_torch.task_creation.audit
+import igneous_tpu_torch.sharding, igneous_tpu_torch.sharded_image
+import igneous_tpu_torch.tasks.image_sharded
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'igneous_tpu')]
 assert not bad, bad
 from igneous_tpu_torch.ops import _build

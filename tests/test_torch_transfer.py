@@ -12,8 +12,8 @@ compressed-domain passthrough off, and once at its default on a
 passthrough-eligible transfer, which the port moves the same way); mesh and skeleton
 forge+merge from a compressed_segmentation source; a TransferTask payload
 the JAX package serialized; ``image xfer`` and ``image downsample
---encoding`` on both command lines; and the refused options, which
-write nothing.
+--encoding`` on both command lines; and the refused options (graphene,
+also of the sharded transfer and downsample), which write nothing.
 """
 
 import json
@@ -470,6 +470,10 @@ def test_cli_xfer_defaults_match_reference(tmp_path, monkeypatch):
 @pytest.mark.parametrize("option", ["agglomerate", "timestamp", "stop_layer",
                                     "sharded_source", "sharded_dest", "cli_sharded"])
 def test_refused_options_write_nothing(tmp_path, option):
+  """The graphene options of the transfer and of its sharded forms, and
+  the command line's ``--sharded --isotropic``, are refused before
+  anything is written. (Sharded scales themselves are ported:
+  ``tests/test_torch_sharded_image.py``.)"""
   data = segmentation((64, 64, 32))
   src = tmp_path / "src"
   JaxVolume.from_numpy(data, f"file://{src}", resolution=(8, 8, 40), chunk_size=(32, 32, 32))
@@ -488,9 +492,13 @@ def test_refused_options_write_nothing(tmp_path, option):
     info["scales"][0]["sharding"] = {"@type": "neuroglancer_uint64_sharded_v1"}
     (dest / "info").write_text(json.dumps(info))
     dest_before = _files(dest)
-  with pytest.raises(NotImplementedError):
+  with pytest.raises(SystemExit if option == "cli_sharded" else NotImplementedError):
     if option == "cli_sharded":
-      cli_main(["image", "xfer", f"file://{src}", f"file://{dest}", "--sharded"])
+      cli_main(["image", "downsample", f"file://{src}", "--sharded", "--isotropic"])
+    elif option == "sharded_source":
+      tc.create_image_shard_transfer_tasks(f"file://{src}", f"file://{dest}", stop_layer=2)
+    elif option == "sharded_dest":
+      tc.create_image_shard_downsample_tasks(f"file://{dest}", agglomerate=True)
     else:
       tc.create_transfer_tasks(f"file://{src}", f"file://{dest}", **kw)
   assert _files(src) == before
