@@ -1,16 +1,17 @@
 """Drive igneous_tpu_torch's downsample, transfer, connected-components,
-meshing, skeleton, morphology, census and inference paths, solo, batched,
-pipelined, through the queue worker, on gs:// and s3:// and into sharded
-scales, on one NVIDIA GPU and check them.
+meshing, skeleton, morphology, census, inference and contrast paths, solo,
+batched, pipelined, through the queue worker, on gs:// and s3:// and into
+sharded scales, and its image surface (ROIs, spatial index, reorder,
+ingest), on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each reported on its own line:
   1. build: compile the kernel sources (csrc/pooling.cu, csrc/ccl.cu,
-     csrc/edt.cu) with nvcc and the host libraries of the mesh and skeleton
-     paths and the chunk codec (csrc/simplify.cpp, csrc/dijkstra.cpp,
-     csrc/fggraph.cpp, csrc/cseg.cpp) with g++, one process per source,
-     started together;
+     csrc/edt.cu, csrc/clahe.cu) with nvcc and the host libraries of the
+     mesh and skeleton paths and the chunk codec (csrc/simplify.cpp,
+     csrc/dijkstra.cpp, csrc/fggraph.cpp, csrc/cseg.cpp) with g++, one
+     process per source, started together;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, bit for bit, at the main paths' shapes, with its time (device
      time: calls captured in a CUDA graph and replayed between CUDA
@@ -28,7 +29,12 @@ Phases, each reported on its own line:
      passes on seeded random values along each axis, first and not, on
      the first and the long-line cases; the worst stack depth (one label,
      equal values) along each axis, timed; edt_pass's bound the larger of
-     its bytes and its FP64 work counted on this run's data;
+     its bytes and its FP64 work counted on this run's data; clahe on five
+     cases (the first default CLAHE task's padded cutout of phase 14,
+     2304x2304x64 uint8, grid 8, clip 40; the same cutout as uint16; a
+     uint16 stack whose extents do not divide by the grid; rows that divide
+     by the grid and columns that do not; clip 0), each bound the bytes of
+     the planes in and out, each with the memory its launch took;
   3. e2e downsample: four file:// layers through Volume.from_numpy ->
      create_downsampling_tasks -> LocalTaskQueue -> DownsampleTask, every
      produced mip read back and compared with the plain pyramid computed
@@ -239,11 +245,28 @@ Phases, each reported on its own line:
      and (b) read back through Volume equal to phase 3's solo mips; each run
      prints its wall, stage split, the card's busy share (device ledger) and
      peak card memory;
+  14. contrast and the image surface (after phase 13, on phase 3's smooth
+     image; (e) after phase 5, on its layer), through the command line and
+     LocalTaskQueue: on a 2560x2560x64 crop, (a) `image contrast histogram`
+     at its defaults, each levels file equal to a numpy recomputation of
+     the same sampled columns; (b) `image contrast equalize` in 4 tasks,
+     every voxel the float32 stretch computed in numpy; (c) `image contrast
+     clahe` at its defaults (4 tasks of 2048x2048x64, grid 8, clip 40), one
+     clahe launch a task, every voxel clahe_plain on the card over the same
+     padded cutouts; (d) `image roi --threshold 170` (max axial length 512:
+     three 2x2x1 rounds, one pyramid2x2x1 launch; tile_resolve), the ROIs
+     and the info's equal to scipy.ndimage's on the plain pyramid; (e) `mesh
+     spatial-index create` of phase 5's layer into a second prefix, each
+     .spatial file equal to a numpy oracle of the boxes, in its key order;
+     (f) `image create` from an .npy and an .nrrd of a 512x512x64 crop and
+     (g) `image reorder` of the first with z reversed, each read back. Each
+     run prints its wall, the card's busy share (device ledger), launches
+     and peak card memory;
   7. the card's name and power limit, the programs line (X1-X3, X5-X7),
      the kernels line (each kernel's launches on the main paths, the
      transfer, the batched phase, the pipelined streams, the worker phase,
-     where each of the four must have launched, the storage phase and the
-     sharded phase),
+     where each of the four must have launched, the storage phase, the
+     sharded phase and phase 14),
      and the result.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -4314,6 +4337,345 @@ def sharded_phase(root, cp, cc, ce, torch, dev) -> dict:
   return launches
 
 
+# ---------------------------------------------------------------------------
+# contrast correction and the image surface (phase 14)
+
+# the JAX package's CLAHE: OpenCV on the host, no TPU kernel
+CLAHE_REPLACES = "igneous_tpu/tasks/contrast.py:245"
+# a crop of phase 3's smooth image that the default CLAHE task grid
+# (2048x2048x64) cuts into 4 tasks, edges, pads and sizes that do not
+# divide by the grid among them; and a small crop for the host commands
+CONTRAST_CROP = (2560, 2560, 64)
+SURFACE_CROP = (512, 512, 64)
+CLAHE_TASK, CLAHE_GRID, CLAHE_CLIP = (2048, 2048, 64), (8, 8), 40.0
+EQUALIZE_SHAPE = (1280, 1280, 64)
+ROI_THRESHOLD = 170
+SPATIAL_PREFIX = "mesh_index2"
+
+
+def clahe_kernel_phase(cl, clahe_ops, torch, dev):
+  """The clahe kernel against clahe_plain on the card, bit for bit: the
+  first default task's padded cutout of phase 14 (2304x2304x64 uint8, the
+  smooth surrogate, grid 8, clip 40), the same cutout as uint16, a uint16
+  stack whose extents do not divide by the grid, rows that divide and
+  columns that do not, and clip 0. Bound: the planes' bytes in and out over
+  the memory rate (the LUTs of 8-bit planes are 256 entries a tile).
+  ``kernel_mib``: the most the card held during one launch beyond what it
+  held before, the output included."""
+  rng = np.random.default_rng(14)
+  img = smooth_image((2304, 2304, 64), rng, torch, dev)  # (x, y, z) F order
+  planes = torch.from_numpy(np.ascontiguousarray(img.transpose(2, 1, 0))).to(dev)
+  # 16-bit planes: the smooth image's bytes as high bytes, random low bytes
+  img16 = img.astype(np.uint16) * np.uint16(257)
+  img16 += rng.integers(0, 257, img16.shape, dtype=np.uint16)
+  planes16 = torch.from_numpy(np.ascontiguousarray(img16.transpose(2, 1, 0))).to(dev)
+  del img, img16
+  inputs = [
+    ("uint8 grid 8 clip 40, the first task's padded cutout 2304x2304x64", planes, 40.0),
+    ("uint16 grid 8 clip 40, the same cutout as uint16 2304x2304x64", planes16, 40.0),
+    ("uint16 grid 8 clip 40, 1030x1030x16",
+     planes16[:16, :1030, :1030].contiguous(), 40.0),
+    ("uint8 grid 8 clip 40, rows 2304 divide, columns 2050 do not",
+     planes[:, :2050].contiguous(), 40.0),
+    ("uint8 grid 8 clip 0, 2304x2304x64", planes, 0.0),
+  ]
+  cases = []
+  for label, x, clip in inputs:
+    def kernel(x=x, clip=clip):
+      return cl.launch(x, clip, CLAHE_GRID)
+
+    def plain(x=x, clip=clip):
+      return clahe_ops.clahe_plain(x.permute(2, 1, 0), clip, CLAHE_GRID).permute(2, 1, 0)
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = kernel()
+    torch.cuda.synchronize()
+    kernel_mib = (torch.cuda.max_memory_allocated(dev) - held) / 2 ** 20
+    again = kernel()
+    ref = plain()
+    torch.cuda.synchronize()
+    err = max_abs_err([out, again], [ref, ref])
+    del out, again, ref
+    nbytes = 2 * x.numel() * x.element_size()
+    case = {
+      "kernel": "clahe", "case": label, "max_abs_err": err, "kernel_mib": kernel_mib,
+      "ms": device_ms(kernel), "call_ms": cuda_ms(kernel, reps=10),
+      "plain_ms": cuda_ms(plain, reps=2, warmup=1),
+      "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+    }
+    print("kernel " + json.dumps(case), flush=True)
+    if err > TOLERANCE:
+      fail(f"clahe {label}: max abs err {err} against its plain version")
+    cases.append(case)
+  del planes, planes16, inputs
+  torch.cuda.empty_cache()
+  return cases
+
+
+def stretch_bounds(levels, clip_fraction: float):
+  """(low, high) bins clipping ``clip_fraction`` of the mass a tail (the
+  equalize command's own rule, written out here as the oracle)."""
+  levels = np.asarray(levels)
+  total = levels.sum()
+  if total == 0:
+    return 0, 255
+  cdf = np.cumsum(levels) / total
+  lower = int(np.searchsorted(cdf, clip_fraction))
+  upper = int(np.searchsorted(cdf, 1.0 - clip_fraction))
+  return lower, min(max(upper, lower + 1), 255)
+
+
+def write_nrrd(path: str, arr: np.ndarray) -> None:
+  header = (f"NRRD0004\ntype: uint8\ndimension: 3\nsizes: {' '.join(map(str, arr.shape))}\n"
+            "encoding: raw\nendian: little\n\n").encode()
+  with open(path, "wb") as f:
+    f.write(header + np.asfortranarray(arr).tobytes(order="F"))
+
+
+def surface_run(label, args, cp, cc, ce, cl, torch, dev, card=True):
+  """One command of phase 14, timed, the launch counts set to 0 just
+  before; ``card=False``: host work only (the ledger records none).
+  Returns what it printed and its launches."""
+  from igneous_tpu_torch import chunk_cache, telemetry
+
+  zero_counts(cp, cc, ce, cl)
+  telemetry.reset()
+  chunk_cache.clear()
+  ledger_reset(torch, dev)
+  t0 = time.perf_counter()
+  text = run_cli(args)
+  wall = time.perf_counter() - t0
+  launched = launch_counts(cp, cc, ce, cl)
+  busy = 0.0
+  if card:
+    snap = ledger_line(f"surface {label}", wall, launched)
+    busy = snap["busy_s"]
+    if card_executes(snap, "clahe") != launched["clahe"]:
+      fail(f"surface {label}: clahe executes {card_executes(snap, 'clahe')} on the "
+           f"card, launches {launched['clahe']}")
+  print(f"surface {label}: wall {wall:.3f} s, card busy {100 * busy / wall:.2f}% "
+        f"(ledger), peak card memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, "
+        f"launches {json.dumps(launched)}, stages (thread-s) "
+        f"{json.dumps(stage_split(telemetry.snapshot()))}", flush=True)
+  return text, launched
+
+
+def surface_phase(root, cp, cc, ce, cl, clahe_ops, torch, dev) -> dict:
+  """Phase 14 (a)-(d), (f), (g) on crops of phase 3's smooth image (see
+  the module docstring). Returns the kernels' launches, each run's counts
+  set to 0 just before it."""
+  import os
+
+  from scipy import ndimage
+
+  from igneous_tpu_torch import Volume
+  from igneous_tpu_torch.lib import Bbox
+
+  t_phase = time.perf_counter()
+  launches = {k: 0 for k in launch_counts(cp, cc, ce, cl)}
+
+  def run(label, args, card=True):
+    text, launched = surface_run(label, args, cp, cc, ce, cl, torch, dev, card)
+    for k, n in launched.items():
+      launches[k] += n
+    return text, launched
+
+  crop_layer(os.path.join(root, "smooth_image"), os.path.join(root, "contrast_src"),
+             CONTRAST_CROP)
+  src = f"file://{root}/contrast_src"
+  vol = Volume(src)
+  data = vol.download(vol.bounds)[..., 0]  # (x, y, z)
+  sx, sy, sz = CONTRAST_CROP
+
+  # (a) the luminance levels: the JAX package's sampled columns, in numpy
+  _, launched = run("(a) image contrast histogram", ["image", "contrast", "histogram", src])
+  if any(launched.values()):
+    fail(f"surface (a): a hand kernel launched {launched}")
+  rng = np.random.default_rng(0)  # the task's seed: its offset's z
+  patch = 256
+  n = max(int(np.ceil(sx * sy * 0.01 / patch**2)), 1)
+  xs = rng.integers(0, sx - patch + 1, size=n)
+  ys = rng.integers(0, sy - patch + 1, size=n)
+  hists = np.zeros((sz, 256), np.int64)
+  for px, py in zip(xs, ys):
+    col = data[px:px + patch, py:py + patch, :]
+    for dz in range(sz):
+      hists[dz] += np.bincount(col[:, :, dz].ravel(), minlength=256)
+  levels = []
+  for z in range(sz):
+    with open(os.path.join(root, "contrast_src", "levels", "0", str(z))) as f:
+      doc = json.load(f)
+    want = {"levels": hists[z].tolist(), "bin_width": 1, "patch_size": [patch, patch, 1],
+            "num_samples": n * patch * patch, "coverage_ratio": 0.01}
+    if doc != want:
+      fail(f"surface (a): levels/0/{z} differs from the numpy recomputation")
+    levels.append(doc["levels"])
+  print(f"surface (a): {sz} levels files equal to the numpy recomputation of {n} "
+        f"sampled {patch}x{patch}x{sz} column(s)", flush=True)
+
+  # (b) the stretch, in 4 tasks; the oracle per z in numpy float32
+  dst = f"file://{root}/contrast_eq"
+  _, launched = run("(b) image contrast equalize",
+                    ["image", "contrast", "equalize", src, dst,
+                     "--shape", ",".join(map(str, EQUALIZE_SHAPE))])
+  if any(launched.values()):
+    fail(f"surface (b): a hand kernel launched {launched}")
+  got = Volume(dst)
+  got = got.download(got.bounds)[..., 0]
+  for z in range(sz):
+    low, high = stretch_bounds(levels[z], 0.01)
+    plane = data[:, :, z].astype(np.float32)
+    want = (plane - np.float32(low)) / np.float32(max(high - low, 1)) * np.float32(255)
+    want = np.clip(np.round(want + np.float32(0)), 0, 255).astype(np.uint8)
+    if not np.array_equal(got[:, :, z], want):
+      fail(f"surface (b): z {z} differs from the numpy stretch")
+  del got
+  print(f"surface (b): {len(os.listdir(os.path.join(root, 'contrast_eq', '8_8_40')))} "
+        f"chunk files, every voxel the numpy stretch", flush=True)
+
+  # (c) CLAHE at its defaults: every core against clahe_plain on the card
+  dst = f"file://{root}/contrast_clahe"
+  _, launched = run("(c) image contrast clahe", ["image", "contrast", "clahe", src, dst])
+  tasks = int(np.prod([-(-s // t) for s, t in zip(CONTRAST_CROP, CLAHE_TASK)]))
+  if launched["clahe"] != tasks or sum(launched.values()) != tasks:
+    fail(f"surface (c): launches {launched}, expected clahe once in each of {tasks} tasks")
+  out = Volume(dst)
+  for tx in range(0, sx, CLAHE_TASK[0]):
+    for ty in range(0, sy, CLAHE_TASK[1]):
+      core = Bbox((tx, ty, 0), (min(tx + CLAHE_TASK[0], sx), min(ty + CLAHE_TASK[1], sy), sz))
+      pad = np.asarray(core.size3()[:2]) // np.asarray(CLAHE_GRID)
+      lo = np.maximum(np.asarray(core.minpt[:2]) - pad, 0)
+      hi = np.minimum(np.asarray(core.maxpt[:2]) + pad, (sx, sy))
+      cut = np.ascontiguousarray(data[lo[0]:hi[0], lo[1]:hi[1], :].transpose(2, 1, 0))
+      ref = clahe_ops.clahe_plain(torch.from_numpy(cut).to(dev).permute(2, 1, 0),
+                                  CLAHE_CLIP, CLAHE_GRID)
+      a = np.asarray(core.minpt[:2]) - lo
+      b = np.asarray(core.maxpt[:2]) - lo
+      want = ref[a[0]:b[0], a[1]:b[1], :].cpu().numpy()
+      if not np.array_equal(out.download(core)[..., 0], want):
+        fail(f"surface (c): the task at {core} differs from clahe_plain on its cutout")
+      del ref
+  torch.cuda.empty_cache()
+  print(f"surface (c): {tasks} tasks, every voxel clahe_plain on the card over the same "
+        f"padded cutouts", flush=True)
+
+  # (d) ROIs: 2x2x1 rounds until the plane fits 512^2 (three, to 320x320),
+  # then 6-connected components
+  text, launched = run("(d) image roi", ["image", "roi", src, "--threshold", ROI_THRESHOLD])
+  rounds, (rx, ry) = 0, CONTRAST_CROP[:2]
+  while rx * ry > 512**2:
+    rounds, rx, ry = rounds + 1, (rx + 1) // 2, (ry + 1) // 2
+  if (launched["pyramid2x2x1"] != min(rounds, 1) or launched["tile_resolve"] < 1
+      or launched["clahe"]):
+    fail(f"surface (d): launches {launched}, expected one pyramid2x2x1 (L={rounds}) "
+         f"and tile_resolve")
+  small = data
+  if rounds:
+    x = torch.from_numpy(np.ascontiguousarray(data.transpose(2, 1, 0))).to(dev)[None]
+    small = cp.pyramid2x2x1_plain(x, rounds, "average")[-1][0].cpu().numpy().transpose(2, 1, 0)
+    del x
+    torch.cuda.empty_cache()
+  labeled, _ = ndimage.label(small > ROI_THRESHOLD)
+  res = np.asarray([8, 8, 40])
+  scale = np.asarray([2**rounds, 2**rounds, 1])
+  want_rois, want_info = [], []
+  for sl in ndimage.find_objects(labeled):
+    if np.prod([s.stop - s.start for s in sl]) < 100:
+      continue
+    mn = np.asarray([s.start for s in sl]) * scale * res
+    mx = np.asarray([s.stop for s in sl]) * scale * res
+    want_rois.append(f"Bbox({list(map(int, mn))}, {list(map(int, mx))})")
+    want_info.append([int(v) for v in mn // res] + [int(v) - 1 for v in mx // res])
+  lines = text.splitlines()
+  if lines[:-1] != want_rois or lines[-1] != f"{len(want_rois)} ROI detected. info file updated.":
+    fail("surface (d): the ROIs differ from scipy.ndimage's on the plain pyramid")
+  if Volume(src).info["scales"][0].get("rois") != want_info:
+    fail("surface (d): the info's rois differ from scipy.ndimage's")
+  print(f"surface (d): {len(want_rois)} ROIs (of {labeled.max()} components) equal to "
+        f"scipy.ndimage's, in its order, and in the info", flush=True)
+  del data, labeled, small
+
+  # (f) ingest a small crop from .npy and .nrrd; (g) reorder it, z reversed
+  small = Volume(src).download(Bbox((0, 0, 0), SURFACE_CROP))[..., 0]
+  npy, nrrd = os.path.join(root, "surface.npy"), os.path.join(root, "surface.nrrd")
+  np.save(npy, small)
+  write_nrrd(nrrd, small)
+  for kind, path in (("npy", npy), ("nrrd", nrrd)):
+    dst = f"file://{root}/created_{kind}"
+    run(f"(f) image create .{kind}", ["image", "create", path, dst, "--resolution", "8,8,40",
+                                      "--chunk-size", "128,128,1"], card=False)
+    got = Volume(dst)
+    if not np.array_equal(got.download(got.bounds)[..., 0], small):
+      fail(f"surface (f): the layer created from .{kind} differs from the crop")
+  mapping = os.path.join(root, "reverse_z.json")
+  with open(mapping, "w") as f:
+    json.dump({str(z): SURFACE_CROP[2] - 1 - z for z in range(SURFACE_CROP[2])}, f)
+  dst = f"file://{root}/reordered"
+  run("(g) image reorder", ["image", "reorder", f"file://{root}/created_npy", dst, mapping],
+      card=False)
+  got = Volume(dst)
+  if not np.array_equal(got.download(got.bounds)[..., 0], small[:, :, ::-1]):
+    fail("surface (g): the reordered layer is not the crop with z reversed")
+  print("surface (f)-(g): both created layers and the reordered one read back equal",
+        flush=True)
+  print(f"surface: phase wall (a)-(d), (f), (g) {time.perf_counter() - t_phase:.1f} s",
+        flush=True)
+  return launches
+
+
+def spatial_index_phase(root, cp, cc, ce, cl, torch, dev) -> float:
+  """Phase 14 (e) on phase 5's mesh layer: `mesh spatial-index create`
+  into a second prefix, each .spatial file (label order included) equal
+  to a numpy oracle: the labels in numpy's order, each one's box from
+  ndimage.find_objects. Returns the part's wall."""
+  import gzip
+  import os
+
+  from scipy import ndimage
+
+  from igneous_tpu_torch import Volume
+  from igneous_tpu_torch.lib import Bbox
+
+  t0 = time.perf_counter()
+  path = f"file://{root}/mesh_segmentation"
+  run_args = ["mesh", "spatial-index", "create", path, "--mesh-dir", SPATIAL_PREFIX]
+  _, launched = surface_run("(e) mesh spatial-index create", run_args, cp, cc, ce, cl,
+                            torch, dev)
+  if any(launched.values()):
+    fail(f"surface (e): a hand kernel launched {launched}")
+  vol = Volume(path)
+  res = np.asarray(vol.resolution)
+  bounds = vol.bounds
+  files = 0
+  for x0 in range(0, int(bounds.maxpt[0]), 448):
+    for y0 in range(0, int(bounds.maxpt[1]), 448):
+      for z0 in range(0, int(bounds.maxpt[2]), 448):
+        cell = Bbox.intersection(Bbox((x0, y0, z0), (x0 + 448, y0 + 448, z0 + 448)), bounds)
+        seg = vol.download(cell)[..., 0]
+        uniq = np.unique(seg)
+        dense = np.searchsorted(uniq, seg).astype(np.int32)
+        want = {}
+        for i, sl in enumerate(ndimage.find_objects(dense), start=1):
+          if sl is None or uniq[i] == 0:
+            continue
+          mn = (np.asarray([s.start for s in sl]) + np.asarray(cell.minpt)) * res
+          mx = (np.asarray([s.stop for s in sl]) + np.asarray(cell.minpt)) * res
+          want[str(int(uniq[i]))] = [list(map(float, mn)), list(map(float, mx))]
+        name = Bbox(cell.minpt * res, cell.maxpt * res).to_filename()
+        with open(os.path.join(root, "mesh_segmentation", SPATIAL_PREFIX,
+                               f"{name}.spatial.gz"), "rb") as f:
+          doc = json.loads(gzip.decompress(f.read()))
+        if list(doc.items()) != list(want.items()):
+          fail(f"surface (e): {name}.spatial differs from the numpy oracle")
+        files += 1
+  wall = time.perf_counter() - t0
+  print(f"surface (e): {files} .spatial files equal to the numpy oracle, keys in its order; "
+        f"part wall {wall:.3f} s", flush=True)
+  return wall
+
+
 def main() -> int:
   import argparse
   import os
@@ -4343,6 +4705,7 @@ def main() -> int:
     from igneous_tpu_torch.ops import _build, ccl as ccl_ops
     from igneous_tpu_torch.ops import cuda_ccl as cc, cuda_pooling as cp
     from igneous_tpu_torch.ops import cuda_edt as ce, edt as edt_ops
+    from igneous_tpu_torch.ops import clahe as clahe_ops, cuda_clahe as cl
   except ImportError as e:
     fail(f"igneous_tpu_torch is not importable here ({e}); run from the repo root")
 
@@ -4356,6 +4719,8 @@ def main() -> int:
   t0 = time.perf_counter()
   sources = ("pooling", "ccl", "edt")
   builds = [(b, name) for b in [_build] + [c[0] for _, c in copies] for name in sources]
+  # the kernel of phase 14, which the other copies need not have
+  builds += [(_build, "clahe")]
   # the host libraries of the mesh and skeleton paths and the codec (g++)
   host_libs = ("simplify", "dijkstra", "fggraph", "cseg")
   builds += [(_build, name) for name in host_libs]
@@ -4363,7 +4728,7 @@ def main() -> int:
     # one compiler per source, together
     list(pool.map(lambda job: job[0].build(job[1]), builds))
   print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-  for name in sources + host_libs:
+  for name in sources + ("clahe",) + host_libs:
     log = _build.BUILD_LOG[name]
     print(f"build {name}: {log['seconds']:.1f} s", flush=True)
     for line in log["ptxas"].splitlines():
@@ -4373,6 +4738,7 @@ def main() -> int:
   cases = kernel_phase(cp, torch, dev, [(k, c[2]) for k, c in copies])
   ccl_cases = ccl_kernel_phase(cc, ccl_ops, torch, dev, [(k, c[1]) for k, c in copies])
   edt_cases = edt_kernel_phase(ce, edt_ops, torch, dev, [(k, c[3]) for k, c in copies])
+  clahe_cases = clahe_kernel_phase(cl, clahe_ops, torch, dev)
   if copies:
     print(f"wall: {time.perf_counter() - t_all:.1f} s")
     print(card_line())
@@ -4407,6 +4773,9 @@ def main() -> int:
     x7 = inference_phase(root, cp, cc, ce, torch, dev)
     storage_launches = storage_phase(root, cp, cc, ce, torch, dev)
     sharded_launches = sharded_phase(root, cp, cc, ce, torch, dev)
+    t_surface = time.perf_counter()
+    surface_launches = surface_phase(root, cp, cc, ce, cl, clahe_ops, torch, dev)
+    t_surface = time.perf_counter() - t_surface
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches["tile_resolve"] = ccl_e2e_phase(root, cc, cp, torch, dev)
     t_phase = time.perf_counter()
@@ -4422,6 +4791,8 @@ def main() -> int:
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     programs = mesh_e2e_phase(root, torch, dev,
                               simplify_threads=args.mesh_simplify_threads)
+    t_surface += spatial_index_phase(root, cp, cc, ce, cl, torch, dev)
+  print(f"surface: phase wall {t_surface:.1f} s", flush=True)
   if any(cc.LAUNCHES.values()) or any(cp.LAUNCHES.values()) or any(ce.LAUNCHES.values()):
     fail("mesh: the pooling, CCL or EDT kernels ran on the mesh path")
   for counts in (cc.LAUNCHES, cp.LAUNCHES):
@@ -4466,6 +4837,7 @@ def main() -> int:
       "launches_worker": worker_launches[name],
       "launches_storage": storage_launches[name],
       "launches_sharded": sharded_launches[name],
+      "launches_surface": surface_launches[name],
       "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == name),
       "ms": first["ms"], "plain_ms": first["plain_ms"],
       "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -4479,6 +4851,7 @@ def main() -> int:
     "launches": launches["tile_resolve"],
     "launches_batched": batched_launches["tile_resolve"],
     "launches_worker": worker_launches["tile_resolve"],
+    "launches_surface": surface_launches["tile_resolve"],
     "max_abs_err": max(c["max_abs_err"] for c in ccl_cases),
     "ms": first["ms"], "plain_ms": first["plain_ms"],
     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -4492,6 +4865,16 @@ def main() -> int:
     "launches_batched": batched_launches["edt_pass"],
     "launches_worker": worker_launches["edt_pass"],
     "max_abs_err": max(c["max_abs_err"] for c in edt_cases),
+    "ms": first["ms"], "plain_ms": first["plain_ms"],
+    "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+    "library_ms": None, "case": first["case"],
+  })
+  first = clahe_cases[0]  # the first default CLAHE task's cutout
+  kernels.append({
+    "name": "clahe", "route": "cuda",
+    "source": "igneous_tpu_torch/csrc/clahe.cu",
+    "replaces": CLAHE_REPLACES, "launches": surface_launches["clahe"],
+    "max_abs_err": max(c["max_abs_err"] for c in clahe_cases),
     "ms": first["ms"], "plain_ms": first["plain_ms"],
     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
     "library_ms": None, "case": first["case"],

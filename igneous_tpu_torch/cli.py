@@ -1,17 +1,22 @@
 """The port's command line: ``python -m igneous_tpu_torch image
-{downsample [--batched|--sharded|--isotropic],xfer [--sharded],infer,rm}``,
+{downsample [--batched|--sharded|--isotropic],xfer [--sharded],infer,rm,
+roi,reorder,create}``, ``python -m igneous_tpu_torch image contrast
+{histogram,equalize,clahe}``,
 ``python -m igneous_tpu_torch image voxels {count,sum}``,
 ``python -m igneous_tpu_torch image ccl {faces,links,
 calc-labels,relabel,clean,auto}``, ``python -m igneous_tpu_torch mesh
-{forge,merge}``, ``python -m igneous_tpu_torch skeleton {forge,merge}``,
+{forge,merge,spatial-index create}``, ``python -m igneous_tpu_torch
+skeleton {forge,merge,spatial-index create}``,
 ``python -m igneous_tpu_torch execute``, ``python -m igneous_tpu_torch
 queue {status,wait,release,purge,rezero,fsck,cp,mv,dlq {ls,retry,purge}}``,
 ``python -m igneous_tpu_torch audit`` and ``python -m igneous_tpu_torch
 tune``.
 
-A minimal counterpart of ``igneous-tpu image downsample|xfer|infer|rm``,
-``igneous-tpu image voxels count|sum``, ``igneous-tpu image ccl``,
-``igneous-tpu mesh forge|merge``, ``igneous-tpu skeleton forge|merge``,
+A minimal counterpart of ``igneous-tpu image
+downsample|xfer|infer|rm|roi|reorder|create``, ``igneous-tpu image
+contrast``, ``igneous-tpu image voxels count|sum``, ``igneous-tpu image
+ccl``, ``igneous-tpu mesh forge|merge|spatial-index create``,
+``igneous-tpu skeleton forge|merge|spatial-index create``,
 ``igneous-tpu execute``, ``igneous-tpu queue``, ``igneous-tpu audit`` and
 ``igneous-tpu tune`` (``igneous_tpu/cli.py``), with the same option
 names; an option the port does not have is refused by the parser, and the
@@ -32,6 +37,19 @@ def _tuple3(text: str):
   parts = [int(v) for v in text.split(",")]
   if len(parts) != 3:
     raise argparse.ArgumentTypeError(f"{text!r} is not an int triple like 2,2,1")
+  return tuple(parts)
+
+
+def _tuple2or1(text: str):
+  """'8' or '8,8' -> (8, 8)."""
+  try:
+    parts = [int(v) for v in text.split(",")]
+  except ValueError:
+    raise argparse.ArgumentTypeError(f"{text!r} is not like 8 or 8,8")
+  if len(parts) == 1:
+    parts = parts * 2
+  if len(parts) != 2:
+    raise argparse.ArgumentTypeError(f"{text!r} must have 1 or 2 components")
   return tuple(parts)
 
 
@@ -142,6 +160,15 @@ def build_parser() -> argparse.ArgumentParser:
   _add_infer(image.add_parser(
     "infer", help="Run conv-net inference over SRC into DEST."))
   _add_rm(image.add_parser("rm", help="Delete image chunks at mip (... mip+num-mips)."))
+  _add_contrast(image.add_parser(
+    "contrast", help="Luminance histograms, contrast stretch, CLAHE."
+  ).add_subparsers(dest="contrast_command", required=True))
+  _add_roi(image.add_parser(
+    "roi", help="Detect tissue regions of interest at the coarsest mip."))
+  _add_reorder(image.add_parser(
+    "reorder", help="Shuffle z-slices per a {dest_z: src_z} JSON mapping."))
+  _add_create(image.add_parser(
+    "create", help="Ingest an array file (npy/npy.gz/h5/nrrd/nii/nii.gz) as a layer."))
   _add_voxels(image.add_parser("voxels", help="Voxel statistics.").add_subparsers(
     dest="voxels_command", required=True))
   _add_ccl(image.add_parser(
@@ -772,6 +799,209 @@ def _run_rm(args) -> int:
   return 0
 
 
+def _bounds_mip_opt(cmd) -> None:
+  cmd.add_argument("--bounds-mip", type=int, default=None,
+                   help="Mip the ranges are specified in [default: --mip].")
+
+
+def _add_contrast(contrast) -> None:
+  cmd = contrast.add_parser("histogram", help="Phase 1: per-z luminance histograms.")
+  cmd.add_argument("path")
+  _queue_opt(cmd)
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--coverage", type=float, default=0.01)
+  cmd.add_argument("--fill-missing", action="store_true")
+  _range_opts(cmd)
+  _bounds_mip_opt(cmd)
+  cmd = contrast.add_parser("equalize",
+                            help="Phase 2: histogram stretch using phase-1 levels.")
+  cmd.add_argument("src")
+  cmd.add_argument("dest")
+  _queue_opt(cmd)
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--clip-fraction", type=float, default=0.01)
+  cmd.add_argument("--shape", type=_tuple3, default=None)
+  cmd.add_argument("--fill-missing", action="store_true")
+  cmd.add_argument("--minval", type=int, default=0, help="Stretch floor value.")
+  cmd.add_argument("--maxval", type=int, default=255, help="Stretch ceiling value.")
+  cmd.add_argument("--translate", type=_tuple3, default=(0, 0, 0))
+  _range_opts(cmd)
+  _bounds_mip_opt(cmd)
+  cmd = contrast.add_parser("clahe", help="Contrast-limited adaptive histogram equalization.")
+  cmd.add_argument("src")
+  cmd.add_argument("dest")
+  _queue_opt(cmd)
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--clip-limit", type=float, default=40.0)
+  cmd.add_argument("--tile-grid-size", "--tile-grid", dest="tile_grid", type=_tuple2or1,
+                   default=(8, 8), help="Size of the adaptive grid: 8 or 8,8.")
+  cmd.add_argument("--shape", type=_tuple3, default=(2048, 2048, 64))
+  cmd.add_argument("--fill-missing", action="store_true")
+  _range_opts(cmd)
+  _bounds_mip_opt(cmd)
+
+
+def _run_contrast(args) -> int:
+  from . import task_creation as tc
+
+  cmd = args.contrast_command
+  path = args.path if cmd == "histogram" else args.src
+  bounds_mip = args.mip if args.bounds_mip is None else args.bounds_mip
+  bounds = _cli_bounds(path, bounds_mip, args)
+  if cmd == "histogram":
+    tasks = tc.create_luminance_levels_tasks(
+      path, mip=args.mip, coverage_factor=args.coverage,
+      fill_missing=args.fill_missing, bounds=bounds, bounds_mip=bounds_mip,
+    )
+  elif cmd == "equalize":
+    tasks = tc.create_contrast_normalization_tasks(
+      args.src, args.dest, mip=args.mip, clip_fraction=args.clip_fraction,
+      shape=args.shape, fill_missing=args.fill_missing, minval=args.minval,
+      maxval=args.maxval, translate=args.translate, bounds=bounds,
+      bounds_mip=bounds_mip,
+    )
+  else:
+    tasks = tc.create_clahe_tasks(
+      args.src, args.dest, mip=args.mip, clip_limit=args.clip_limit,
+      tile_grid_size=args.tile_grid, shape=args.shape,
+      fill_missing=args.fill_missing, bounds=bounds, bounds_mip=bounds_mip,
+    )
+  enqueue(args.queue, tasks, args.parallel)
+  return 0
+
+
+def _add_roi(cmd) -> None:
+  cmd.add_argument("path")
+  cmd.add_argument("--threshold", type=float, default=0.0)
+  cmd.add_argument("--dust", type=int, default=100,
+                   help="Suppress components smaller than this many voxels.")
+  cmd.add_argument("--suppress-faint", type=int, default=0,
+                   help="Voxels at or below this value become background.")
+  cmd.add_argument("--max-axial-len", type=int, default=512,
+                   help="Downsample in memory until XY fits this square.")
+  cmd.add_argument("--z-step", type=int, default=None,
+                   help="Evaluate ROIs per z-slab of this depth.")
+  cmd.add_argument("--progress", action="store_true")
+
+
+def _run_roi(args) -> int:
+  from . import task_creation as tc
+
+  rois = tc.compute_rois(
+    args.path, threshold=args.threshold, dust_threshold=args.dust,
+    suppress_faint_voxels=args.suppress_faint,
+    max_axial_length=args.max_axial_len, z_step=args.z_step,
+    progress=args.progress,
+  )
+  for roi in rois:
+    print(str(roi))
+  print(f"{len(rois)} ROI detected. info file updated.")
+  return 0
+
+
+def _add_reorder(cmd) -> None:
+  cmd.add_argument("src")
+  cmd.add_argument("dest")
+  cmd.add_argument("mapping_json", nargs="?", default=None,
+                   help="JSON file of {dest_z: src_z}.")
+  cmd.add_argument("--mapping-file", default=None,
+                   help="JSON file of {dest_z: src_z} (flag form).")
+  _queue_opt(cmd)
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--fill-missing", action="store_true")
+  cmd.add_argument("--encoding", default=None)
+  cmd.add_argument("--encoding-level", type=int, default=None)
+  cmd.add_argument("--encoding-effort", type=int, default=None,
+                   help="(jpeg xl) accepted for parity; jxl is not shipped.")
+  cmd.add_argument("--compress", default="gzip")
+  cmd.add_argument("--delete-bg", action="store_true")
+  cmd.add_argument("--bg-color", type=int, default=0)
+
+
+def _run_reorder(parser, args) -> int:
+  import json
+  import os
+
+  from . import task_creation as tc
+
+  path = args.mapping_json or args.mapping_file
+  if not path:
+    parser.error("provide MAPPING_JSON or --mapping-file")
+  if not os.path.exists(path):
+    parser.error(f"mapping file {path!r} does not exist")
+  with open(path) as f:
+    mapping = json.load(f)
+  enqueue(args.queue, tc.create_reordering_tasks(
+    args.src, args.dest, mapping, mip=args.mip, fill_missing=args.fill_missing,
+    encoding=args.encoding, encoding_level=args.encoding_level,
+    compress=_resolve_compress(args.compress, args.encoding),
+    delete_black_uploads=args.delete_bg, background_color=args.bg_color,
+  ), args.parallel)
+  return 0
+
+
+def _add_create(cmd) -> None:
+  cmd.add_argument("src")
+  cmd.add_argument("dest")
+  cmd.add_argument("--resolution", type=_tuple3, default=(1, 1, 1))
+  cmd.add_argument("--offset", type=_tuple3, default=(0, 0, 0))
+  cmd.add_argument("--chunk-size", type=_tuple3, default=(64, 64, 64))
+  cmd.add_argument("--layer-type", default=None, choices=["image", "segmentation"])
+  cmd.add_argument("--seg", action="store_true",
+                   help="Shorthand for --layer-type segmentation.")
+  cmd.add_argument("--encoding", default="raw")
+  cmd.add_argument("--encoding-level", type=int, default=None,
+                   help="png level / jpeg quality.")
+  cmd.add_argument("--encoding-effort", type=int, default=None,
+                   help="(jpeg xl) accepted for parity; jxl is not shipped.")
+  cmd.add_argument("--compress", default="gzip",
+                   help="Chunk compression: none, gzip, br.")
+  cmd.add_argument("--h5-dataset", default="main",
+                   help="Which h5 dataset to access (hdf5 imports only).")
+
+
+def _run_create(parser, args) -> int:
+  from .formats import load_volume_file
+  from .volume import Volume
+
+  layer_type = "segmentation" if args.seg else args.layer_type
+  try:
+    arr = load_volume_file(args.src, h5_dataset=args.h5_dataset)
+  except (ValueError, OSError) as e:  # OSError: corrupt gzip members
+    parser.error(str(e))
+  Volume.from_numpy(
+    arr, args.dest, resolution=args.resolution, voxel_offset=args.offset,
+    chunk_size=args.chunk_size, layer_type=layer_type, encoding=args.encoding,
+    encoding_level=args.encoding_level,
+    compress=_resolve_compress(args.compress, args.encoding),
+  )
+  print(f"Created {args.dest} from {args.src} {arr.shape} {arr.dtype}")
+  return 0
+
+
+def _add_spatial_index(group, dir_flag: str, shape) -> None:
+  cmd = group.add_parser("spatial-index", help="Spatial-index maintenance.").add_subparsers(
+    dest="spatial_index_command", required=True)
+  cmd = cmd.add_parser("create", help="Rebuild the .spatial files from the segmentation.")
+  cmd.add_argument("path")
+  _queue_opt(cmd)
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--shape", type=_tuple3, default=shape)
+  cmd.add_argument(dir_flag, dest="index_dir", default=None)
+  cmd.add_argument("--fill-missing", action="store_true")
+
+
+def _run_spatial_index(args, dir_for) -> int:
+  from . import task_creation as tc
+  from .volume import Volume
+
+  enqueue(args.queue, tc.create_spatial_index_tasks(
+    args.path, dir_for(Volume(args.path), args.index_dir), mip=args.mip,
+    shape=args.shape, fill_missing=args.fill_missing,
+  ), args.parallel)
+  return 0
+
+
 def _add_infer(cmd) -> None:
   cmd.add_argument("src")
   cmd.add_argument("dest")
@@ -895,6 +1125,7 @@ def _add_mesh(mesh) -> None:
   cmd.add_argument("--mesher", default="cubes", choices=["cubes", "tetrahedra"])
   cmd.add_argument("--simplify-parallel", type=int, default=1,
                    help="threads for per-label simplification inside each task")
+  _add_spatial_index(mesh, "--mesh-dir", (448, 448, 448))
   cmd = mesh.add_parser("merge", help="Stage 2: write the legacy manifests.")
   cmd.add_argument("path")
   _queue_opt(cmd)
@@ -910,6 +1141,10 @@ def _add_mesh(mesh) -> None:
 def _run_mesh(args) -> int:
   from . import task_creation as tc
 
+  if args.command == "spatial-index":
+    from .tasks.mesh import mesh_dir_for
+
+    return _run_spatial_index(args, mesh_dir_for)
   if args.command == "merge":
     if args.nlod > 0:
       raise NotImplementedError(
@@ -980,6 +1215,7 @@ def _add_skeleton(skel) -> None:
   cmd.add_argument("--timestamp", type=int, default=None,
                    help="(graphene) not ported yet: raises.")
   cmd.add_argument("--root-ids", default=None, help="(graphene) not ported yet: raises.")
+  _add_spatial_index(skel, "--skel-dir", (512, 512, 512))
   cmd = skel.add_parser("merge", help="Stage 2: fuse each label's fragments.")
   cmd.add_argument("path")
   _queue_opt(cmd)
@@ -996,6 +1232,10 @@ def _add_skeleton(skel) -> None:
 def _run_skeleton(args) -> int:
   from . import task_creation as tc
 
+  if args.command == "spatial-index":
+    from .tasks.skeleton import skel_dir_for
+
+    return _run_spatial_index(args, skel_dir_for)
   if args.command == "merge":
     enqueue(args.queue, tc.create_unsharded_skeleton_merge_tasks(
       args.path, magnitude=args.magnitude, skel_dir=args.skel_dir,
@@ -1173,6 +1413,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     return _run_voxels(args)
   if args.command == "rm":
     return _run_rm(args)
+  if args.command == "contrast":
+    return _run_contrast(args)
+  if args.command == "roi":
+    return _run_roi(args)
+  if args.command == "reorder":
+    return _run_reorder(parser, args)
+  if args.command == "create":
+    return _run_create(parser, args)
   from .task_creation import create_downsampling_tasks, create_image_shard_downsample_tasks
 
   factor = args.factor

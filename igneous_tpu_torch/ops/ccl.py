@@ -33,6 +33,7 @@ from ..observability.device import execute_span, transfer_span
 from ..tune import resolve
 from . import cuda_ccl
 from .cuda_ccl import neighbor_offsets  # noqa: F401  (the port's ops.ccl API)
+from .mesh import labels_on_device, scatter_boxes
 
 _BIG = np.iinfo(np.int32).max
 _DEFAULT_TILE_CPU = (2, 4, 8)
@@ -355,6 +356,76 @@ def threshold_image(
   if threshold_lte is not None:
     fg &= img <= threshold_lte
   return fg.astype(np.uint8)
+
+
+def component_boxes(seg: torch.Tensor, n: int):
+  """Each label 0..n's box and first voxel, of a (z, y, x) int64 tensor of
+  labels 0..n on the device: int64 numpy lo, hi (n + 1, 3) as
+  ``mesh.scatter_boxes`` gives them, and first (n + 1,), the least flat
+  index in C order of the (x, y, z) volume (x slowest), where
+  ``ndimage.label`` meets the label first (the volume's size for an absent
+  label)."""
+  Z, Y, X = seg.shape
+  dev = seg.device
+  flat = seg.reshape(-1)
+  with execute_span("ccl.boxes", seg.numel(), seg.numel() * 8, dev,
+                    signature=(tuple(seg.shape),)):
+    lo, hi = scatter_boxes(flat, seg.shape, n)
+    x = torch.arange(X, dtype=torch.int64, device=dev).view(1, 1, X)
+    y = torch.arange(Y, dtype=torch.int64, device=dev).view(1, Y, 1)
+    z = torch.arange(Z, dtype=torch.int64, device=dev).view(Z, 1, 1)
+    cidx = ((x * Y + y) * Z + z).reshape(-1)
+    first = torch.full((n + 1,), X * Y * Z, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, flat, cidx, "amin")
+  with transfer_span("d2h", 8 * (n + 1) * 7, dev):
+    return lo.cpu().numpy(), hi.cpu().numpy(), first.cpu().numpy()
+
+
+def statistics(labels: np.ndarray) -> dict:
+  """cc3d.statistics parity: per-component voxel counts, bounding boxes and
+  centroids of a 1..N-labelled (x, y, z) volume (0 = background), computed
+  on the port's device. The same dict as the JAX package's
+  ``ops.ccl.statistics``: {"voxel_counts": (N+1,) uint64,
+  "bounding_boxes": [full-volume slices] + one slice triple per label
+  (None for an absent label), "centroids": (N+1, 3) float64}, NaN for the
+  background and for absent labels. A centroid is the float64 sum of its
+  integer coordinates over its count, both exact, so it equals
+  ``ndimage.center_of_mass`` bit for bit (an absent label's NaN is the
+  same 0 / 0). An empty volume raises ``ValueError``."""
+  labels = np.asarray(labels)
+  if labels.ndim != 3:
+    raise ValueError("labels must be (x, y, z)")
+  if not labels.size:
+    # as the JAX package's find_objects does
+    raise ValueError("statistics of an empty volume: no labels to measure")
+  N = int(labels.max())
+  dev = get_device()
+  seg, _ = labels_on_device(labels, (0, 0, 0), (0, 0, 0), dev)
+  Z, Y, X = seg.shape
+  flat = seg.reshape(-1)
+  with execute_span("ccl.statistics", seg.numel(), seg.numel() * 8, dev,
+                    signature=(tuple(seg.shape),)):
+    counts = torch.bincount(flat, minlength=N + 1)
+    lo, hi = scatter_boxes(flat, seg.shape, N)
+    sums = torch.zeros((3, N + 1), dtype=torch.int64, device=dev)
+    for a, (size, view) in enumerate(((X, (1, 1, X)), (Y, (1, Y, 1)), (Z, (Z, 1, 1)))):
+      coord = torch.arange(size, dtype=torch.int64, device=dev).view(view)
+      sums[a].scatter_add_(0, flat, coord.expand(Z, Y, X).reshape(-1))
+  del seg, flat
+  with transfer_span("d2h", 8 * (N + 1) * 10, dev):
+    counts, lo, hi, sums = (t.cpu().numpy() for t in (counts, lo, hi, sums.T))
+  boxes = [tuple(slice(0, s) for s in labels.shape)]
+  for label in range(1, N + 1):
+    boxes.append(
+      tuple(slice(int(a), int(b)) for a, b in zip(lo[label], hi[label]))
+      if counts[label] else None
+    )
+  centroids = np.full((N + 1, 3), np.nan, dtype=np.float64)
+  # an absent label's 0 / 0 is the NaN ndimage.center_of_mass gives it
+  with np.errstate(invalid="ignore"):
+    centroids[1:] = sums[1:].astype(np.float64) / counts[1:, None].astype(np.float64)
+  return {"voxel_counts": counts.astype(np.uint64), "bounding_boxes": boxes,
+          "centroids": centroids}
 
 
 class DisjointSet:

@@ -736,22 +736,29 @@ def _label_boxes(seg: torch.Tensor, flip_sign: bool):
     p = int(zero[0])
     inverse = torch.where(inverse < p, inverse + 1, inverse.masked_fill(inverse == p, 0))
   n = len(labels) - len(zero)
-  Z, Y, X = seg.shape
-  lo = torch.full((3, n + 1), max(X, Y, Z), dtype=torch.int32, device=seg.device)
-  hi = torch.full((3, n + 1), -1, dtype=torch.int32, device=seg.device)
+  lo, hi = scatter_boxes(inverse, seg.shape, n)
+  dense = inverse.view(seg.shape).to(torch.int32)
+  del inverse
+  return labels, counts.cpu().numpy(), dense, lo.cpu().numpy(), hi.cpu().numpy()
+
+
+def scatter_boxes(ids: torch.Tensor, shape, n: int):
+  """Each id 0..n's box among the flat int64 ids of a (z, y, x) volume of
+  ``shape``: int64 (n + 1, 3) tensors on the ids' device, the (x, y, z)
+  least coordinate and the greatest plus one, as ``ndimage.find_objects``'s
+  slices (an absent id keeps the volume's largest extent and 0)."""
+  Z, Y, X = shape
+  lo = torch.full((3, n + 1), max(X, Y, Z), dtype=torch.int32, device=ids.device)
+  hi = torch.full((3, n + 1), -1, dtype=torch.int32, device=ids.device)
   for a, (size, view) in enumerate(
     ((X, (1, 1, X)), (Y, (1, Y, 1)), (Z, (Z, 1, 1)))
   ):
-    coord = torch.arange(size, dtype=torch.int32, device=seg.device)
+    coord = torch.arange(size, dtype=torch.int32, device=ids.device)
     coord = coord.view(view).expand(Z, Y, X).reshape(-1)
-    lo[a].scatter_reduce_(0, inverse, coord, "amin")
-    hi[a].scatter_reduce_(0, inverse, coord, "amax")
+    lo[a].scatter_reduce_(0, ids, coord, "amin")
+    hi[a].scatter_reduce_(0, ids, coord, "amax")
     del coord
-  dense = inverse.view(Z, Y, X).to(torch.int32)
-  del inverse
-  lo = lo.T.cpu().numpy().astype(np.int64)
-  hi = hi.T.cpu().numpy().astype(np.int64) + 1
-  return labels, counts.cpu().numpy(), dense, lo, hi
+  return lo.T.to(torch.int64), hi.T.to(torch.int64) + 1
 
 
 def unique_on_device(img: np.ndarray, dev, return_inverse: bool = False,

@@ -15,14 +15,20 @@ from .ccl import (
   create_relabeling,
 )
 from .image import (
+  compute_rois,
   create_blackout_tasks,
+  create_clahe_tasks,
+  create_contrast_normalization_tasks,
   create_deletion_tasks,
   create_downsampling_tasks,
   create_fixup_downsample_tasks,
   create_image_shard_downsample_tasks,
   create_image_shard_transfer_tasks,
+  create_luminance_levels_tasks,
   create_quantize_tasks,
   create_quantized_affinity_info,
+  create_reordering_tasks,
+  create_spatial_index_tasks,
   create_touch_tasks,
   create_transfer_tasks,
   create_voxel_counting_tasks,

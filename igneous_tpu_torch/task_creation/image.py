@@ -1,6 +1,7 @@
 """Image task factories: the downsample pyramid (isotropic factors
 included), the transfer, their sharded forms, the layer-maintenance
-tasks and the voxel-count census.
+tasks, the voxel-count census, contrast correction, the spatial index,
+the z reorder and the ROI detection.
 
 Counterpart of ``igneous_tpu/task_creation/image.py``'s
 ``create_downsampling_tasks``, ``create_transfer_tasks``,
@@ -8,9 +9,12 @@ Counterpart of ``igneous_tpu/task_creation/image.py``'s
 ``create_image_shard_downsample_tasks``, ``create_deletion_tasks``,
 ``create_blackout_tasks``, ``create_touch_tasks``,
 ``create_quantized_affinity_info``, ``create_quantize_tasks``,
-``create_fixup_downsample_tasks`` and ``create_voxel_counting_tasks``:
-the same task shapes, scales, sharding specs, ``info`` and provenance,
-and the same payloads. Graphene sources (agglomerate / timestamp /
+``create_fixup_downsample_tasks``, ``create_voxel_counting_tasks``,
+``create_luminance_levels_tasks``, ``create_contrast_normalization_tasks``,
+``create_clahe_tasks``, ``create_spatial_index_tasks``,
+``create_reordering_tasks`` and ``compute_rois``: the same task shapes,
+scales, sharding specs, ``info`` (ROIs included) and provenance, and the
+same payloads. Graphene sources (agglomerate / timestamp /
 stop_layer) are refused before anything is written.
 """
 
@@ -31,6 +35,9 @@ from ..downsample_scales import (
 )
 from ..lib import Bbox, Vec, chunk_bboxes, jsonify
 from ..meta import PrecomputedMetadata
+from ..ops import pooling
+from ..ops.ccl import component_boxes, connected_components
+from ..ops.mesh import labels_on_device
 from ..sharding import create_sharded_image_info, image_shard_shape_from_spec
 from ..tasks.image import (
   BlackoutTask,
@@ -41,8 +48,15 @@ from ..tasks.image import (
   TransferTask,
   refuse_graphene,
 )
+from ..device import get_device
+from ..tasks.contrast import CLAHETask, ContrastNormalizationTask, LuminanceLevelsTask
 from ..tasks.image_sharded import ImageShardDownsampleTask, ImageShardTransferTask
-from ..tasks.stats import CountVoxelsTask, refuse_unported as refuse_graphene_census
+from ..tasks.stats import (
+  CountVoxelsTask,
+  ReorderTask,
+  SpatialIndexTask,
+  refuse_unported as refuse_graphene_census,
+)
 from ..volume import Volume
 from .common import GridTaskIterator, get_bounds, operator_contact
 
@@ -902,3 +916,318 @@ def create_voxel_counting_tasks(
     )
 
   return GridTaskIterator(task_bounds, shape, make_task)
+
+
+def create_luminance_levels_tasks(
+  src_path: str,
+  levels_path: Optional[str] = None,
+  mip: int = 0,
+  coverage_factor: float = 0.01,
+  shape: Optional[Sequence[int]] = None,
+  offset: Optional[Sequence[int]] = None,
+  bounds: Optional[Bbox] = None,
+  bounds_mip: Optional[int] = None,
+  fill_missing: bool = False,
+):
+  """Phase 1 of contrast correction: per-z histograms, one task per
+  chunk-z-aligned slab unless ``shape`` says otherwise (a task downloads
+  its sampled patches as whole z columns, so each stored chunk decodes
+  once)."""
+  vol = Volume(src_path, mip=mip)
+  if offset is not None and bounds is None and shape is not None:
+    # a shape/offset pair: one explicit task window
+    bounds = Bbox(Vec(*offset), Vec(*offset) + Vec(*shape))
+  task_bounds = get_bounds(
+    vol, bounds, mip, mip if bounds_mip is None else bounds_mip,
+    chunk_size=vol.meta.chunk_size(mip),
+  )
+  if shape is None:
+    sz3 = task_bounds.size3()
+    shape = (int(sz3.x), int(sz3.y), int(vol.meta.chunk_size(mip).z))
+  shape = Vec(*shape)
+
+  def make_task(shape_: Vec, offset: Vec):
+    return LuminanceLevelsTask(
+      src_path=src_path,
+      levels_path_=levels_path,
+      shape=shape_.tolist(),
+      offset=offset.tolist(),
+      mip=mip,
+      coverage_factor=coverage_factor,
+      fill_missing=fill_missing,
+    )
+
+  return GridTaskIterator(task_bounds, shape, make_task)
+
+
+def _same_geometry_info(src: Volume, mip: int, layer_type: str, chunk_size,
+                        encoding=None, voxel_offset=None) -> dict:
+  """The info of a new one-scale layer with scale ``mip`` of ``src``'s
+  geometry."""
+  scale = src.meta.scale(mip)
+  return PrecomputedMetadata.create_info(
+    num_channels=src.num_channels,
+    layer_type=layer_type,
+    data_type=src.meta.data_type,
+    encoding=encoding or scale["encoding"],
+    resolution=scale["resolution"],
+    voxel_offset=(scale.get("voxel_offset", [0, 0, 0]) if voxel_offset is None
+                  else voxel_offset),
+    volume_size=scale["size"],
+    chunk_size=chunk_size or scale["chunk_sizes"][0],
+  )
+
+
+def _open_or_create(dest_path: str, info: dict) -> Volume:
+  try:
+    return Volume(dest_path)
+  except FileNotFoundError:
+    return Volume.create(dest_path, info)
+
+
+def create_contrast_normalization_tasks(
+  src_path: str,
+  dest_path: str,
+  levels_path: Optional[str] = None,
+  mip: int = 0,
+  clip_fraction: float = 0.01,
+  shape: Optional[Sequence[int]] = None,
+  translate: Sequence[int] = (0, 0, 0),
+  bounds: Optional[Bbox] = None,
+  bounds_mip: Optional[int] = None,
+  fill_missing: bool = False,
+  minval: int = 0,
+  maxval: int = 255,
+  chunk_size: Optional[Sequence[int]] = None,
+):
+  """Phase 2: histogram stretch into a new layer (8x8 chunks a task by
+  default)."""
+  src = Volume(src_path, mip=mip)
+  scale = src.meta.scale(mip)
+  dest = _open_or_create(dest_path, _same_geometry_info(
+    src, mip, src.layer_type, chunk_size,
+    voxel_offset=(np.asarray(scale.get("voxel_offset", [0, 0, 0]))
+                  + np.asarray(translate)).tolist(),
+  ))
+  task_bounds = get_bounds(
+    src, bounds, mip, mip if bounds_mip is None else bounds_mip,
+    chunk_size=src.meta.chunk_size(mip),
+  )
+  if shape is None:
+    cs = dest.meta.chunk_size(0)
+    shape = (int(cs.x) * 8, int(cs.y) * 8, int(cs.z))
+  shape = Vec(*shape)
+
+  def make_task(shape_: Vec, offset: Vec):
+    return ContrastNormalizationTask(
+      levels_path_=levels_path,
+      src_path=src_path,
+      dest_path=dest_path,
+      shape=shape_.tolist(),
+      offset=offset.tolist(),
+      mip=mip,
+      clip_fraction=clip_fraction,
+      fill_missing=fill_missing,
+      translate=tuple(translate),
+      minval=minval,
+      maxval=maxval,
+    )
+
+  def finish():
+    _provenance(dest, {
+      "task": "ContrastNormalizationTask", "src": src_path,
+      "mip": mip, "clip_fraction": clip_fraction,
+      "bounds": task_bounds.to_list(),
+    })
+
+  return GridTaskIterator(task_bounds, shape, make_task, finish)
+
+
+def create_clahe_tasks(
+  src_path: str,
+  dest_path: str,
+  mip: int = 0,
+  clip_limit: float = 40.0,
+  tile_grid_size=8,
+  shape: Sequence[int] = (2048, 2048, 64),
+  bounds: Optional[Bbox] = None,
+  bounds_mip: Optional[int] = None,
+  fill_missing: bool = False,
+  chunk_size: Optional[Sequence[int]] = None,
+):
+  """CLAHE of every z plane into a new image layer, one ``clahe`` launch a
+  task."""
+  src = Volume(src_path, mip=mip)
+  dest = _open_or_create(dest_path, _same_geometry_info(src, mip, "image", chunk_size))
+  task_bounds = get_bounds(
+    src, bounds, mip, mip if bounds_mip is None else bounds_mip,
+    chunk_size=src.meta.chunk_size(mip),
+  )
+  shape = Vec(*shape)
+
+  def make_task(shape_: Vec, offset: Vec):
+    return CLAHETask(
+      src_path=src_path,
+      dest_path=dest_path,
+      shape=shape_.tolist(),
+      offset=offset.tolist(),
+      mip=mip,
+      clip_limit=clip_limit,
+      tile_grid_size=tile_grid_size,
+      fill_missing=fill_missing,
+    )
+
+  def finish():
+    _provenance(dest, {
+      "task": "CLAHETask", "src": src_path, "mip": mip,
+      "clip_limit": clip_limit, "bounds": task_bounds.to_list(),
+    })
+
+  return GridTaskIterator(task_bounds, shape, make_task, finish)
+
+
+def create_spatial_index_tasks(
+  cloudpath: str,
+  prefix: str,
+  mip: int = 0,
+  shape: Sequence[int] = (448, 448, 448),
+  bounds: Optional[Bbox] = None,
+  fill_missing: bool = False,
+):
+  """Rebuild a layer's .spatial files under ``prefix`` (a mesh or skeleton
+  directory), one per task cell."""
+  vol = Volume(cloudpath, mip=mip)
+  task_bounds = get_bounds(vol, bounds, mip, mip)
+  shape = Vec(*shape)
+
+  def make_task(shape_: Vec, offset: Vec):
+    return SpatialIndexTask(
+      cloudpath=cloudpath,
+      prefix=prefix,
+      shape=shape_.tolist(),
+      offset=offset.tolist(),
+      mip=mip,
+      fill_missing=fill_missing,
+    )
+
+  return GridTaskIterator(task_bounds, shape, make_task)
+
+
+def create_reordering_tasks(
+  src_path: str,
+  dest_path: str,
+  mapping: dict,
+  mip: int = 0,
+  z_per_task: int = 16,
+  fill_missing: bool = False,
+  encoding: Optional[str] = None,
+  encoding_level: Optional[int] = None,
+  encoding_effort: Optional[int] = None,
+  compress="gzip",
+  delete_black_uploads: bool = False,
+  background_color: int = 0,
+):
+  """Z-slice shuffle (``dest[z] = src[mapping[z]]``) into a fresh layer,
+  ``z_per_task`` slices a task."""
+  src = Volume(src_path, mip=mip)
+  info = _same_geometry_info(src, mip, src.layer_type, None, encoding=encoding)
+  try:
+    Volume(dest_path)
+  except FileNotFoundError:
+    dest = Volume.create(dest_path, info)
+    if encoding_level is not None or encoding_effort is not None:
+      dest.meta.set_encoding(0, None, encoding_level, encoding_effort)
+      dest.commit_info()
+
+  z0 = int(src.bounds.minpt.z)
+  z1 = int(src.bounds.maxpt.z)
+  for zs in range(z0, z1, z_per_task):
+    yield ReorderTask(
+      src_path=src_path,
+      dest_path=dest_path,
+      mip=mip,
+      z_start=zs,
+      z_end=min(zs + z_per_task, z1),
+      mapping=mapping,
+      fill_missing=fill_missing,
+      compress=compress,
+      delete_black_uploads=delete_black_uploads,
+      background_color=background_color,
+    )
+
+
+def compute_rois(
+  cloudpath: str,
+  mip: Optional[int] = None,
+  threshold: float = 0.0,
+  dust_threshold: int = 100,
+  suppress_faint_voxels: int = 0,
+  max_axial_length: int = 512,
+  z_step: Optional[int] = None,
+  progress: bool = False,
+  save: bool = True,
+) -> list:
+  """Detect tissue regions of interest: connected components (6-connected)
+  of the foreground of the coarsest mip, as physical-space boxes. ``save``
+  also records them in the info as mip-0 voxel boxes, flat
+  ``[x0, y0, z0, x1, y1, z1]`` lists with inclusive max corners.
+
+  ``suppress_faint_voxels`` zeroes values at or below that level first;
+  ``max_axial_length`` halves x and y in memory (2x2x1 averages on the
+  device, one ``downsample`` call for all the rounds) until the plane fits
+  that square; ``z_step`` evaluates ROIs per z slab, so thin tissue at
+  different depths gives separate boxes. A box whose volume is below
+  ``dust_threshold`` is dropped. The ROIs come in the JAX package's order,
+  ``ndimage.label``'s: by each component's first voxel in C order of the
+  (x, y, z) slab, where the port's ``connected_components`` numbers in
+  Fortran order."""
+  vol = Volume(cloudpath)
+  mip = vol.meta.num_mips - 1 if mip is None else mip
+  img = vol.download(vol.meta.bounds(mip), mip=mip)[..., 0]
+  res = np.asarray(vol.meta.resolution(mip), dtype=np.int64)
+  offset = np.asarray(vol.meta.voxel_offset(mip), dtype=np.int64)
+
+  sx, sy, rounds = img.shape[0], img.shape[1], 0
+  while sx * sy > max_axial_length ** 2:
+    sx, sy, rounds = (sx + 1) // 2, (sy + 1) // 2, rounds + 1
+  if rounds:
+    img = pooling.downsample(img, (2, 2, 1), rounds, method="average")[-1]
+  scale_xy = 2 ** rounds
+
+  if suppress_faint_voxels:
+    img = np.where(img <= suppress_faint_voxels, 0, img)
+  fg = img > threshold
+
+  nz = img.shape[2]
+  z_step = nz if not z_step else int(z_step)
+  rois = []
+  z_starts = range(0, nz, z_step)
+  if progress:
+    from tqdm import tqdm
+
+    z_starts = tqdm(z_starts, desc="ROI z-slabs")
+  vx_scale = np.asarray([scale_xy, scale_xy, 1], dtype=np.int64)
+  dev = get_device()
+  for z0 in z_starts:
+    slab = fg[:, :, z0:z0 + z_step]
+    cc, n = connected_components(slab, connectivity=6, return_N=True)
+    if not n:
+      continue
+    seg, _ = labels_on_device(cc, (0, 0, 0), (0, 0, 0), dev)
+    lo, hi, first = component_boxes(seg, n)
+    del seg
+    for label in np.argsort(first[1:], kind="stable") + 1:
+      if np.prod(hi[label] - lo[label]) < dust_threshold:
+        continue
+      mn = (lo[label] + [0, 0, z0]) * vx_scale
+      mx = (hi[label] + [0, 0, z0]) * vx_scale
+      rois.append(Bbox((mn + offset) * res, (mx + offset) * res))
+  if save:
+    res0 = np.asarray(vol.meta.resolution(0), dtype=np.int64)
+    vol.info["scales"][0]["rois"] = [
+      [int(v) for v in np.asarray(r.minpt) // res0]
+      + [int(v) - 1 for v in np.asarray(r.maxpt) // res0]
+      for r in rois
+    ]
+    vol.commit_info()
+  return rois

@@ -3,6 +3,7 @@
 from ..queues.registry import PrintTask, RegisteredTask
 
 from .audit import IntegrityAuditTask
+from .contrast import CLAHETask, ContrastNormalizationTask, LuminanceLevelsTask
 from .ccl import (
   CCLEquivalancesTask,
   CCLFacesTask,
@@ -22,7 +23,7 @@ from .image_sharded import ImageShardDownsampleTask, ImageShardTransferTask
 from .inference import InferenceTask
 from .mesh import MeshManifestFilesystemTask, MeshManifestPrefixTask, MeshTask
 from .skeleton import SkeletonTask, UnshardedSkeletonMergeTask
-from .stats import CountVoxelsTask
+from .stats import CountVoxelsTask, ReorderTask, SpatialIndexTask
 
 
 class TouchFileTask(RegisteredTask):

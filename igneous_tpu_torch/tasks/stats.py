@@ -1,9 +1,10 @@
-"""The voxel-count census and the global dust it serves.
+"""The voxel-count census and the global dust it serves, the spatial
+index and the z reorder.
 
 The port's own copy of ``CountVoxelsTask``, ``accumulate_voxel_counts``,
-``load_voxel_counts`` and ``globally_small_labels`` from
-``igneous_tpu/tasks/stats.py``. A ``CountVoxelsTask`` counts each label's
-voxels in its cutout on the device and writes one gzip JSON
+``load_voxel_counts``, ``globally_small_labels``, ``SpatialIndexTask`` and
+``ReorderTask`` from ``igneous_tpu/tasks/stats.py``. A ``CountVoxelsTask``
+counts each label's voxels in its cutout on the device and writes one gzip JSON
 ``stats/voxel_counts/<mip>/<bbox>``; ``accumulate_voxel_counts`` sums them
 into ``voxel_counts.im`` (a ``FragMap`` of uint64 counts), which
 ``globally_small_labels`` reads for the ``dust_global`` option of the mesh
@@ -11,11 +12,18 @@ and skeleton forges. Every file is byte-identical to the JAX package's:
 the counts come back in numpy's ascending order of the labels (uint64 ids
 at or above 2^63 last), which is the JSON's key order.
 
-Not ported: ``SpatialIndexTask`` and ``ReorderTask``, and the graphene
-options ``agglomerate`` and ``timestamp`` (refused when the task is made).
+``SpatialIndexTask`` finds each label's box on the device
+(``ops.mesh.label_boxes``) and writes the ``.spatial`` file with its keys
+in the JAX package's order, the ascending order of ``ops.remap.renumber``'s
+ids (numpy's, uint64 ids at or above 2^63 last), so the gzip bytes are
+equal. ``ReorderTask`` is host code: one z slice read and written at a
+time.
+
+Not ported: the graphene options ``agglomerate`` and ``timestamp``
+(refused when the task is made).
 
 Stage timers (``telemetry``): download, unique (the device count with its
-copies), upload.
+copies), boxes, upload.
 """
 
 from __future__ import annotations
@@ -24,12 +32,15 @@ import struct
 from collections import defaultdict
 from typing import Dict, Optional, Sequence
 
+import numpy as np
+
 from .. import telemetry
 from ..device import get_device
 from ..lib import Bbox, Vec
 from ..mesh_io import FragMap
-from ..ops.mesh import unique_on_device
+from ..ops.mesh import label_boxes, labels_on_device, unique_on_device
 from ..queues.registry import RegisteredTask
+from ..spatial_index import SpatialIndex
 from ..storage import CloudFiles
 from ..volume import Volume
 
@@ -139,3 +150,104 @@ def globally_small_labels(
     if total < threshold:
       small.append(label)
   return small
+
+
+class SpatialIndexTask(RegisteredTask):
+  """(Re)build one grid cell's .spatial file from the segmentation."""
+
+  def __init__(
+    self,
+    cloudpath: str,
+    prefix: str,
+    shape: Sequence[int],
+    offset: Sequence[int],
+    mip: int = 0,
+    fill_missing: bool = False,
+  ):
+    self.cloudpath = cloudpath
+    self.prefix = prefix
+    self.shape = Vec(*shape)
+    self.offset = Vec(*offset)
+    self.mip = int(mip)
+    self.fill_missing = fill_missing
+
+  def execute(self):
+    vol = Volume(self.cloudpath, mip=self.mip, fill_missing=self.fill_missing,
+                 bounded=False)
+    bounds = Bbox.intersection(
+      Bbox(self.offset, self.offset + self.shape), vol.bounds
+    )
+    if bounds.empty():
+      return
+    with telemetry.stage("download"):
+      img = vol.download(bounds)[..., 0]
+    with telemetry.stage("boxes"):
+      seg, flip = labels_on_device(img, (0, 0, 0), (0, 0, 0), get_device())
+      labels, _counts, _dense, lo, hi = label_boxes(seg, flip)
+      del seg, _dense
+    res = np.asarray(vol.resolution, dtype=np.int64)
+    minpt = np.asarray(bounds.minpt)
+    # the dense ids 1..n follow the nonzero labels in ascending order, the
+    # insertion order of the JAX package's dict
+    if flip:
+      labels = labels.view(np.uint64)
+    nonzero = [int(v) for v in labels.tolist() if v != 0]
+    label_bounds = {
+      label: Bbox((lo[i] + minpt) * res, (hi[i] + minpt) * res)
+      for i, label in enumerate(nonzero, start=1)
+    }
+    physical = Bbox(bounds.minpt * res, bounds.maxpt * res)
+    with telemetry.stage("upload"):
+      SpatialIndex(CloudFiles(vol.cloudpath), self.prefix).put(physical, label_bounds)
+
+
+class ReorderTask(RegisteredTask):
+  """Copy z-slices into a new z order: dest[z] = src[mapping[z]] for the
+  task's z range."""
+
+  def __init__(
+    self,
+    src_path: str,
+    dest_path: str,
+    mip: int,
+    z_start: int,
+    z_end: int,
+    mapping: Dict,
+    fill_missing: bool = False,
+    compress="gzip",
+    delete_black_uploads: bool = False,
+    background_color: int = 0,
+  ):
+    self.src_path = src_path
+    self.dest_path = dest_path
+    self.mip = int(mip)
+    self.z_start = int(z_start)
+    self.z_end = int(z_end)
+    self.mapping = {int(k): int(v) for k, v in mapping.items()}
+    self.fill_missing = fill_missing
+    self.compress = compress
+    self.delete_black_uploads = bool(delete_black_uploads)
+    self.background_color = int(background_color)
+
+  def execute(self):
+    src = Volume(self.src_path, mip=self.mip, fill_missing=self.fill_missing)
+    dest = Volume(
+      self.dest_path, mip=self.mip,
+      delete_black_uploads=self.delete_black_uploads,
+      background_color=self.background_color,
+    )
+    bounds = src.bounds
+    for z in range(self.z_start, self.z_end):
+      src_z = self.mapping.get(z, z)
+      sl = Bbox(
+        (bounds.minpt.x, bounds.minpt.y, src_z),
+        (bounds.maxpt.x, bounds.maxpt.y, src_z + 1),
+      )
+      dl = Bbox(
+        (bounds.minpt.x, bounds.minpt.y, z),
+        (bounds.maxpt.x, bounds.maxpt.y, z + 1),
+      )
+      with telemetry.stage("download"):
+        img = src.download(sl)
+      with telemetry.stage("upload"):
+        dest.upload(dl, img, compress=self.compress)

@@ -104,6 +104,7 @@ class Volume:
     chunk_size: Sequence[int] = (64, 64, 64),
     layer_type: Optional[str] = None,
     encoding: str = "raw",
+    encoding_level: Optional[int] = None,
     compress="gzip",
   ) -> "Volume":
     if arr.ndim == 3:
@@ -124,6 +125,10 @@ class Volume:
       chunk_size=chunk_size,
     )
     vol = cls.create(cloudpath, info)
+    if encoding_level is not None:
+      # before the upload: the quality knob lives in the scale
+      vol.meta.set_encoding(0, None, encoding_level)
+      vol.commit_info()
     vol.upload(vol.meta.bounds(0), arr, mip=0, compress=compress)
     return vol
 

@@ -107,6 +107,78 @@ def test_no_source_imports_jax_or_reference(path):
       assert name.split(".")[0] not in ("jax", "jaxlib", "igneous_tpu"), (path, name)
 
 
+_BLOCK_CV2 = """
+import sys
+class Block:
+  def find_spec(self, name, path=None, target=None):
+    if name.split('.')[0] in ('cv2', 'h5py', 'jax', 'jaxlib', 'igneous_tpu'):
+      raise ImportError('blocked: ' + name)
+sys.meta_path.insert(0, Block())
+import igneous_tpu_torch, igneous_tpu_torch.cli, igneous_tpu_torch.tasks
+import igneous_tpu_torch.task_creation, igneous_tpu_torch.formats
+import igneous_tpu_torch.ops.clahe, igneous_tpu_torch.ops.cuda_clahe
+import igneous_tpu_torch.tasks.contrast, igneous_tpu_torch.tasks.stats
+from igneous_tpu_torch.ops.ccl import statistics
+from igneous_tpu_torch.task_creation import compute_rois, create_clahe_tasks
+bad = [m for m in sys.modules if m.split('.')[0] in ('cv2', 'h5py', 'jax', 'jaxlib', 'igneous_tpu')]
+assert not bad, bad
+from igneous_tpu_torch.ops import _build
+assert _build._LIBS == {} and _build.BUILD_LOG == {}, 'a library was built at import'
+print('IMPORTED')
+"""
+
+
+def test_port_imports_with_opencv_and_h5py_blocked():
+  """CLAHE is the port's own kernel: the port imports without OpenCV (the
+  card's machine has none), and h5py only when an HDF5 file is read."""
+  env = dict(os.environ, PYTHONPATH=str(REPO))
+  proc = subprocess.run(
+    [sys.executable, "-c", _BLOCK_CV2], cwd=REPO, env=env,
+    capture_output=True, text=True, timeout=120,
+  )
+  assert proc.returncode == 0, proc.stderr
+  assert "IMPORTED" in proc.stdout
+
+
+def _imported_names(nodes):
+  for node in nodes:
+    if isinstance(node, ast.Import):
+      yield from (a.name for a in node.names)
+    elif isinstance(node, ast.ImportFrom) and node.level == 0:
+      yield node.module or ""
+
+
+def _module_level(tree):
+  """The statements that run when the module is imported: its body and
+  the bodies of its top-level if / try / with blocks."""
+  todo = list(tree.body)
+  while todo:
+    node = todo.pop()
+    if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+      if isinstance(node, ast.ClassDef):
+        todo.extend(node.body)
+      continue
+    yield node
+    for field in ("body", "orelse", "finalbody", "handlers"):
+      todo.extend(getattr(node, field, []) or [])
+
+
+@pytest.mark.parametrize(
+  "path",
+  sorted(p for p in PORT.rglob("*.py") if "build" not in p.parts)
+  + [REPO / "chip_smoke.py"],
+  ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_source_imports_opencv_or_h5py_at_module_level(path):
+  """No import of cv2 anywhere (lazy ones included), and none of h5py
+  at module level."""
+  tree = ast.parse(path.read_text())
+  for name in _imported_names(ast.walk(tree)):
+    assert name.split(".")[0] != "cv2", (path, name)
+  for name in _imported_names(_module_level(tree)):
+    assert name.split(".")[0] != "h5py", (path, name)
+
+
 # ---------------------------------------------------------------------------
 # (e) the device policy
 
