@@ -29,12 +29,14 @@ Phases, each reported on its own line:
      passes on seeded random values along each axis, first and not, on
      the first and the long-line cases; the worst stack depth (one label,
      equal values) along each axis, timed; edt_pass's bound the larger of
-     its bytes and its FP64 work counted on this run's data; clahe on five
+     its bytes and its FP64 work counted on this run's data; clahe on seven
      cases (the first default CLAHE task's padded cutout of phase 14,
      2304x2304x64 uint8, grid 8, clip 40; the same cutout as uint16; a
      uint16 stack whose extents do not divide by the grid; rows that divide
-     by the grid and columns that do not; clip 0), each bound the bytes of
-     the planes in and out, each with the memory its launch took;
+     by the grid and columns that do not; clip 0; a constant uint16 stack
+     at clip 0, one bin holding a whole tile; a constant uint8 stack), each
+     bound the bytes of the planes in and out, each with the memory its
+     launch took and the bytes of its LUTs;
   3. e2e downsample: four file:// layers through Volume.from_numpy ->
      create_downsampling_tasks -> LocalTaskQueue -> DownsampleTask, every
      produced mip read back and compared with the plain pyramid computed
@@ -278,7 +280,8 @@ times the kernels of other copies of the package (an earlier commit's, say:
 ``git archive <commit> igneous_tpu_torch | tar -x -C DIR0`` makes
 DIR0/igneous_tpu_torch) against this checkout's, in turns on the same card,
 with equal outputs (edt_pass pass by pass and over the three passes on
-the 515^3 field), and runs phases 1 and 2 only.
+the 515^3 field; clahe on each of its cases, where the other copy has
+it), and runs phases 1 and 2 only.
 """
 
 from __future__ import annotations
@@ -2846,7 +2849,7 @@ def load_copy(alias: str, path: str):
   """Import another copy of the igneous_tpu_torch package (a directory,
   for example one unpacked from an earlier commit with ``git archive``)
   under the name ``alias``; returns its (_build, cuda_ccl, cuda_pooling,
-  cuda_edt).
+  cuda_edt, cuda_clahe), cuda_clahe None where the copy has none.
   Its kernels build from its own csrc/ into its own build/."""
   import importlib
   import importlib.util
@@ -2860,8 +2863,10 @@ def load_copy(alias: str, path: str):
   pkg = importlib.util.module_from_spec(spec)
   sys.modules[alias] = pkg
   spec.loader.exec_module(pkg)
-  return tuple(importlib.import_module(f"{alias}.ops.{m}")
+  mods = tuple(importlib.import_module(f"{alias}.ops.{m}")
                for m in ("_build", "cuda_ccl", "cuda_pooling", "cuda_edt"))
+  has_clahe = os.path.exists(os.path.join(path, "ops", "cuda_clahe.py"))
+  return mods + (importlib.import_module(f"{alias}.ops.cuda_clahe") if has_clahe else None,)
 
 
 # ---------------------------------------------------------------------------
@@ -4353,15 +4358,20 @@ ROI_THRESHOLD = 170
 SPATIAL_PREFIX = "mesh_index2"
 
 
-def clahe_kernel_phase(cl, clahe_ops, torch, dev):
+def clahe_kernel_phase(cl, clahe_ops, torch, dev, others=()):
   """The clahe kernel against clahe_plain on the card, bit for bit: the
   first default task's padded cutout of phase 14 (2304x2304x64 uint8, the
   smooth surrogate, grid 8, clip 40), the same cutout as uint16, a uint16
   stack whose extents do not divide by the grid, rows that divide and
-  columns that do not, and clip 0. Bound: the planes' bytes in and out over
-  the memory rate (the LUTs of 8-bit planes are 256 entries a tile).
-  ``kernel_mib``: the most the card held during one launch beyond what it
-  held before, the output included."""
+  columns that do not, clip 0, a constant uint16 stack at clip 0 (one bin
+  holds a whole tile) and a constant uint8 stack. Bound: the planes' bytes
+  in and out over the memory rate; ``lut_mib``: the LUTs a launch writes
+  and the blend gathers, beside it. ``kernel_mib``: the most the card held
+  during one launch beyond what it held before, the output included;
+  ``buffers_mib``: what the wrapper says a launch takes besides the output
+  (a batch's LUTs, the weight tables). Each case is also timed against
+  each (name, cuda_clahe of another copy of the package) of ``others`` in
+  turns, with equal outputs."""
   rng = np.random.default_rng(14)
   img = smooth_image((2304, 2304, 64), rng, torch, dev)  # (x, y, z) F order
   planes = torch.from_numpy(np.ascontiguousarray(img.transpose(2, 1, 0))).to(dev)
@@ -4378,6 +4388,10 @@ def clahe_kernel_phase(cl, clahe_ops, torch, dev):
     ("uint8 grid 8 clip 40, rows 2304 divide, columns 2050 do not",
      planes[:, :2050].contiguous(), 40.0),
     ("uint8 grid 8 clip 0, 2304x2304x64", planes, 0.0),
+    ("uint16 grid 8 clip 0, constant 40000, 2304x2304x16",
+     torch.from_numpy(np.full((16, 2304, 2304), 40000, np.uint16)).to(dev), 0.0),
+    ("uint8 grid 8 clip 40, constant 77, 2304x2304x64",
+     torch.full_like(planes, 77), 40.0),
   ]
   cases = []
   for label, x, clip in inputs:
@@ -4399,12 +4413,22 @@ def clahe_kernel_phase(cl, clahe_ops, torch, dev):
     err = max_abs_err([out, again], [ref, ref])
     del out, again, ref
     nbytes = 2 * x.numel() * x.element_size()
+    g = cl.geometry(x.shape[2], x.shape[1], CLAHE_GRID, clip, cl.BINS[x.dtype])
     case = {
       "kernel": "clahe", "case": label, "max_abs_err": err, "kernel_mib": kernel_mib,
+      "lut_mib": x.shape[0] * g.gy * g.gx * g.bins * x.element_size() / 2 ** 20,
+      "buffers_mib": sum(cl.buffers(x.shape[0], g, x.element_size()).values()) / 2 ** 20,
       "ms": device_ms(kernel), "call_ms": cuda_ms(kernel, reps=10),
       "plain_ms": cuda_ms(plain, reps=2, warmup=1),
       "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
     }
+    if others:
+      case["against"] = against(
+        kernel, [(nm, lambda m=m, x=x, clip=clip: m.launch(x, clip, CLAHE_GRID))
+                 for nm, m in others])
+      for rec in case["against"]:
+        if not rec["equal"]:
+          fail(f"clahe {label}: differs from {rec['against']}'s kernel")
     print("kernel " + json.dumps(case), flush=True)
     if err > TOLERANCE:
       fail(f"clahe {label}: max abs err {err} against its plain version")
@@ -4720,7 +4744,7 @@ def main() -> int:
   sources = ("pooling", "ccl", "edt")
   builds = [(b, name) for b in [_build] + [c[0] for _, c in copies] for name in sources]
   # the kernel of phase 14, which the other copies need not have
-  builds += [(_build, "clahe")]
+  builds += [(b, "clahe") for b in [_build] + [c[0] for _, c in copies if c[4] is not None]]
   # the host libraries of the mesh and skeleton paths and the codec (g++)
   host_libs = ("simplify", "dijkstra", "fggraph", "cseg")
   builds += [(_build, name) for name in host_libs]
@@ -4738,7 +4762,8 @@ def main() -> int:
   cases = kernel_phase(cp, torch, dev, [(k, c[2]) for k, c in copies])
   ccl_cases = ccl_kernel_phase(cc, ccl_ops, torch, dev, [(k, c[1]) for k, c in copies])
   edt_cases = edt_kernel_phase(ce, edt_ops, torch, dev, [(k, c[3]) for k, c in copies])
-  clahe_cases = clahe_kernel_phase(cl, clahe_ops, torch, dev)
+  clahe_cases = clahe_kernel_phase(cl, clahe_ops, torch, dev,
+                                   [(k, c[4]) for k, c in copies if c[4] is not None])
   if copies:
     print(f"wall: {time.perf_counter() - t_all:.1f} s")
     print(card_line())

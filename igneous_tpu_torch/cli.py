@@ -1109,7 +1109,8 @@ def _add_mesh(mesh) -> None:
   cmd.add_argument("--fill-holes", type=int, default=0,
                    help="Fill cavities: 0 off, 1-2 enclosed cavities, 3 and "
                         "up a morphological closing first.")
-  cmd.add_argument("--compress", default="gzip", help="gzip or none.")
+  cmd.add_argument("--compress", default="gzip",
+                   help="Fragment compression: gzip, gzip-1..gzip-9, zstd or none.")
   cmd.add_argument("--sharded", action="store_true", help="Not ported yet: raises.")
   cmd.add_argument("--spatial-index", dest="spatial_index", action="store_true",
                    default=True)
@@ -1153,9 +1154,6 @@ def _run_mesh(args) -> int:
     enqueue(args.queue, tc.create_mesh_manifest_tasks(
       args.path, magnitude=args.magnitude, mesh_dir=args.mesh_dir), args.parallel)
     return 0
-  compress = args.compress
-  if compress.lower() in ("none", "false"):
-    compress = None
   enqueue(args.queue, tc.create_meshing_tasks(
     args.path, mip=args.mip, shape=args.shape, simplification=args.simplify,
     simplification_factor=args.simplify_factor,
@@ -1165,7 +1163,7 @@ def _run_mesh(args) -> int:
     sharded=args.sharded, spatial_index=args.spatial_index,
     closed_dataset_edges=args.closed_edge, object_ids=args.obj_ids,
     exclude_object_ids=args.exclude_obj_ids, mesher=args.mesher,
-    parallel=args.simplify_parallel, compress=compress,
+    parallel=args.simplify_parallel, compress=args.compress,
   ), args.parallel)
   return 0
 

@@ -4,14 +4,16 @@ OpenCV's geometry.
 The JAX package equalises each z plane of a ``CLAHETask`` on the host with
 OpenCV (``cv2.createCLAHE(...).apply``, ``igneous_tpu/tasks/contrast.py``);
 the card's machine has no OpenCV, so the port computes the same function
-with a kernel of its own, ``clahe`` in ``csrc/clahe.cu``: one block per
-(plane, tile) builds the tile's LUT, one thread per voxel blends four of
-them, a batch of planes at a time. ``ops/clahe.py`` holds the entry point and the plain PyTorch version;
-this module holds what both share (``geometry``: OpenCV's padding, tiles,
-clip limit and float32 scales) and the launch.
+with a kernel of its own, ``clahe`` in ``csrc/clahe.cu``: one block (8-bit)
+or one cluster of two blocks (16-bit) per (plane, tile) builds the tile's
+LUT, and a blend pass reads the planes 16 bytes a thread and blends four
+LUTs per voxel, a batch of planes at a time. ``ops/clahe.py`` holds the
+entry point and the plain PyTorch version; this module holds what both
+share (``geometry``: OpenCV's padding, tiles, clip limit and float32
+scales), the blend's weight tables and the launch.
 
 ``launch`` takes CUDA tensors only and raises otherwise; ``LAUNCHES``
-counts its launches (one a call: both kernels of ``csrc/clahe.cu`` go out
+counts its launches (one a call: the kernels of ``csrc/clahe.cu`` go out
 from one C entry point), one per launch and nowhere else. The device
 ledger's execute span goes around each launch, under the kernel's name.
 """
@@ -19,7 +21,8 @@ ledger's execute span goes around each launch, under the kernel's name.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+import functools
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +36,10 @@ LAUNCHES = {"clahe": 0}
 # more (a uint16 plane's LUTs at grid 64 take 512 MiB, as in OpenCV): the
 # planes go through the kernels in batches that fit
 LUT_BYTES = 256 << 20
-# LUT blocks a multiprocessor of a uint16 launch, each with a 65536-bin
-# int32 histogram scratch (256 KiB) that it reuses for every tile it takes
-LUT_BLOCKS_PER_SM = 4
+# planes a batch at most: a batch's planes are the kernels' grid y
+MAX_BATCH = 65535
+# LUT entries of a plane at most (the kernels index them with int32)
+MAX_PLANE_LUT = 2**31 - 1
 
 # histogram bins of each plane type (OpenCV's histSize), and its code in
 # csrc/clahe.cu
@@ -125,9 +129,9 @@ def _lib():
     lib = _build.load("clahe")
     lib.igt_clahe.argtypes = [
       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-      ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-      ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+      ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
     lib.igt_clahe.restype = ctypes.c_int
     lib.igt_error_string.argtypes = [ctypes.c_int]
@@ -136,25 +140,51 @@ def _lib():
   return _LIB
 
 
-def launch_plan(planes: int, g: Geometry, itemsize: int, sms: int) -> Tuple[int, int]:
+def weight_table(n: int, inv: np.float32, tiles: int) -> np.ndarray:
+  """The blend's weights along one axis of ``n`` rows (or columns), as
+  OpenCV's interpolation computes them per voxel, once per index: an
+  (n, 4) int32 array of (t1, t2, a, a1), t1 and t2 the lower and upper
+  tile (clamped to the grid), a and a1 = 1 - a the float32 weights of t2
+  and t1 as their bits. ``inv`` is 1 / th (or 1 / tw) in float32."""
+  f = np.arange(n, dtype=np.float32) * np.float32(inv) - np.float32(0.5)
+  t1 = np.floor(f)
+  a = f - t1
+  a1 = np.float32(1.0) - a
+  t1 = t1.astype(np.int32)
+  t2 = np.minimum(t1 + 1, tiles - 1)
+  return np.stack([np.maximum(t1, 0), t2, a.view(np.int32), a1.view(np.int32)], axis=1)
+
+
+@functools.lru_cache(maxsize=32)
+def _device_table(n: int, inv: np.float32, tiles: int, device: torch.device) -> torch.Tensor:
+  return torch.from_numpy(weight_table(n, inv, tiles)).to(device)
+
+
+def launch_plan(planes: int, g: Geometry, itemsize: int) -> Tuple[int, int]:
   """(batch, lut_blocks) of a launch over ``planes`` planes: the planes a
-  batch, whose LUTs fit ``LUT_BYTES`` (one plane's when more), and the LUT
-  pass's grid at most, a block a (plane, tile) of a batch for 8-bit planes,
-  ``LUT_BLOCKS_PER_SM`` a multiprocessor for 16-bit ones (each block a
-  scratch histogram of its own)."""
-  batch = min(planes, max(1, LUT_BYTES // (g.gy * g.gx * g.bins * itemsize)))
-  lut_blocks = batch * g.gy * g.gx
-  if g.bins > 4096:
-    lut_blocks = min(lut_blocks, LUT_BLOCKS_PER_SM * sms)
-  return batch, lut_blocks
+  batch, whose LUTs fit ``LUT_BYTES`` (one plane's when more), and the
+  blocks of a batch's LUT pass, one a (plane, tile) for 8-bit planes and
+  a cluster of two for 16-bit ones."""
+  one_plane = g.gy * g.gx * g.bins * itemsize
+  batch = min(planes, max(1, LUT_BYTES // one_plane), MAX_BATCH)
+  return batch, batch * g.gy * g.gx * (1 if g.bins <= 256 else 2)
+
+
+def buffers(planes: int, g: Geometry, itemsize: int) -> Dict[str, int]:
+  """The bytes a launch over ``planes`` planes takes on the card besides
+  its input and output: the LUTs of a batch and the two weight tables
+  (cached per geometry). There is no scratch."""
+  batch, _ = launch_plan(planes, g, itemsize)
+  return {"lut": batch * g.gy * g.gx * g.bins * itemsize,
+          "row_table": 16 * g.rows, "column_table": 16 * g.cols}
 
 
 def launch(planes: torch.Tensor, clip_limit: float, grid) -> torch.Tensor:
   """CLAHE of each plane of a (P, C, R) C-contiguous CUDA tensor (a
   Volume's (z, y, x) cutout: plane rows are x, columns y), bit for bit
   OpenCV's; returns a new (P, C, R) tensor. Besides the output it takes
-  at most ``LUT_BYTES`` of LUTs (one plane's, when that is more) and, for
-  uint16, a 256 KiB histogram scratch a LUT block."""
+  ``buffers``: at most ``LUT_BYTES`` of LUTs (one plane's, when that is
+  more) and the weight tables."""
   check_dtype(planes.dtype)
   if planes.device.type != "cuda":
     raise ValueError(f"the clahe kernel takes CUDA tensors, not {planes.device}")
@@ -166,15 +196,15 @@ def launch(planes: torch.Tensor, clip_limit: float, grid) -> torch.Tensor:
   P, C, R = planes.shape
   bins = BINS[planes.dtype]
   g = geometry(R, C, grid, clip_limit, bins)
+  if g.gy * g.gx * bins > MAX_PLANE_LUT:
+    raise ValueError(f"a {g.gx}x{g.gy} grid of {bins}-entry LUTs is too large for the kernel")
   out = torch.empty_like(planes)
   if out.numel() == 0:
     return out
-  sms = torch.cuda.get_device_properties(planes.device).multi_processor_count
-  batch, lut_blocks = launch_plan(P, g, planes.element_size(), sms)
+  batch, _ = launch_plan(P, g, planes.element_size())
   lut = torch.empty((batch, g.gy, g.gx, bins), dtype=planes.dtype, device=planes.device)
-  scratch = None
-  if bins > 4096:
-    scratch = torch.empty((lut_blocks, bins), dtype=torch.int32, device=planes.device)
+  rows = _device_table(R, g.inv_th, g.gy, planes.device)
+  cols = _device_table(C, g.inv_tw, g.gx, planes.device)
   lib = _lib()
   nbytes = 2 * planes.numel() * planes.element_size()
   with torch.cuda.device(planes.device):
@@ -183,9 +213,8 @@ def launch(planes: torch.Tensor, clip_limit: float, grid) -> torch.Tensor:
                       signature=(tuple(planes.shape), str(planes.dtype), g.gx, g.gy)):
       rc = lib.igt_clahe(
         _CODES[planes.dtype], planes.data_ptr(), out.data_ptr(), lut.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), P, batch, lut_blocks, R, C,
-        g.gy, g.gx, g.th, g.tw, g.limit, float(g.lut_scale), float(g.inv_th),
-        float(g.inv_tw), stream,
+        rows.data_ptr(), cols.data_ptr(), P, batch, R, C, g.gy, g.gx, g.th, g.tw,
+        g.limit, float(g.lut_scale), stream,
       )
       if rc != 0:
         msg = lib.igt_error_string(rc).decode()

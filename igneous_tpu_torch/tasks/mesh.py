@@ -52,7 +52,7 @@ from ..ops.mesh import (
 from ..ops.morphology import fill_holes
 from ..queues.registry import RegisteredTask
 from ..spatial_index import SpatialIndex
-from ..storage import CloudFiles
+from ..storage import CloudFiles, wire_ext
 from ..volume import Volume
 from .stats import globally_small_labels
 
@@ -70,7 +70,8 @@ def refuse_unported(
   compress="gzip",
 ) -> None:
   """Raise NotImplementedError for the mesh options the port does not
-  run yet; the factory and the task call it before anything is written."""
+  run yet, and ValueError for a compression the storage does not write;
+  the factory and the task call it before anything is written."""
   refused = []
   if str(layer_path).startswith("graphene://"):
     refused.append("graphene layers")
@@ -78,14 +79,28 @@ def refuse_unported(
     refused.append("sharded .frags output")
   if encoding == "draco":
     refused.append("draco encoding")
-  if compress not in ("gzip", None, False, ""):
-    refused.append(f"compress={compress!r}")
   if refused:
     raise NotImplementedError(
       f"not ported to igneous_tpu_torch yet: {', '.join(refused)}"
     )
   if encoding != "precomputed":
     raise ValueError(f"Unknown mesh encoding: {encoding}")
+  fragment_compression(compress)
+
+
+def fragment_compression(compress):
+  """The storage method of a ``compress=`` choice for the fragments: None
+  for none (``None``, ``False``, ``""``, ``"none"``, ``"false"``), else
+  ``gzip``, ``gzip-1`` ... ``gzip-9`` or ``zstd`` as given; ValueError for
+  any other."""
+  if not compress or (isinstance(compress, str) and compress.lower() in ("none", "false")):
+    return None
+  if wire_ext(compress) is None:
+    raise ValueError(
+      f"Unsupported compression: {compress!r} (fragments take gzip, "
+      "gzip-1..gzip-9, zstd or none)"
+    )
+  return compress
 
 
 class MeshTask(RegisteredTask):
@@ -147,7 +162,7 @@ class MeshTask(RegisteredTask):
     if mesher not in ("cubes", "tetrahedra"):
       raise ValueError(f"mesher must be 'cubes' or 'tetrahedra': {mesher!r}")
     self.mesher = mesher
-    self.compress = compress or None
+    self.compress = fragment_compression(compress)
     # threads for the per-label simplification (the native collapse
     # releases the interpreter lock; results are keyed by label)
     self.parallel = int(parallel)

@@ -180,22 +180,152 @@ def test_clahe_geometry_is_opencvs():
 @pytest.mark.parametrize("bins, itemsize, grid, planes, batch, lut_blocks", [
   # a uint8 task cutout: every plane in one batch, a block a (plane, tile)
   (256, 1, 8, 64, 64, 64 * 64),
-  # a uint16 task cutout: LUTs of 8 MiB a plane, 32 planes a batch
-  (65536, 2, 8, 64, 32, 4 * 132),
+  # a uint16 task cutout: LUTs of 8 MiB a plane, 32 planes a batch, a
+  # cluster of two blocks a (plane, tile)
+  (65536, 2, 8, 64, 32, 2 * 32 * 64),
   # grid 64: one plane's LUTs (512 MiB) a batch, as OpenCV holds them
-  (65536, 2, 64, 64, 1, 4 * 132),
+  (65536, 2, 64, 64, 1, 2 * 64 * 64),
 ])
 def test_clahe_launch_plan_bounds_its_memory(bins, itemsize, grid, planes, batch, lut_blocks):
   g = cuda_clahe.geometry(2304, 2304, grid, 40.0, bins)
-  plan = cuda_clahe.launch_plan(planes, g, itemsize, sms=132)
+  plan = cuda_clahe.launch_plan(planes, g, itemsize)
   assert plan == (batch, lut_blocks)
   one_plane = g.gy * g.gx * bins * itemsize
   # a deeper stack takes no more than the budget
   for depth in (planes, 1000 * planes):
-    deep_batch, deep_blocks = cuda_clahe.launch_plan(depth, g, itemsize, sms=132)
+    deep_batch, deep_blocks = cuda_clahe.launch_plan(depth, g, itemsize)
     assert deep_batch * one_plane <= max(cuda_clahe.LUT_BYTES, one_plane)
-    if bins > 4096:
-      assert deep_blocks == 4 * 132
+    assert deep_blocks == deep_batch * g.gy * g.gx * (2 if bins > 4096 else 1)
+
+
+@pytest.mark.parametrize("bins, itemsize", [(256, 1), (65536, 2)])
+@pytest.mark.parametrize("rows, cols, grid", [(2304, 2304, 8), (1030, 1030, 8), (2304, 2050, 8),
+                                              (768, 2304, (8, 4)), (7, 300, 13), (1, 1, 1)])
+def test_clahe_launch_memory_is_bounded_and_has_no_scratch(bins, itemsize, rows, cols, grid):
+  g = cuda_clahe.geometry(rows, cols, grid, 40.0, bins)
+  one_plane = g.gy * g.gx * bins * itemsize
+  tables = 16 * (rows + cols)
+  sizes = [cuda_clahe.buffers(depth, g, itemsize) for depth in (1, 16, 64, 10**6)]
+  for depth, got in zip((1, 16, 64, 10**6), sizes):
+    # the LUTs of a batch and the weight tables, nothing else: no histogram
+    # scratch, however deep the stack
+    assert sorted(got) == ["column_table", "lut", "row_table"]
+    assert got["row_table"] + got["column_table"] == tables
+    assert got["lut"] <= max(cuda_clahe.LUT_BYTES, one_plane)
+    assert got["lut"] == min(depth, cuda_clahe.launch_plan(depth, g, itemsize)[0]) * one_plane
+  assert sizes[-1] == cuda_clahe.buffers(10**9, g, itemsize)
+
+
+def test_clahe_weight_tables_are_the_plain_versions_weights():
+  """The blend's row and column tables hold, bit for bit, the tiles and
+  float32 weights that clahe_plain computes per voxel."""
+  from igneous_tpu_torch.ops.clahe import _f32, _weights
+
+  rng = np.random.default_rng(16)
+  cases = [(1, 1, 1), (300, 300, 13), (2304, 2304, 8), (1030, 1030, 8), (2304, 2050, 8),
+           (768, 2304, (8, 4))]
+  for _ in range(40):
+    rows, cols = (int(v) for v in rng.integers(1, 301, 2))
+    square = rng.random() < 0.5
+    grid = int(rng.integers(1, 14)) if square else tuple(int(v) for v in rng.integers(1, 14, 2))
+    cases.append((rows, cols, grid))
+  for rows, cols, grid in cases:
+    g = cuda_clahe.geometry(rows, cols, grid, 40.0, 256)
+    for n, inv, tiles in ((rows, g.inv_th, g.gy), (cols, g.inv_tw, g.gx)):
+      table = cuda_clahe.weight_table(n, inv, tiles)
+      assert table.shape == (n, 4) and table.dtype == np.int32
+      t1, t2, a, a1 = (t.numpy() for t in _weights(n, _f32(inv), tiles))
+      np.testing.assert_array_equal(table[:, 0], t1)
+      np.testing.assert_array_equal(table[:, 1], t2)
+      np.testing.assert_array_equal(table[:, 2], a.view(np.int32))
+      np.testing.assert_array_equal(table[:, 3], a1.view(np.int32))
+      assert (table[:, 0] >= 0).all() and (table[:, 1] < tiles).all()
+      assert (np.diff(table[:, 0]) >= 0).all() and (np.diff(table[:, 1]) >= 0).all()
+
+
+@pytest.mark.parametrize("window", [128, 256])  # kBlendRows, kBlendCols in csrc/clahe.cu
+def test_clahe_blend_blocks_stay_within_their_staged_tiles(window):
+  """A blend block stages the LUTs of min(g, (window - 1) // t + 4) tiles
+  along each axis for its window of rows (or columns), and traps on the
+  card past them: every window's t1 of its first index to t2 of its last
+  fits, on random geometries."""
+  rng = np.random.default_rng(window)
+  cases = [(2304, 8), (768, 8), (1030, 8), (300, 13), (5000, 64), (1, 1)]
+  cases += [(int(n), int(t)) for n, t in zip(rng.integers(1, 5000, 200), rng.integers(1, 70, 200))]
+  for n, tiles in cases:
+    g = cuda_clahe.geometry(n, 64, (1, tiles), 40.0, 256)
+    table = cuda_clahe.weight_table(n, g.inv_th, g.gy)
+    bound = min(g.gy, (window - 1) // g.th + 4)
+    for r0 in range(0, n, window):
+      last = min(r0 + window, n) - 1
+      assert table[last, 1] - table[r0, 0] + 1 <= bound, (n, tiles, r0)
+
+
+def test_clahe_variants_tool_still_edits_the_kernel():
+  """tools/clahe_variants builds copies of csrc/clahe.cu with one design
+  choice undone, by text: each edit must still find its text, once."""
+  from igneous_tpu_torch.ops import _build
+  from igneous_tpu_torch.tools import clahe_variants
+
+  text = (_build.CSRC_DIR / "clahe.cu").read_text()
+  for edits in clahe_variants.VARIANTS.values():
+    assert clahe_variants.variant_source(text, edits) != text
+
+
+def _split_lut16(hist, limit, scale):
+  """A numpy model of csrc/clahe.cu's clahe_lut16 after its histogram: two
+  halves of 32768 bins, each clipped on its own, the clipped counts and the
+  first half's total exchanged, the residual's bins of each half bumped,
+  and each half scanned from its own offset."""
+  half = 32768
+  halves = [hist[:half].astype(np.int64), hist[half:].astype(np.int64)]
+  excess, total = [], []
+  for h in halves:
+    e = np.maximum(h - limit, 0) if limit > 0 else np.zeros_like(h)
+    h -= e
+    excess.append(int(e.sum()))
+    total.append(int(h.sum()))
+  clipped = sum(excess)
+  batch, residual = clipped >> 16, clipped & 65535
+  step = max(65536 // residual, 1) if residual else 1
+  out = []
+  for rank, h in enumerate(halves):
+    lo = rank * half
+    k0 = (lo + step - 1) // step
+    k1 = min(residual, (lo + half + step - 1) // step) if residual else 0
+    for k in range(k0, k1):
+      h[k * step - lo] += 1
+    offset = 0
+    if rank == 1:
+      bumps = min(residual, (half + step - 1) // step) if residual else 0
+      offset = total[0] + batch * half + bumps
+    cum = (offset + np.cumsum(h + batch)).astype(np.float32)
+    out.append(np.clip(np.rint(cum * scale), 0, 65535).astype(np.int64))
+  return np.concatenate(out)
+
+
+@pytest.mark.parametrize("clip", [0.0, 0.01, 1.0, 40.0, 400.0])
+@pytest.mark.parametrize("kind", ["noise", "constant", "low", "high", "two_values"])
+def test_clahe_split_histogram_scan_is_the_plain_lut(kind, clip):
+  """The 16-bit LUT pass's split of the bins over a cluster of two blocks
+  gives clahe_plain's LUT, with the clipped residual falling in either half
+  or both."""
+  from igneous_tpu_torch.ops.clahe import _plane_lut
+
+  rng = np.random.default_rng(7)
+  shape = (96, 80)
+  plane = {
+    "noise": rng.integers(0, 65536, shape),
+    "constant": np.full(shape, 40000),
+    "low": rng.integers(0, 300, shape),
+    "high": rng.integers(65000, 65536, shape),
+    "two_values": np.where(rng.random(shape) < 0.5, 7, 50000),
+  }[kind].astype(np.int64)
+  g = cuda_clahe.geometry(*shape, 1, clip, 65536)
+  want = _plane_lut(torch.from_numpy(plane), g).reshape(-1).numpy()
+  hist = np.bincount(plane.reshape(-1), minlength=65536)
+  got = _split_lut16(hist, g.limit, g.lut_scale)
+  np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int16, torch.int8, torch.uint32])

@@ -3,8 +3,9 @@
 The same layer goes through both packages' create_meshing_tasks ->
 LocalTaskQueue -> MeshTask, then create_mesh_manifest_tasks ->
 MeshManifestPrefixTask: every file under the mesh directory (the mesh
-info, the gzip fragments, the .spatial files, the <label>:0 manifests) and
-the layer's info must be byte-identical. Also: payloads the JAX package
+info, the fragments (gzip by default; gzip-1, gzip-9, zstd and none in
+their own tests), the .spatial files, the <label>:0 manifests) and the
+layer's info must be byte-identical. Also: payloads the JAX package
 serialized run in the port, the command lines agree, ``fill_holes`` and
 ``dust_global`` (after a voxel-count census) write the same fragments,
 and the options the port does not run yet raise before anything is
@@ -284,6 +285,79 @@ def test_dust_global_without_a_census_raises_as_the_reference(tmp_path):
       jax_tc.create_meshing_tasks(f"file://{paths['jax']}", **kw))
   with pytest.raises(ValueError, match="voxel-count census"):
     LocalTaskQueue().insert(tc.create_meshing_tasks(f"file://{paths['port']}", **kw))
+
+
+# fragment compression: each method of the storage's table (and the
+# command line's "none"), fragment names and bytes as the JAX package writes
+COMPRESSIONS = {"gzip-1": ".gz", "gzip-9": ".gz", "zstd": ".zstd", "none": ""}
+
+
+def _fragments(files):
+  return {k: v for k, v in files.items() if k.count(":") == 2}
+
+
+def _check_compressed(paths, method):
+  ref, got = _mesh_files(paths["jax"]), _mesh_files(paths["port"])
+  frags = _fragments(got)
+  assert len(frags) > 4 and sorted(got) == sorted(ref)
+  assert [k for k in ref if got[k] != ref[k]] == []
+  assert any(".spatial" in k for k in got)
+  ext = COMPRESSIONS[method]
+  assert all(k.endswith(ext) for k in frags)
+  if not ext:
+    assert not any(k.endswith((".gz", ".zstd")) for k in frags)
+  # the fragments read back through the port's storage, whatever the method
+  mdir = Volume(f"file://{paths['port']}").info["mesh"]
+  cf = CloudFiles(f"file://{paths['port']}")
+  for key in frags:
+    name = key.split("/")[-1]
+    name = name[: len(name) - len(ext)] if ext else name
+    assert len(Mesh.from_precomputed(cf.get(f"{mdir}/{name}")).faces) > 0
+
+
+@pytest.mark.parametrize("method", sorted(COMPRESSIONS))
+def test_compressed_fragments_match_reference(method, tmp_path):
+  """create_meshing_tasks -> LocalTaskQueue -> MeshTask, then mesh merge,
+  with each compression: fragments, .spatial files and manifests byte for
+  byte the JAX package's ("none" is None to the JAX package's factory,
+  whose command line maps it so)."""
+  data = voronoi(np.uint32, seed=2)
+  paths = _layers(tmp_path, data)
+  JaxQueue(parallel=1, progress=False).insert(jax_tc.create_meshing_tasks(
+    f"file://{paths['jax']}", shape=TASK, compress=None if method == "none" else method))
+  JaxQueue(parallel=1, progress=False).insert(
+    jax_tc.create_mesh_manifest_tasks(f"file://{paths['jax']}"))
+  LocalTaskQueue().insert(
+    tc.create_meshing_tasks(f"file://{paths['port']}", shape=TASK, compress=method))
+  LocalTaskQueue().insert(tc.create_mesh_manifest_tasks(f"file://{paths['port']}"))
+  _check_compressed(paths, method)
+
+
+@pytest.mark.parametrize("method", sorted(COMPRESSIONS))
+def test_cli_compressed_fragments_match_reference(method, tmp_path):
+  paths = _layers(tmp_path, voronoi(seed=3))
+  args = ["--shape", "32,32,32", "--compress", method]
+  runner = CliRunner()
+  res = runner.invoke(jax_cli, ["mesh", "forge", f"file://{paths['jax']}", *args])
+  assert res.exit_code == 0, res.output
+  res = runner.invoke(jax_cli, ["mesh", "merge", f"file://{paths['jax']}"])
+  assert res.exit_code == 0, res.output
+  assert cli_main(["mesh", "forge", str(paths["port"]), *args]) == 0
+  assert cli_main(["mesh", "merge", str(paths["port"])]) == 0
+  _check_compressed(paths, method)
+
+
+@pytest.mark.parametrize("method", ["br", "gzip-0", "gzip-10", "lz4"])
+def test_unknown_fragment_compression_raises_before_writing(method, tmp_path):
+  path = tmp_path / "layer"
+  Volume.from_numpy(voronoi(), f"file://{path}", resolution=(8, 8, 40),
+                    chunk_size=(16, 16, 16))
+  before = _files(path)
+  with pytest.raises(ValueError, match="Unsupported compression"):
+    tc.create_meshing_tasks(f"file://{path}", shape=TASK, compress=method)
+  with pytest.raises(ValueError, match="Unsupported compression"):
+    MeshTask(shape=TASK, offset=(0, 0, 0), layer_path=f"file://{path}", compress=method)
+  assert _files(path) == before
 
 
 REFUSED = {

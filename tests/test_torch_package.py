@@ -47,6 +47,7 @@ import igneous_tpu_torch.task_creation, igneous_tpu_torch.ops.pooling
 import igneous_tpu_torch.ops.ccl, igneous_tpu_torch.ops.cuda_ccl
 import igneous_tpu_torch.ops.remap, igneous_tpu_torch.tasks.ccl
 import igneous_tpu_torch.task_creation.ccl, igneous_tpu_torch.tools.ccl_stage_costs
+import igneous_tpu_torch.tools.clahe_variants
 import igneous_tpu_torch.ops.mesh, igneous_tpu_torch.mesh_io, igneous_tpu_torch.spatial_index
 import igneous_tpu_torch.tasks.mesh, igneous_tpu_torch.task_creation.mesh
 import igneous_tpu_torch.ops.edt, igneous_tpu_torch.ops.cuda_edt
