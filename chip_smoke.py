@@ -1,8 +1,9 @@
 """Drive igneous_tpu_torch's downsample, transfer, connected-components,
 meshing, skeleton, morphology, census, inference and contrast paths, solo,
 batched, pipelined, through the queue worker, on gs:// and s3:// and into
-sharded scales, and its image surface (ROIs, spatial index, reorder,
-ingest), on one NVIDIA GPU and check them.
+sharded scales, its image surface (ROIs, spatial index, reorder, ingest),
+and its sharded and multires meshes and sharded skeletons, on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -80,7 +81,7 @@ Phases, each reported on its own line:
      batched grid) and the segmentation as 16 tasks of 512x512x64 with 2
      mips, each through create_downsampling_tasks -> LocalTaskQueue into
      new layers that share phase 3's mip 0, once with IGNEOUS_PIPELINE=off
-     (the serial loop, on the first 8 tasks of each stream since phase 13)
+     (the serial loop, on the first 4 tasks of each stream since phase 15)
      and once at the default (the staged pipeline): per
      run its wall, stage split (thread-seconds), the caller's waits, the
      prefetch buffer's stalls and high-water bytes and the chunk cache's
@@ -264,11 +265,30 @@ Phases, each reported on its own line:
      (g) `image reorder` of the first with z reversed, each read back. Each
      run prints its wall, the card's busy share (device ledger), launches
      and peak card memory;
+  15. frags and multires (after phases 5 and 6, on crops of their layers):
+     (a) `mesh forge --sharded` of a 448x224x112 crop of phase 5's layer
+     (its far corner; ids above 2^32, some at or above 2^63) in 2 tasks of 224x224x112, one
+     .frags container a task, the first byte for byte the same task on the
+     CPU route; `mesh merge-sharded --nlod 1` into several shard files
+     through fq:// and `execute`, every label read back through the port's
+     ShardReader, each manifest 2 LODs whose fragment sizes sum to its
+     data, every draco fragment decoding inside the stored lattice; (b) the
+     legacy forge of the same crop (every .frags entry its gunzipped
+     fragment), `mesh xfer --sharded --nlod 1` into a new layer and `mesh
+     merge --nlod 1`, checked alike; (c) the sharded skeleton forge of a
+     256x256x128 crop of phase 6's layer in 2 tasks (edt_pass 3 launches a
+     task; the first task's .frags the CPU route's), `skeleton
+     spatial-index db` and `skeleton merge-sharded --spatial-index-db`,
+     every label of the index read from the shard files; (d) `mesh clean`
+     and `mesh rm` (through the queue) of (b)'s layer and `skeleton xfer`
+     of (c)'s through the queue, the files left and copied as counted.
+     Each part prints its wall, stage split, the card's busy share (device
+     ledger), peak card memory and launches;
   7. the card's name and power limit, the programs line (X1-X3, X5-X7),
      the kernels line (each kernel's launches on the main paths, the
      transfer, the batched phase, the pipelined streams, the worker phase,
      where each of the four must have launched, the storage phase, the
-     sharded phase and phase 14),
+     sharded phase, phase 14 and, for edt_pass, phase 15),
      and the result.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -2147,14 +2167,22 @@ FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 X7_REPLACES = "igneous_tpu/infer/registry.py:105"  # _convnet3d (XLA)
 
 
+def dir_files(path: str, sub: str) -> dict:
+  """{name: stored bytes} of the files directly under ``sub`` of a
+  file:// layer."""
+  import os
+
+  base = os.path.join(path[len("file://"):], sub)
+  return {n: open(os.path.join(base, n), "rb").read() for n in sorted(os.listdir(base))
+          if os.path.isfile(os.path.join(base, n))}
+
+
 def layer_files(path: str) -> dict:
   """{name: bytes} of a layer's chunk files at mip 0 (``path`` file://)."""
   import os
 
-  base = path[len("file://"):]
-  key = json.load(open(os.path.join(base, "info")))["scales"][0]["key"]
-  d = os.path.join(base, key)
-  return {n: open(os.path.join(d, n), "rb").read() for n in sorted(os.listdir(d))}
+  info = json.load(open(os.path.join(path[len("file://"):], "info")))
+  return dir_files(path, info["scales"][0]["key"])
 
 
 def inference_phase(root, cp, cc, ce, torch, dev):
@@ -2506,9 +2534,10 @@ PIPELINED_RUNS = [
   ("image", 2**27, 16, (1024, 1024, 64), 3),
   ("segmentation", 2**28, 16, (512, 512, 64), 2),
 ]
-# tasks of each stream the serial loop runs: half of them since phase 13,
-# to make room for it in the time limit (the pipelined runs keep all 16)
-SERIAL_TASKS = 8
+# tasks of each stream the serial loop runs: half of them since phase 13
+# and a quarter since phase 15, to make room for them in the time limit
+# (the pipelined runs keep all 16)
+SERIAL_TASKS = 4
 # (source layer, compress): phase 3b's cseg layer (gzip chunks) and phase
 # 3's image, whose mip 0 is stored uncompressed
 PASSTHROUGH_RUNS = [("segmentation_cseg", "gzip"), ("image", None)]
@@ -4700,6 +4729,392 @@ def spatial_index_phase(root, cp, cc, ce, cl, torch, dev) -> float:
   return wall
 
 
+# ---------------------------------------------------------------------------
+# frags and multires (phase 15)
+
+# crops of phase 5's mesh layer (ids above 2^32, some at or above 2^63)
+# and of phase 6's tube layer, each cut into 2 tasks; the mesh crop is the
+# layer's far corner, whose largest label's simplification (one thread
+# each, not divisible) is the shortest of the layer's four quarters
+FRAGS_MESH_ORIGIN = (448, 224, 0)
+FRAGS_MESH_CROP, FRAGS_MESH_TASK = (448, 224, 112), (224, 224, 112)
+FRAGS_SKEL_CROP, FRAGS_SKEL_TASK = (256, 256, 128), (128, 256, 128)
+# labels per shard file in the sharded merges, low enough for several files
+FRAGS_MESH_LABELS_PER_SHARD, FRAGS_SKEL_LABELS_PER_SHARD = 16, 4
+# no minimum finest-LOD cell: every label's multires mesh has nlod + 1 LODs
+FRAGS_MIN_CHUNK = "0,0,0"
+FRAGS_NLOD = 1
+
+def crop_reingest(src: str, dst: str, size, origin=(0, 0, 0)) -> np.ndarray:
+  """The crop [origin, origin + size) of the layer ``src`` written as a
+  new layer at ``dst`` (same resolution, 64^3 chunks, uncompressed, its
+  origin at 0). Returns it."""
+  from igneous_tpu_torch import Volume
+  from igneous_tpu_torch.lib import Bbox
+
+  lo = np.asarray(origin)
+  data = Volume(src).download(Bbox(lo, lo + np.asarray(size)))[..., 0]
+  Volume.from_numpy(data, dst, resolution=(8, 8, 40), chunk_size=(64, 64, 64),
+                    compress=None, layer_type="segmentation")
+  return data
+
+
+def frags_run(label: str, fn, modules, torch, dev, launches_expected) -> dict:
+  """One part of phase 15, timed, the launch counts set to 0 just before
+  and read just after: its wall, the card's busy share from the device
+  ledger (none recorded: host work only), the peak card memory, its
+  launches and stage split. ``launches_expected``: the hand kernels'
+  launches it must make (the nonzero counts). Returns the launches."""
+  from igneous_tpu_torch import chunk_cache, telemetry
+  from igneous_tpu_torch.observability.device import LEDGER
+
+  zero_counts(*modules)
+  telemetry.reset()
+  chunk_cache.clear()
+  ledger_reset(torch, dev)
+  t0 = time.perf_counter()
+  fn()
+  wall = time.perf_counter() - t0
+  launched = launch_counts(*modules)
+  busy = 0.0
+  if LEDGER.snapshot() is not None:
+    busy = ledger_line(f"frags {label}", wall, launched)["busy_s"]
+  if {k: v for k, v in launched.items() if v} != launches_expected:
+    fail(f"frags {label}: launches {launched}, expected {launches_expected}")
+  print(f"frags {label}: wall {wall:.3f} s, card busy {100 * busy / wall:.2f}% (ledger), "
+        f"peak card memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, "
+        f"launches {json.dumps(launched)}, stages (thread-s) "
+        f"{json.dumps(stage_split(telemetry.snapshot()))}", flush=True)
+  return launched
+
+
+def parse_multires_manifest(data: bytes, label: str):
+  """(num_lods, fragment sizes in order) of a Neuroglancer multilod
+  manifest; fails unless its layout accounts for every byte."""
+  (num_lods,) = np.frombuffer(data, "<u4", 1, 24)
+  num_lods = int(num_lods)
+  pos = 28 + 16 * num_lods
+  nfrags = np.frombuffer(data, "<u4", num_lods, pos).tolist()
+  pos += 4 * num_lods
+  sizes = []
+  for n in nfrags:
+    sizes += np.frombuffer(data, "<u4", n, pos + 12 * n).tolist()
+    pos += 16 * n
+  if pos != len(data):
+    fail(f"multires {label}: a manifest of {len(data)} bytes lays out {pos}")
+  return num_lods, sizes
+
+
+def check_multires_label(label: str, manifest: bytes, frags: bytes, vqb: int) -> int:
+  """A label's manifest parses to FRAGS_NLOD + 1 LODs whose fragment sizes
+  sum to its fragment data, and every draco fragment decodes with the
+  port's decoder to vertices inside the stored lattice [0, 2^vqb].
+  Returns the fragment count."""
+  from igneous_tpu_torch.mesh_io import decode_mesh
+
+  num_lods, sizes = parse_multires_manifest(manifest, label)
+  if num_lods != FRAGS_NLOD + 1:
+    fail(f"multires {label}: {num_lods} LODs, not {FRAGS_NLOD + 1}")
+  if sum(sizes) != len(frags):
+    fail(f"multires {label}: fragment sizes sum to {sum(sizes)}, its data is {len(frags)}")
+  pos = 0
+  for size in sizes:
+    mesh = decode_mesh(frags[pos : pos + size], "draco")
+    pos += size
+    if not len(mesh.faces) or mesh.vertices.min() < 0 or mesh.vertices.max() > 2**vqb:
+      fail(f"multires {label}: a draco fragment decodes outside the lattice [0, 2^{vqb}] "
+           f"or to no face")
+  return len(sizes)
+
+
+def check_sharded_multires(path: str, mdir: str, labels) -> tuple:
+  """Every label of ``labels`` read back through the port's ShardReader
+  from the sharded multires dir, its fragments the bytes before its
+  manifest (the merge writes fragments first). Returns (shard files,
+  fragments)."""
+  from igneous_tpu_torch import CloudFiles
+  from igneous_tpu_torch.sharding import ShardReader, ShardingSpecification
+
+  cf = CloudFiles(path)
+  info = cf.get_json(f"{mdir}/info")
+  if info.get("@type") != "neuroglancer_multilod_draco":
+    fail(f"multires: {mdir}/info is not a multilod draco info")
+  spec = ShardingSpecification.from_dict(info["sharding"])
+  reader = ShardReader(cf, spec, prefix=mdir)
+  shards = sorted(k for k in cf.list(f"{mdir}/") if k.endswith(".shard"))
+  stored = sorted(int(i) for sh in range(2**spec.shard_bits)
+                  for i in reader.list_labels(sh).tolist())
+  if stored != sorted(labels):
+    fail(f"multires {mdir}: the shards hold {len(stored)} labels, the forge {len(labels)}")
+  base = (1 << spec.minishard_bits) * 16
+  nfrags = 0
+  for label in stored:
+    manifest = reader.get_chunk(label)
+    shard = int(spec.shard_number(label))
+    index = reader.minishard_index(shard, int(spec.minishard_number(label)))
+    pos = int(np.searchsorted(index[0], np.uint64(label)))
+    start = base + int(index[1, pos])
+    total = sum(parse_multires_manifest(manifest, str(label))[1])
+    frags = cf.get_range(f"{mdir}/{spec.shard_filename(shard)}", start - total, total)
+    nfrags += check_multires_label(str(label), manifest, frags,
+                                   info["vertex_quantization_bits"])
+  return len(shards), nfrags
+
+
+def frags_task_on_cpu(task, path: str, key: str, dev) -> bytes:
+  """Run ``task`` (a payload of the card's run) again on the CPU route,
+  writing into the directory ``frags_cpu`` of the layer ``path``; returns
+  that run's stored file ``key``."""
+  from igneous_tpu_torch import set_device
+  from igneous_tpu_torch.queues import deserialize
+
+  payload = task.payload()
+  field = "mesh_dir" if "mesh_dir" in payload["params"] else "skel_dir"
+  payload["params"] = dict(payload["params"], **{field: "frags_cpu"})
+  set_device("cpu")
+  try:
+    deserialize(payload).execute()
+  finally:
+    set_device(dev)
+  return dir_files(path, "frags_cpu")[key]
+
+
+def frags_mesh_phase(root, cp, cc, ce, cl, torch, dev) -> float:
+  """Phase 15 (a), (b) and the mesh half of (d), on a 448x224x112 crop of
+  phase 5's layer (its corner at FRAGS_MESH_ORIGIN). (a) `mesh forge --sharded` in 2 tasks of 224x224x112
+  (one .frags container a task; the first byte for byte the CPU route's),
+  `mesh merge-sharded --nlod 1` through fq:// and `execute` into several
+  shard files, every label read back and checked; (b) the legacy forge of
+  the same crop (every .frags entry its gunzipped fragment), `mesh merge
+  --nlod 1` (unsharded multires) and `mesh xfer --sharded --nlod 1` into a
+  new layer, checked alike; (d) `mesh clean` of the legacy fragments and
+  `mesh rm` of the multires files through the queue, the files left as
+  counted. Returns the phase's wall."""
+  import gzip
+
+  from igneous_tpu_torch import CloudFiles, Volume
+  from igneous_tpu_torch.lib import Bbox
+  from igneous_tpu_torch.mesh_io import FragMap
+  from igneous_tpu_torch.task_creation import create_meshing_tasks
+
+  t_phase = time.perf_counter()
+  mods = (cp, cc, ce, cl)
+  src = f"file://{root}/mesh_segmentation"
+  crops = {}
+  for name in ("frags_sharded", "frags_legacy"):
+    crops[name] = f"file://{root}/{name}"
+    data = crop_reingest(src, crops[name], FRAGS_MESH_CROP, FRAGS_MESH_ORIGIN)
+  labels = [int(v) for v in np.unique(data) if v != 0]
+  high = sum(v >= 2**63 for v in labels)
+  print(f"frags: mesh crop {FRAGS_MESH_CROP} at {FRAGS_MESH_ORIGIN} of phase 5's layer, "
+        f"{len(labels)} labels, {high} at or above 2^63", flush=True)
+  if not high or min(labels) < 2**32:
+    fail("frags: the mesh crop lacks ids above 2^32 or at or above 2^63")
+  del data
+  shape = ",".join(map(str, FRAGS_MESH_TASK))
+  q = f"fq://{root}/frags_queue"
+
+  # (a) the sharded forge and merge
+  path = crops["frags_sharded"]
+  frags_run("(a) mesh forge --sharded", lambda: run_cli(
+    ["mesh", "forge", path, "--sharded", "--shape", shape,
+     "--simplify-parallel", MESH_SIMPLIFY_THREADS]), mods, torch, dev, {})
+  mdir = Volume(path).info["mesh"]
+  stored = dir_files(path, mdir)
+  containers = [n for n in stored if n.endswith(".frags")]
+  if len(containers) != 2 or any(n.count(":") for n in stored):
+    fail(f"frags (a): {len(containers)} .frags containers, fragment files "
+         f"{sum(n.count(':') == 2 for n in stored)}")
+  tasks = list(create_meshing_tasks(path, shape=FRAGS_MESH_TASK, sharded=True,
+                                    parallel=MESH_SIMPLIFY_THREADS))
+  res = np.asarray(Volume(path).resolution, dtype=np.int64)
+  first = Bbox(tasks[0].offset * res, (tasks[0].offset + tasks[0].shape) * res)
+  key = f"{first.to_filename()}.frags"
+  t0 = time.perf_counter()
+  if frags_task_on_cpu(tasks[0], path, key, dev) != stored[key]:
+    fail("frags (a): task 0's .frags differs between the card and the CPU route")
+  fm = FragMap(stored[key])
+  print(f"frags (a): task 0's .frags ({len(fm)} labels, {len(stored[key])} B) equal on "
+        f"the card and the CPU route, {time.perf_counter() - t0:.1f} s", flush=True)
+  in_frags = sorted({int(k) for n in containers for k in FragMap(stored[n]).keys().tolist()})
+  if in_frags != labels:
+    fail(f"frags (a): the containers hold {len(in_frags)} labels, the crop {len(labels)}")
+
+  def merge_sharded():
+    run_cli(["mesh", "merge-sharded", path, "--nlod", FRAGS_NLOD, "--min-chunk-size",
+             FRAGS_MIN_CHUNK, "--max-labels-per-shard", FRAGS_MESH_LABELS_PER_SHARD,
+             "--queue", q])
+    run_cli(["execute", q, "-x", "-q"])
+
+  frags_run("(a) mesh merge-sharded via the queue", merge_sharded, mods, torch, dev, {})
+  nshards, nfrags = check_sharded_multires(path, mdir, labels)
+  if nshards < 2:
+    fail(f"frags (a): {nshards} shard file(s), expected at least 2")
+  print(f"frags (a): {len(labels)} labels in {nshards} shard files, {nfrags} draco "
+        f"fragments, every manifest {FRAGS_NLOD + 1} LODs, read back through ShardReader",
+        flush=True)
+
+  # (b) the legacy forge, its multires merge and the sharded transfer
+  legacy = crops["frags_legacy"]
+  frags_run("(b) mesh forge", lambda: run_cli(
+    ["mesh", "forge", legacy, "--shape", shape,
+     "--simplify-parallel", MESH_SIMPLIFY_THREADS]), mods, torch, dev, {})
+  legacy_files = dir_files(legacy, mdir)
+  fragments = [n for n in legacy_files if n.count(":") == 2]
+  for name in containers:
+    box = Bbox.from_filename(name)
+    core = Bbox(box.minpt // res, box.maxpt // res).to_filename()
+    fm = FragMap(stored[name])
+    for label in fm.keys().tolist():
+      blob = legacy_files.get(f"{label}:0:{core}.gz")
+      if blob is None or gzip.decompress(blob) != fm.get(label):
+        fail(f"frags (b): label {label}'s .frags entry differs from its legacy fragment")
+  if len(fragments) != sum(len(FragMap(stored[n])) for n in containers):
+    fail(f"frags (b): {len(fragments)} legacy fragments, .frags entries differ in number")
+  print(f"frags (b): every one of {len(fragments)} .frags entries equals its gunzipped "
+        f"legacy fragment", flush=True)
+  dest = f"file://{root}/frags_xfer"
+  # before `mesh merge --nlod`, which points the layer at its multires dir:
+  # the transfer reads the dir the info names
+  frags_run("(b) mesh xfer --sharded", lambda: run_cli(
+    ["mesh", "xfer", legacy, dest, "--sharded", "--nlod", FRAGS_NLOD]),
+    mods, torch, dev, {})
+  xshards, xfrags = check_sharded_multires(dest, f"{mdir}_multires", labels)
+  frags_run("(b) mesh merge --nlod", lambda: run_cli(
+    ["mesh", "merge", legacy, "--nlod", FRAGS_NLOD, "--min-chunk-size",
+     FRAGS_MIN_CHUNK]), mods, torch, dev, {})
+  multires = Volume(legacy).info["mesh"]
+  out = dir_files(legacy, multires)
+  if sorted(n for n in out if n.endswith(".index")) != sorted(f"{v}.index" for v in labels):
+    fail("frags (b): the unsharded multires dir lacks some label's manifest")
+  vqb = json.loads(out["info"])["vertex_quantization_bits"]
+  ufrags = sum(check_multires_label(str(v), out[f"{v}.index"], out[str(v)], vqb)
+               for v in labels)
+  print(f"frags (b): `mesh merge --nlod {FRAGS_NLOD}`: {len(labels)} labels, {ufrags} "
+        f"draco fragments in {multires}/; `mesh xfer --sharded`: {xshards} shard files, "
+        f"{xfrags} fragments, every label read back", flush=True)
+
+  # (d) the @queueable deletions and the intermediates' clean
+  cf = CloudFiles(legacy)
+  before = len(list(cf.list(f"{mdir}/")))
+  frags_run("(d) mesh clean", lambda: run_cli(["mesh", "clean", legacy, "--mesh-dir", mdir]),
+            mods, torch, dev, {})
+  left = sorted(k.split("/")[-1] for k in cf.list(f"{mdir}/"))
+  spatial = sum(n.endswith(".spatial.gz") for n in legacy_files)
+  if left != ["info"] or before != 1 + len(fragments) + spatial:
+    fail(f"frags (d): mesh clean left {left[:5]} of {before} files")
+
+  def rm():
+    run_cli(["mesh", "rm", legacy, "--queue", q])
+    run_cli(["execute", q, "-x", "-q"])
+
+  frags_run("(d) mesh rm via the queue", rm, mods, torch, dev, {})
+  left = sorted(k.split("/")[-1] for k in cf.list(f"{multires}/"))
+  if left != ["info"]:
+    fail(f"frags (d): mesh rm left {len(left)} files in {multires}/")
+  print(f"frags (d): mesh clean deleted {before - 1} intermediate files ({len(fragments)} "
+        f"fragments, {spatial} .spatial), mesh rm through the queue {2 * len(labels)} "
+        f"multires files; each directory keeps its info", flush=True)
+  wall = time.perf_counter() - t_phase
+  print(f"frags: mesh parts wall {wall:.1f} s", flush=True)
+  return wall
+
+
+def frags_skeleton_phase(root, ce, cp, cc, cl, torch, dev) -> tuple:
+  """Phase 15 (c) and the skeleton half of (d), on a 256x256x128 crop of
+  phase 6's tube layer: the sharded skeleton forge (`skeleton forge
+  --sharded`'s factory, with phase 6's SKEL_TRACE_THREADS tracing threads,
+  which the command line does not set) in 2 tasks of 128x256x128 on the
+  card (edt_pass 3 launches a task; task 0's .frags byte for byte the CPU
+  route's), `skeleton spatial-index db`, `skeleton
+  merge-sharded --spatial-index-db` (every label of the index read back
+  from the shard files through ShardReader), then `skeleton xfer` of the
+  layer through the queue (exactly the files of the label prefixes 1-9
+  copied, byte for byte). Returns (edt_pass launches, the wall)."""
+  from igneous_tpu_torch import CloudFiles, Volume
+  from igneous_tpu_torch.lib import Bbox
+  from igneous_tpu_torch.mesh_io import FragMap
+  from igneous_tpu_torch.queues import LocalTaskQueue
+  from igneous_tpu_torch.sharding import ShardReader, ShardingSpecification
+  from igneous_tpu_torch.skeleton_io import Skeleton
+  from igneous_tpu_torch.spatial_index import SpatialIndex
+  from igneous_tpu_torch.task_creation import create_skeletonizing_tasks
+
+  t_phase = time.perf_counter()
+  mods = (cp, cc, ce, cl)
+  path = f"file://{root}/frags_skeletons"
+  data = crop_reingest(f"file://{root}/skeleton_segmentation", path, FRAGS_SKEL_CROP)
+  uniq, counts = np.unique(data, return_counts=True)
+  print(f"frags: skeleton crop {FRAGS_SKEL_CROP} of phase 6's layer, {len(uniq) - 1} "
+        f"labels, {int(((uniq >= 2**63) & (counts >= 1000)).sum())} of 1000+ voxels at or "
+        f"above 2^63", flush=True)
+  del data
+  tasks = list(create_skeletonizing_tasks(path, shape=FRAGS_SKEL_TASK, sharded=True,
+                                          parallel=SKEL_TRACE_THREADS))
+  if len(tasks) != 2:
+    fail(f"frags (c): expected 2 tasks, planned {len(tasks)}")
+  launched = frags_run("(c) skeleton forge --sharded", lambda: LocalTaskQueue(
+    parallel=1).insert(tasks), mods, torch, dev, {"edt_pass": 6})
+  sdir = Volume(path).info["skeletons"]
+  stored = dir_files(path, sdir)
+  containers = [n for n in stored if n.endswith(".frags")]
+  if len(containers) != 2 or any(n.endswith(".sk") or n.endswith(".sk.gz") for n in stored):
+    fail(f"frags (c): {len(containers)} .frags containers")
+  res = np.asarray(Volume(path).resolution, dtype=np.int64)
+  first = Bbox(tasks[0].offset * res, (tasks[0].offset + tasks[0].shape) * res)
+  key = f"{first.to_filename()}.frags"
+  t0 = time.perf_counter()
+  if frags_task_on_cpu(tasks[0], path, key, dev) != stored[key]:
+    fail("frags (c): task 0's .frags differs between the card and the CPU route")
+  print(f"frags (c): task 0's .frags ({len(FragMap(stored[key]))} labels, "
+        f"{len(stored[key])} B) equal on the card and the CPU route, "
+        f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+  db = f"{root}/frags_skeletons.db"
+  frags_run("(c) skeleton spatial-index db", lambda: run_cli(
+    ["skeleton", "spatial-index", "db", path, db]), mods, torch, dev, {})
+  # no merge dust: every label the index names keeps a skeleton
+  frags_run("(c) skeleton merge-sharded --spatial-index-db", lambda: run_cli(
+    ["skeleton", "merge-sharded", path, "--spatial-index-db", db, "--dust-threshold", 0,
+     "--max-labels-per-shard", FRAGS_SKEL_LABELS_PER_SHARD]), mods, torch, dev, {})
+  cf = CloudFiles(path)
+  labels = sorted(SpatialIndex.query_sqlite(db))
+  if labels != sorted(SpatialIndex(cf, sdir).query()) or not labels:
+    fail("frags (c): the sqlite index and the .spatial files name other labels")
+  info = cf.get_json(f"{sdir}/info")
+  reader = ShardReader(cf, ShardingSpecification.from_dict(info["sharding"]), prefix=sdir)
+  vertices = 0
+  for label in labels:
+    blob = reader.get_chunk(label)
+    if blob is None:
+      fail(f"frags (c): label {label} of the index is not in the shard files")
+    vertices += len(Skeleton.from_precomputed(blob, info["vertex_attributes"]).vertices)
+  shards = sorted(n for n in dir_files(path, sdir) if n.endswith(".shard"))
+  print(f"frags (c): every one of the {len(labels)} labels of the index (the db's and the "
+        f".spatial files' alike) read back from {len(shards)} shard files, {vertices} "
+        f"vertices", flush=True)
+
+  # (d) the skeleton transfer through the queue
+  q = f"fq://{root}/frags_queue"
+  dest = f"file://{root}/frags_skeletons_copy"
+  src_files = dir_files(path, sdir)
+
+  def xfer():
+    run_cli(["skeleton", "xfer", path, dest, "--queue", q])
+    run_cli(["execute", q, "-x", "-q"])
+
+  frags_run("(d) skeleton xfer via the queue", xfer, mods, torch, dev, {})
+  copied = dir_files(dest, sdir)
+  want = {n: v for n, v in src_files.items() if n[0] in "123456789"}
+  if copied != want:
+    fail(f"frags (d): skeleton xfer copied {len(copied)} files, expected {len(want)}")
+  print(f"frags (d): skeleton xfer copied {len(copied)} of {len(src_files)} files (label "
+        f"prefixes 1-9) byte for byte", flush=True)
+  wall = time.perf_counter() - t_phase
+  print(f"frags: skeleton parts wall {wall:.1f} s", flush=True)
+  return launched["edt_pass"], wall
+
+
 def main() -> int:
   import argparse
   import os
@@ -4816,10 +5231,11 @@ def main() -> int:
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     programs = mesh_e2e_phase(root, torch, dev,
                               simplify_threads=args.mesh_simplify_threads)
+    if any(cc.LAUNCHES.values()) or any(cp.LAUNCHES.values()) or any(ce.LAUNCHES.values()):
+      fail("mesh: the pooling, CCL or EDT kernels ran on the mesh path")
     t_surface += spatial_index_phase(root, cp, cc, ce, cl, torch, dev)
+    t_frags = frags_mesh_phase(root, cp, cc, ce, cl, torch, dev)
   print(f"surface: phase wall {t_surface:.1f} s", flush=True)
-  if any(cc.LAUNCHES.values()) or any(cp.LAUNCHES.values()) or any(ce.LAUNCHES.values()):
-    fail("mesh: the pooling, CCL or EDT kernels ran on the mesh path")
   for counts in (cc.LAUNCHES, cp.LAUNCHES):
     for key in counts:
       counts[key] = 0
@@ -4833,6 +5249,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     worker_launches["edt_pass"] = worker_skeleton(root, ce, cp, cc)["edt_pass"]
     t_worker += time.perf_counter() - t_phase
+    frags_launches, t_phase = frags_skeleton_phase(root, ce, cp, cc, cl, torch, dev)
+    t_frags += t_phase
+  print(f"frags: phase wall {t_frags:.1f} s", flush=True)
   print(f"batched: phase wall {t_batched:.1f} s", flush=True)
   print(f"worker: phase wall {t_worker:.1f} s", flush=True)
   missing = [k for k in HAND_KERNELS if not worker_launches.get(k)]
@@ -4889,6 +5308,7 @@ def main() -> int:
     "replaces": EDT_REPLACES, "launches": launches["edt_pass"],
     "launches_batched": batched_launches["edt_pass"],
     "launches_worker": worker_launches["edt_pass"],
+    "launches_frags": frags_launches,
     "max_abs_err": max(c["max_abs_err"] for c in edt_cases),
     "ms": first["ms"], "plain_ms": first["plain_ms"],
     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

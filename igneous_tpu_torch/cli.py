@@ -5,20 +5,23 @@ roi,reorder,create}``, ``python -m igneous_tpu_torch image contrast
 ``python -m igneous_tpu_torch image voxels {count,sum}``,
 ``python -m igneous_tpu_torch image ccl {faces,links,
 calc-labels,relabel,clean,auto}``, ``python -m igneous_tpu_torch mesh
-{forge,merge,spatial-index create}``, ``python -m igneous_tpu_torch
-skeleton {forge,merge,spatial-index create}``,
+{forge [--sharded],merge [--nlod N],merge-sharded,clean,xfer [--sharded],rm,
+spatial-index {create,db}}``, ``python -m igneous_tpu_torch skeleton
+{forge [--sharded],merge,merge-sharded,clean,xfer [--sharded],rm,
+spatial-index {create,db}}``,
 ``python -m igneous_tpu_torch execute``, ``python -m igneous_tpu_torch
 queue {status,wait,release,purge,rezero,fsck,cp,mv,dlq {ls,retry,purge}}``,
-``python -m igneous_tpu_torch audit`` and ``python -m igneous_tpu_torch
-tune``.
+``python -m igneous_tpu_torch audit``, ``python -m igneous_tpu_torch
+design {ds-memory,ds-shape,bounds}``, ``python -m igneous_tpu_torch
+license`` and ``python -m igneous_tpu_torch tune``.
 
 A minimal counterpart of ``igneous-tpu image
 downsample|xfer|infer|rm|roi|reorder|create``, ``igneous-tpu image
 contrast``, ``igneous-tpu image voxels count|sum``, ``igneous-tpu image
-ccl``, ``igneous-tpu mesh forge|merge|spatial-index create``,
-``igneous-tpu skeleton forge|merge|spatial-index create``,
-``igneous-tpu execute``, ``igneous-tpu queue``, ``igneous-tpu audit`` and
-``igneous-tpu tune`` (``igneous_tpu/cli.py``), with the same option
+ccl``, ``igneous-tpu mesh``, ``igneous-tpu skeleton`` (but ``convert``),
+``igneous-tpu execute``, ``igneous-tpu queue``, ``igneous-tpu audit``,
+``igneous-tpu design``, ``igneous-tpu license`` and ``igneous-tpu tune``
+(``igneous_tpu/cli.py``), with the same option
 names; an option the port does not have is refused by the parser, and the
 ones it does not run yet raise ``NotImplementedError`` before anything is
 written. A command that
@@ -185,6 +188,9 @@ def build_parser() -> argparse.ArgumentParser:
   _add_queue(groups.add_parser(
     "queue", help="Queue inspection and maintenance.").add_subparsers(
       dest="command", required=True))
+  _add_design(groups.add_parser(
+    "design", help="Capacity planning math.").add_subparsers(dest="command", required=True))
+  groups.add_parser("license", help="Print the license.")
   _add_audit(groups.add_parser(
     "audit", help="Verify a campaign's outputs: presence, decode, manifest digests."))
   return parser
@@ -980,23 +986,41 @@ def _run_create(parser, args) -> int:
 
 
 def _add_spatial_index(group, dir_flag: str, shape) -> None:
-  cmd = group.add_parser("spatial-index", help="Spatial-index maintenance.").add_subparsers(
+  sub = group.add_parser("spatial-index", help="Spatial-index maintenance.").add_subparsers(
     dest="spatial_index_command", required=True)
-  cmd = cmd.add_parser("create", help="Rebuild the .spatial files from the segmentation.")
+  cmd = sub.add_parser("create", help="Rebuild the .spatial files from the segmentation.")
   cmd.add_argument("path")
   _queue_opt(cmd)
   cmd.add_argument("--mip", type=int, default=0)
   cmd.add_argument("--shape", type=_tuple3, default=shape)
   cmd.add_argument(dir_flag, dest="index_dir", default=None)
   cmd.add_argument("--fill-missing", action="store_true")
+  cmd = sub.add_parser("db", help="Materialize the spatial index into a sqlite database.")
+  cmd.add_argument("path")
+  cmd.add_argument("db_path")
+  cmd.add_argument(dir_flag, dest="index_dir", default=None)
+  cmd.add_argument("--progress", action="store_true",
+                   help="Print the cells read to stderr.")
+  cmd.add_argument("--allow-missing", action="store_true",
+                   help="Tolerate missing index files.")
 
 
 def _run_spatial_index(args, dir_for) -> int:
   from . import task_creation as tc
   from .volume import Volume
 
+  vol = Volume(args.path)
+  index_dir = dir_for(vol, args.index_dir)
+  if args.spatial_index_command == "db":
+    from .spatial_index import SpatialIndex
+
+    n = SpatialIndex(vol.cf, index_dir).to_sqlite(
+      args.db_path, progress=args.progress, allow_missing=args.allow_missing,
+    )
+    print(f"wrote {n} rows to {args.db_path}")
+    return 0
   enqueue(args.queue, tc.create_spatial_index_tasks(
-    args.path, dir_for(Volume(args.path), args.index_dir), mip=args.mip,
+    args.path, index_dir, mip=args.mip,
     shape=args.shape, fill_missing=args.fill_missing,
   ), args.parallel)
   return 0
@@ -1111,7 +1135,8 @@ def _add_mesh(mesh) -> None:
                         "up a morphological closing first.")
   cmd.add_argument("--compress", default="gzip",
                    help="Fragment compression: gzip, gzip-1..gzip-9, zstd or none.")
-  cmd.add_argument("--sharded", action="store_true", help="Not ported yet: raises.")
+  cmd.add_argument("--sharded", action="store_true",
+                   help="Write one .frags container a task, for `mesh merge-sharded`.")
   cmd.add_argument("--spatial-index", dest="spatial_index", action="store_true",
                    default=True)
   cmd.add_argument("--no-spatial-index", dest="spatial_index", action="store_false")
@@ -1127,31 +1152,136 @@ def _add_mesh(mesh) -> None:
   cmd.add_argument("--simplify-parallel", type=int, default=1,
                    help="threads for per-label simplification inside each task")
   _add_spatial_index(mesh, "--mesh-dir", (448, 448, 448))
-  cmd = mesh.add_parser("merge", help="Stage 2: write the legacy manifests.")
+  cmd = mesh.add_parser("merge", help="Stage 2: write the legacy manifests, or "
+                        "unsharded multires with --nlod > 0.")
   cmd.add_argument("path")
   _queue_opt(cmd)
   cmd.add_argument("--magnitude", type=int, default=2)
   cmd.add_argument("--mesh-dir", "--dir", dest="mesh_dir", default=None)
   cmd.add_argument("--nlod", type=int, default=0,
-                   help="(multires) not ported yet: any value above 0 raises.")
-  cmd.add_argument("--vqb", type=int, default=16, help="(multires) not ported yet.")
+                   help="(multires) Extra levels of detail; 0 = legacy manifests.")
+  cmd.add_argument("--vqb", type=int, default=16,
+                   help="(multires) Vertex quantization bits: 10 or 16.")
   cmd.add_argument("--min-chunk-size", type=_tuple3, default=(256, 256, 256),
-                   help="(multires) not ported yet.")
+                   help="(multires) Minimum finest-LOD fragment cell (voxels).")
+  cmd = mesh.add_parser("merge-sharded", help="Sharded multires merge of the "
+                        "`forge --sharded` .frags.")
+  cmd.add_argument("path")
+  _queue_opt(cmd)
+  cmd.add_argument("--mesh-dir", "--dir", dest="mesh_dir", default=None)
+  cmd.add_argument("--num-lods", type=int, default=None,
+                   help="Total levels of detail [default: 2].")
+  cmd.add_argument("--nlod", type=int, default=None,
+                   help="EXTRA levels of detail (total = nlod + 1).")
+  cmd.add_argument("--vqb", type=int, default=16,
+                   help="Vertex quantization bits: 10 or 16.")
+  cmd.add_argument("--min-chunk-size", type=_tuple3, default=(256, 256, 256),
+                   help="Minimum finest-LOD fragment cell (voxels).")
+  cmd.add_argument("--compress-level", type=int, default=7,
+                   help="Draco compression level (recorded; the encoder is "
+                        "the fixed sequential method).")
+  _shard_opts(cmd, max_labels_per_shard=1000)
+  cmd = mesh.add_parser("clean", help="Delete stage-1 intermediates (fragment "
+                        "files, .frags containers, .spatial cells).")
+  cmd.add_argument("path")
+  cmd.add_argument("--mesh-dir", default=None)
+  cmd = mesh.add_parser("xfer", help="Copy the mesh dir of SRC into DEST.")
+  cmd.add_argument("src")
+  cmd.add_argument("dest")
+  _queue_opt(cmd)
+  cmd.add_argument("--mesh-dir", "--dir", dest="mesh_dir", default=None)
+  cmd.add_argument("--magnitude", type=int, default=1)
+  cmd.add_argument("--sharded", action="store_true",
+                   help="Convert unsharded meshes to sharded multires at the "
+                        "destination.")
+  cmd.add_argument("--nlod", type=int, default=0,
+                   help="(--sharded) Extra levels of detail.")
+  cmd.add_argument("--mip", type=int, default=None,
+                   help="Accepted for parity; the multires info records the "
+                        "source mip.")
+  cmd = mesh.add_parser("rm", help="Delete the mesh dir's files.")
+  cmd.add_argument("path")
+  _queue_opt(cmd)
+  cmd.add_argument("--mesh-dir", "--dir", dest="mesh_dir", default=None)
+  cmd.add_argument("--magnitude", type=int, default=1)
+
+
+def _shard_opts(cmd, max_labels_per_shard: int) -> None:
+  cmd.add_argument("--shard-index-bytes", type=int, default=2**13)
+  cmd.add_argument("--minishard-index-bytes", type=int, default=2**15)
+  cmd.add_argument("--minishard-index-encoding", default="gzip")
+  cmd.add_argument("--min-shards", type=int, default=1)
+  cmd.add_argument("--max-labels-per-shard", type=int, default=max_labels_per_shard)
+  cmd.add_argument("--spatial-index-db", default=None,
+                   help="Query labels from this sqlite db (`spatial-index db`) "
+                        "instead of listing .spatial files.")
+
+
+def _clean(path: str, index_dir, dir_for, intermediate) -> int:
+  """Delete the keys under the layer's mesh or skeleton dir for which
+  ``intermediate(key)`` holds."""
+  from .volume import Volume
+
+  vol = Volume(path)
+  idir = dir_for(vol, index_dir)
+  doomed = [k for k in vol.cf.list(f"{idir}/") if intermediate(k)]
+  vol.cf.delete(doomed)
+  print(f"deleted {len(doomed)} intermediate files")
+  return 0
 
 
 def _run_mesh(args) -> int:
   from . import task_creation as tc
+  from .tasks.mesh import mesh_dir_for
 
   if args.command == "spatial-index":
-    from .tasks.mesh import mesh_dir_for
-
     return _run_spatial_index(args, mesh_dir_for)
   if args.command == "merge":
     if args.nlod > 0:
-      raise NotImplementedError(
-        "multires meshes (--nlod > 0) are not ported to igneous_tpu_torch yet"
+      tasks = tc.create_unsharded_multires_mesh_tasks(
+        args.path, magnitude=args.magnitude, mesh_dir=args.mesh_dir,
+        num_lods=args.nlod + 1, vertex_quantization_bits=args.vqb,
+        min_chunk_size=args.min_chunk_size,
       )
-    enqueue(args.queue, tc.create_mesh_manifest_tasks(
+    else:
+      tasks = tc.create_mesh_manifest_tasks(
+        args.path, magnitude=args.magnitude, mesh_dir=args.mesh_dir)
+    enqueue(args.queue, tasks, args.parallel)
+    return 0
+  if args.command == "merge-sharded":
+    num_lods = args.num_lods
+    if num_lods is None:
+      num_lods = (args.nlod + 1) if args.nlod is not None else 2
+    enqueue(args.queue, tc.create_sharded_multires_mesh_tasks(
+      args.path, mesh_dir=args.mesh_dir, num_lods=num_lods,
+      vertex_quantization_bits=args.vqb, min_chunk_size=args.min_chunk_size,
+      draco_compression_level=args.compress_level,
+      shard_index_bytes=args.shard_index_bytes,
+      minishard_index_bytes=args.minishard_index_bytes,
+      minishard_index_encoding=args.minishard_index_encoding,
+      min_shards=args.min_shards, max_labels_per_shard=args.max_labels_per_shard,
+      spatial_index_db=args.spatial_index_db,
+    ), args.parallel)
+    return 0
+  if args.command == "clean":
+    # label:0:bbox fragments, .frags containers and .spatial cells
+    return _clean(args.path, args.mesh_dir, mesh_dir_for, lambda k: (
+      k.endswith(".frags") or k.endswith(".spatial")
+      or len(k.split("/")[-1].split(":")) == 3
+    ))
+  if args.command == "xfer":
+    if args.sharded:
+      tasks = tc.create_sharded_multires_mesh_from_unsharded_tasks(
+        args.src, dest_cloudpath=args.dest, mesh_dir=args.mesh_dir,
+        num_lods=args.nlod + 1,
+      )
+    else:
+      tasks = tc.create_mesh_transfer_tasks(
+        args.src, args.dest, mesh_dir=args.mesh_dir, magnitude=args.magnitude)
+    enqueue(args.queue, tasks, args.parallel)
+    return 0
+  if args.command == "rm":
+    enqueue(args.queue, tc.create_mesh_deletion_tasks(
       args.path, magnitude=args.magnitude, mesh_dir=args.mesh_dir), args.parallel)
     return 0
   enqueue(args.queue, tc.create_meshing_tasks(
@@ -1188,7 +1318,9 @@ def _add_skeleton(skel) -> None:
   cmd.add_argument("--fill-holes", type=int, default=0,
                    help="Fill cavities: 0 off, 1-2 enclosed cavities, 3 and "
                         "up a morphological closing first.")
-  cmd.add_argument("--sharded", action="store_true", help="Not ported yet: raises.")
+  cmd.add_argument("--sharded", action="store_true",
+                   help="Write one .frags container a task, for `skeleton "
+                        "merge-sharded`.")
   cmd.add_argument("--skel-dir", default=None)
   cmd.add_argument("--spatial-index", dest="spatial_index", action="store_true",
                    default=True)
@@ -1225,15 +1357,74 @@ def _add_skeleton(skel) -> None:
   cmd.add_argument("--tick-threshold", type=float, default=6000.0)
   cmd.add_argument("--delete-fragments", action="store_true")
   cmd.add_argument("--max-cable-length", type=float, default=None)
+  cmd = skel.add_parser("merge-sharded", help="Stage 2 (sharded): fuse the "
+                        "`forge --sharded` .frags into shard files.")
+  cmd.add_argument("path")
+  _queue_opt(cmd)
+  cmd.add_argument("--skel-dir", default=None)
+  cmd.add_argument("--dust-threshold", "--min-cable-length", dest="dust_threshold",
+                   type=float, default=4000.0,
+                   help="Skip objects shorter than this physical path length.")
+  cmd.add_argument("--tick-threshold", type=float, default=6000.0)
+  cmd.add_argument("--max-cable-length", type=float, default=None)
+  cmd.add_argument("--data-encoding", default="gzip",
+                   help="Shard data compression: gzip or raw.")
+  _shard_opts(cmd, max_labels_per_shard=2000)
+  cmd = skel.add_parser("clean", help="Delete stage-1 intermediates (.sk "
+                        "fragments, .frags containers, .spatial cells).")
+  cmd.add_argument("path")
+  cmd.add_argument("--skel-dir", default=None)
+  cmd = skel.add_parser("xfer", help="Copy the skeleton dir of SRC into DEST.")
+  cmd.add_argument("src")
+  cmd.add_argument("dest")
+  _queue_opt(cmd)
+  cmd.add_argument("--skel-dir", "--dir", dest="skel_dir", default=None)
+  cmd.add_argument("--magnitude", type=int, default=1)
+  cmd.add_argument("--sharded", action="store_true",
+                   help="Convert unsharded skeletons to sharded format at the "
+                        "destination.")
+  cmd = skel.add_parser("rm", help="Delete the skeleton dir's files.")
+  cmd.add_argument("path")
+  _queue_opt(cmd)
+  cmd.add_argument("--skel-dir", "--dir", dest="skel_dir", default=None)
+  cmd.add_argument("--magnitude", type=int, default=1)
 
 
 def _run_skeleton(args) -> int:
   from . import task_creation as tc
+  from .tasks.skeleton import skel_dir_for
 
   if args.command == "spatial-index":
-    from .tasks.skeleton import skel_dir_for
-
     return _run_spatial_index(args, skel_dir_for)
+  if args.command == "merge-sharded":
+    enqueue(args.queue, tc.create_sharded_skeleton_merge_tasks(
+      args.path, skel_dir=args.skel_dir, dust_threshold=args.dust_threshold,
+      tick_threshold=args.tick_threshold, max_cable_length=args.max_cable_length,
+      shard_index_bytes=args.shard_index_bytes,
+      minishard_index_bytes=args.minishard_index_bytes,
+      minishard_index_encoding=args.minishard_index_encoding,
+      data_encoding=args.data_encoding, min_shards=args.min_shards,
+      max_labels_per_shard=args.max_labels_per_shard,
+      spatial_index_db=args.spatial_index_db,
+    ), args.parallel)
+    return 0
+  if args.command == "clean":
+    return _clean(args.path, args.skel_dir, skel_dir_for, lambda k: (
+      k.endswith(".sk") or k.endswith(".frags") or k.endswith(".spatial")
+    ))
+  if args.command == "xfer":
+    if args.sharded:
+      tasks = tc.create_sharded_from_unsharded_skeleton_merge_tasks(
+        args.src, dest_cloudpath=args.dest, skel_dir=args.skel_dir)
+    else:
+      tasks = tc.create_skeleton_transfer_tasks(
+        args.src, args.dest, skel_dir=args.skel_dir, magnitude=args.magnitude)
+    enqueue(args.queue, tasks, args.parallel)
+    return 0
+  if args.command == "rm":
+    enqueue(args.queue, tc.create_skeleton_deletion_tasks(
+      args.path, magnitude=args.magnitude, skel_dir=args.skel_dir), args.parallel)
+    return 0
   if args.command == "merge":
     enqueue(args.queue, tc.create_unsharded_skeleton_merge_tasks(
       args.path, magnitude=args.magnitude, skel_dir=args.skel_dir,
@@ -1386,9 +1577,86 @@ def _run_batched(parser, args, factor) -> int:
   return 0
 
 
+def _add_design(design) -> None:
+  cmd = design.add_parser("ds-memory", help="Optimal task shape and mip count "
+                          "for a byte budget.")
+  cmd.add_argument("path")
+  cmd.add_argument("--memory", type=int, default=int(3.5e9))
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--factor", type=_tuple3, default=(2, 2, 1))
+  cmd.add_argument("--max-mips", type=int, default=None,
+                   help="Cap the downsample count even if memory allows more.")
+  cmd.add_argument("--verbose", action="store_true")
+  cmd = design.add_parser("ds-shape", help="Optimal task shape for a byte budget.")
+  cmd.add_argument("path")
+  cmd.add_argument("--memory", type=int, default=int(3.5e9))
+  cmd.add_argument("--mip", type=int, default=0)
+  cmd.add_argument("--factor", type=_tuple3, default=(2, 2, 1))
+  cmd.add_argument("--num-mips", type=int, default=None)
+  cmd = design.add_parser("bounds", help="Bounds from the stored chunk filenames.")
+  cmd.add_argument("path")
+  cmd.add_argument("--mip", type=int, default=0)
+
+
+def _run_design(args) -> int:
+  from .downsample_scales import (
+    downsample_shape_from_memory_target,
+    num_mips_from_memory_target,
+  )
+  from .lib import Bbox
+  from .volume import Volume
+
+  if args.command == "bounds":
+    vol = Volume(args.path)
+    boxes = []
+    for key in vol.cf.list(f"{vol.meta.key(args.mip)}/"):
+      try:
+        boxes.append(Bbox.from_filename(key))
+      except ValueError:
+        continue
+    if not boxes:
+      print("no chunks found")
+      return 0
+    print(f"chunks: {len(boxes)}")
+    print(f"bounds: {Bbox.expand(*boxes)}")
+    print(f"info bounds: {vol.meta.bounds(args.mip)}")
+    return 0
+  vol = Volume(args.path, mip=args.mip)
+  cs = vol.meta.chunk_size(args.mip)
+  max_mips = args.max_mips if args.command == "ds-memory" else args.num_mips
+  shape = downsample_shape_from_memory_target(
+    vol.dtype.itemsize, int(cs.x), int(cs.y), int(cs.z), args.factor, args.memory,
+    max_mips=max_mips, num_channels=vol.num_channels,
+  )
+  shape_text = ",".join(str(int(v)) for v in shape)
+  if args.command == "ds-shape":
+    print(shape_text)
+    return 0
+  mips = num_mips_from_memory_target(
+    args.memory, vol.dtype.itemsize, cs, args.factor, vol.num_channels
+  )
+  if max_mips is not None:
+    mips = min(mips, max_mips)
+  if args.verbose:
+    print(f"Data width: {vol.dtype.itemsize} B")
+    print(f"Chunk size: {int(cs.x)},{int(cs.y)},{int(cs.z)}")
+    print(f"Memory limit: {args.memory:.2e} B")
+    print(f"Optimized shape: {shape_text}")
+    print(f"Downsamples: {mips}")
+  else:
+    print(f"mips achievable in {args.memory:.2e} bytes: {mips}")
+    print(shape_text)
+  return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
   parser = build_parser()
   args = parser.parse_args(argv)
+  if args.group == "license":
+    print("igneous-tpu is licensed under the BSD 3-Clause license.")
+    return 0
+  if args.group == "design":
+    return _run_design(args)
   if args.group == "tune":
     return _run_tune(parser, args)
   if args.group == "execute":

@@ -116,6 +116,12 @@ class Bbox:
   def intersects(cls, a: "Bbox", b: "Bbox") -> bool:
     return not cls.intersection(a, b).empty()
 
+  @classmethod
+  def expand(cls, *boxes: "Bbox") -> "Bbox":
+    mn = np.min([b.minpt for b in boxes], axis=0)
+    mx = np.max([b.maxpt for b in boxes], axis=0)
+    return cls(mn, mx)
+
   # scaling between mips
   def __truediv__(self, factor) -> "Bbox":
     f = np.asarray(factor)

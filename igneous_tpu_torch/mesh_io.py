@@ -1,14 +1,15 @@
-"""Mesh container, the Precomputed mesh codec and simplification.
+"""Mesh container, the mesh codecs, simplification and ``.frags``.
 
-The port's own copy of the parts of ``igneous_tpu/mesh_io.py`` that the
-legacy meshing path uses: ``Mesh`` with its Precomputed codec, and
-``simplify`` with the native quadric edge collapse (``csrc/simplify.cpp``,
-built with g++ by ``ops/_build.py``), and the ``FragMap`` container,
-trimmed to what the voxel-count census writes and reads. Draco and the
-sharded ``.frags`` output are not ported yet. Unlike the JAX package, a simplifier library that does
-not build raises instead of falling back to vertex clustering; clustering
-runs only when asked for (``placement="centroid"``) or where the JAX
-package's own algorithm takes it (a collapse that leaves no face).
+The port's own copy of ``igneous_tpu/mesh_io.py``: ``Mesh`` with its
+Precomputed codec, the draco hook (``register_draco_codec``; by default
+the port's pure-numpy ``draco`` module), ``simplify`` with the native
+quadric edge collapse (``csrc/simplify.cpp``, built with g++ by
+``ops/_build.py``), and the ``FragMap`` container of the sharded forge's
+``.frags`` files and the voxel-count census. Unlike the JAX package, a
+simplifier library that does not build raises instead of falling back to
+vertex clustering; clustering runs only when asked for
+(``placement="centroid"``) or where the JAX package's own algorithm takes
+it (a collapse that leaves no face).
 """
 
 from __future__ import annotations
@@ -88,24 +89,39 @@ class Mesh:
     return cls(vertices.copy(), faces.copy())
 
 
-def _check_encoding(encoding: str) -> None:
+# the draco hook: the port's pure-numpy bitstream codec unless a
+# deployment registers another (encode, decode) pair
+_DRACO_CODEC = None
+
+
+def register_draco_codec(encode_fn, decode_fn):
+  global _DRACO_CODEC
+  _DRACO_CODEC = (encode_fn, decode_fn)
+
+
+def _draco_codec():
+  global _DRACO_CODEC
+  if _DRACO_CODEC is None:
+    from . import draco
+
+    _DRACO_CODEC = (draco.encode_to_bytes, draco.decode_to_mesh)
+  return _DRACO_CODEC
+
+
+def encode_mesh(mesh: Mesh, encoding: str = "precomputed", **kw) -> bytes:
+  if encoding == "precomputed":
+    return mesh.to_precomputed()
   if encoding == "draco":
-    raise NotImplementedError(
-      "draco mesh encoding is not ported to igneous_tpu_torch yet; "
-      "use encoding='precomputed'"
-    )
-  if encoding != "precomputed":
-    raise ValueError(f"Unknown mesh encoding: {encoding}")
-
-
-def encode_mesh(mesh: Mesh, encoding: str = "precomputed") -> bytes:
-  _check_encoding(encoding)
-  return mesh.to_precomputed()
+    return _draco_codec()[0](mesh, **kw)
+  raise ValueError(f"Unknown mesh encoding: {encoding}")
 
 
 def decode_mesh(data: bytes, encoding: str = "precomputed") -> Mesh:
-  _check_encoding(encoding)
-  return Mesh.from_precomputed(data)
+  if encoding == "precomputed":
+    return Mesh.from_precomputed(data)
+  if encoding == "draco":
+    return _draco_codec()[1](data)
+  raise ValueError(f"Unknown mesh encoding: {encoding}")
 
 
 # ---------------------------------------------------------------------------
@@ -273,13 +289,13 @@ def _cluster_collapse(
 
 
 # ---------------------------------------------------------------------------
-# FragMap: the uint64 -> bytes container of ``voxel_counts.im``
+# FragMap: the uint64 -> bytes container of ``.frags`` and ``voxel_counts.im``
 
 
 class FragMap:
   """Zero-parse random-access uint64 -> bytes container (the mapbuffer
-  equivalent; the JAX package's ``mesh_io.FragMap``, trimmed to
-  ``tobytes``, ``frombytes`` and ``get``). Layout (little endian):
+  equivalent; the JAX package's ``mesh_io.FragMap``). Layout (little
+  endian):
     magic b'IGFM' | uint32 version | uint64 N
     uint64 keys[N] (sorted) | uint64 offsets[N+1] (into blob section)
     blobs
@@ -321,6 +337,9 @@ class FragMap:
 
   def __len__(self) -> int:
     return int(self._n)
+
+  def keys(self) -> np.ndarray:
+    return self._keys
 
   def get(self, key: int):
     """The bytes stored under ``key``, or None."""

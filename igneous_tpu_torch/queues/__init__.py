@@ -1,7 +1,16 @@
 """Task queues for the port: the JSON task wire format, local execution,
 the lease queues (``fq://`` and ``sqs://``) and their worker loop."""
 
-from .registry import TASK_REGISTRY, PrintTask, RegisteredTask, deserialize, serialize
+from .registry import (
+  FN_REGISTRY,
+  TASK_REGISTRY,
+  FunctionTask,
+  PrintTask,
+  RegisteredTask,
+  deserialize,
+  queueable,
+  serialize,
+)
 from .local import LocalTaskQueue
 from .filequeue import (
   FileQueue,

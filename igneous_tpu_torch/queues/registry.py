@@ -1,16 +1,22 @@
 """Task registry + JSON wire format, with the port's own registry.
 
-A task crosses process boundaries as ``{"class": ..., "params": {...}}``,
-the wire format of ``igneous_tpu/queues/registry.py``. ``RegisteredTask``
-subclasses record their constructor's bound arguments at instantiation,
-so ``__init__`` signatures ARE the wire schema.
+A task crosses process boundaries as JSON, in the two forms of
+``igneous_tpu/queues/registry.py``:
 
-The port keeps its own ``TASK_REGISTRY``, so a process that loads both
-packages keeps both sets of classes. ``deserialize`` maps a payload's class
-name into this registry and never imports the ``module`` the payload
-names: a payload serialized by the JAX package runs here unchanged. The
-``trace`` field such payloads carry is observability metadata and is
-ignored.
+  {"class": "DownsampleTask", "params": {...}}                 RegisteredTask
+  {"fn": "DeleteMeshFilesTask", "args": [...], "kwargs": {...}}  @queueable
+
+``RegisteredTask`` subclasses record their constructor's bound arguments
+at instantiation, so ``__init__`` signatures ARE the wire schema. A
+``@queueable`` function goes into a queue as ``functools.partial(fn,
+*args, **kwargs)`` and runs as a ``FunctionTask``.
+
+The port keeps its own ``TASK_REGISTRY`` and ``FN_REGISTRY``, so a process
+that loads both packages keeps both sets. ``deserialize`` maps a payload's
+class or function name into these registries and never imports the
+``module`` the payload names: a payload serialized by the JAX package runs
+here unchanged, and the port's payloads run there. The ``trace`` field
+such payloads carry is observability metadata and is ignored.
 """
 
 from __future__ import annotations
@@ -18,11 +24,12 @@ from __future__ import annotations
 import functools
 import inspect
 import json
-from typing import Dict, Union
+from typing import Callable, Dict, Union
 
 from ..lib import jsonify
 
 TASK_REGISTRY: Dict[str, type] = {}
+FN_REGISTRY: Dict[str, Callable] = {}
 
 
 class RegisteredTask:
@@ -65,10 +72,53 @@ class RegisteredTask:
     return f"{type(self).__name__}({args})"
 
 
+def queueable(fn: Callable) -> Callable:
+  """Register a function as a queueable task target.
+
+  Insert ``functools.partial(fn, *args, **kwargs)`` into a queue; it
+  serializes by function name + arguments.
+  """
+  FN_REGISTRY[fn.__name__] = fn
+  fn._queueable = True
+  return fn
+
+
+class FunctionTask(RegisteredTask):
+  """Adapter that executes a @queueable function payload."""
+
+  def __init__(self, fn_name: str, args: list, kwargs: dict):
+    self.fn_name = fn_name
+    self.args = args or []
+    self.kwargs = kwargs or {}
+
+  def payload(self) -> dict:
+    return {
+      "fn": self.fn_name,
+      "args": jsonify(list(self.args)),
+      "kwargs": jsonify(dict(self.kwargs)),
+    }
+
+  def execute(self):
+    if self.fn_name not in FN_REGISTRY:
+      import igneous_tpu_torch.tasks  # noqa: F401  (registers the port's functions)
+    if self.fn_name not in FN_REGISTRY:
+      raise KeyError(
+        f"Function {self.fn_name!r} is not @queueable-registered. "
+        f"Known: {sorted(FN_REGISTRY)}"
+      )
+    return FN_REGISTRY[self.fn_name](*self.args, **self.kwargs)
+
+
 def serialize(task) -> str:
-  """Task object | payload dict | JSON string → JSON string."""
+  """Task object | partial of a @queueable function | payload dict | JSON
+  string → JSON string."""
   if isinstance(task, RegisteredTask):
     return task.to_json()
+  if isinstance(task, functools.partial):
+    fn = task.func
+    if not getattr(fn, "_queueable", False):
+      raise ValueError(f"{fn} is not @queueable")
+    return FunctionTask(fn.__name__, list(task.args), dict(task.keywords)).to_json()
   if isinstance(task, dict):
     return json.dumps(jsonify(task))
   if isinstance(task, str):
@@ -79,11 +129,8 @@ def serialize(task) -> str:
 def deserialize(payload: Union[str, bytes, dict]) -> RegisteredTask:
   if isinstance(payload, (str, bytes)):
     payload = json.loads(payload)
-  if "class" not in payload:
-    raise KeyError(
-      "only RegisteredTask payloads ({'class': ..., 'params': ...}) are "
-      "ported; @queueable function payloads are not"
-    )
+  if "fn" in payload:
+    return FunctionTask(payload["fn"], payload.get("args"), payload.get("kwargs"))
   name = payload["class"]
   if name not in TASK_REGISTRY:
     import igneous_tpu_torch.tasks  # noqa: F401  (registers the port's tasks)

@@ -34,6 +34,22 @@ from .image import (
   create_voxel_counting_tasks,
 )
 from .inference import create_inference_tasks
-from .mesh import create_mesh_manifest_tasks, create_meshing_tasks
-from .skeleton import create_skeletonizing_tasks, create_unsharded_skeleton_merge_tasks
+from .mesh import (
+  configure_multires_info,
+  create_mesh_deletion_tasks,
+  create_mesh_manifest_tasks,
+  create_mesh_transfer_tasks,
+  create_meshing_tasks,
+  create_sharded_multires_mesh_from_unsharded_tasks,
+  create_sharded_multires_mesh_tasks,
+  create_unsharded_multires_mesh_tasks,
+)
+from .skeleton import (
+  create_sharded_from_unsharded_skeleton_merge_tasks,
+  create_sharded_skeleton_merge_tasks,
+  create_skeleton_deletion_tasks,
+  create_skeleton_transfer_tasks,
+  create_skeletonizing_tasks,
+  create_unsharded_skeleton_merge_tasks,
+)
 from ..tasks.stats import accumulate_voxel_counts, load_voxel_counts

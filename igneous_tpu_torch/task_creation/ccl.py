@@ -2,7 +2,8 @@
 
 The port's own copy of ``igneous_tpu/task_creation/ccl.py``: the same task
 grids, payloads and scratch files. ``ccl_auto`` runs the four passes on a
-``LocalTaskQueue``; lease-based queues (fq://) are not ported yet.
+``LocalTaskQueue``, or inserts each pass into a lease queue (fq://,
+sqs://) and drains it before the next.
 
 The destination's default encoding is ``compressed_segmentation``, as in
 the reference; any encoding of ``codecs.py`` may be asked for.

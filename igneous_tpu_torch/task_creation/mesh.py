@@ -1,18 +1,40 @@
-"""Mesh task factories (the legacy, unsharded format).
+"""Mesh task factories.
 
-The port's own copy of ``create_meshing_tasks`` and
-``create_mesh_manifest_tasks`` from ``igneous_tpu/task_creation/mesh.py``:
-the same task grid, payloads, mesh ``info`` and provenance. The options
-the port does not run yet (sharded output, draco, graphene layers) raise ``NotImplementedError`` before anything is
-written.
+The port's own copy of ``igneous_tpu/task_creation/mesh.py`` but its
+graphene factory: the forge grid (``create_meshing_tasks``, legacy or
+sharded ``.frags``, Precomputed or draco), the legacy manifests, the three
+multires merges with their info and shard planning, and the deletion and
+transfer fan-outs of ``@queueable`` functions. The same task grid,
+payloads, infos and provenance. A graphene layer raises
+``NotImplementedError`` before anything is written.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Iterator, Optional, Sequence
 
+import numpy as np
+
 from ..lib import Bbox, Vec
-from ..tasks.mesh import MeshManifestPrefixTask, MeshTask, refuse_unported
+from ..mesh_multires import multires_info
+from ..sharding import ShardingSpecification, compute_shard_params_for_hashed
+from ..spatial_index import SpatialIndex
+from ..storage import CloudFiles
+from ..tasks.mesh import (
+  DeleteMeshFilesTask,
+  MeshManifestPrefixTask,
+  MeshTask,
+  TransferMeshFilesTask,
+  mesh_dir_for,
+  refuse_unported,
+)
+from ..tasks.mesh_multires import (
+  MultiResShardedFromUnshardedMeshMergeTask,
+  MultiResShardedMeshMergeTask,
+  MultiResUnshardedMeshMergeTask,
+  legacy_manifest_labels,
+)
 from ..volume import Volume
 from .common import GridTaskIterator, get_bounds, label_prefixes, operator_contact
 
@@ -43,7 +65,7 @@ def create_meshing_tasks(
 ):
   """Stage-1 mesh forge grid; writes the mesh ``info`` and points the
   layer's ``info`` at it."""
-  refuse_unported(layer_path, sharded, encoding, compress)
+  refuse_unported(layer_path, encoding, compress)
   vol = Volume(layer_path, mip=mip)
   if vol.layer_type != "segmentation":
     raise ValueError("Meshing requires a segmentation layer")
@@ -120,3 +142,220 @@ def create_mesh_manifest_tasks(
     yield MeshManifestPrefixTask(
       layer_path=layer_path, prefix=prefix, mesh_dir=mesh_dir
     )
+
+
+def configure_multires_info(
+  cloudpath: str,
+  mesh_dir: str,
+  vertex_quantization_bits: int = 16,
+  sharding: Optional[dict] = None,
+  mip: int = 0,
+) -> dict:
+  """Write the multires mesh dir's info and point the layer at it (a
+  bucket with no volume info keeps only the mesh info)."""
+  info = multires_info(
+    vertex_quantization_bits=vertex_quantization_bits,
+    sharding=sharding,
+    mip=mip,
+  )
+  CloudFiles(cloudpath).put_json(f"{mesh_dir}/info", info)
+  try:
+    vol = Volume(cloudpath)
+    vol.info["mesh"] = mesh_dir
+    vol.commit_info()
+  except FileNotFoundError:
+    pass  # mesh-only bucket: no volume info to update
+  return info
+
+
+def create_unsharded_multires_mesh_tasks(
+  cloudpath: str,
+  magnitude: int = 2,
+  src_mesh_dir: Optional[str] = None,
+  mesh_dir: Optional[str] = None,
+  num_lods: int = 2,
+  encoding: str = "draco",
+  parallel: int = 1,
+  vertex_quantization_bits: int = 16,
+  min_chunk_size: Optional[Sequence[int]] = None,
+  draco_compression_level: int = 7,
+) -> Iterator:
+  """Legacy fragments → unsharded multires, one task a label prefix."""
+  vol = Volume(cloudpath)
+  src = mesh_dir_for(vol, src_mesh_dir)  # raises if nothing is configured
+  out = mesh_dir or f"{src}_multires"
+  configure_multires_info(
+    cloudpath, out, vertex_quantization_bits=vertex_quantization_bits,
+  )
+  for prefix in label_prefixes(magnitude):
+    yield MultiResUnshardedMeshMergeTask(
+      cloudpath=cloudpath,
+      prefix=prefix,
+      src_mesh_dir=src,
+      mesh_dir=out,
+      num_lods=num_lods,
+      encoding=encoding,
+      parallel=parallel,
+      min_chunk_size=min_chunk_size,
+      draco_compression_level=draco_compression_level,
+    )
+
+
+def _multires_shard_spec(
+  num_labels: int,
+  shard_index_bytes: int = 2**13,
+  minishard_index_bytes: int = 2**15,
+  min_shards: int = 1,
+  max_labels_per_shard: Optional[int] = None,
+  minishard_index_encoding: str = "gzip",
+):
+  if max_labels_per_shard and num_labels > 0:
+    # bound the average shard population
+    min_shards = max(
+      min_shards, int(np.ceil(num_labels / max_labels_per_shard))
+    )
+  shard_bits, minishard_bits, preshift_bits = compute_shard_params_for_hashed(
+    num_labels,
+    shard_index_bytes=shard_index_bytes,
+    minishard_index_bytes=minishard_index_bytes,
+    min_shards=min_shards,
+  )
+  return ShardingSpecification(
+    preshift_bits=preshift_bits,
+    hash="murmurhash3_x86_128",
+    minishard_bits=minishard_bits,
+    shard_bits=shard_bits,
+    # raw data: fragment ranges inside the shard are read by offset; the
+    # multires fragment-before-manifest layout requires it
+    minishard_index_encoding=minishard_index_encoding,
+    data_encoding="raw",
+  )
+
+
+def create_sharded_multires_mesh_tasks(
+  cloudpath: str,
+  mesh_dir: Optional[str] = None,
+  num_lods: int = 2,
+  encoding: str = "draco",
+  parallel: int = 1,
+  vertex_quantization_bits: int = 16,
+  min_chunk_size: Optional[Sequence[int]] = None,
+  draco_compression_level: int = 7,
+  shard_index_bytes: int = 2**13,
+  minishard_index_bytes: int = 2**15,
+  minishard_index_encoding: str = "gzip",
+  min_shards: int = 1,
+  max_labels_per_shard: Optional[int] = None,
+  spatial_index_db: Optional[str] = None,
+) -> Iterator:
+  """Sharded stage-1 .frags → sharded multires: census labels via the
+  spatial index (or a ``SpatialIndex.to_sqlite`` db), solve shard bits,
+  write the info, one task per shard."""
+  vol = Volume(cloudpath)
+  mdir = mesh_dir_for(vol, mesh_dir)
+  if spatial_index_db:
+    labels = SpatialIndex.query_sqlite(spatial_index_db)
+  else:
+    labels = SpatialIndex(vol.cf, mdir).query()
+  spec = _multires_shard_spec(
+    len(labels),
+    shard_index_bytes=shard_index_bytes,
+    minishard_index_bytes=minishard_index_bytes,
+    min_shards=min_shards,
+    max_labels_per_shard=max_labels_per_shard,
+    minishard_index_encoding=minishard_index_encoding,
+  )
+  configure_multires_info(
+    cloudpath, mdir, sharding=spec.to_dict(),
+    vertex_quantization_bits=vertex_quantization_bits,
+  )
+
+  for shard_no in range(2**spec.shard_bits):
+    yield MultiResShardedMeshMergeTask(
+      cloudpath=cloudpath,
+      shard_no=shard_no,
+      mesh_dir=mdir,
+      num_lods=num_lods,
+      encoding=encoding,
+      parallel=parallel,
+      min_chunk_size=min_chunk_size,
+      draco_compression_level=draco_compression_level,
+    )
+
+
+def create_sharded_multires_mesh_from_unsharded_tasks(
+  cloudpath: str,
+  dest_cloudpath: Optional[str] = None,
+  src_mesh_dir: Optional[str] = None,
+  mesh_dir: Optional[str] = None,
+  num_lods: int = 2,
+  encoding: str = "draco",
+  parallel: int = 1,
+  vertex_quantization_bits: int = 16,
+  min_chunk_size: Optional[Sequence[int]] = None,
+  draco_compression_level: int = 7,
+  shard_index_bytes: int = 2**13,
+  minishard_index_bytes: int = 2**15,
+  minishard_index_encoding: str = "gzip",
+  min_shards: int = 1,
+  max_labels_per_shard: Optional[int] = None,
+) -> Iterator:
+  """Legacy unsharded meshes → sharded multires. ``dest_cloudpath``
+  writes the converted meshes into a different volume (the ``mesh xfer
+  --sharded`` path)."""
+  vol = Volume(cloudpath)
+  src = mesh_dir_for(vol, src_mesh_dir)  # raises if nothing is configured
+  out = mesh_dir or f"{src}_multires"
+  labels = legacy_manifest_labels(vol.cf, src)
+  spec = _multires_shard_spec(
+    len(labels),
+    shard_index_bytes=shard_index_bytes,
+    minishard_index_bytes=minishard_index_bytes,
+    min_shards=min_shards,
+    max_labels_per_shard=max_labels_per_shard,
+    minishard_index_encoding=minishard_index_encoding,
+  )
+  configure_multires_info(
+    dest_cloudpath or cloudpath, out, sharding=spec.to_dict(),
+    vertex_quantization_bits=vertex_quantization_bits,
+  )
+
+  for shard_no in range(2**spec.shard_bits):
+    yield MultiResShardedFromUnshardedMeshMergeTask(
+      cloudpath=cloudpath,
+      shard_no=shard_no,
+      src_mesh_dir=src,
+      mesh_dir=out,
+      num_lods=num_lods,
+      encoding=encoding,
+      parallel=parallel,
+      min_chunk_size=min_chunk_size,
+      draco_compression_level=draco_compression_level,
+      dest_cloudpath=dest_cloudpath,
+    )
+
+
+def create_mesh_deletion_tasks(
+  layer_path: str, magnitude: int = 1, mesh_dir: Optional[str] = None
+):
+  """One ``DeleteMeshFilesTask`` a decimal prefix of ``magnitude`` digits."""
+  mdir = mesh_dir_for(Volume(layer_path), mesh_dir)
+  for prefix in range(10**magnitude):
+    yield partial(DeleteMeshFilesTask, layer_path, mdir, str(prefix))
+
+
+def create_mesh_transfer_tasks(
+  src_layer: str, dest_layer: str, mesh_dir: Optional[str] = None,
+  magnitude: int = 1,
+):
+  """One ``TransferMeshFilesTask`` a decimal prefix; points the
+  destination's info at the mesh dir."""
+  mdir = mesh_dir_for(Volume(src_layer), mesh_dir)
+  try:
+    dest = Volume(dest_layer)
+    dest.info["mesh"] = mdir
+    dest.commit_info()
+  except FileNotFoundError:
+    pass  # mesh-only bucket: no info to update
+  for prefix in range(10**magnitude):
+    yield partial(TransferMeshFilesTask, src_layer, dest_layer, mdir, str(prefix))

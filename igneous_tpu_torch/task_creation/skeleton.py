@@ -1,23 +1,39 @@
-"""Skeleton task factories (unsharded format).
+"""Skeleton task factories.
 
-The port's own copy of ``create_skeletonizing_tasks`` and
-``create_unsharded_skeleton_merge_tasks`` from
-``igneous_tpu/task_creation/skeleton.py``: the same task grid, payloads,
-skeleton ``info`` (``vertex_attributes``, ``spatial_index``) and
-provenance. The options the port does not run yet (sharded output,
-fix_autapses, cross-sectional area, graphene layers and root ids) raise ``NotImplementedError`` before anything is
-written.
+The port's own copy of ``igneous_tpu/task_creation/skeleton.py``: the
+forge grid (legacy or sharded ``.frags``), the unsharded and sharded
+merges (the shard spec solved from the spatial index's labels, or a
+``SpatialIndex.to_sqlite`` db), the re-pack of finished skeletons into
+shards, and the deletion and transfer fan-outs of ``@queueable``
+functions. The same task grid, payloads, skeleton ``info``
+(``vertex_attributes``, ``spatial_index``, ``sharding``) and provenance.
+The options the port does not run yet (fix_autapses, cross-sectional
+area, graphene layers and root ids) raise ``NotImplementedError`` before
+anything is written.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
 from ..lib import Bbox, Vec
+from ..sharding import ShardingSpecification, compute_shard_params_for_hashed
 from ..skeleton_io import DEFAULT_ATTRIBUTES
-from ..tasks.skeleton import SkeletonTask, UnshardedSkeletonMergeTask, refuse_unported
+from ..spatial_index import SpatialIndex
+from ..storage import CloudFiles
+from ..tasks.skeleton import (
+  DeleteSkeletonFilesTask,
+  ShardedFromUnshardedSkeletonMergeTask,
+  ShardedSkeletonMergeTask,
+  SkeletonTask,
+  TransferSkeletonFilesTask,
+  UnshardedSkeletonMergeTask,
+  refuse_unported,
+  skel_dir_for,
+)
 from ..volume import Volume
 from .common import GridTaskIterator, get_bounds, label_prefixes, operator_contact
 
@@ -55,7 +71,7 @@ def create_skeletonizing_tasks(
   ``{label: [[x, y, z] physical points]}`` or
   ``[((x, y, z), label, swc_label), ...]``."""
   refuse_unported(
-    cloudpath, sharded, fix_autapses, cross_sectional_area, root_ids_cloudpath,
+    cloudpath, fix_autapses, cross_sectional_area, root_ids_cloudpath,
   )
   vol = Volume(cloudpath, mip=mip)
   if vol.layer_type != "segmentation":
@@ -194,3 +210,141 @@ def create_unsharded_skeleton_merge_tasks(
       max_cable_length=max_cable_length,
       crop=crop,
     )
+
+
+def create_sharded_skeleton_merge_tasks(
+  cloudpath: str,
+  skel_dir: Optional[str] = None,
+  dust_threshold: float = 4000.0,
+  tick_threshold: float = 6000.0,
+  shard_index_bytes: int = 8192,
+  minishard_index_bytes: int = 40000,
+  min_shards: int = 1,
+  max_cable_length: Optional[float] = None,
+  max_labels_per_shard: Optional[int] = None,
+  minishard_index_encoding: str = "gzip",
+  data_encoding: str = "gzip",
+  spatial_index_db: Optional[str] = None,
+) -> Iterator:
+  """Stage-2 sharded merge: census labels via the spatial index, solve
+  shard parameters, attach the sharding spec to the skeleton info, and
+  emit one task per shard file."""
+  vol = Volume(cloudpath)
+  sdir = skel_dir_for(vol, skel_dir)
+  if spatial_index_db:
+    labels = SpatialIndex.query_sqlite(spatial_index_db)
+  else:
+    labels = SpatialIndex(vol.cf, sdir).query()
+  if max_labels_per_shard and len(labels) > 0:
+    # bound the average shard population
+    min_shards = max(
+      min_shards, int(np.ceil(len(labels) / max_labels_per_shard))
+    )
+  shard_bits, minishard_bits, preshift_bits = compute_shard_params_for_hashed(
+    num_labels=len(labels),
+    shard_index_bytes=shard_index_bytes,
+    minishard_index_bytes=minishard_index_bytes,
+    min_shards=min_shards,
+  )
+  spec = ShardingSpecification(
+    preshift_bits=preshift_bits,
+    hash="murmurhash3_x86_128",
+    minishard_bits=minishard_bits,
+    shard_bits=shard_bits,
+    minishard_index_encoding=minishard_index_encoding,
+    data_encoding=data_encoding,
+  )
+  skel_info = vol.cf.get_json(f"{sdir}/info") or {}
+  skel_info["sharding"] = spec.to_dict()
+  vol.cf.put_json(f"{sdir}/info", skel_info)
+
+  for shard_no in range(2**shard_bits):
+    yield ShardedSkeletonMergeTask(
+      cloudpath=cloudpath,
+      shard_no=shard_no,
+      skel_dir=sdir,
+      dust_threshold=dust_threshold,
+      tick_threshold=tick_threshold,
+      max_cable_length=max_cable_length,
+    )
+
+
+def create_sharded_from_unsharded_skeleton_merge_tasks(
+  cloudpath: str,
+  dest_cloudpath: Optional[str] = None,
+  src_skel_dir: Optional[str] = None,
+  skel_dir: Optional[str] = None,
+) -> Iterator:
+  """Re-pack finished unsharded skeletons into shard files.
+  ``dest_cloudpath`` writes them into a different volume (``skeleton xfer
+  --sharded``)."""
+  vol = Volume(cloudpath)
+  src = src_skel_dir or skel_dir_for(vol, None)
+  out = skel_dir or f"{src}_sharded"
+
+  labels = [
+    int(k.split("/")[-1]) for k in vol.cf.list(f"{src}/")
+    if k.split("/")[-1].isdigit()
+  ]
+  shard_bits, minishard_bits, preshift_bits = compute_shard_params_for_hashed(
+    len(labels)
+  )
+  spec = ShardingSpecification(
+    preshift_bits=preshift_bits,
+    hash="murmurhash3_x86_128",
+    minishard_bits=minishard_bits,
+    shard_bits=shard_bits,
+  )
+  src_info = vol.cf.get_json(f"{src}/info") or {
+    "@type": "neuroglancer_skeletons",
+    "transform": [1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0],
+    "vertex_attributes": DEFAULT_ATTRIBUTES,
+  }
+  src_info["sharding"] = spec.to_dict()
+  if dest_cloudpath:
+    CloudFiles(dest_cloudpath).put_json(f"{out}/info", src_info)
+    try:
+      dest = Volume(dest_cloudpath)
+      dest.info["skeletons"] = out
+      dest.commit_info()
+    except FileNotFoundError:
+      pass  # skeleton-only bucket
+  else:
+    vol.cf.put_json(f"{out}/info", src_info)
+    vol.info["skeletons"] = out
+    vol.commit_info()
+
+  for shard_no in range(2**shard_bits):
+    yield ShardedFromUnshardedSkeletonMergeTask(
+      cloudpath=cloudpath,
+      shard_no=shard_no,
+      src_skel_dir=src,
+      skel_dir=out,
+      dest_cloudpath=dest_cloudpath,
+    )
+
+
+def create_skeleton_deletion_tasks(
+  cloudpath: str, magnitude: int = 1, skel_dir: Optional[str] = None
+):
+  """One ``DeleteSkeletonFilesTask`` a label prefix (``label_prefixes``)."""
+  sdir = skel_dir_for(Volume(cloudpath), skel_dir)
+  for prefix in label_prefixes(magnitude):
+    yield partial(DeleteSkeletonFilesTask, cloudpath, sdir, prefix)
+
+
+def create_skeleton_transfer_tasks(
+  src_layer: str, dest_layer: str, skel_dir: Optional[str] = None,
+  magnitude: int = 1,
+):
+  """One ``TransferSkeletonFilesTask`` a label prefix; points the
+  destination's info at the skeleton dir."""
+  sdir = skel_dir_for(Volume(src_layer), skel_dir)
+  try:
+    dest = Volume(dest_layer)
+    dest.info["skeletons"] = sdir
+    dest.commit_info()
+  except FileNotFoundError:
+    pass
+  for prefix in label_prefixes(magnitude):
+    yield partial(TransferSkeletonFilesTask, src_layer, dest_layer, sdir, prefix)

@@ -1,6 +1,6 @@
 """The port's tasks; importing this package registers them."""
 
-from ..queues.registry import PrintTask, RegisteredTask
+from ..queues.registry import FunctionTask, PrintTask, RegisteredTask
 
 from .audit import IntegrityAuditTask
 from .contrast import CLAHETask, ContrastNormalizationTask, LuminanceLevelsTask
@@ -21,8 +21,33 @@ from .image import (
 )
 from .image_sharded import ImageShardDownsampleTask, ImageShardTransferTask
 from .inference import InferenceTask
-from .mesh import MeshManifestFilesystemTask, MeshManifestPrefixTask, MeshTask
-from .skeleton import SkeletonTask, UnshardedSkeletonMergeTask
+from .mesh import (
+  DeleteMeshFilesTask,
+  MeshManifestFilesystemTask,
+  MeshManifestPrefixTask,
+  MeshTask,
+  TransferMeshFilesTask,
+)
+from .mesh_multires import (
+  MultiResShardedFromUnshardedMeshMergeTask,
+  MultiResShardedMeshMergeTask,
+  MultiResUnshardedMeshMergeTask,
+)
+from .obsolete import (
+  HyperSquareConsensusTask,
+  LegacyInferenceTask,
+  MaskAffinitymapTask,
+  WatershedRemapTask,
+  register_inference_model,
+)
+from .skeleton import (
+  DeleteSkeletonFilesTask,
+  ShardedFromUnshardedSkeletonMergeTask,
+  ShardedSkeletonMergeTask,
+  SkeletonTask,
+  TransferSkeletonFilesTask,
+  UnshardedSkeletonMergeTask,
+)
 from .stats import CountVoxelsTask, ReorderTask, SpatialIndexTask
 
 

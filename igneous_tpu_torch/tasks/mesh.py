@@ -1,12 +1,16 @@
-"""Mesh forge and manifest tasks (the legacy, unsharded mesh format).
+"""Mesh forge, manifest and maintenance tasks.
 
-The port's own copy of ``MeshTask``, ``MeshManifestPrefixTask`` and
-``MeshManifestFilesystemTask`` from ``igneous_tpu/tasks/mesh.py``. A
-``MeshTask`` meshes every label of its cutout (the task's box plus a
-1-voxel high-side overlap, so adjacent tasks' surfaces meet), closing
-surfaces at the dataset boundary, and writes one ``<label>:0:<bbox>``
-fragment per label and a ``.spatial`` index file, byte-identical to the
-JAX package's.
+The port's own copy of ``MeshTask``, ``MeshManifestPrefixTask``,
+``MeshManifestFilesystemTask`` and the ``@queueable`` functions
+``TransferMeshFilesTask`` and ``DeleteMeshFilesTask`` from
+``igneous_tpu/tasks/mesh.py``. A ``MeshTask`` meshes every label of its
+cutout (the task's box plus a 1-voxel high-side overlap, so adjacent
+tasks' surfaces meet), closing surfaces at the dataset boundary, and
+writes one ``<label>:0:<bbox>`` fragment per label (or, with
+``sharded=True``, one uncompressed ``<bbox>.frags`` container of every
+label's fragment, named by the task's physical box, for the multires
+merges of ``tasks.mesh_multires``) and a ``.spatial`` index file,
+byte-identical to the JAX package's. Fragments are Precomputed or draco.
 
 Where the JAX package runs every per-voxel stage on the host in numpy,
 the port runs them on the device: the cutout goes there once, and the
@@ -21,8 +25,7 @@ level 3), and ``dust_global`` drops the labels whose count in the layer's
 voxel-count census (``tasks.stats``) is below ``dust_threshold`` in place
 of this cutout's counts.
 
-Not ported yet (refused before anything is written): sharded ``.frags``
-output, draco and graphene layers.
+Not ported yet (refused before anything is written): graphene layers.
 
 Stage timers (``telemetry``): download, remap (object-id options),
 fill_holes (with dilate and erode from level 3), h2d, labels (unique,
@@ -32,7 +35,7 @@ renumber, boxes), count, emit, d2h, weld, simplify and upload.
 from __future__ import annotations
 
 from collections import defaultdict
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional, Sequence
 
 import numpy as np
@@ -40,7 +43,7 @@ import numpy as np
 from .. import telemetry
 from ..device import get_device
 from ..lib import Bbox, Vec
-from ..mesh_io import Mesh, encode_mesh, simplify
+from ..mesh_io import FragMap, Mesh, encode_mesh, simplify
 from ..ops import remap as fastremap
 from ..ops.mesh import (
   LabelMasks,
@@ -50,7 +53,7 @@ from ..ops.mesh import (
   marching_tetrahedra_batch,
 )
 from ..ops.morphology import fill_holes
-from ..queues.registry import RegisteredTask
+from ..queues.registry import RegisteredTask, queueable
 from ..spatial_index import SpatialIndex
 from ..storage import CloudFiles, wire_ext
 from ..volume import Volume
@@ -66,24 +69,17 @@ def mesh_dir_for(vol: Volume, mesh_dir: Optional[str]) -> str:
 
 
 def refuse_unported(
-  layer_path: str = "", sharded: bool = False, encoding: str = "precomputed",
-  compress="gzip",
+  layer_path: str = "", encoding: str = "precomputed", compress="gzip",
 ) -> None:
-  """Raise NotImplementedError for the mesh options the port does not
-  run yet, and ValueError for a compression the storage does not write;
-  the factory and the task call it before anything is written."""
-  refused = []
+  """Raise NotImplementedError for a graphene layer, which the port does
+  not mesh yet, and ValueError for an unknown encoding or a compression
+  the storage does not write; the factory and the task call it before
+  anything is written."""
   if str(layer_path).startswith("graphene://"):
-    refused.append("graphene layers")
-  if sharded:
-    refused.append("sharded .frags output")
-  if encoding == "draco":
-    refused.append("draco encoding")
-  if refused:
     raise NotImplementedError(
-      f"not ported to igneous_tpu_torch yet: {', '.join(refused)}"
+      "not ported to igneous_tpu_torch yet: graphene layers"
     )
-  if encoding != "precomputed":
+  if encoding not in ("precomputed", "draco"):
     raise ValueError(f"Unknown mesh encoding: {encoding}")
   fragment_compression(compress)
 
@@ -132,7 +128,7 @@ class MeshTask(RegisteredTask):
     parallel: int = 1,
     compress: str = "gzip",
   ):
-    refuse_unported(layer_path, sharded, encoding, compress)
+    refuse_unported(layer_path, encoding, compress)
     self.shape = Vec(*shape)
     self.offset = Vec(*offset)
     self.layer_path = layer_path
@@ -156,6 +152,7 @@ class MeshTask(RegisteredTask):
     self.fill_missing = fill_missing
     self.encoding = encoding
     self.spatial_index = spatial_index
+    self.sharded = bool(sharded)
     self.closed_dataset_edges = closed_dataset_edges
     # the hole-filling level of ops.morphology.fill_holes (0 off)
     self.fill_holes = int(fill_holes)
@@ -175,15 +172,19 @@ class MeshTask(RegisteredTask):
       marching_cubes_batch if self.mesher == "cubes"
       else marching_tetrahedra_batch
     )
-    for g0 in range(0, len(ctx["jobs"]), self.MESH_BATCH):
-      group = ctx["jobs"][g0 : g0 + self.MESH_BATCH]
-      results = mesher_batch(
-        self.group_masks(ctx, group),
-        anisotropy=ctx["resolution"],
-        offsets=self.group_offsets(ctx, group),
-        batch_size=self.MESH_BATCH,
-      )
-      self.finish_group(ctx, group, results)
+    try:
+      for g0 in range(0, len(ctx["jobs"]), self.MESH_BATCH):
+        group = ctx["jobs"][g0 : g0 + self.MESH_BATCH]
+        results = mesher_batch(
+          self.group_masks(ctx, group),
+          anisotropy=ctx["resolution"],
+          offsets=self.group_offsets(ctx, group),
+          batch_size=self.MESH_BATCH,
+        )
+        self.finish_group(ctx, group, results)
+    except BaseException:
+      drop_pool(ctx)
+      raise
     self.finalize(ctx)
 
   def prepare_jobs(self):
@@ -275,7 +276,7 @@ class MeshTask(RegisteredTask):
       "dense": dense, "jobs": jobs,
       "resolution": np.asarray(vol.resolution, dtype=np.float32),
       "res_int": np.asarray(vol.resolution, dtype=np.int64),
-      "meshes": {}, "label_bounds": {},
+      "finished": [],
     }
 
   @staticmethod
@@ -295,7 +296,10 @@ class MeshTask(RegisteredTask):
 
   def finish_group(self, ctx, group, results):
     """Host stage for one group of labels: simplification and bounding
-    boxes, on ``parallel`` threads."""
+    boxes. With ``parallel`` > 1 the labels go to one pool of that many
+    threads for the whole task (made at its first group), and ``finalize``
+    collects them in job order: a group's simplification overlaps the next
+    group's count pass, and no thread waits on a group's largest label."""
     origin, res_int = ctx["origin"], ctx["res_int"]
 
     def _finish(args):
@@ -313,20 +317,22 @@ class MeshTask(RegisteredTask):
     telemetry.add("labels", len(group))
     telemetry.add("faces", sum(len(faces) for _, faces in results))
     pairs = list(zip(group, results))
-    if self.parallel > 1 and len(pairs) > 1:
-      with ThreadPoolExecutor(max_workers=self.parallel) as ex:
-        finished = list(ex.map(_finish, pairs))
+    if self.parallel > 1:
+      if "pool" not in ctx:
+        ctx["pool"] = ThreadPoolExecutor(max_workers=self.parallel)
+      ctx["finished"] += [ctx["pool"].submit(_finish, p) for p in pairs]
     else:
-      finished = [_finish(p) for p in pairs]
-    telemetry.add("faces_simplified", sum(len(m.faces) for _, m, _ in finished))
-    for orig, mesh, bbx in finished:
-      ctx["meshes"][orig] = mesh
-      ctx["label_bounds"][orig] = bbx
+      ctx["finished"] += [_finish(p) for p in pairs]
 
   def finalize(self, ctx):
+    try:
+      finished = [f.result() if isinstance(f, Future) else f for f in ctx["finished"]]
+    finally:
+      drop_pool(ctx)
+    telemetry.add("faces_simplified", sum(len(m.faces) for _, m, _ in finished))
     self._upload(
-      ctx["meshes"], ctx["core"], ctx["cutout"], ctx["vol"],
-      ctx["label_bounds"],
+      {orig: mesh for orig, mesh, _ in finished}, ctx["core"], ctx["cutout"],
+      ctx["vol"], {orig: bbx for orig, _, bbx in finished},
     )
 
   def _upload(self, meshes, core, cutout, vol, label_bounds=None):
@@ -334,16 +340,32 @@ class MeshTask(RegisteredTask):
       mdir = mesh_dir_for(vol, self.mesh_dir)
       cf = CloudFiles(vol.cloudpath)
       res = np.asarray(vol.resolution, dtype=np.int64)
-      # the .spatial file is named by the task's physical box
+      # .frags and .spatial share the physical bbox name, so the merges
+      # map spatial-index cells to fragment containers by rename alone
       physical = Bbox(core.minpt * res, core.maxpt * res)
-      for label, m in meshes.items():
-        cf.put(
-          f"{mdir}/{label}:0:{core.to_filename()}",
-          encode_mesh(m, self.encoding),
-          compress=self.compress,
-        )
+      if self.sharded:
+        # the container stays uncompressed: its key table is read in place
+        frags = {
+          label: encode_mesh(m, self.encoding) for label, m in meshes.items()
+        }
+        cf.put(f"{mdir}/{physical.to_filename()}.frags", FragMap.tobytes(frags))
+      else:
+        for label, m in meshes.items():
+          cf.put(
+            f"{mdir}/{label}:0:{core.to_filename()}",
+            encode_mesh(m, self.encoding),
+            compress=self.compress,
+          )
       if self.spatial_index and label_bounds is not None:
         SpatialIndex(cf, mdir).put(physical, label_bounds)
+
+
+def drop_pool(ctx) -> None:
+  """Shut down a task context's simplification pool, if it has one,
+  dropping the labels it has not started."""
+  pool = ctx.pop("pool", None)
+  if pool is not None:
+    pool.shutdown(cancel_futures=True)
 
 
 class _StreamMasks(LabelMasks):
@@ -426,7 +448,10 @@ def execute_mesh_tasks_batched(tasks) -> int:
         task._batch_error = e
 
   for task, ctx in zip(tasks, ctxs):
-    if ctx is None or task._batch_error is not None:
+    if ctx is None:
+      continue
+    if task._batch_error is not None:
+      drop_pool(ctx)
       continue
     try:
       task.finalize(ctx)
@@ -470,3 +495,20 @@ class MeshManifestFilesystemTask(RegisteredTask):
     MeshManifestPrefixTask(
       layer_path=self.layer_path, prefix="", mesh_dir=self.mesh_dir
     ).execute()
+
+
+@queueable
+def TransferMeshFilesTask(
+  src: str, dest: str, mesh_dir: str, prefix: str = ""
+):
+  """Copy the stored files under ``<mesh_dir>/<prefix>`` of ``src`` to
+  ``dest`` as they are stored."""
+  cf = CloudFiles(src)
+  cf.transfer_to(dest, paths=list(cf.list(f"{mesh_dir}/{prefix}")))
+
+
+@queueable
+def DeleteMeshFilesTask(cloudpath: str, mesh_dir: str, prefix: str = ""):
+  """Delete the files under ``<mesh_dir>/<prefix>``."""
+  cf = CloudFiles(cloudpath)
+  cf.delete(list(cf.list(f"{mesh_dir}/{prefix}")))

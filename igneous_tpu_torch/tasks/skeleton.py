@@ -1,14 +1,20 @@
-"""Skeleton forge and merge tasks (unsharded format).
+"""Skeleton forge, merge and maintenance tasks.
 
 The port's own copy of ``skel_dir_for``, ``border_targets``,
-``SkeletonTask``, ``_merge_label`` and ``UnshardedSkeletonMergeTask`` from
-``igneous_tpu/tasks/skeleton.py``. A ``SkeletonTask`` skeletonizes every
-label of its cutout (the task's box plus a 1-voxel high-side overlap, so
-adjacent tasks share a boundary plane), pins a vertex per label patch on
-every shared plane so that the merge welds the pieces, and writes one
-``<label>:<bbox>.sk`` fragment per label and a ``.spatial`` index file,
-byte-identical to the JAX package's. The merge fuses each label's
-fragments and writes ``<label>``.
+``SkeletonTask``, ``_merge_label``, ``UnshardedSkeletonMergeTask``,
+``ShardedSkeletonMergeTask``, ``ShardedFromUnshardedSkeletonMergeTask``
+and the ``@queueable`` functions ``TransferSkeletonFilesTask`` and
+``DeleteSkeletonFilesTask`` from ``igneous_tpu/tasks/skeleton.py``. A
+``SkeletonTask`` skeletonizes every label of its cutout (the task's box
+plus a 1-voxel high-side overlap, so adjacent tasks share a boundary
+plane), pins a vertex per label patch on every shared plane so that the
+merge welds the pieces, and writes one ``<label>:<bbox>.sk`` fragment per
+label (or, with ``sharded=True``, one ``<bbox>.frags`` container named by
+the task's physical box) and a ``.spatial`` index file, byte-identical to
+the JAX package's. The unsharded merge fuses each label's fragments and
+writes ``<label>``; the sharded merge fuses every label of one shard from
+the ``.frags`` files the spatial index names, in the order of their
+sorted keys (which sets the bytes), and writes the shard file.
 
 Where the JAX package runs the whole-cutout EDT and the renumbering on the
 host, the port runs them on the device (``ops.skeletonize``); tracing,
@@ -20,8 +26,8 @@ dust off; ``fill_holes`` then closes cavities (``ops.morphology``), as in
 the JAX package.
 
 Not ported yet (``NotImplementedError`` when the task is made, before any
-download): sharded ``.frags`` output and its merge, ``fix_autapses``,
-graphene layers and ``root_ids``, and ``cross_sectional_area``.
+download): ``fix_autapses``, graphene layers and ``root_ids``, and
+``cross_sectional_area``.
 
 Stage timers (``telemetry``): download, dust_global (the device count
 and the host mask), fill_holes (with dilate and erode from level 3), pins
@@ -33,6 +39,7 @@ own stages ``ops.ccl`` records too), h2d, edt, labels, d2h, trace, upload
 from __future__ import annotations
 
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -41,12 +48,14 @@ import torch
 from .. import telemetry
 from ..device import get_device
 from ..lib import Bbox, Vec
+from ..mesh_io import FragMap
 from ..ops import remap as fastremap
 from ..ops.ccl import connected_components
 from ..ops.mesh import unique_on_device
 from ..ops.morphology import fill_holes
 from ..ops.skeletonize import TeasarParams, skeletonize
-from ..queues.registry import RegisteredTask
+from ..queues.registry import RegisteredTask, queueable
+from ..sharding import ShardingSpecification
 from ..skeleton_io import Skeleton, postprocess
 from ..spatial_index import SpatialIndex
 from ..storage import CloudFiles, scratch_compression
@@ -63,7 +72,7 @@ def skel_dir_for(vol: Volume, skel_dir: Optional[str]) -> str:
 
 
 def refuse_unported(
-  cloudpath: str = "", sharded: bool = False, fix_autapses: bool = False,
+  cloudpath: str = "", fix_autapses: bool = False,
   cross_sectional_area: bool = False, root_ids_cloudpath: Optional[str] = None,
 ) -> None:
   """Raise NotImplementedError for the skeleton options the port does not
@@ -72,8 +81,6 @@ def refuse_unported(
   refused = []
   if str(cloudpath).startswith("graphene://"):
     refused.append("graphene layers")
-  if sharded:
-    refused.append("sharded .frags output")
   if fix_autapses:
     refused.append("fix_autapses")
   if cross_sectional_area:
@@ -179,7 +186,7 @@ class SkeletonTask(RegisteredTask):
     root_ids_cloudpath: Optional[str] = None,
   ):
     refuse_unported(
-      cloudpath, sharded, fix_autapses, cross_sectional_area, root_ids_cloudpath,
+      cloudpath, fix_autapses, cross_sectional_area, root_ids_cloudpath,
     )
     self.cloudpath = cloudpath
     self.shape = Vec(*shape)
@@ -191,6 +198,7 @@ class SkeletonTask(RegisteredTask):
     self.dust_threshold = int(dust_threshold)
     self.dust_global = bool(dust_global)
     self.fill_missing = fill_missing
+    self.sharded = bool(sharded)
     self.skel_dir = skel_dir
     self.spatial_index = spatial_index
     self.fix_borders = fix_borders
@@ -329,14 +337,23 @@ class SkeletonTask(RegisteredTask):
     sdir = skel_dir_for(vol, self.skel_dir)
     cf = CloudFiles(self.frag_path or vol.cloudpath)
     res = np.asarray(vol.resolution, dtype=np.int64)
-    # the .spatial file is named by the task's physical box
+    # .frags and .spatial share the physical bbox name, so the merges map
+    # spatial-index cells to fragment containers by rename alone
     physical = Bbox(core.minpt * res, core.maxpt * res)
     # fragments are intermediate: a merge task reads and deletes them, so
-    # IGNEOUS_SCRATCH_COMPRESS picks their compression (unset: gzip)
-    compress = scratch_compression("gzip")
-    for label, s in skels.items():
-      cf.put(f"{sdir}/{label}:{core.to_filename()}.sk", s.to_precomputed(),
-             compress=compress)
+    # IGNEOUS_SCRATCH_COMPRESS picks their compression (unset: gzip for
+    # .sk files, none for the .frags container)
+    if self.sharded:
+      cf.put(
+        f"{sdir}/{physical.to_filename()}.frags",
+        FragMap.tobytes({label: s.to_precomputed() for label, s in skels.items()}),
+        compress=scratch_compression(None),
+      )
+    else:
+      compress = scratch_compression("gzip")
+      for label, s in skels.items():
+        cf.put(f"{sdir}/{label}:{core.to_filename()}.sk", s.to_precomputed(),
+               compress=compress)
     if self.spatial_index:
       label_bounds = {}
       for label, s in skels.items():
@@ -441,3 +458,140 @@ class UnshardedSkeletonMergeTask(RegisteredTask):
       cf.put(f"{sdir}/{label}", merged.to_precomputed(), compress="gzip")
     if self.delete_fragments:
       cf.delete(frag_keys)
+
+
+class ShardedSkeletonMergeTask(RegisteredTask):
+  """Stage 2 (sharded): fuse every label assigned to one shard file and
+  synthesize it."""
+
+  def __init__(
+    self,
+    cloudpath: str,
+    shard_no: int,
+    skel_dir: Optional[str] = None,
+    dust_threshold: float = 4000.0,
+    tick_threshold: float = 6000.0,
+    max_cable_length: Optional[float] = None,
+  ):
+    self.cloudpath = cloudpath
+    self.shard_no = int(shard_no)
+    self.skel_dir = skel_dir
+    self.dust_threshold = dust_threshold
+    self.tick_threshold = tick_threshold
+    self.max_cable_length = (
+      float(max_cable_length) if max_cable_length is not None else None
+    )
+
+  def execute(self):
+    vol = Volume(self.cloudpath)
+    sdir = skel_dir_for(vol, self.skel_dir)
+    cf = CloudFiles(vol.cloudpath)
+    skel_info = cf.get_json(f"{sdir}/info") or {}
+    spec = ShardingSpecification.from_dict(skel_info["sharding"])
+
+    # labels for this shard: spatial-index census filtered by shard number
+    si = SpatialIndex(cf, sdir)
+    locations = si.file_locations_per_label()
+    labels = np.array(sorted(locations.keys()), dtype=np.uint64)
+    if len(labels) == 0:
+      return
+    mine = labels[spec.shard_number(labels) == self.shard_no]
+    if len(mine) == 0:
+      return
+
+    # fetch fragments: .spatial cell file ↔ .frags container (same bbox)
+    needed_files = sorted({
+      f for lbl in mine for f in locations[int(lbl)]
+    })
+    # fetch containers concurrently; the sorted key order is kept, and it
+    # is the merge's input order (so it sets the bytes)
+    with ThreadPoolExecutor(max_workers=8) as ex:
+      datas = list(ex.map(
+        lambda k: cf.get(k.replace(".spatial", ".frags")), needed_files
+      ))
+    fragmaps = [FragMap.frombytes(d) for d in datas if d is not None]
+
+    attrs = skel_info.get("vertex_attributes")
+    out = {}
+    for label in mine.tolist():
+      pieces = []
+      for fm in fragmaps:
+        blob = fm.get(label)
+        if blob is not None:
+          pieces.append(Skeleton.from_precomputed(blob, vertex_attributes=attrs))
+      if not pieces:
+        continue
+      merged = _merge_label(
+        pieces, self.dust_threshold, self.tick_threshold,
+        self.max_cable_length,
+      )
+      if not merged.empty:
+        out[int(label)] = merged.to_precomputed()
+
+    if out:
+      files = spec.synthesize_shard_files(out)
+      for filename, data in files.items():
+        cf.put(f"{sdir}/{filename}", data, compress=None)
+
+
+class ShardedFromUnshardedSkeletonMergeTask(RegisteredTask):
+  """Re-pack finished unsharded skeletons into one shard file."""
+
+  def __init__(
+    self,
+    cloudpath: str,
+    shard_no: int,
+    src_skel_dir: str,
+    skel_dir: str,
+    dest_cloudpath: "str | None" = None,
+  ):
+    self.cloudpath = cloudpath
+    self.shard_no = int(shard_no)
+    self.src_skel_dir = src_skel_dir
+    self.skel_dir = skel_dir
+    # write the shard into a different volume (`skeleton xfer --sharded`)
+    self.dest_cloudpath = dest_cloudpath
+
+  def execute(self):
+    vol = Volume(self.cloudpath)
+    cf = CloudFiles(vol.cloudpath)
+    out_cf = CloudFiles(self.dest_cloudpath or self.cloudpath)
+    skel_info = out_cf.get_json(f"{self.skel_dir}/info") or {}
+    spec = ShardingSpecification.from_dict(skel_info["sharding"])
+
+    labels = []
+    for key in cf.list(f"{self.src_skel_dir}/"):
+      name = key.split("/")[-1]
+      if name.isdigit():  # finished skeletons are bare label files
+        labels.append(int(name))
+    labels = np.array(sorted(labels), dtype=np.uint64)
+    if len(labels) == 0:
+      return
+    mine = labels[spec.shard_number(labels) == self.shard_no]
+
+    out = {}
+    for label in mine.tolist():
+      data = cf.get(f"{self.src_skel_dir}/{label}")
+      if data is not None:
+        out[int(label)] = data
+    if out:
+      files = spec.synthesize_shard_files(out)
+      for filename, data in files.items():
+        out_cf.put(f"{self.skel_dir}/{filename}", data, compress=None)
+
+
+@queueable
+def TransferSkeletonFilesTask(
+  src: str, dest: str, skel_dir: str, prefix: str = ""
+):
+  """Copy the stored files under ``<skel_dir>/<prefix>`` of ``src`` to
+  ``dest`` as they are stored."""
+  cf = CloudFiles(src)
+  cf.transfer_to(dest, paths=list(cf.list(f"{skel_dir}/{prefix}")))
+
+
+@queueable
+def DeleteSkeletonFilesTask(cloudpath: str, skel_dir: str, prefix: str = ""):
+  """Delete the files under ``<skel_dir>/<prefix>``."""
+  cf = CloudFiles(cloudpath)
+  cf.delete(list(cf.list(f"{skel_dir}/{prefix}")))

@@ -301,8 +301,13 @@ def test_precomputed_bytes_match_reference():
   got = mesh_io.Mesh.concatenate(back, back).consolidate()
   ref = jax_mesh_io.Mesh.concatenate(jax_mesh_io.Mesh(v, f), jax_mesh_io.Mesh(v, f)).consolidate()
   assert same(got.vertices, ref.vertices) and same(got.faces, ref.faces)
-  with pytest.raises(NotImplementedError, match="draco"):
-    mesh_io.encode_mesh(back, "draco")
+  # draco: the JAX package's bitstream, decoding to the same mesh
+  drc = mesh_io.encode_mesh(back, "draco")
+  assert drc == jax_mesh_io.encode_mesh(jax_mesh_io.Mesh(v, f), "draco")
+  got, ref = mesh_io.decode_mesh(drc, "draco"), jax_mesh_io.decode_mesh(drc, "draco")
+  assert same(got.vertices, ref.vertices) and same(got.faces, ref.faces)
+  with pytest.raises(ValueError, match="Unknown mesh encoding"):
+    mesh_io.encode_mesh(back, "ply")
 
 
 def test_simplifier_build_failure_raises(monkeypatch, tmp_path):

@@ -8,8 +8,8 @@ their own tests), the .spatial files, the <label>:0 manifests) and the
 layer's info must be byte-identical. Also: payloads the JAX package
 serialized run in the port, the command lines agree, ``fill_holes`` and
 ``dust_global`` (after a voxel-count census) write the same fragments,
-and the options the port does not run yet raise before anything is
-written.
+sharded ``.frags``, draco fragments and ``merge --nlod`` write the same
+files, and graphene layers raise before anything is written.
 """
 
 import pathlib
@@ -360,28 +360,40 @@ def test_unknown_fragment_compression_raises_before_writing(method, tmp_path):
   assert _files(path) == before
 
 
-REFUSED = {
+LIFTED = {
   "sharded": dict(sharded=True),
   "draco": dict(encoding="draco"),
 }
 
 
-@pytest.mark.parametrize("option", sorted(REFUSED) + ["graphene"])
+@pytest.mark.parametrize("option", sorted(LIFTED) + ["graphene"])
 def test_unported_options_raise_before_writing(option, tmp_path):
+  """A graphene layer raises before anything is written. Sharded output
+  and draco fragments, refused here until the port ran them, now write
+  the JAX package's bytes (through the factory, and the command line for
+  ``--sharded``)."""
+  if option in LIFTED:
+    paths = _forge_both(tmp_path, voronoi(), **LIFTED[option])
+    ref, got = _mesh_files(paths["jax"]), _mesh_files(paths["port"])
+    assert len(got) > 4 and got == ref
+    if option == "sharded":
+      assert sum(k.endswith(".frags") for k in got) == 4
+      cli = _layers(tmp_path / "cli", voronoi())
+      assert cli_main(["mesh", "forge", str(cli["port"]), "--sharded",
+                       "--shape", "32,32,32"]) == 0
+      assert _mesh_files(cli["port"]) == {k: v for k, v in got.items() if ":0" not in k}
+    return
   path = tmp_path / "layer"
   Volume.from_numpy(voronoi(), f"file://{path}", resolution=(8, 8, 40),
                     chunk_size=(16, 16, 16))
   before = _files(path)
-  kw = REFUSED.get(option, {})
-  layer = f"graphene://file://{path}" if option == "graphene" else f"file://{path}"
+  layer = f"graphene://file://{path}"
   with pytest.raises(NotImplementedError):
-    tc.create_meshing_tasks(layer, shape=TASK, **kw)
+    tc.create_meshing_tasks(layer, shape=TASK)
   with pytest.raises(NotImplementedError):
-    MeshTask(shape=TASK, offset=(0, 0, 0), layer_path=layer, **kw)
-  cli = {"sharded": ["--sharded"]}.get(option)
-  if cli or option == "graphene":
-    with pytest.raises(NotImplementedError):
-      cli_main(["mesh", "forge", layer, *(cli or [])])
+    MeshTask(shape=TASK, offset=(0, 0, 0), layer_path=layer)
+  with pytest.raises(NotImplementedError):
+    cli_main(["mesh", "forge", layer])
   assert _files(path) == before
 
 
@@ -402,14 +414,17 @@ def test_download_at_and_past_the_bounds_as_the_reference(tmp_path):
 
 
 def test_merge_refuses_multires_before_writing(tmp_path):
-  path = tmp_path / "layer"
-  Volume.from_numpy(voronoi(), f"file://{path}", resolution=(8, 8, 40),
-                    chunk_size=(16, 16, 16))
-  assert cli_main(["mesh", "forge", str(path), "--shape", "32,32,32"]) == 0
-  before = _files(path)
-  with pytest.raises(NotImplementedError, match="nlod"):
-    cli_main(["mesh", "merge", str(path), "--nlod", "1"])
-  assert _files(path) == before
+  """``mesh merge --nlod 1``, refused here until the port ran multires
+  meshes, writes the JAX command's unsharded multires files."""
+  paths = _layers(tmp_path, voronoi())
+  for args in (["forge", "--shape", "32,32,32"],
+               ["merge", "--nlod", "1", "--min-chunk-size", "4,4,4"]):
+    res = CliRunner().invoke(jax_cli, ["mesh", args[0], str(paths["jax"]), *args[1:]])
+    assert res.exit_code == 0, res.output
+    assert cli_main(["mesh", args[0], str(paths["port"]), *args[1:]]) == 0
+  ref, got = _mesh_files(paths["jax"]), _mesh_files(paths["port"])
+  assert sum(k.endswith(".index") for k in got) > 5 and got == ref
+  assert _files(paths["port"])["info"] == _files(paths["jax"])["info"]
 
 
 def test_mesh_task_without_cuda_raises_unless_the_cpu_is_asked_for(tmp_path, monkeypatch):

@@ -10,7 +10,8 @@ serialized run in the port, the border pins follow the JAX package's
 plane numbering, the command lines agree, ``fill_holes`` and
 ``dust_global`` (after a voxel-count census) write the same fragments,
 ``IGNEOUS_SCRATCH_COMPRESS`` (unset, none, gzip-1) picks the fragments'
-compression in both, and the options the port does not run yet raise before anything is read
+compression in both, ``sharded`` writes the same ``.frags`` containers,
+and the options the port does not run yet raise before anything is read
 or written.
 """
 
@@ -363,10 +364,24 @@ REFUSED = {
 
 @pytest.mark.parametrize("option", sorted(REFUSED))
 def test_unported_options_raise_before_reading_or_writing(option, tmp_path, monkeypatch):
+  """The options the port does not run yet raise before anything is read
+  or written. ``sharded``, refused here until the port ran it, writes the
+  JAX package's ``.frags`` containers (through the factory and the
+  command line)."""
+  kw, cli = REFUSED[option]
+  if option == "sharded":
+    paths = _forge_both(tmp_path, tubes(), (32, 24, 24), merge=False, **kw)
+    got = _skel_files(paths["port"])
+    assert sum(k.endswith(".frags") for k in got) == 4 and got == _skel_files(paths["jax"])
+    layer = tmp_path / "cli"
+    Volume.from_numpy(tubes(), f"file://{layer}", resolution=(8, 8, 40), chunk_size=(16, 16, 8))
+    assert cli_main(["skeleton", "forge", f"file://{layer}", "--shape", "32,24,24",
+                     "--dust-threshold", "40", "--const", "80", *cli]) == 0
+    assert _skel_files(layer) == got
+    return
   path = tmp_path / "layer"
   Volume.from_numpy(tubes(), f"file://{path}", resolution=(8, 8, 40), chunk_size=(16, 16, 8))
   before = _files(path)
-  kw, cli = REFUSED[option]
   layer = f"graphene://file://{path}" if option == "graphene" else f"file://{path}"
   downloads = []
   monkeypatch.setattr(Volume, "download", lambda *a, **k: downloads.append(a))
