@@ -2,8 +2,9 @@
 meshing, skeleton, morphology, census, inference and contrast paths, solo,
 batched, pipelined, through the queue worker, on gs:// and s3:// and into
 sharded scales, its image surface (ROIs, spatial index, reorder, ingest),
-and its sharded and multires meshes and sharded skeletons, on one NVIDIA
-GPU and check them.
+its sharded and multires meshes and sharded skeletons, and its graphene
+layers (served by a fake PyChunkGraph server) and cross-sectional areas,
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -11,8 +12,8 @@ Phases, each reported on its own line:
   1. build: compile the kernel sources (csrc/pooling.cu, csrc/ccl.cu,
      csrc/edt.cu, csrc/clahe.cu) with nvcc and the host libraries of the
      mesh and skeleton paths and the chunk codec (csrc/simplify.cpp,
-     csrc/dijkstra.cpp, csrc/fggraph.cpp, csrc/cseg.cpp) with g++, one
-     process per source, started together;
+     csrc/dijkstra.cpp, csrc/fggraph.cpp, csrc/cseg.cpp, csrc/xsection.cpp)
+     with g++, one process per source, started together;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, bit for bit, at the main paths' shapes, with its time (device
      time: calls captured in a CUDA graph and replayed between CUDA
@@ -73,9 +74,10 @@ Phases, each reported on its own line:
      to the task path's pass 1, both walls; and after phase 6, edt_batch
      and paged_edt on the two default skeleton cutouts, bit for bit the
      solo edt, with their walls, launches and peak memory, and
-     batched_skeleton_forge over the layer's two tasks into a second
-     skeleton directory, its fragments and spatial files equal to phase
-     6's; the launch counts are set to 0 just before each part;
+     (after phase 15) batched_skeleton_forge over phase 15's tube crop
+     (phase 6's tasks before phase 16) into a second skeleton directory,
+     its .frags equal to phase 15's; the launch counts are set to 0 just
+     before each part;
   3d. pipelined (after phase 3c, on phase 3's and 3b's layers): the
      image as 16 tasks of 1024x1024x64 with 3 mips (phase 3c's first
      batched grid) and the segmentation as 16 tasks of 512x512x64 with 2
@@ -200,9 +202,10 @@ Phases, each reported on its own line:
      256x256x64 through a queue at batch 8 (full members through
      pyramid2x2x1, clamped ones through the pages and pool2x2x1), CCL pass
      1 of phase 4's segmentation through `ccl faces --queue` at batch 4
-     (one paged_ccl group, every face file the task path's) and phase 6's
-     skeleton forge through a queue at batch 2 (one paged_edt group,
-     every fragment phase 6's), no member solo, failed or fallen back;
+     (one paged_ccl group, every face file the task path's) and the
+     sharded skeleton forge of phase 15's tube crop through a queue at
+     batch 2 (one paged_edt group, both .frags phase 15's; phase 6's
+     tasks before phase 16), no member solo, failed or fallen back;
      (c) eight downsample tasks and a FailTask at --max-deliveries 2 (the
      dead-letter queue holds the FailTask alone, with its reason twice),
      a worker process drained by its --drain-sentinel mid-run (exit 83,
@@ -284,12 +287,36 @@ Phases, each reported on its own line:
      of (c)'s through the queue, the files left and copied as counted.
      Each part prints its wall, stage split, the card's busy share (device
      ledger), peak card memory and launches;
+  16. graphene and cross-sections (after phase 15, in phases 5 and 6's
+     roots): a 384x128x64 crop of phase 5's layer cut into chunk-local
+     supervoxels (the watershed layer; ids above 2^32, some at or above
+     2^63) whose chunk graph (the port's LocalChunkGraph, chunks of
+     128x128x64: each label's supervoxels chained by edges, so that
+     touching supervoxels of one root share no edge, an autapse; a merge
+     and a split at timestamps) the repo's fake PyChunkGraph server
+     (tests/fake_pcg_server.py) serves in this process, as of a timestamp
+     between the two edits: (a) the graphene mesh forge, 2 GrapheneMeshTasks
+     at the default task shape (256x256x128), draco .frags of L2 ids
+     (simplification off), task 0 again on the CPU route; (d) the
+     agglomerated transfer with 2 new mips (pyramid2x2x1 once), every
+     chunk the CPU route's; (b) the skeleton forge with fix_autapses of 6
+     roots in 2 tasks (edt_pass 3 launches a task; the card's voxel graph
+     of task 0's cutout bit for bit its plain version), again from (d)'s
+     root layer (root_ids_cloudpath; the same files), task 0 on the CPU
+     route; (e) the agglomerated census against numpy; then (c) on phase
+     15's tube crop, `skeleton forge --cross-section 1` (contact repair
+     unlimited) of its smallest label crossing the task boundary (2 tasks,
+     edt_pass 6 launches), task 0 on the CPU route, `skeleton merge` and
+     `skeleton convert` to SWC. Each part prints its wall, the card's busy
+     share (device ledger), peak card memory, launches, the requests the
+     PCG server answered and the host stages (cross-section and repair
+     seconds);
   7. the card's name and power limit, the programs line (X1-X3, X5-X7),
      the kernels line (each kernel's launches on the main paths, the
      transfer, the batched phase, the pipelined streams, the worker phase,
      where each of the four must have launched, the storage phase, the
-     sharded phase, phase 14 and, for edt_pass, phase 15),
-     and the result.
+     sharded phase, phase 14, phase 15 (edt_pass) and phase 16
+     (pyramid2x2x1, edt_pass)), and the result.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside it.
@@ -2158,8 +2185,9 @@ INFER_PATCHES = 108  # a task's 288x288x80 halo'd cutout: 6 x 6 x 3 patches
 INFER_BATCH = 4
 # tasks of the reruns held against the first campaign (IGNEOUS_PIPELINE=off
 # and batch 7) and of the identity model's campaigns (card and CPU route):
-# half of them since phase 13, to make room for it in the time limit
-INFER_RERUN_TASKS = 4
+# half of them since phase 13 and a quarter since phase 16, to make room
+# for them in the time limit
+INFER_RERUN_TASKS = 2
 # card against the CPU route: |a - b| <= RTOL |b| + ATOL max|b| (the two
 # sum 27 float32 products a channel in different orders)
 INFER_RTOL = INFER_ATOL = 1e-5
@@ -2792,19 +2820,13 @@ def batched_skeleton_phase(root, ce, edt_ops, torch, dev):
   """``edt_batch`` on phase 6's two skeleton cutouts cut to their common
   shape, and ``paged_edt`` on the whole cutouts (padded to page
   multiples), each bit for bit the solo ``edt``, with walls, launches
-  and peak memory; then ``batched_skeleton_forge`` over the layer's two
-  default tasks into a second skeleton directory, its fragments and
-  spatial files equal byte for byte to phase 6's. Returns edt_pass's
-  launches."""
-  import os
-
-  from igneous_tpu_torch import Volume, telemetry
-  from igneous_tpu_torch.parallel.batch_runner import batched_skeleton_forge
+  and peak memory (the forge itself runs on phase 15's crop since phase
+  16: ``batched_skeleton_forge_phase``). Returns edt_pass's launches."""
+  from igneous_tpu_torch import Volume
   from igneous_tpu_torch.parallel.paged import paged_edt
   from igneous_tpu_torch.task_creation import create_skeletonizing_tasks
 
   path = f"file://{root}/skeleton_segmentation"
-  sdir = Volume(path).info["skeletons"]
   tasks = list(create_skeletonizing_tasks(path, parallel=SKEL_TRACE_THREADS))
   labels = [t.prepare_labels(Volume(path))[0] for t in tasks]
   anis = (8.0, 8.0, 40.0)
@@ -2834,24 +2856,35 @@ def batched_skeleton_phase(root, ce, edt_ops, torch, dev):
     launches += launched
     del fields
 
+  return launches
+
+
+def batched_skeleton_forge_phase(root, ce, torch, dev):
+  """``batched_skeleton_forge`` over phase 15's tube crop (its two tasks of
+  FRAGS_SKEL_TASK, sharded) into a second skeleton directory, its .frags
+  containers byte for byte phase 15's (c). Returns edt_pass's launches."""
+  from igneous_tpu_torch import telemetry
+  from igneous_tpu_torch.parallel.batch_runner import batched_skeleton_forge
+
+  path = f"file://{root}/frags_skeletons"
   ce.LAUNCHES["edt_pass"] = 0
   telemetry.reset()
   t0 = time.perf_counter()
-  stats = batched_skeleton_forge(path, skel_dir="skeletons_batched", parallel=SKEL_TRACE_THREADS)
+  stats = batched_skeleton_forge(path, shape=FRAGS_SKEL_TASK, sharded=True,
+                                 skel_dir="skeletons_batched", parallel=SKEL_TRACE_THREADS)
   wall = time.perf_counter() - t0
   launched = ce.LAUNCHES["edt_pass"]
-  a, b = os.path.join(root, "skeleton_segmentation", sdir), os.path.join(
-    root, "skeleton_segmentation", "skeletons_batched")
-  # all but the merged skeletons, which phase 6's merge wrote (named by label)
-  frags = same_files(a, b, keep=lambda n: not n.split(".")[0].isdigit())
+  frags = same_files(f"{root}/frags_skeletons/{FRAGS_SKEL_DIR}",
+                     f"{root}/frags_skeletons/skeletons_batched",
+                     keep=lambda n: n.endswith(".frags"))
   print(f"batched skeleton forge: wall {wall:.3f} s, {json.dumps(stats)}, edt_pass "
-        f"launches {launched}, {frags} fragment and spatial files equal to phase 6's byte "
-        f"for byte, stages (s) {json.dumps(stage_split(telemetry.snapshot()))}", flush=True)
-  if stats != {"batched_cutouts": len(tasks), "solo_cutouts": 0, "dispatches": 1}:
-    fail(f"batched skeleton forge: stats {stats} for {len(tasks)} tasks")
+        f"launches {launched}, {frags} .frags containers equal to phase 15's byte for byte, "
+        f"stages (s) {json.dumps(stage_split(telemetry.snapshot()))}", flush=True)
+  if stats != {"batched_cutouts": 2, "solo_cutouts": 0, "dispatches": 1} or frags != 2:
+    fail(f"batched skeleton forge: stats {stats}, {frags} containers")
   if launched != 3:
     fail(f"batched skeleton forge: edt_pass launched {launched} times, not 3")
-  return launches + launched
+  return launched
 
 
 def entry_phase(cp, torch, dev):
@@ -3608,22 +3641,19 @@ def worker_ccl(root, cc, cp, ce, faces_task: str) -> dict:
 
 
 def worker_skeleton(root, ce, cp, cc) -> dict:
-  """(b) Phase 6's skeleton forge through a queue (its two default tasks,
-  8 tracing threads each, into ``skeletons_worker``) and
-  ``poll_batched`` at batch 2: one group (``paged_edt``, three
-  ``edt_pass`` launches), every fragment and spatial file byte for byte
-  phase 6's. Returns the launches."""
-  import os
-
-  from igneous_tpu_torch import Volume
+  """(b) The sharded skeleton forge of phase 15's tube crop through a queue
+  (its two tasks of FRAGS_SKEL_TASK, 8 tracing threads each, into
+  ``skeletons_worker``) and ``poll_batched`` at batch 2: one group
+  (``paged_edt``, three ``edt_pass`` launches), both .frags containers
+  byte for byte phase 15's (c). Returns the launches."""
   from igneous_tpu_torch.parallel.lease_batcher import poll_batched
   from igneous_tpu_torch.queues import FileQueue
   from igneous_tpu_torch.task_creation import create_skeletonizing_tasks
 
-  path = f"file://{root}/skeleton_segmentation"
-  sdir = Volume(path).info["skeletons"]
+  path = f"file://{root}/frags_skeletons"
   q = FileQueue(f"fq://{root}/queue_skeleton")
-  tasks = list(create_skeletonizing_tasks(path, skel_dir="skeletons_worker",
+  tasks = list(create_skeletonizing_tasks(path, shape=FRAGS_SKEL_TASK, sharded=True,
+                                          skel_dir="skeletons_worker",
                                           parallel=SKEL_TRACE_THREADS))
   q.insert_batch(tasks, total=len(tasks))
   zero_counts(cp, cc, ce)
@@ -3633,13 +3663,14 @@ def worker_skeleton(root, ce, cp, cc) -> dict:
   wall = time.perf_counter() - t0
   launched = launch_counts(cp, cc, ce)
   stats = dict(stats, dispatches=dict(stats["dispatches"]))
-  a, b = (os.path.join(root, "skeleton_segmentation", d) for d in (sdir, "skeletons_worker"))
-  frags = same_files(a, b, keep=lambda n: not n.split(".")[0].isdigit())
+  frags = same_files(f"{root}/frags_skeletons/{FRAGS_SKEL_DIR}",
+                     f"{root}/frags_skeletons/skeletons_worker",
+                     keep=lambda n: n.endswith(".frags"))
   print(f"worker skeleton forge: {len(tasks)} tasks, wall {wall:.3f} s, stats "
-        f"{json.dumps(stats)}, launches {json.dumps(launched)}, {frags} fragment and spatial "
-        f"files equal to phase 6's byte for byte", flush=True)
+        f"{json.dumps(stats)}, launches {json.dumps(launched)}, {frags} .frags containers "
+        f"equal to phase 15's byte for byte", flush=True)
   check_groups("skeleton forge", stats, executed, len(tasks))
-  if stats["dispatches"] != {"skeleton": 1} or launched["edt_pass"] != 3:
+  if stats["dispatches"] != {"skeleton": 1} or launched["edt_pass"] != 3 or frags != 2:
     fail(f"worker skeleton forge: dispatches {stats['dispatches']}, launches {launched}")
   return launched
 
@@ -4739,6 +4770,7 @@ def spatial_index_phase(root, cp, cc, ce, cl, torch, dev) -> float:
 FRAGS_MESH_ORIGIN = (448, 224, 0)
 FRAGS_MESH_CROP, FRAGS_MESH_TASK = (448, 224, 112), (224, 224, 112)
 FRAGS_SKEL_CROP, FRAGS_SKEL_TASK = (256, 256, 128), (128, 256, 128)
+FRAGS_SKEL_DIR = "skeletons_mip_0"  # the crop's skeleton dir (the factory's default)
 # labels per shard file in the sharded merges, low enough for several files
 FRAGS_MESH_LABELS_PER_SHARD, FRAGS_SKEL_LABELS_PER_SHARD = 16, 4
 # no minimum finest-LOD cell: every label's multires mesh has nlod + 1 LODs
@@ -4759,32 +4791,49 @@ def crop_reingest(src: str, dst: str, size, origin=(0, 0, 0)) -> np.ndarray:
   return data
 
 
-def frags_run(label: str, fn, modules, torch, dev, launches_expected) -> dict:
-  """One part of phase 15, timed, the launch counts set to 0 just before
-  and read just after: its wall, the card's busy share from the device
-  ledger (none recorded: host work only), the peak card memory, its
-  launches and stage split. ``launches_expected``: the hand kernels'
-  launches it must make (the nonzero counts). Returns the launches."""
+def frags_run(label: str, fn, modules, torch, dev, launches_expected, srv=None,
+              programs=(), phase: str = "frags") -> dict:
+  """One part of phase 15 (or, with ``phase``, 16), timed, the launch
+  counts set to 0 just before and read just after: its wall, the card's
+  busy share from the device ledger (none recorded: host work only), the
+  peak card memory, its launches and stage split (phase 16's
+  cross-section and repair seconds among the host stages), the requests
+  the fake PCG server ``srv`` answered, and the card's executes of the
+  device ``programs`` (the ledger's names), which must each run.
+  ``launches_expected``: the hand kernels' launches it must make (the
+  nonzero counts; on the CPU, where the plain versions run and count
+  none, not checked). Returns the launches."""
   from igneous_tpu_torch import chunk_cache, telemetry
   from igneous_tpu_torch.observability.device import LEDGER
 
   zero_counts(*modules)
   telemetry.reset()
   chunk_cache.clear()
-  ledger_reset(torch, dev)
+  card = dev.type == "cuda"
+  if card:
+    ledger_reset(torch, dev)
+  requests = len(srv.requests) if srv is not None else 0
   t0 = time.perf_counter()
   fn()
   wall = time.perf_counter() - t0
   launched = launch_counts(*modules)
-  busy = 0.0
-  if LEDGER.snapshot() is not None:
-    busy = ledger_line(f"frags {label}", wall, launched)["busy_s"]
-  if {k: v for k, v in launched.items() if v} != launches_expected:
-    fail(f"frags {label}: launches {launched}, expected {launches_expected}")
-  print(f"frags {label}: wall {wall:.3f} s, card busy {100 * busy / wall:.2f}% (ledger), "
-        f"peak card memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, "
-        f"launches {json.dumps(launched)}, stages (thread-s) "
-        f"{json.dumps(stage_split(telemetry.snapshot()))}", flush=True)
+  busy, executes = 0.0, {}
+  if card and LEDGER.snapshot() is not None:
+    snap = ledger_line(f"{phase} {label}", wall, launched)
+    busy = snap["busy_s"]
+    executes = {name: card_executes(snap, name) for name in programs}
+    if not all(executes.values()):
+      fail(f"{phase} {label}: the device programs executed {executes}")
+  if card and {k: v for k, v in launched.items() if v} != launches_expected:
+    fail(f"{phase} {label}: launches {launched}, expected {launches_expected}")
+  peak = torch.cuda.max_memory_allocated(dev) / 2**30 if card else 0.0
+  extra = ""
+  if srv is not None or programs:
+    extra = (f"programs {json.dumps(executes)}, PCG requests "
+             f"{(len(srv.requests) - requests) if srv is not None else 0}, ")
+  print(f"{phase} {label}: wall {wall:.3f} s, card busy {100 * busy / wall:.2f}% (ledger), "
+        f"peak card memory {peak:.3f} GiB, launches {json.dumps(launched)}, {extra}stages "
+        f"(thread-s) {json.dumps(stage_split(telemetry.snapshot()))}", flush=True)
   return launched
 
 
@@ -4861,10 +4910,10 @@ def check_sharded_multires(path: str, mdir: str, labels) -> tuple:
   return len(shards), nfrags
 
 
-def frags_task_on_cpu(task, path: str, key: str, dev) -> bytes:
+def frags_task_on_cpu(task, path: str, names, dev) -> dict:
   """Run ``task`` (a payload of the card's run) again on the CPU route,
   writing into the directory ``frags_cpu`` of the layer ``path``; returns
-  that run's stored file ``key``."""
+  that run's stored files ``names``."""
   from igneous_tpu_torch import set_device
   from igneous_tpu_torch.queues import deserialize
 
@@ -4876,7 +4925,8 @@ def frags_task_on_cpu(task, path: str, key: str, dev) -> bytes:
     deserialize(payload).execute()
   finally:
     set_device(dev)
-  return dir_files(path, "frags_cpu")[key]
+  stored = dir_files(path, "frags_cpu")
+  return {n: stored.get(n) for n in names}
 
 
 def frags_mesh_phase(root, cp, cc, ce, cl, torch, dev) -> float:
@@ -4931,7 +4981,7 @@ def frags_mesh_phase(root, cp, cc, ce, cl, torch, dev) -> float:
   first = Bbox(tasks[0].offset * res, (tasks[0].offset + tasks[0].shape) * res)
   key = f"{first.to_filename()}.frags"
   t0 = time.perf_counter()
-  if frags_task_on_cpu(tasks[0], path, key, dev) != stored[key]:
+  if frags_task_on_cpu(tasks[0], path, [key], dev)[key] != stored[key]:
     fail("frags (a): task 0's .frags differs between the card and the CPU route")
   fm = FragMap(stored[key])
   print(f"frags (a): task 0's .frags ({len(fm)} labels, {len(stored[key])} B) equal on "
@@ -5064,7 +5114,7 @@ def frags_skeleton_phase(root, ce, cp, cc, cl, torch, dev) -> tuple:
   first = Bbox(tasks[0].offset * res, (tasks[0].offset + tasks[0].shape) * res)
   key = f"{first.to_filename()}.frags"
   t0 = time.perf_counter()
-  if frags_task_on_cpu(tasks[0], path, key, dev) != stored[key]:
+  if frags_task_on_cpu(tasks[0], path, [key], dev)[key] != stored[key]:
     fail("frags (c): task 0's .frags differs between the card and the CPU route")
   print(f"frags (c): task 0's .frags ({len(FragMap(stored[key]))} labels, "
         f"{len(stored[key])} B) equal on the card and the CPU route, "
@@ -5115,6 +5165,360 @@ def frags_skeleton_phase(root, ce, cp, cc, cl, torch, dev) -> tuple:
   return launched["edt_pass"], wall
 
 
+# ---------------------------------------------------------------------------
+# graphene and cross-sections (phase 16)
+
+# the chunk graph's chunk size: the graphene mesh factory's default task is
+# twice it, 256x256x128
+GRAPHENE_CHUNK = (128, 128, 64)
+# a crop of phase 5's layer (its corner at the origin): 2 default graphene
+# mesh tasks along x, 2 skeleton tasks
+GRAPHENE_CROP = (384, 128, 64)
+GRAPHENE_SKEL_TASK = (192, 128, 64)
+# roots the graphene skeleton forge traces: the autapse's and the
+# smallest others of 1000+ voxels
+GRAPHENE_SKEL_ROOTS = 6
+# new mips of the agglomerated transfer (mode pyramid2x2x1)
+GRAPHENE_MIPS = 2
+# the proofreading timeline (UNIX seconds): a merge, then a split; the runs
+# read the state between them
+T_MERGE, T_SPLIT, T_QUERY = 1_000_000, 2_000_000, 1_500_000
+# labels of phase 15's tube crop the cross-section forge measures: the
+# smallest of 1000+ voxels that cross its task boundary (the contact
+# repair's host cost grows with each clipped vertex: one tube's repair
+# takes most of the phase)
+XSECTION_LABELS = 1
+
+
+def graphene_watershed(labels: np.ndarray, chunk_size):
+  """A watershed layer over (x, y, z) ``labels``: each label cut at the
+  chunk-graph chunks and at the middle of each chunk along y into
+  chunk-local supervoxels (ids above 2^32; those of labels at or above 2^63
+  at or above 2^63 too). Each label's supervoxels are chained by edges in
+  (chunk, half) order, so the two halves of a chunk are joined and a half
+  is joined to the next chunk's other half: two touching supervoxels of one
+  label in neighbouring chunks share no edge (an autapse). Returns
+  (supervoxels, {sv: linear chunk index}, initial edges, {label: its
+  supervoxels in chain order}, {label: voxels})."""
+  # each voxel's (label rank, chunk, half) as one code: its order is the
+  # order of (label, linear chunk index, half)
+  grid = [np.arange(n) // c for n, c in zip(labels.shape, chunk_size)]
+  nx, ny, nz = (int(g[-1]) + 1 for g in grid)
+  local = (grid[2][None, None, :] * ny + grid[1][None, :, None]) * nx + grid[0][:, None, None]
+  half = ((np.arange(labels.shape[1]) // (chunk_size[1] // 2)) % 2)[None, :, None]
+  fg = labels != 0
+  names, rank = np.unique(labels[fg], return_inverse=True)
+  code = (rank.reshape(-1) * (nx * ny * nz) + np.broadcast_to(local, labels.shape)[fg]) * 2 \
+    + np.broadcast_to(half, labels.shape)[fg]
+  codes, inv = np.unique(code, return_inverse=True)
+  lab = names[codes // (2 * nx * ny * nz)]
+  loc = (codes // 2) % (nx * ny * nz)
+  chunk = (loc % nx) + ((loc // nx) % ny << 20) + (loc // (nx * ny) << 40)
+  ids = np.where(lab >= np.uint64(2**63), np.uint64(2**63 + 2**40), np.uint64(2**33)) \
+    + np.arange(len(codes), dtype=np.uint64)
+  sv = np.zeros(labels.shape, np.uint64, order="F")
+  sv[fg] = ids[inv.reshape(-1)]
+  pieces, sv_chunks = {}, {}
+  for lb, c, s in zip(lab.tolist(), chunk.tolist(), ids.tolist()):
+    pieces.setdefault(int(lb), []).append(int(s))
+    sv_chunks[int(s)] = int(c)
+  edges = [(p[i], p[i + 1]) for p in pieces.values() for i in range(len(p) - 1)]
+  return sv, sv_chunks, edges, pieces, dict(zip(names.tolist(), np.bincount(rank).tolist()))
+
+
+def graphene_phase(root, cp, cc, ce, cl, torch, dev) -> tuple:
+  """Phase 16's graphene parts, on a GRAPHENE_CROP crop of phase 5's layer
+  cut into chunk-local supervoxels (the watershed layer), whose chunk graph
+  (the port's LocalChunkGraph: each label's pieces chained by edges, two
+  touching labels merged at T_MERGE through pieces apart, so that the
+  merged root touches itself with no edge, a label split at T_SPLIT) the
+  repo's fake PyChunkGraph server (``tests/fake_pcg_server.py``) serves in
+  this process, the layer addressed graphene://http://127.0.0.1:<port>/...
+  as of T_QUERY: (a) the graphene mesh forge (2 GrapheneMeshTasks at the
+  default task shape, draco .frags of L2 ids; task 0 again on the CPU
+  route, the same .frags), (d) the agglomerated transfer with
+  GRAPHENE_MIPS new mips (pyramid2x2x1 once; every chunk the CPU route's),
+  (b) the skeleton forge with fix_autapses (the card's voxel graph of task
+  0's cutout bit for bit its plain version), again from the materialized
+  root layer of (d) (root_ids_cloudpath: the same fragments), task 0 on
+  the CPU route, (e) the agglomerated census against numpy. Returns
+  (pyramid2x2x1 launches, edt_pass launches, the wall)."""
+  import os
+
+  from igneous_tpu_torch import CloudFiles, Volume, graphene
+  from igneous_tpu_torch.lib import Bbox
+  from igneous_tpu_torch.mesh_io import FragMap
+  from igneous_tpu_torch.ops.ccl import (
+    voxel_connectivity_graph, voxel_connectivity_graph_plain,
+  )
+  from igneous_tpu_torch.queues import LocalTaskQueue
+  from igneous_tpu_torch.task_creation import (
+    create_graphene_meshing_tasks, create_skeletonizing_tasks, create_transfer_tasks,
+    create_voxel_counting_tasks,
+  )
+
+  t_phase = time.perf_counter()
+  mods = (cp, cc, ce, cl)
+  tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+  if tests not in sys.path:
+    sys.path.insert(0, tests)
+  from fake_pcg_server import FakePCGServer
+
+  labels = Volume(f"file://{root}/mesh_segmentation").download(
+    Bbox((0, 0, 0), GRAPHENE_CROP))[..., 0]
+  sv, sv_chunks, edges, pieces, sizes = graphene_watershed(labels, GRAPHENE_CHUNK)
+  ws = f"file://{root}/graphene_watershed"
+  Volume.from_numpy(sv, ws, resolution=(8, 8, 40), chunk_size=(64, 64, 64), compress=None,
+                    layer_type="segmentation")
+  graph = graphene.LocalChunkGraph(initial_edges=edges, chunk_size=GRAPHENE_CHUNK)
+  # the merge joins the two smallest labels of 1000+ voxels in two chunks
+  # or more (through their first and last supervoxels); the split cuts
+  # the first supervoxel off the largest label
+  small = sorted((n, lab) for lab, n in sizes.items() if n >= 1000 and len(pieces[lab]) >= 4)
+  la, lb = small[0][1], small[1][1]
+  graph.merge(pieces[la][0], pieces[lb][-1], T_MERGE)
+  split = pieces[max(sizes, key=sizes.get)]
+  graph.split([split[0]], split[1:], T_SPLIT)
+  ids = np.unique(sv)
+  print(f"graphene: watershed {GRAPHENE_CROP} of phase 5's layer, {len(ids) - 1} "
+        f"supervoxels ({int((ids >= 2**63).sum())} at or above 2^63) of {len(pieces)} labels "
+        f"in chunk-graph chunks of {GRAPHENE_CHUNK}, {len(edges)} edges, a merge at {T_MERGE} "
+        f"and a split at {T_SPLIT}", flush=True)
+  # the autapses: at T_QUERY roots that touch themselves across
+  # supervoxels that share no edge
+  roots = graph.get_roots(sv, T_QUERY)
+  severed = voxel_connectivity_graph_plain(roots, 6) & ~graph.voxel_connectivity_graph(
+    sv, 6, T_QUERY)
+  autapses = set(np.unique(roots[severed != 0]).tolist()) - {0}
+  merged_root = int(roots[labels == la][0])
+  if not autapses or merged_root != int(roots[labels == lb][0]):
+    fail(f"graphene: {len(autapses)} roots touch themselves without an edge; the merge "
+         f"{'joined' if merged_root == int(roots[labels == lb][0]) else 'did not join'} "
+         f"its labels")
+
+  with FakePCGServer(graph, sv_chunks, data_dir=ws) as srv:
+    gpath = f"graphene://{srv.base_url}"
+    cf = CloudFiles(ws)
+
+    # (a) the graphene mesh forge; simplification off (the QEM is phases
+    # 5 and 15's; a graphene task simplifies on one thread)
+    tasks = list(create_graphene_meshing_tasks(gpath, timestamp=T_QUERY, simplification=False))
+    if len(tasks) != 2 or tuple(tasks[0].shape) != tuple(2 * c for c in GRAPHENE_CHUNK):
+      fail(f"graphene (a): {len(tasks)} tasks of {tasks[0].shape}")
+    frags_run("(a) graphene mesh forge", lambda: LocalTaskQueue(parallel=1).insert(tasks),
+              mods, torch, dev, {}, srv, ("mesh.mc_count", "mesh.mc_emit", "graphene.pairs"),
+              phase="graphene")
+    mdir = Volume(ws).info["mesh"]
+    stored = dir_files(ws, mdir)
+    frags = sorted(n for n in stored if n.endswith(".frags"))
+    if len(frags) != 2:
+      fail(f"graphene (a): {len(frags)} .frags containers")
+    l2 = sorted({k for n in frags for k in FragMap.frombytes(stored[n]).keys()})
+    if not l2 or min(l2) < 2**40:
+      fail(f"graphene (a): the meshes' labels are not L2 ids ({l2[:3]})")
+    res = np.asarray(Volume(ws).resolution, dtype=np.int64)
+    core = Bbox.intersection(Bbox(tasks[0].offset, tasks[0].offset + tasks[0].shape),
+                             Volume(ws).bounds)
+    key = f"{Bbox(core.minpt * res, core.maxpt * res).to_filename()}.frags"
+    t0 = time.perf_counter()
+    if frags_task_on_cpu(tasks[0], ws, [key], dev)[key] != stored[key]:
+      fail("graphene (a): task 0's .frags differs between the card and the CPU route")
+    print(f"graphene (a): {len(l2)} L2 meshes (ids above 2^40) in 2 .frags; task 0's "
+          f"({len(FragMap.frombytes(stored[key]).keys())} meshes, {len(stored[key])} B) equal "
+          f"on the card and the CPU route, {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (d) the agglomerated transfer: roots as of T_QUERY, GRAPHENE_MIPS new mips
+    dest = f"file://{root}/graphene_roots"
+    kw = dict(agglomerate=True, timestamp=T_QUERY, shape=GRAPHENE_CROP,
+              num_mips=GRAPHENE_MIPS, chunk_size=(64, 64, 64))
+    launched = frags_run("(d) agglomerated transfer", lambda: LocalTaskQueue(
+      parallel=1).insert(create_transfer_tasks(gpath, dest, **kw)), mods, torch, dev,
+      {"pyramid2x2x1": 1}, srv, phase="graphene")
+    pyramid = launched.get("pyramid2x2x1", 0)
+    from igneous_tpu_torch import set_device
+
+    set_device("cpu")
+    try:
+      cpu_roots = Volume(gpath).download(Bbox((0, 0, 0), GRAPHENE_CROP), agglomerate=True,
+                                         timestamp=T_QUERY)[..., 0]
+      LocalTaskQueue(parallel=1).insert(create_transfer_tasks(
+        gpath, f"file://{root}/graphene_roots_cpu", **kw))
+    finally:
+      set_device(dev)
+    if not np.array_equal(Volume(dest).download(Bbox((0, 0, 0), GRAPHENE_CROP))[..., 0],
+                          cpu_roots):
+      fail("graphene (d): the transferred roots differ from the CPU route's")
+    info = Volume(dest).info
+    nfiles = 0
+    for scale in info["scales"][: GRAPHENE_MIPS + 1]:
+      got = dir_files(dest, scale["key"])
+      if got != dir_files(f"file://{root}/graphene_roots_cpu", scale["key"]) or not got:
+        fail(f"graphene (d): the chunks of {scale['key']} differ from the CPU route's")
+      nfiles += len(got)
+    if not np.array_equal(np.unique(cpu_roots), np.unique(roots)):
+      fail("graphene (d): the CPU route's roots are not the chunk graph's")
+    print(f"graphene (d): {len(np.unique(cpu_roots)) - 1} roots (ids above 2^48), uint64 "
+          f"layer, {nfiles} chunk files of mips 0-{GRAPHENE_MIPS} equal on the card and the "
+          f"CPU route", flush=True)
+
+    # (b) the skeleton forge with the autapse fix, as of T_QUERY, on the
+    # autapse's root and the smallest others of 1000+ voxels
+    uniq, counts = np.unique(cpu_roots, return_counts=True)
+    by_size = [int(u) for u, c in sorted(zip(uniq.tolist(), counts.tolist()), key=lambda t: t[1])
+               if u and c >= 1000 and u != merged_root]
+    autapse = next(u for u in by_size if u in autapses)
+    chosen = [merged_root, autapse] + [u for u in by_size if u != autapse][
+      : GRAPHENE_SKEL_ROOTS - 2]
+    skw = dict(shape=GRAPHENE_SKEL_TASK, fix_autapses=True, timestamp=T_QUERY,
+               object_ids=chosen, parallel=SKEL_TRACE_THREADS)
+    tasks = list(create_skeletonizing_tasks(gpath, skel_dir="skeletons_graphene", **skw))
+    if len(tasks) != 2:
+      fail(f"graphene (b): expected 2 tasks, planned {len(tasks)}")
+    # the card's voxel graph of task 0's cutout (the chunk graph's edges)
+    # against its plain version, bit for bit
+    cut = sv[: tasks[0].shape[0] + 1, : tasks[0].shape[1], : tasks[0].shape[2]]
+    # the chunk graph's edges at T_QUERY as codes of the supervoxels'
+    # ranks: the plain version calls the predicate on whole shifted arrays
+    n = len(ids)
+    edge_codes = np.array(sorted(
+      int(np.searchsorted(ids, np.uint64(a))) * n + int(np.searchsorted(ids, np.uint64(b)))
+      for a, b in graph._edges_at(T_QUERY)), dtype=np.int64)
+
+    def allowed(a, b):
+      ra, rb = np.searchsorted(ids, a), np.searchsorted(ids, b)
+      code = np.minimum(ra, rb).astype(np.int64) * n + np.maximum(ra, rb)
+      return (a == b) | np.isin(code, edge_codes)
+
+    t0 = time.perf_counter()
+    card = voxel_connectivity_graph(cut, 26, allowed)
+    t_card = time.perf_counter() - t0
+    if not np.array_equal(card, voxel_connectivity_graph_plain(cut, 26, allowed)) or \
+        not np.array_equal(voxel_connectivity_graph(cut, 26),
+                           voxel_connectivity_graph_plain(cut, 26)):
+      fail("graphene (b): the card's voxel graph differs from its plain version")
+    print(f"graphene (b): the card's voxel_connectivity_graph of task 0's {cut.shape} cutout "
+          f"(26-connected, the chunk graph's edges and label equality) bit for bit its plain "
+          f"version, {t_card:.3f} s", flush=True)
+    launched = frags_run("(b) skeleton forge --fix-autapses --timestamp", lambda: (
+      LocalTaskQueue(parallel=1).insert(tasks)), mods, torch, dev, {"edt_pass": 6}, srv,
+      phase="graphene")
+    edt = launched["edt_pass"]
+    launched = frags_run("(b) skeleton forge --fix-autapses --root-ids", lambda: (
+      LocalTaskQueue(parallel=1).insert(create_skeletonizing_tasks(
+        gpath, skel_dir="skeletons_rootids", root_ids_cloudpath=dest, **skw))),
+      mods, torch, dev, {"edt_pass": 6}, srv, phase="graphene")
+    edt += launched["edt_pass"]
+    by_ts, by_ids = dir_files(ws, "skeletons_graphene"), dir_files(ws, "skeletons_rootids")
+    if by_ts != by_ids or not any(n.endswith(".sk.gz") for n in by_ts):
+      fail("graphene (b): the root-ids run's fragments differ from the timestamp run's")
+    first = Bbox.intersection(Bbox(tasks[0].offset, tasks[0].offset + tasks[0].shape),
+                              Volume(ws).bounds)
+    names = sorted(n for n in by_ts if n.endswith(f":{first.to_filename()}.sk.gz"))
+    t0 = time.perf_counter()
+    if frags_task_on_cpu(tasks[0], ws, names, dev) != {n: by_ts[n] for n in names}:
+      fail("graphene (b): task 0's fragments differ between the card and the CPU route")
+    print(f"graphene (b): {sum(n.endswith('.sk.gz') for n in by_ts)} fragments of "
+          f"{len(chosen)} roots (the merged one and one with an autapse among them), the "
+          f"same files from the "
+          f"root-ids layer; task 0's {len(names)} equal on the card and the CPU route, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (e) the census of the roots
+    frags_run("(e) census --agglomerate", lambda: LocalTaskQueue(parallel=1).insert(
+      create_voxel_counting_tasks(gpath, shape=GRAPHENE_CROP, agglomerate=True,
+                                  timestamp=T_QUERY)), mods, torch, dev, {}, srv,
+      phase="graphene")
+    docs = [cf.get_json(k) for k in cf.list("stats/voxel_counts/0/")]
+    want = {str(int(u)): int(c) for u, c in zip(uniq, counts)}
+    if len(docs) != 1 or docs[0] != want:
+      fail("graphene (e): the census differs from numpy's counts of the roots")
+    print(f"graphene (e): the census of {len(want)} ids equals numpy's; the fake PCG server "
+          f"answered {len(srv.requests)} requests in the phase", flush=True)
+  wall = time.perf_counter() - t_phase
+  print(f"graphene: graphene parts wall {wall:.1f} s", flush=True)
+  return pyramid, edt, wall
+
+
+def xsection_phase(root, ce, cp, cc, cl, torch, dev) -> tuple:
+  """Phase 16 (c), on phase 15's tube crop (``frags_skeletons``): `skeleton
+  forge --cross-section 1` (the contact repair on, unlimited) of its
+  XSECTION_LABELS smallest labels of 1000+ voxels that cross the task
+  boundary, 2 tasks of FRAGS_SKEL_TASK (edt_pass 3 launches a task); task
+  0's fragments again on the CPU route, the same bytes; `skeleton merge`
+  and `skeleton convert` to SWC (one file a merged skeleton, each read back
+  with its vertex count). Returns (edt_pass launches, the wall)."""
+  from igneous_tpu_torch import CloudFiles, Volume
+  from igneous_tpu_torch.lib import Bbox
+  from igneous_tpu_torch.skeleton_io import Skeleton, from_swc
+  from igneous_tpu_torch.task_creation import create_skeletonizing_tasks
+
+  t_phase = time.perf_counter()
+  mods = (cp, cc, ce, cl)
+  path = f"file://{root}/frags_skeletons"
+  data = Volume(path).download(Bbox((0, 0, 0), FRAGS_SKEL_CROP))[..., 0]
+  half = FRAGS_SKEL_TASK[0]
+  uniq, counts = np.unique(data, return_counts=True)
+  both = set(np.unique(data[:half]).tolist()) & set(np.unique(data[half:]).tolist())
+  chosen = [int(u) for u, c in sorted(zip(uniq.tolist(), counts.tolist()), key=lambda t: t[1])
+            if u and c >= 1000 and u in both][:XSECTION_LABELS]
+  del data
+  # `skeleton forge --cross-section 1 --cross-section-label-repair-sec -1`'s
+  # factory call, with phase 6's tracing threads
+  tasks = list(create_skeletonizing_tasks(
+    path, shape=FRAGS_SKEL_TASK, cross_sectional_area=True, csa_smoothing_window=1,
+    csa_repair_sec_per_label=-1, skel_dir="skeletons_csa", object_ids=chosen,
+    parallel=SKEL_TRACE_THREADS))
+  if len(tasks) != 2:
+    fail(f"graphene (c): expected 2 tasks, planned {len(tasks)}")
+  from igneous_tpu_torch.queues import LocalTaskQueue
+
+  launched = frags_run("(c) skeleton forge --cross-section 1", lambda: LocalTaskQueue(
+    parallel=1).insert(tasks), mods, torch, dev, {"edt_pass": 6}, phase="graphene")
+  stored = dir_files(path, "skeletons_csa")
+  first = Bbox.intersection(Bbox(tasks[0].offset, tasks[0].offset + tasks[0].shape),
+                            Volume(path).bounds)
+  names = sorted(n for n in stored if n.endswith(f":{first.to_filename()}.sk.gz"))
+  if not names:
+    fail("graphene (c): task 0 wrote no fragment")
+  t0 = time.perf_counter()
+  if frags_task_on_cpu(tasks[0], path, names, dev) != {n: stored[n] for n in names}:
+    fail("graphene (c): task 0's fragments differ between the card and the CPU route")
+  t_cpu = time.perf_counter() - t0
+  attrs = CloudFiles(path).get_json("skeletons_csa/info")["vertex_attributes"]
+  import gzip
+
+  areas = np.concatenate([
+    Skeleton.from_precomputed(gzip.decompress(v), attrs).extra_attributes["cross_sectional_area"]
+    for n, v in stored.items() if n.endswith(".sk.gz")])
+  print(f"graphene (c): labels {chosen}, {len(areas)} vertices: {int((areas > 0).sum())} "
+        f"areas clean or repaired, {int(((areas < 0) & (areas != -1)).sum())} clipped at the "
+        f"dataset boundary, {int((areas == -1).sum())} unmeasured; task 0's {len(names)} "
+        f"fragments equal on the card and the CPU route, {t_cpu:.1f} s", flush=True)
+  out_dir = f"{root}/swc"
+  frags_run("(c) skeleton merge and convert", lambda: (
+    run_cli(["skeleton", "merge", path, "--skel-dir", "skeletons_csa", "--dust-threshold", 0]),
+    run_cli(["skeleton", "convert", path, out_dir, "--skel-dir", "skeletons_csa"])),
+    mods, torch, dev, {}, phase="graphene")
+  import os
+
+  # the merged skeletons: <label>.gz (gzip files keep the extension on disk)
+  merged = {n.split(".")[0]: v for n, v in dir_files(path, "skeletons_csa").items()
+            if n.split(".")[0].isdigit() and ":" not in n}
+  swc = sorted(os.listdir(out_dir))
+  if not merged or swc != sorted(f"{n}.swc" for n in merged):
+    fail(f"graphene (c): {len(swc)} SWC files for {len(merged)} merged skeletons")
+  for n, blob in merged.items():
+    skel = Skeleton.from_precomputed(gzip.decompress(blob), attrs)
+    back = from_swc(open(os.path.join(out_dir, f"{n}.swc")).read())
+    if len(back.vertices) != len(skel.vertices) or len(back.edges) != len(skel.edges):
+      fail(f"graphene (c): {n}.swc holds another skeleton")
+  print(f"graphene (c): {len(merged)} merged skeletons with cross-sections, each its SWC "
+        f"file", flush=True)
+  wall = time.perf_counter() - t_phase
+  print(f"graphene: cross-section parts wall {wall:.1f} s", flush=True)
+  return launched["edt_pass"], wall
+
+
 def main() -> int:
   import argparse
   import os
@@ -5161,7 +5565,7 @@ def main() -> int:
   # the kernel of phase 14, which the other copies need not have
   builds += [(b, "clahe") for b in [_build] + [c[0] for _, c in copies if c[4] is not None]]
   # the host libraries of the mesh and skeleton paths and the codec (g++)
-  host_libs = ("simplify", "dijkstra", "fggraph", "cseg")
+  host_libs = ("simplify", "dijkstra", "fggraph", "cseg", "xsection")
   builds += [(_build, name) for name in host_libs]
   with ThreadPoolExecutor(len(builds)) as pool:
     # one compiler per source, together
@@ -5235,6 +5639,7 @@ def main() -> int:
       fail("mesh: the pooling, CCL or EDT kernels ran on the mesh path")
     t_surface += spatial_index_phase(root, cp, cc, ce, cl, torch, dev)
     t_frags = frags_mesh_phase(root, cp, cc, ce, cl, torch, dev)
+    graphene_pyramid, graphene_edt, t_graphene = graphene_phase(root, cp, cc, ce, cl, torch, dev)
   print(f"surface: phase wall {t_surface:.1f} s", flush=True)
   for counts in (cc.LAUNCHES, cp.LAUNCHES):
     for key in counts:
@@ -5246,12 +5651,21 @@ def main() -> int:
     t_phase = time.perf_counter()
     batched_launches["edt_pass"] = batched_skeleton_phase(root, ce, edt_ops, torch, dev)
     t_batched += time.perf_counter() - t_phase
+    frags_launches, t_phase = frags_skeleton_phase(root, ce, cp, cc, cl, torch, dev)
+    t_frags += t_phase
+    # the batched and worker skeleton forges on phase 15's crop (phase 6's
+    # tasks before phase 16)
+    t_phase = time.perf_counter()
+    batched_launches["edt_pass"] += batched_skeleton_forge_phase(root, ce, torch, dev)
+    t_batched += time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     worker_launches["edt_pass"] = worker_skeleton(root, ce, cp, cc)["edt_pass"]
     t_worker += time.perf_counter() - t_phase
-    frags_launches, t_phase = frags_skeleton_phase(root, ce, cp, cc, cl, torch, dev)
-    t_frags += t_phase
+    launched, t_phase = xsection_phase(root, ce, cp, cc, cl, torch, dev)
+    graphene_edt += launched
+    t_graphene += t_phase
   print(f"frags: phase wall {t_frags:.1f} s", flush=True)
+  print(f"graphene: phase wall {t_graphene:.1f} s", flush=True)
   print(f"batched: phase wall {t_batched:.1f} s", flush=True)
   print(f"worker: phase wall {t_worker:.1f} s", flush=True)
   missing = [k for k in HAND_KERNELS if not worker_launches.get(k)]
@@ -5282,6 +5696,7 @@ def main() -> int:
       "launches_storage": storage_launches[name],
       "launches_sharded": sharded_launches[name],
       "launches_surface": surface_launches[name],
+      "launches_graphene": graphene_pyramid if name == "pyramid2x2x1" else 0,
       "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == name),
       "ms": first["ms"], "plain_ms": first["plain_ms"],
       "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -5309,6 +5724,7 @@ def main() -> int:
     "launches_batched": batched_launches["edt_pass"],
     "launches_worker": worker_launches["edt_pass"],
     "launches_frags": frags_launches,
+    "launches_graphene": graphene_edt,
     "max_abs_err": max(c["max_abs_err"] for c in edt_cases),
     "ms": first["ms"], "plain_ms": first["plain_ms"],
     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -26,7 +26,13 @@ It runs these of Igneous's paths on an NVIDIA GPU:
   - conv-net inference: create_inference_tasks → LocalTaskQueue →
     InferenceTask → the model (``infer.registry``, cuDNN convolutions with
     TF32 off) over overlapping patches, blended on the host
-    (``infer.engine``).
+    (``infer.engine``);
+  - graphene layers (``graphene``, ``graphene_http``): downloads mapped to
+    roots or L2 ids on the device (``ops.graphene_ids``), the voxel
+    connectivity graph (``ops.ccl``), GrapheneMeshTask, skeletons with
+    fix_autapses, agglomerated transfers and census; cross-sectional
+    areas of skeleton vertices (``ops.cross_section``, ``csrc/xsection.cpp``
+    on the host) and SWC export.
 Every path reads and writes the raw, compressed_segmentation
 (``csrc/cseg.cpp`` on the host), compresso, jpeg and png chunk encodings.
 It imports torch, numpy, scipy, PIL (for jpeg and png only) and the

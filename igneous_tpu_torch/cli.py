@@ -7,7 +7,7 @@ roi,reorder,create}``, ``python -m igneous_tpu_torch image contrast
 calc-labels,relabel,clean,auto}``, ``python -m igneous_tpu_torch mesh
 {forge [--sharded],merge [--nlod N],merge-sharded,clean,xfer [--sharded],rm,
 spatial-index {create,db}}``, ``python -m igneous_tpu_torch skeleton
-{forge [--sharded],merge,merge-sharded,clean,xfer [--sharded],rm,
+{forge [--sharded],merge,merge-sharded,clean,xfer [--sharded],rm,convert,
 spatial-index {create,db}}``,
 ``python -m igneous_tpu_torch execute``, ``python -m igneous_tpu_torch
 queue {status,wait,release,purge,rezero,fsck,cp,mv,dlq {ls,retry,purge}}``,
@@ -18,13 +18,12 @@ license`` and ``python -m igneous_tpu_torch tune``.
 A minimal counterpart of ``igneous-tpu image
 downsample|xfer|infer|rm|roi|reorder|create``, ``igneous-tpu image
 contrast``, ``igneous-tpu image voxels count|sum``, ``igneous-tpu image
-ccl``, ``igneous-tpu mesh``, ``igneous-tpu skeleton`` (but ``convert``),
+ccl``, ``igneous-tpu mesh``, ``igneous-tpu skeleton``,
 ``igneous-tpu execute``, ``igneous-tpu queue``, ``igneous-tpu audit``,
 ``igneous-tpu design``, ``igneous-tpu license`` and ``igneous-tpu tune``
 (``igneous_tpu/cli.py``), with the same option
-names; an option the port does not have is refused by the parser, and the
-ones it does not run yet raise ``NotImplementedError`` before anything is
-written. A command that
+names; an option the port does not have is refused by the parser. A
+command that
 makes tasks runs them in a ``LocalTaskQueue`` on the port's device (cuda;
 ``IGNEOUS_TORCH_DEVICE=cpu`` asks for the CPU), or, with ``--queue
 fq://...`` (or ``sqs://``), inserts them there for ``execute`` workers.
@@ -1331,7 +1330,9 @@ def _add_skeleton(skel) -> None:
                    default=True)
   cmd.add_argument("--no-fix-branching", dest="fix_branching", action="store_false")
   cmd.add_argument("--fix-avocados", action="store_true")
-  cmd.add_argument("--fix-autapses", action="store_true", help="Not ported yet: raises.")
+  cmd.add_argument("--fix-autapses", action="store_true",
+                   help="(graphene) constrain TEASAR to the chunk graph so "
+                        "self-contacts are severed")
   cmd.add_argument("--soma-detect", type=float, default=1100.0)
   cmd.add_argument("--soma-accept", type=float, default=3500.0)
   cmd.add_argument("--soma-scale", type=float, default=2.0)
@@ -1339,13 +1340,27 @@ def _add_skeleton(skel) -> None:
   cmd.add_argument("--labels", type=_id_list, default=None,
                    help="comma-separated: skeletonize only these labels")
   cmd.add_argument("--cross-section", type=int, default=0,
-                   help="Not ported yet: any value above 0 raises.")
+                   help="Compute per-vertex cross sectional area; the value is "
+                        "the normal-vector smoothing window (0 = off).")
+  cmd.add_argument("--cross-section-label-repair-sec", type=int, default=-1,
+                   help="Per-label time budget for contact repair: 0 off, "
+                        "-1 unlimited.")
   cmd.add_argument("--output", "-o", default=None,
                    help="Write stage-1 fragments to this path instead.")
   cmd.add_argument("--timestamp", type=int, default=None,
-                   help="(graphene) not ported yet: raises.")
-  cmd.add_argument("--root-ids", default=None, help="(graphene) not ported yet: raises.")
+                   help="(graphene) proofreading state at this UNIX time.")
+  cmd.add_argument("--root-ids", default=None,
+                   help="(graphene) materialized root-id layer to read instead "
+                        "of querying the server.")
+  cmd.add_argument("--progress", action="store_true",
+                   help="Accepted as the JAX package accepts it; no effect.")
   _add_spatial_index(skel, "--skel-dir", (512, 512, 512))
+  cmd = skel.add_parser("convert", help="Export finished skeletons as SWC files.")
+  cmd.add_argument("path")
+  cmd.add_argument("out_dir")
+  cmd.add_argument("--skel-dir", default=None)
+  cmd.add_argument("--labels", type=_id_list, default=None,
+                   help="comma-separated label ids")
   cmd = skel.add_parser("merge", help="Stage 2: fuse each label's fragments.")
   cmd.add_argument("path")
   _queue_opt(cmd)
@@ -1433,10 +1448,8 @@ def _run_skeleton(args) -> int:
       max_cable_length=args.max_cable_length,
     ), args.parallel)
     return 0
-  if args.timestamp is not None:
-    raise NotImplementedError(
-      "--timestamp (graphene layers) is not ported to igneous_tpu_torch yet"
-    )
+  if args.command == "convert":
+    return _skeleton_convert(args.path, args.out_dir, args.skel_dir, args.labels)
   enqueue(args.queue, tc.create_skeletonizing_tasks(
     args.path, mip=args.mip, shape=args.shape,
     teasar_params={
@@ -1454,8 +1467,41 @@ def _run_skeleton(args) -> int:
     fix_branching=args.fix_branching, fix_avocados=args.fix_avocados,
     fix_autapses=args.fix_autapses, object_ids=args.labels,
     cross_sectional_area=args.cross_section > 0,
-    frag_path=args.output, root_ids_cloudpath=args.root_ids,
+    csa_smoothing_window=max(int(args.cross_section), 1),
+    csa_repair_sec_per_label=args.cross_section_label_repair_sec,
+    frag_path=args.output, timestamp=args.timestamp,
+    root_ids_cloudpath=args.root_ids,
   ), args.parallel)
+  return 0
+
+
+def _skeleton_convert(path: str, out_dir: str, skel_dir, labels) -> int:
+  """Write ``<label>.swc`` for each finished skeleton of PATH (the bare
+  label files of the skeleton dir), as ``igneous-tpu skeleton convert``."""
+  import os
+
+  from .skeleton_io import Skeleton, to_swc
+  from .tasks.skeleton import skel_dir_for
+  from .volume import Volume
+
+  vol = Volume(path)
+  sdir = skel_dir_for(vol, skel_dir)
+  attrs = (vol.cf.get_json(f"{sdir}/info") or {}).get("vertex_attributes")
+  os.makedirs(out_dir, exist_ok=True)
+  wanted = set(labels) if labels else None
+  n = 0
+  for key in vol.cf.list(f"{sdir}/"):
+    name = key.split("/")[-1]
+    if not name.isdigit():
+      continue
+    label = int(name)
+    if wanted is not None and label not in wanted:
+      continue
+    s = Skeleton.from_precomputed(vol.cf.get(key), vertex_attributes=attrs)
+    with open(os.path.join(out_dir, f"{label}.swc"), "w") as f:
+      f.write(to_swc(s, label=label))
+    n += 1
+  print(f"wrote {n} swc files to {out_dir}")
   return 0
 
 

@@ -467,3 +467,143 @@ class DisjointSet:
         counter += 1
       out[x] = next_id[r]
     return out, counter - 1
+
+
+# ---------------------------------------------------------------------------
+# the voxel connectivity graph (cc3d.voxel_connectivity_graph)
+
+
+def graph_bit(off) -> int:
+  """Bit index for neighbor offset (dx, dy, dz) in the voxel connectivity
+  graph: linear index over (dz, dy, dx) in {-1,0,1}^3 with the center
+  skipped (the layout of ``igneous_tpu/ops/ccl.py:graph_bit``)."""
+  dx, dy, dz = off
+  lin = (dz + 1) * 9 + (dy + 1) * 3 + (dx + 1)
+  if lin == 13:
+    raise ValueError("no bit for the center offset")
+  return lin if lin < 13 else lin - 1
+
+
+def _shift_slices(shape_zyx, off_zyx):
+  """(src, dst) slices of a (z, y, x) volume for the neighbour at
+  ``off_zyx``: src voxels whose neighbour lies inside, and those
+  neighbours."""
+  src = tuple(slice(max(0, -d), n - max(0, d)) for n, d in zip(shape_zyx, off_zyx))
+  dst = tuple(slice(max(0, d), n - max(0, -d)) for n, d in zip(shape_zyx, off_zyx))
+  return src, dst
+
+
+def voxel_graph_tensor(
+  seg: torch.Tensor, connectivity: int = 26, pair_allowed=None, flip: bool = False,
+) -> torch.Tensor:
+  """The voxel connectivity graph of a (z, y, x) int64 label tensor, on its
+  device: int32 (z, y, x) bitfields (bit ``graph_bit(dx, dy, dz)`` set when
+  that neighbour is inside and connected). Bits reach 25 at most, so the
+  int32 holds the uint32 layout's bits.
+
+  Connected: by default the neighbour holds the same nonzero label. With
+  ``pair_allowed(src_vals, dst_vals) -> bool array`` (numpy, elementwise),
+  the distinct ordered (src, dst) pairs with a nonzero src are gathered on
+  the device over every offset, decided on the host in one call, and the
+  answers scattered back on the device. ``flip``: the tensor holds uint64
+  bits (the values handed to ``pair_allowed`` are then uint64)."""
+  shape = tuple(seg.shape)
+  out = torch.zeros(shape, dtype=torch.int32, device=seg.device)
+  offsets = neighbor_offsets(connectivity)
+  with execute_span("ccl.voxel_graph", seg.numel(), seg.numel() * 12, seg.device,
+                    signature=(shape, connectivity, pair_allowed is not None)):
+    if pair_allowed is None:
+      fg = seg != 0
+      for dz, dy, dx in offsets:
+        src, dst = _shift_slices(shape, (dz, dy, dx))
+        conn = fg[src] & (seg[src] == seg[dst])
+        out[src] |= conn.to(torch.int32) << graph_bit((dx, dy, dz))
+      return out
+    key = torch.bitwise_xor(seg, -(1 << 63)) if flip else seg
+    uniq, inv = torch.unique(key.reshape(-1), sorted=True, return_inverse=True)
+    del key
+    if flip:
+      uniq = torch.bitwise_xor(uniq, -(1 << 63))
+    inv = inv.view(shape)
+    n = int(uniq.numel())
+    # ordered pair codes src * n + dst over the dense ids; a pair with
+    # equal labels is allowed or not per label: its own table
+    codes = []
+    for dz, dy, dx in offsets:
+      src, dst = _shift_slices(shape, (dz, dy, dx))
+      s, d = inv[src], inv[dst]
+      keep = (seg[src] != 0) & (s != d)
+      codes.append(torch.unique(s[keep] * n + d[keep]))
+    codes = torch.unique(torch.cat(codes)) if codes else torch.zeros(0, dtype=torch.int64)
+    labels = uniq.cpu().numpy()
+    labels = labels.view(np.uint64) if flip else labels
+    codes_np = codes.cpu().numpy()
+    a = np.concatenate([labels, labels[codes_np // n]])
+    b = np.concatenate([labels, labels[codes_np % n]])
+    ok = np.asarray(pair_allowed(a, b), dtype=bool)
+    same_ok = torch.from_numpy(ok[:n].copy()).to(seg.device)
+    diff_ok = torch.from_numpy(ok[n:].copy()).to(seg.device)
+    for dz, dy, dx in offsets:
+      src, dst = _shift_slices(shape, (dz, dy, dx))
+      s, d = inv[src], inv[dst]
+      conn = same_ok[s]
+      differ = s != d
+      if len(codes):
+        pos = torch.searchsorted(codes, s * n + d).clamp_(max=len(codes) - 1)
+        conn = torch.where(differ, diff_ok[pos], conn)
+      conn &= seg[src] != 0
+      out[src] |= conn.to(torch.int32) << graph_bit((dx, dy, dz))
+  return out
+
+
+def graph_bits_to_numpy(bits: torch.Tensor) -> np.ndarray:
+  """(z, y, x) int32 bitfields -> the (x, y, z) uint32 numpy graph."""
+  with transfer_span("d2h", bits.numel() * 4, bits.device):
+    return bits.cpu().numpy().view(np.uint32).transpose(2, 1, 0)
+
+
+def voxel_connectivity_graph(
+  labels: np.ndarray, connectivity: int = 26, pair_allowed=None,
+  device: Optional[torch.device] = None,
+) -> np.ndarray:
+  """Per-voxel uint32 bitfield of (x, y, z) ``labels``: a bit is set when
+  the neighbour in that direction is in bounds and connected (the same
+  nonzero label; or ``pair_allowed(src_vals, dst_vals)``, the graphene
+  chunk graph's edge membership). The JAX package's
+  ``ops.ccl.voxel_connectivity_graph``, bit for bit, computed on
+  ``device`` (the port's device by default) by ``voxel_graph_tensor``."""
+  if labels.ndim != 3:
+    raise ValueError("labels must be (x, y, z)")
+  dev = get_device() if device is None else device
+  seg, flip = labels_on_device(labels, (0, 0, 0), (0, 0, 0), dev)
+  bits = voxel_graph_tensor(seg, connectivity, pair_allowed, flip)
+  del seg
+  return graph_bits_to_numpy(bits)
+
+
+def voxel_connectivity_graph_plain(
+  labels: np.ndarray, connectivity: int = 26, pair_allowed=None
+) -> np.ndarray:
+  """A copy of the JAX package's numpy ``voxel_connectivity_graph``: the
+  plain version the tests and ``chip_smoke.py`` hold the device's
+  against."""
+  if labels.ndim != 3:
+    raise ValueError("labels must be (x, y, z)")
+  out = np.zeros(labels.shape, dtype=np.uint32)
+  fg = labels != 0
+  for dz, dy, dx in neighbor_offsets(connectivity):
+    off = (dx, dy, dz)
+    src = tuple(
+      slice(max(0, -d), labels.shape[a] - max(0, d))
+      for a, d in enumerate(off)
+    )
+    dst = tuple(
+      slice(max(0, d), labels.shape[a] - max(0, -d))
+      for a, d in enumerate(off)
+    )
+    if pair_allowed is None:
+      conn = fg[src] & (labels[src] == labels[dst])
+    else:
+      conn = fg[src] & pair_allowed(labels[src], labels[dst])
+    out[src] |= conn.astype(np.uint32) << np.uint32(graph_bit(off))
+  return out

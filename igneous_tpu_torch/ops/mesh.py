@@ -742,6 +742,24 @@ def _label_boxes(seg: torch.Tensor, flip_sign: bool):
   return labels, counts.cpu().numpy(), dense, lo.cpu().numpy(), hi.cpu().numpy()
 
 
+def label_bboxes(labels: np.ndarray, dev=None):
+  """{label: (slice, slice, slice)} of every nonzero label of an (x, y, z)
+  cutout, computed on ``dev`` (the port's device by default): the
+  ``ndimage.find_objects`` slices of the JAX package's
+  ``ops.remap.label_bboxes``, which the cross-section pass and
+  ``CompressedLabels`` use."""
+  dev = get_device() if dev is None else dev
+  seg, flip = labels_on_device(labels, (0, 0, 0), (0, 0, 0), dev)
+  uniq, _counts, dense, lo, hi = label_boxes(seg, flip)
+  del dense, seg
+  ids = uniq.view(np.uint64) if flip else uniq
+  ids = ids[ids != 0]
+  return {
+    int(v): tuple(slice(int(a), int(b)) for a, b in zip(lo[i + 1], hi[i + 1]))
+    for i, v in enumerate(ids.tolist())
+  }
+
+
 def scatter_boxes(ids: torch.Tensor, shape, n: int):
   """Each id 0..n's box among the flat int64 ids of a (z, y, x) volume of
   ``shape``: int64 (n + 1, 3) tensors on the ids' device, the (x, y, z)

@@ -23,8 +23,10 @@ Algorithm per label (TEASAR with kimimaro's "rolling invalidation ball"):
      voxel, trace its penalized-shortest path to the existing tree, and
      invalidate voxels within scale*edt + const of the new path vertices.
 
-Not ported (raises ``NotImplementedError``): ``voxel_graph``, the graphene
-autapse constraint.
+``voxel_graph`` (uint32 direction bitfields, ``ops.ccl.graph_bit``
+layout: the graphene autapse fix's chunk-graph connectivity) removes the
+foreground-graph edges whose bit is unset at the source voxel; every
+component of the graph that remains is traced.
 
 Stage timers (``telemetry``): h2d, edt, labels (unique, renumber, boxes),
 d2h, trace; counters: labels (traced), vertices.
@@ -47,6 +49,7 @@ from ..device import get_device
 from ..observability.device import execute_span, transfer_span
 from ..skeleton_io import Skeleton
 from . import _build
+from .ccl import graph_bit
 from .edt import distance_field
 from .edt import edt as device_edt
 from .mesh import label_boxes, labels_on_device
@@ -104,17 +107,6 @@ class TeasarParams:
     return cls(**{k: v for k, v in d.items() if k in cls.KNOWN})
 
 
-def graph_bit(off) -> int:
-  """Bit index for neighbor offset (dx, dy, dz) in the voxel connectivity
-  graph: linear index over (dz, dy, dx) in {-1,0,1}^3 with the center
-  skipped (the layout of ``igneous_tpu/ops/ccl.py:graph_bit``)."""
-  dx, dy, dz = off
-  lin = (dz + 1) * 9 + (dy + 1) * 3 + (dx + 1)
-  if lin == 13:
-    raise ValueError("no bit for the center offset")
-  return lin if lin < 13 else lin - 1
-
-
 def _positive_deltas():
   """The 13 positive-lex neighbor deltas with their voxel_graph bits:
   [((dx, dy, dz), bit), ...]."""
@@ -160,12 +152,13 @@ def dijkstra_lib() -> ctypes.CDLL:
   return lib
 
 
-def _foreground_graph(mask: np.ndarray, pdrf: np.ndarray, anisotropy):
+def _foreground_graph(mask: np.ndarray, pdrf: np.ndarray, anisotropy, voxel_graph=None):
   """26-connected symmetric CSR graph over the foreground voxels of
   ``mask`` (node ids: C-order scan positions), built by
   ``csrc/fggraph.cpp``; edge weight = mean endpoint penalty * physical
-  step length. Returns (graph or None when it has no edge, the flat
-  indices of the foreground voxels)."""
+  step length; ``voxel_graph`` drops the edges whose direction bit is
+  unset at the source voxel. Returns (graph or None when it has no edge,
+  the flat indices of the foreground voxels)."""
   lib = fggraph_lib()
   idx = np.full(mask.size, -1, dtype=np.int64)
   fg = np.flatnonzero(mask.reshape(-1))
@@ -182,6 +175,10 @@ def _foreground_graph(mask: np.ndarray, pdrf: np.ndarray, anisotropy):
   )
   bits = np.ascontiguousarray([b for _d, b in pairs], dtype=np.int32)
   pdrf_c = np.ascontiguousarray(pdrf, dtype=np.float32)
+  vg = (
+    None if voxel_graph is None
+    else np.ascontiguousarray(voxel_graph, dtype=np.uint32)
+  )
   indptr = np.zeros(n + 1, dtype=np.int64)
 
   def call(indices, weights, fill):
@@ -189,7 +186,7 @@ def _foreground_graph(mask: np.ndarray, pdrf: np.ndarray, anisotropy):
       mask.shape[0], mask.shape[1], mask.shape[2],
       idx.ctypes.data_as(ctypes.c_void_p),
       pdrf_c.ctypes.data_as(ctypes.c_void_p),
-      None,
+      None if vg is None else vg.ctypes.data_as(ctypes.c_void_p),
       deltas.ctypes.data_as(ctypes.c_void_p),
       lens.ctypes.data_as(ctypes.c_void_p),
       bits.ctypes.data_as(ctypes.c_void_p),
@@ -211,14 +208,6 @@ def _foreground_graph(mask: np.ndarray, pdrf: np.ndarray, anisotropy):
   # storage order, so rows must be stored as the JAX package stores them
   g.sort_indices()
   return g, fg
-
-
-def _refuse_voxel_graph(voxel_graph) -> None:
-  if voxel_graph is not None:
-    raise NotImplementedError(
-      "voxel_graph (the graphene autapse constraint) is not ported to "
-      "igneous_tpu_torch yet"
-    )
 
 
 def skeletonize_mask(
@@ -244,7 +233,6 @@ def skeletonize_mask(
   branches attach at the correct centerline junction. False = one
   predecessor tree per component, faster, slightly off-center branch
   points."""
-  _refuse_voxel_graph(voxel_graph)
   params = params or TeasarParams()
   mask = np.ascontiguousarray(mask.astype(bool))
   if not mask.any():
@@ -272,7 +260,9 @@ def skeletonize_mask(
       piece = _skeletonize_component(
         comps[sl] == ci, dt[sl], anisotropy, params,
         np.asarray(offset, np.float32) + lo.astype(np.float32),
-        sub_targets, fix_branching,
+        sub_targets,
+        None if voxel_graph is None else voxel_graph[sl],
+        fix_branching,
       )
       if not piece.empty:
         pieces.append(piece)
@@ -280,7 +270,8 @@ def skeletonize_mask(
       return Skeleton()
     return Skeleton.simple_merge(pieces).consolidate()
   return _skeletonize_component(
-    mask, dt, anisotropy, params, offset, extra_targets, fix_branching,
+    mask, dt, anisotropy, params, offset, extra_targets, voxel_graph,
+    fix_branching,
   )
 
 
@@ -325,6 +316,7 @@ def _skeletonize_component(
   params: TeasarParams,
   offset,
   extra_targets,
+  voxel_graph=None,
   fix_branching: bool = True,
 ) -> Skeleton:
   dt = np.where(mask, dt, 0.0)
@@ -337,7 +329,7 @@ def _skeletonize_component(
   ).astype(np.float32) + 1e-5
   pdrf[~mask] = np.float32(np.inf)
 
-  graph, fg = _foreground_graph(mask, pdrf, anisotropy)
+  graph, fg = _foreground_graph(mask, pdrf, anisotropy, voxel_graph)
   n = len(fg)
   if graph is None or n == 1:
     # a single voxel: degenerate one-vertex skeleton
@@ -586,7 +578,6 @@ def skeletonize(
   recomputed on the solid mask. With ``object_ids``, only requested
   labels are soma candidates."""
   del progress
-  _refuse_voxel_graph(voxel_graph)
   params = params or TeasarParams()
   labels = np.asarray(labels)
   if labels.ndim == 4:
@@ -667,7 +658,9 @@ def skeletonize(
       targets = t[inside]
     skel = skeletonize_mask(
       mask, anisotropy, params, offset=crop_offset, edt_field=crop_edt,
-      extra_targets=targets, fix_branching=fix_branching,
+      extra_targets=targets,
+      voxel_graph=None if voxel_graph is None else voxel_graph[sl],
+      fix_branching=fix_branching,
     )
     return None if skel.empty else (label, skel)
 

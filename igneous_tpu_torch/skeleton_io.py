@@ -1,9 +1,10 @@
 """Skeleton container, Precomputed skeleton codec and postprocessing.
 
 The port's own copy of ``Skeleton``, ``DEFAULT_ATTRIBUTES`` and
-``postprocess`` from ``igneous_tpu/skeleton_io.py`` (cloud-volume's
-Skeleton type and kimimaro's postprocess), so that both packages write
-the same bytes. SWC import and export are not ported yet (ROADMAP.md).
+``postprocess``, ``to_swc`` and ``from_swc`` from
+``igneous_tpu/skeleton_io.py`` (cloud-volume's Skeleton type, kimimaro's
+postprocess and the SWC text of ``skeleton convert``), so that both
+packages write the same bytes.
 
 Precomputed skeleton fragment format (Neuroglancer spec):
   uint32le num_vertices, uint32le num_edges,
@@ -209,6 +210,75 @@ class Skeleton:
       else:
         extra[att["id"]] = arr.copy()
     return cls(vertices.copy(), edges.copy(), radii, vertex_types, extra)
+
+
+def to_swc(skel: Skeleton, label: Optional[int] = None) -> str:
+  """SWC text export (`igneous skeleton convert` capability).
+
+  SWC rows: id type x y z radius parent; forests emit one root (-1
+  parent) per connected component."""
+  lines = []
+  if label is not None:
+    lines.append(f"# label {label}")
+  n = len(skel.vertices)
+  adj: Dict[int, List[int]] = {}
+  for a, b in skel.edges.astype(np.int64):
+    adj.setdefault(int(a), []).append(int(b))
+    adj.setdefault(int(b), []).append(int(a))
+
+  parent = np.full(n, -2, dtype=np.int64)  # -2 = unvisited
+  order: List[int] = []
+  for start in range(n):
+    if parent[start] != -2:
+      continue
+    parent[start] = -1
+    stack = [start]
+    while stack:
+      cur = stack.pop()
+      order.append(cur)
+      for nxt in adj.get(cur, []):
+        if parent[nxt] == -2:
+          parent[nxt] = cur
+          stack.append(nxt)
+
+  swc_id = np.zeros(n, dtype=np.int64)
+  for i, v in enumerate(order, start=1):
+    swc_id[v] = i
+  for v in order:
+    x, y, z = skel.vertices[v]
+    r = float(skel.radii[v]) if skel.radii[v] > 0 else 1.0
+    p = -1 if parent[v] < 0 else int(swc_id[parent[v]])
+    t = int(skel.vertex_types[v])
+    lines.append(
+      f"{int(swc_id[v])} {t} {x:.1f} {y:.1f} {z:.1f} {r:.3f} {p}"
+    )
+  return "\n".join(lines) + "\n"
+
+
+def from_swc(text: str) -> Skeleton:
+  verts, radii, types = [], [], []
+  edges = []
+  id_map: Dict[int, int] = {}
+  rows = []
+  for line in text.splitlines():
+    line = line.strip()
+    if not line or line.startswith("#"):
+      continue
+    parts = line.split()
+    rows.append((
+      int(parts[0]), int(parts[1]),
+      float(parts[2]), float(parts[3]), float(parts[4]),
+      float(parts[5]), int(parts[6]),
+    ))
+  for sid, t, x, y, z, r, _p in rows:
+    id_map[sid] = len(verts)
+    verts.append((x, y, z))
+    radii.append(r)
+    types.append(t)
+  for sid, _t, _x, _y, _z, _r, p in rows:
+    if p >= 0:
+      edges.append((id_map[p], id_map[sid]))
+  return Skeleton(verts, edges, radii=radii, vertex_types=types)
 
 
 def postprocess(

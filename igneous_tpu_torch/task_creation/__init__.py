@@ -36,6 +36,7 @@ from .image import (
 from .inference import create_inference_tasks
 from .mesh import (
   configure_multires_info,
+  create_graphene_meshing_tasks,
   create_mesh_deletion_tasks,
   create_mesh_manifest_tasks,
   create_mesh_transfer_tasks,

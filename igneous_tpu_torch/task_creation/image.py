@@ -14,8 +14,10 @@ Counterpart of ``igneous_tpu/task_creation/image.py``'s
 ``create_clahe_tasks``, ``create_spatial_index_tasks``,
 ``create_reordering_tasks`` and ``compute_rois``: the same task shapes,
 scales, sharding specs, ``info`` (ROIs included) and provenance, and the
-same payloads. Graphene sources (agglomerate / timestamp /
-stop_layer) are refused before anything is written.
+same payloads. From graphene sources, transfers and the census take
+``agglomerate`` / ``timestamp`` (transfers also ``stop_layer``), with the
+JAX package's ``ValueError`` for an invalid combination before anything is
+written.
 """
 
 from __future__ import annotations
@@ -46,7 +48,6 @@ from ..tasks.image import (
   QuantizeTask,
   TouchTask,
   TransferTask,
-  refuse_graphene,
 )
 from ..device import get_device
 from ..tasks.contrast import CLAHETask, ContrastNormalizationTask, LuminanceLevelsTask
@@ -55,7 +56,6 @@ from ..tasks.stats import (
   CountVoxelsTask,
   ReorderTask,
   SpatialIndexTask,
-  refuse_unported as refuse_graphene_census,
 )
 from ..volume import Volume
 from .common import GridTaskIterator, get_bounds, operator_contact
@@ -321,10 +321,9 @@ def create_transfer_tasks(
   ``clean_info`` scrubs mesh/skeleton fields from a new destination;
   ``no_src_update`` skips the source provenance note.
   ``use_https_for_source`` only implies ``no_src_update``.
-  ``agglomerate``, ``timestamp`` and ``stop_layer`` (graphene sources)
-  raise NotImplementedError before anything is written. A sharded source
-  scale reads through ``Volume``."""
-  refuse_graphene(agglomerate, timestamp, stop_layer)
+  ``agglomerate`` (graphene sources) writes the proofread root ids as of
+  ``timestamp``, ``stop_layer=2`` the L2 ids, into a uint64 destination.
+  A sharded source scale reads through ``Volume``."""
   src = Volume(src_layer_path, mip=mip)
   compress = _resolve_auto_compress(compress, encoding, src, mip)
   if max_mips is not None:
@@ -334,6 +333,18 @@ def create_transfer_tasks(
     chunk_size = [int(v) for v in src.meta.chunk_size(mip + 1)]
   if factor is None:
     factor = DEFAULT_FACTOR
+  # the graphene options, before any destination state is written
+  materialize_ids = agglomerate or stop_layer is not None
+  if materialize_ids and src.graphene is None:
+    raise ValueError(
+      "agglomerate/stop_layer transfers require a graphene:// source"
+    )
+  if stop_layer not in (None, 1, 2):
+    raise ValueError(f"stop_layer must be 1 or 2: {stop_layer!r}")
+  if timestamp is not None and not materialize_ids:
+    raise ValueError(
+      "timestamp only applies with agglomerate=True or stop_layer"
+    )
 
   # the destination mirrors the source's scales through `mip` (so its mip
   # indices line up with the task's), with fresh chunking
@@ -343,7 +354,9 @@ def create_transfer_tasks(
   dest_info = PrecomputedMetadata.create_info(
     num_channels=src.num_channels,
     layer_type=src.layer_type,
-    data_type=src.meta.data_type,
+    # root and L2 ids are uint64 above 2^40, whatever the watershed
+    # layer's dtype: a narrower destination would wrap them
+    data_type="uint64" if materialize_ids else src.meta.data_type,
     encoding=encoding or src_scale["encoding"],
     resolution=base_scale["resolution"],
     voxel_offset=(
@@ -361,6 +374,12 @@ def create_transfer_tasks(
     dest_layer_path, dest_info, src, mip, dest_chunk, encoding, truncate_scales,
     cutout, bounds, bounds_mip, clean_info,
   )
+  if materialize_ids and dest.meta.data_type != "uint64":
+    raise ValueError(
+      f"agglomerate/stop_layer transfers write uint64 root ids, but the "
+      f"existing destination is {dest.meta.data_type}; they would "
+      f"silently wrap on upload — delete or widen the destination first"
+    )
 
   if shape is None:
     shape = downsample_shape_from_memory_target(
@@ -485,10 +504,21 @@ def create_image_shard_transfer_tasks(
   data. ``use_https_for_source`` has no effect (sharded transfers write no
   source provenance)."""
   del use_https_for_source
-  refuse_graphene(agglomerate, timestamp, stop_layer)
   src = Volume(src_layer_path, mip=mip)
   if memory_target is not None:
     uncompressed_shard_bytesize = memory_target
+  # the graphene options, before any destination state is written
+  materialize_ids = agglomerate or stop_layer is not None
+  if materialize_ids and src.graphene is None:
+    raise ValueError(
+      "agglomerate/stop_layer transfers require a graphene:// source"
+    )
+  if stop_layer not in (None, 1, 2):
+    raise ValueError(f"stop_layer must be 1 or 2: {stop_layer!r}")
+  if timestamp is not None and not materialize_ids:
+    raise ValueError(
+      "timestamp only applies with agglomerate=True or stop_layer"
+    )
   data_encoding = _shard_data_encoding(compress)
   src_scale = src.meta.scale(mip)
   dest_chunk = list(chunk_size) if chunk_size else src_scale["chunk_sizes"][0]
@@ -502,7 +532,9 @@ def create_image_shard_transfer_tasks(
     dataset_size=src_scale["size"],
     chunk_size=dest_chunk,
     encoding=encoding or src_scale["encoding"],
-    dtype=src.meta.data_type,
+    # the shard spec's dtype follows the ids written; the layer's
+    # data_type stays the source's, as in the JAX package
+    dtype="uint64" if materialize_ids else src.meta.data_type,
     uncompressed_shard_bytesize=uncompressed_shard_bytesize,
     minishard_index_encoding=minishard_index_encoding,
     data_encoding=data_encoding,
@@ -592,8 +624,17 @@ def create_image_shard_downsample_tasks(
   per-mip shard extent (shard extents are powers of two per axis, so the
   largest contains them all), and ``num_mips`` is clamped so that every
   produced mip stays chunk aligned within the stride."""
-  refuse_graphene(agglomerate, timestamp)
   vol = Volume(layer_path, mip=mip)
+  if agglomerate and vol.graphene is None:
+    raise ValueError("agglomerate downsamples require a graphene:// source")
+  if agglomerate and vol.meta.data_type != "uint64":
+    # a layer has one data_type: root ids cannot go into a narrower
+    # watershed layer's own scales
+    raise ValueError(
+      f"agglomerate downsamples write uint64 root ids, but this layer's "
+      f"data_type is {vol.meta.data_type}; transfer the roots to a "
+      f"uint64 destination first"
+    )
   if truncate_scales:
     # drop the scales above mip before making them again
     vol.info["scales"] = vol.info["scales"][: mip + 1]
@@ -899,8 +940,10 @@ def create_voxel_counting_tasks(
 ):
   """Census phase of the voxel statistics; reduce with
   ``tasks.stats.accumulate_voxel_counts``."""
-  refuse_graphene_census(agglomerate, timestamp)
   vol = Volume(cloudpath, mip=mip)
+  if agglomerate and vol.graphene is None:
+    # fail at creation, not in every queued task
+    raise ValueError("agglomerate voxel counting requires a graphene:// path")
   task_bounds = get_bounds(vol, bounds, mip, mip)
   shape = Vec(*shape)
 

@@ -1,12 +1,13 @@
 """Mesh task factories.
 
-The port's own copy of ``igneous_tpu/task_creation/mesh.py`` but its
-graphene factory: the forge grid (``create_meshing_tasks``, legacy or
-sharded ``.frags``, Precomputed or draco), the legacy manifests, the three
-multires merges with their info and shard planning, and the deletion and
-transfer fan-outs of ``@queueable`` functions. The same task grid,
-payloads, infos and provenance. A graphene layer raises
-``NotImplementedError`` before anything is written.
+The port's own copy of ``igneous_tpu/task_creation/mesh.py``: the forge
+grid (``create_meshing_tasks``, legacy or sharded ``.frags``, Precomputed
+or draco; a graphene layer meshes its L2 ids), the graphene forge grid
+(``create_graphene_meshing_tasks``: draco ``.frags`` on the chunk graph's
+grid), the legacy manifests, the three multires merges with their info
+and shard planning, and the deletion and transfer fan-outs of
+``@queueable`` functions. The same task grid, payloads, infos and
+provenance.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ from ..tasks.mesh import (
   DeleteMeshFilesTask,
   MeshManifestPrefixTask,
   MeshTask,
+  GrapheneMeshTask,
   TransferMeshFilesTask,
+  check_options,
   mesh_dir_for,
-  refuse_unported,
 )
 from ..tasks.mesh_multires import (
   MultiResShardedFromUnshardedMeshMergeTask,
@@ -65,7 +67,7 @@ def create_meshing_tasks(
 ):
   """Stage-1 mesh forge grid; writes the mesh ``info`` and points the
   layer's ``info`` at it."""
-  refuse_unported(layer_path, encoding, compress)
+  check_options(encoding, compress)
   vol = Volume(layer_path, mip=mip)
   if vol.layer_type != "segmentation":
     raise ValueError("Meshing requires a segmentation layer")
@@ -359,3 +361,83 @@ def create_mesh_transfer_tasks(
     pass  # mesh-only bucket: no info to update
   for prefix in range(10**magnitude):
     yield partial(TransferMeshFilesTask, src_layer, dest_layer, mdir, str(prefix))
+
+
+def create_graphene_meshing_tasks(
+  cloudpath: str,
+  mip: int = 0,
+  shape: Optional[Sequence[int]] = None,
+  timestamp: Optional[float] = None,
+  mesh_dir: Optional[str] = None,
+  simplification: bool = True,
+  simplification_factor: int = 100,
+  max_simplification_error: int = 40,
+  fill_missing: bool = False,
+  bounds: Optional[Bbox] = None,
+  object_ids: Optional[Sequence[int]] = None,
+  draco_compression_level: int = 1,
+):
+  """Stage-1 graphene mesh forge: L2-granularity draco meshes in sharded
+  .frags containers. The task shape defaults to twice the chunk graph's
+  chunk size and must be a multiple of it, so every task covers whole L2
+  chunks (their ids are per (root, chunk)).
+
+  ``draco_compression_level`` is accepted and has no effect (the draco
+  encoder is the fixed sequential method); ``simplification`` False
+  disables the simplifier as in ``create_meshing_tasks``."""
+  del draco_compression_level
+  if not simplification:
+    simplification_factor = 1
+
+  vol = Volume(cloudpath, mip=mip)
+  if vol.graphene is None:
+    raise ValueError("create_graphene_meshing_tasks needs a graphene:// path")
+  gcs = np.asarray(vol.graphene.chunk_size, dtype=np.int64)
+  if shape is None:
+    shape = tuple(int(c) * 2 for c in vol.graphene.chunk_size)
+  if np.any(np.asarray(shape, dtype=np.int64) % gcs):
+    raise ValueError(
+      f"graphene mesh task shape {list(shape)} must be a multiple of the "
+      f"chunk-graph chunk size {gcs.tolist()} so no L2 chunk straddles "
+      "two tasks"
+    )
+  if mesh_dir is None:
+    mesh_dir = vol.info.get("mesh") or "mesh_graphene"
+  vol.info["mesh"] = mesh_dir
+  res = [int(v) for v in vol.resolution]
+  vol.cf.put_json(f"{mesh_dir}/info", {
+    "@type": "neuroglancer_legacy_mesh", "mip": int(mip),
+    "spatial_index": {
+      "resolution": res,
+      "chunk_size": [int(s * r) for s, r in zip(shape, res)],
+    },
+  })
+  vol.commit_info()
+
+  shape = Vec(*shape)
+  task_bounds = get_bounds(
+    vol, bounds, mip, mip, chunk_size=vol.meta.chunk_size(mip)
+  )
+  # align the task grid to the CHUNK-GRAPH chunk grid (absolute origin):
+  # L2 ids are per graph chunk, so a task boundary inside a graph chunk
+  # would split one L2 id's mesh across two tasks. Expanded bounds are
+  # safe — tasks clamp their cores to the volume themselves.
+  mn = (np.asarray(task_bounds.minpt) // gcs) * gcs
+  mx = -(-np.asarray(task_bounds.maxpt) // gcs) * gcs
+  task_bounds = Bbox(mn, mx)
+
+  def make_task(shape_: Vec, offset: Vec):
+    return GrapheneMeshTask(
+      object_ids=list(object_ids) if object_ids else None,
+      shape=shape_.tolist(),
+      offset=offset.tolist(),
+      layer_path=cloudpath,
+      mip=mip,
+      simplification_factor=simplification_factor,
+      max_simplification_error=max_simplification_error,
+      mesh_dir=mesh_dir,
+      fill_missing=fill_missing,
+      timestamp=timestamp,
+    )
+
+  return GridTaskIterator(task_bounds, shape, make_task)

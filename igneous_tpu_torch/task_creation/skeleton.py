@@ -6,10 +6,10 @@ merges (the shard spec solved from the spatial index's labels, or a
 ``SpatialIndex.to_sqlite`` db), the re-pack of finished skeletons into
 shards, and the deletion and transfer fan-outs of ``@queueable``
 functions. The same task grid, payloads, skeleton ``info``
-(``vertex_attributes``, ``spatial_index``, ``sharding``) and provenance.
-The options the port does not run yet (fix_autapses, cross-sectional
-area, graphene layers and root ids) raise ``NotImplementedError`` before
-anything is written.
+(``vertex_attributes``, with ``cross_sectional_area`` when asked for;
+``spatial_index``, ``sharding``) and provenance; ``fix_autapses`` on a
+layer that is not graphene raises ``ValueError`` before anything is
+written.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ from ..tasks.skeleton import (
   SkeletonTask,
   TransferSkeletonFilesTask,
   UnshardedSkeletonMergeTask,
-  refuse_unported,
   skel_dir_for,
 )
 from ..volume import Volume
@@ -57,35 +56,54 @@ def create_skeletonizing_tasks(
   fix_avocados: bool = False,
   fix_autapses: bool = False,
   cross_sectional_area: bool = False,
+  csa_smoothing_window: int = 1,
+  csa_repair_sec_per_label: int = -1,
+  low_memory_csa: bool = False,
   synapses: Optional[dict] = None,
   parallel: int = 1,
   bounds: Optional[Bbox] = None,
   timestamp: Optional[float] = None,
   frag_path: Optional[str] = None,
   root_ids_cloudpath: Optional[str] = None,
+  cross_sectional_area_smoothing_window: Optional[int] = None,
+  cross_sectional_area_repair_sec_per_label: Optional[int] = None,
 ):
   """Stage-1 skeleton forge grid; writes the skeleton ``info`` with its
-  vertex_attributes and points the layer's ``info`` at it.
+  vertex_attributes and points the layer's ``info`` at it. The two long
+  spellings alias ``csa_smoothing_window`` and
+  ``csa_repair_sec_per_label``.
 
   ``synapses`` become per-task extra targets, in either form:
   ``{label: [[x, y, z] physical points]}`` or
   ``[((x, y, z), label, swc_label), ...]``."""
-  refuse_unported(
-    cloudpath, fix_autapses, cross_sectional_area, root_ids_cloudpath,
-  )
+  if cross_sectional_area_smoothing_window is not None:
+    csa_smoothing_window = cross_sectional_area_smoothing_window
+  if cross_sectional_area_repair_sec_per_label is not None:
+    csa_repair_sec_per_label = cross_sectional_area_repair_sec_per_label
   vol = Volume(cloudpath, mip=mip)
   if vol.layer_type != "segmentation":
     raise ValueError("Skeletonization requires a segmentation layer")
+  if fix_autapses and vol.graphene is None:
+    raise ValueError("fix_autapses requires a graphene:// volume")
 
   if skel_dir is None:
     skel_dir = vol.info.get("skeletons") or f"skeletons_mip_{mip}"
   vol.info["skeletons"] = skel_dir
 
+  vertex_attributes = list(DEFAULT_ATTRIBUTES)
+  if cross_sectional_area:
+    # extra attributes serialize sorted by id after the defaults
+    # (Skeleton.to_precomputed): the info lists the same order
+    vertex_attributes.append({
+      "id": "cross_sectional_area",
+      "data_type": "float32",
+      "num_components": 1,
+    })
   skel_info = {
     "@type": "neuroglancer_skeletons",
     # vertices are stored in physical nm already: identity transform
     "transform": [1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0],
-    "vertex_attributes": list(DEFAULT_ATTRIBUTES),
+    "vertex_attributes": vertex_attributes,
     "mip": int(mip),
   }
   if spatial_index:
@@ -165,6 +183,9 @@ def create_skeletonizing_tasks(
       fix_avocados=fix_avocados,
       fix_autapses=fix_autapses,
       cross_sectional_area=cross_sectional_area,
+      csa_smoothing_window=csa_smoothing_window,
+      csa_repair_sec_per_label=csa_repair_sec_per_label,
+      low_memory_csa=low_memory_csa,
       extra_targets=task_targets(offset, shape_),
       parallel=parallel,
       timestamp=timestamp,

@@ -23,6 +23,7 @@ from .image_sharded import ImageShardDownsampleTask, ImageShardTransferTask
 from .inference import InferenceTask
 from .mesh import (
   DeleteMeshFilesTask,
+  GrapheneMeshTask,
   MeshManifestFilesystemTask,
   MeshManifestPrefixTask,
   MeshTask,

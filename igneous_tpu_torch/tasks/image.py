@@ -11,8 +11,10 @@ and chunking (at a translated offset if asked), and builds its mip
 pyramid on the port's device with ``ops.pooling.downsample_auto``. A
 transfer whose layers line up exactly moves the stored chunk bytes
 instead, decoding nothing (the passthrough; ``IGNEOUS_TRANSFER_PASSTHROUGH
-=off`` turns it off). Graphene (agglomerate / timestamp / stop_layer) is
-not ported.
+=off`` turns it off). From a graphene source, ``agglomerate`` writes the
+proofread root ids as of ``timestamp`` (``stop_layer=2`` the L2 ids, 1 the
+supervoxels): the cutout downloads on the prefetch thread and its ids are
+mapped on the device in the compute stage (``Volume.map_ids``).
 """
 
 from __future__ import annotations
@@ -40,16 +42,6 @@ def _passthrough_enabled() -> bool:
   transfers down the decode and re-encode route."""
   val = os.environ.get("IGNEOUS_TRANSFER_PASSTHROUGH", "")
   return val == "" or val.strip().lower() not in ("0", "off", "false", "no")
-
-
-def refuse_graphene(agglomerate, timestamp, stop_layer=None) -> None:
-  """Graphene sources are not ported: refuse their options before
-  anything is read or written."""
-  if agglomerate or timestamp is not None or stop_layer is not None:
-    raise NotImplementedError(
-      "graphene transfers (agglomerate/timestamp/stop_layer) are not "
-      "ported to igneous_tpu_torch"
-    )
 
 
 def _cutout_nbytes(vol: Volume, bounds: Bbox) -> int:
@@ -154,7 +146,6 @@ class TransferTask(RegisteredTask):
     timestamp: Optional[float] = None,
     stop_layer: Optional[int] = None,
   ):
-    refuse_graphene(agglomerate, timestamp, stop_layer)
     self.src_path = src_path
     self.dest_path = dest_path
     self.mip = int(mip)
@@ -171,6 +162,16 @@ class TransferTask(RegisteredTask):
     self.downsample_method = downsample_method
     self.num_mips = num_mips
     self.factor = factor
+    # graphene sources: write root ids (or L2 ids, stop_layer=2) as of
+    # the timestamp
+    self.agglomerate = bool(agglomerate)
+    self.timestamp = timestamp
+    self.stop_layer = stop_layer
+    if timestamp is not None and not (agglomerate or stop_layer is not None):
+      raise ValueError(
+        "timestamp only applies to agglomerate/stop_layer downloads; "
+        "set agglomerate=True (roots) or stop_layer=2 (L2 ids)"
+      )
 
   def _volumes_and_bounds(self):
     src = Volume(self.src_path, mip=self.mip, fill_missing=self.fill_missing)
@@ -228,6 +229,11 @@ class TransferTask(RegisteredTask):
 
     def compute(image):
       # the caller's thread: the only one that touches the device
+      if self.agglomerate or self.stop_layer is not None:
+        image = src.map_ids(
+          image, bounds, self.mip, self.agglomerate, self.timestamp,
+          self.stop_layer,
+        )
       if not factors:
         return image, None
       method = pooling.method_for_layer(dest.layer_type, self.downsample_method)
@@ -289,14 +295,15 @@ class TransferTask(RegisteredTask):
   def _passthrough_eligible(self, src, dest, bounds: Bbox) -> bool:
     """Whether the stored chunk objects can move without decoding a voxel:
     the grids, dtype and encoding line up exactly and nothing is
-    resampled or remapped. (Graphene options, which would remap, raise in
-    the constructor.)"""
+    resampled or remapped."""
     mip = self.mip
     sm, dm = src.meta, dest.meta
     return (
       _passthrough_enabled()
       and self.skip_downsamples
       and not self.skip_first  # skip_first with skip_downsamples does nothing
+      and not self.agglomerate
+      and self.stop_layer is None
       # the decode route writes explicit background chunks for holes
       and not self.fill_missing
       # the decode route deletes all-background chunks: a stored-byte move

@@ -10,9 +10,9 @@ task's pyramid is ``ops.pooling.downsample_auto`` on the card: the fused
 
 Neither class is a ``TransferTask``: the lease batcher groups those, and
 a sharded task runs solo in a worker's round, as in the JAX package.
-Graphene sources (``agglomerate``, ``timestamp``, ``stop_layer``) raise
-``NotImplementedError`` in the constructor, before anything is read or
-written.
+From a graphene source, ``agglomerate`` (with ``timestamp``) and
+``stop_layer`` map the downloaded supervoxels on the device in the
+compute stage (``Volume.map_ids``).
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ from ..pipeline import SerialSink, StagePlan
 from ..queues.registry import RegisteredTask
 from ..sharded_image import upload_shard
 from ..volume import Volume
-from .image import refuse_graphene
 
 # shard-aligned empty cutouts stage as no-ops
 _NOOP_PLAN = StagePlan(lambda: None, lambda p: None, lambda o, s: None)
@@ -60,7 +59,6 @@ class ImageShardTransferTask(RegisteredTask):
     timestamp=None,
     stop_layer=None,
   ):
-    refuse_graphene(agglomerate, timestamp, stop_layer)
     self.src_path = src_path
     self.dest_path = dest_path
     self.shape = Vec(*shape)
@@ -87,11 +85,16 @@ class ImageShardTransferTask(RegisteredTask):
     if bounds.empty():
       return _NOOP_PLAN
 
+    def compute(img):
+      return src.map_ids(
+        img, bounds, self.mip, self.agglomerate, self.timestamp, self.stop_layer,
+      )
+
     def upload(img, sink):
       upload_shard(dest, bounds.translate(self.translate), img, self.mip, sink=sink)
 
     return StagePlan(
-      lambda: _download(src, bounds), lambda img: img, upload,
+      lambda: _download(src, bounds), compute, upload,
       reads={(self.src_path, self.mip)},
       writes={(self.dest_path, self.mip)},
       nbytes_hint=_nbytes(dest, bounds),
@@ -122,7 +125,6 @@ class ImageShardDownsampleTask(RegisteredTask):
     agglomerate: bool = False,
     timestamp=None,
   ):
-    refuse_graphene(agglomerate, timestamp)
     self.src_path = src_path
     self.shape = Vec(*shape)
     self.offset = Vec(*offset)
@@ -157,6 +159,7 @@ class ImageShardDownsampleTask(RegisteredTask):
       dest_mips.append((vol.meta.mip_from_resolution(dest_res), cum.copy()))
 
     def compute(img):
+      img = vol.map_ids(img, bounds, self.mip, self.agglomerate, self.timestamp)
       method = pooling.method_for_layer(vol.layer_type, self.downsample_method)
       return pooling.downsample_auto(
         img, factor, self.num_mips, method=method, sparse=self.sparse,

@@ -25,9 +25,13 @@ level 3), and ``dust_global`` drops the labels whose count in the layer's
 voxel-count census (``tasks.stats``) is below ``dust_threshold`` in place
 of this cutout's counts.
 
-Not ported yet (refused before anything is written): graphene layers.
+A graphene layer meshes at L2 granularity: the cutout downloads with
+``stop_layer=2`` (the supervoxels mapped to per-(root, chunk) L2 ids on the
+device, ``ops.graphene_ids``), as of ``timestamp``. ``GrapheneMeshTask``
+is that ``MeshTask`` with draco fragments in sharded ``.frags``.
 
-Stage timers (``telemetry``): download, remap (object-id options),
+Stage timers (``telemetry``): download, graphene (the id maps), remap
+(object-id options),
 fill_holes (with dilate and erode from level 3), h2d, labels (unique,
 renumber, boxes), count, emit, d2h, weld, simplify and upload.
 """
@@ -68,17 +72,10 @@ def mesh_dir_for(vol: Volume, mesh_dir: Optional[str]) -> str:
   raise ValueError("No mesh directory configured in the info file")
 
 
-def refuse_unported(
-  layer_path: str = "", encoding: str = "precomputed", compress="gzip",
-) -> None:
-  """Raise NotImplementedError for a graphene layer, which the port does
-  not mesh yet, and ValueError for an unknown encoding or a compression
-  the storage does not write; the factory and the task call it before
+def check_options(encoding: str = "precomputed", compress="gzip") -> None:
+  """Raise ValueError for an unknown encoding or a compression the
+  storage does not write; the factory and the task call it before
   anything is written."""
-  if str(layer_path).startswith("graphene://"):
-    raise NotImplementedError(
-      "not ported to igneous_tpu_torch yet: graphene layers"
-    )
   if encoding not in ("precomputed", "draco"):
     raise ValueError(f"Unknown mesh encoding: {encoding}")
   fragment_compression(compress)
@@ -128,7 +125,7 @@ class MeshTask(RegisteredTask):
     parallel: int = 1,
     compress: str = "gzip",
   ):
-    refuse_unported(layer_path, encoding, compress)
+    check_options(encoding, compress)
     self.shape = Vec(*shape)
     self.offset = Vec(*offset)
     self.layer_path = layer_path
@@ -156,6 +153,8 @@ class MeshTask(RegisteredTask):
     self.closed_dataset_edges = closed_dataset_edges
     # the hole-filling level of ops.morphology.fill_holes (0 off)
     self.fill_holes = int(fill_holes)
+    # graphene layers: the proofreading state to mesh (None: the latest)
+    self.timestamp = timestamp
     if mesher not in ("cubes", "tetrahedra"):
       raise ValueError(f"mesher must be 'cubes' or 'tetrahedra': {mesher!r}")
     self.mesher = mesher
@@ -204,7 +203,11 @@ class MeshTask(RegisteredTask):
     # their surfaces meet exactly
     cutout = Bbox.intersection(Bbox(core.minpt, core.maxpt + 1), bounds)
     with telemetry.stage("download"):
-      img = vol.download(cutout)[..., 0]
+      # a graphene layer meshes its L2 ids: stable chunk-local ids whose
+      # meshes the proofreading frontend stitches per root
+      img = vol.download(
+        cutout, stop_layer=2, timestamp=self.timestamp
+      )[..., 0] if vol.graphene is not None else vol.download(cutout)[..., 0]
 
     with telemetry.stage("remap"):
       if self.remap_table:
@@ -512,3 +515,39 @@ def DeleteMeshFilesTask(cloudpath: str, mesh_dir: str, prefix: str = ""):
   """Delete the files under ``<mesh_dir>/<prefix>``."""
   cf = CloudFiles(cloudpath)
   cf.delete(list(cf.list(f"{mesh_dir}/{prefix}")))
+
+
+class GrapheneMeshTask(MeshTask):
+  """Mesh forge of a graphene:// layer: ``MeshTask`` at L2 granularity
+  (``stop_layer=2``), draco fragments in sharded ``.frags`` containers,
+  the JAX package's ``GrapheneMeshTask``. The 1-voxel overlap and the
+  same L2 ids on shared planes make adjacent chunk meshes weld."""
+
+  def __init__(
+    self,
+    shape: Sequence[int],
+    offset: Sequence[int],
+    layer_path: str,
+    mip: int = 0,
+    simplification_factor: int = 100,
+    max_simplification_error: int = 40,
+    mesh_dir: Optional[str] = None,
+    fill_missing: bool = False,
+    encoding: str = "draco",
+    timestamp: Optional[float] = None,
+    object_ids: Optional[Sequence[int]] = None,
+  ):
+    super().__init__(
+      shape=shape,
+      offset=offset,
+      layer_path=layer_path,
+      mip=mip,
+      simplification_factor=simplification_factor,
+      max_simplification_error=max_simplification_error,
+      mesh_dir=mesh_dir,
+      fill_missing=fill_missing,
+      encoding=encoding,
+      sharded=True,
+      timestamp=timestamp,
+      object_ids=object_ids,
+    )

@@ -25,15 +25,26 @@ census (``tasks.stats``) is below ``dust_threshold`` and turns the local
 dust off; ``fill_holes`` then closes cavities (``ops.morphology``), as in
 the JAX package.
 
-Not ported yet (``NotImplementedError`` when the task is made, before any
-download): ``fix_autapses``, graphene layers and ``root_ids``, and
-``cross_sectional_area``.
+Graphene layers skeletonize the proofread roots as of ``timestamp`` (the
+supervoxels mapped on the device, ``ops.graphene_ids``), or the labels of
+a materialized ``root_ids_cloudpath`` layer. ``fix_autapses`` constrains
+the trace to the chunk graph: the client's voxel connectivity graph
+(computed on the device) severs touching supervoxels that share no edge,
+and every graph component is traced; without graphene it raises
+``ValueError``. ``cross_sectional_area`` adds each vertex's slice area
+(``ops.cross_section``, host code on ``csrc/xsection.cpp``; the labels'
+boxes come from the device), ``low_memory_csa`` reads each label's mask
+from a ``CompressedLabels`` copy, and ``csa_repair_sec_per_label`` (-1
+unlimited, 0 off, else a wall-clock budget a label) revisits the clipped
+slices against a context download (``_repair_csa_contacts``), as the JAX
+package does.
 
-Stage timers (``telemetry``): download, dust_global (the device count
-and the host mask), fill_holes (with dilate and erode from level 3), pins
-(the border pins: their planes' connected components on the CPU, whose
-own stages ``ops.ccl`` records too), h2d, edt, labels, d2h, trace, upload
-(encoding included).
+Stage timers (``telemetry``): download, graphene (the id maps), dust_global
+(the device count and the host mask), fill_holes (with dilate and erode
+from level 3), pins (the border pins: their planes' connected components
+on the CPU, whose own stages ``ops.ccl`` records too), voxel_graph, h2d,
+edt, labels, d2h, trace, cross_section, csa_repair, upload (encoding
+included).
 """
 
 from __future__ import annotations
@@ -46,12 +57,16 @@ import numpy as np
 import torch
 
 from .. import telemetry
+from ..compressed import CompressedLabels
 from ..device import get_device
 from ..lib import Bbox, Vec
 from ..mesh_io import FragMap
 from ..ops import remap as fastremap
 from ..ops.ccl import connected_components
-from ..ops.mesh import unique_on_device
+from ..ops.cross_section import cross_sectional_area
+from ..ops.dbscan import dbscan
+from ..ops.graphene_ids import roots_on_device
+from ..ops.mesh import label_bboxes, unique_on_device
 from ..ops.morphology import fill_holes
 from ..ops.skeletonize import TeasarParams, skeletonize
 from ..queues.registry import RegisteredTask, queueable
@@ -69,28 +84,6 @@ def skel_dir_for(vol: Volume, skel_dir: Optional[str]) -> str:
   if vol.info.get("skeletons"):
     return vol.info["skeletons"]
   raise ValueError("No skeleton directory configured in the info file")
-
-
-def refuse_unported(
-  cloudpath: str = "", fix_autapses: bool = False,
-  cross_sectional_area: bool = False, root_ids_cloudpath: Optional[str] = None,
-) -> None:
-  """Raise NotImplementedError for the skeleton options the port does not
-  run yet; the factory and the task call it before anything is read or
-  written."""
-  refused = []
-  if str(cloudpath).startswith("graphene://"):
-    refused.append("graphene layers")
-  if fix_autapses:
-    refused.append("fix_autapses")
-  if cross_sectional_area:
-    refused.append("cross_sectional_area")
-  if root_ids_cloudpath:
-    refused.append("root_ids_cloudpath")
-  if refused:
-    raise NotImplementedError(
-      f"not ported to igneous_tpu_torch yet: {', '.join(refused)}"
-    )
 
 
 def border_targets(
@@ -153,7 +146,7 @@ def border_targets(
 class SkeletonTask(RegisteredTask):
   """Stage 1: skeletonize every label of one cutout. The constructor takes
   every parameter of the JAX package's ``SkeletonTask``, so its payloads
-  run here unchanged; the unported options raise."""
+  run here unchanged."""
 
   def __init__(
     self,
@@ -185,9 +178,6 @@ class SkeletonTask(RegisteredTask):
     frag_path: Optional[str] = None,
     root_ids_cloudpath: Optional[str] = None,
   ):
-    refuse_unported(
-      cloudpath, fix_autapses, cross_sectional_area, root_ids_cloudpath,
-    )
     self.cloudpath = cloudpath
     self.shape = Vec(*shape)
     self.offset = Vec(*offset)
@@ -206,6 +196,14 @@ class SkeletonTask(RegisteredTask):
     self.fill_holes = int(fill_holes)
     self.fix_branching = bool(fix_branching)
     self.fix_avocados = bool(fix_avocados)
+    # graphene only: constrain the trace to the chunk graph
+    self.fix_autapses = bool(fix_autapses)
+    self.cross_sectional_area = bool(cross_sectional_area)
+    # moving-average window over the slice normals
+    self.csa_smoothing_window = int(csa_smoothing_window)
+    # a label's repair budget in seconds: -1 unlimited, 0 no repair
+    self.csa_repair_sec_per_label = int(csa_repair_sec_per_label)
+    self.low_memory_csa = bool(low_memory_csa)
     # {label: [[x,y,z(,swc_label)] global voxel coords]}: synapse/marker
     # points that must become skeleton vertices, optionally typed
     self.extra_targets = {
@@ -216,8 +214,11 @@ class SkeletonTask(RegisteredTask):
       for k, v in (extra_targets or {}).items()
     }
     self.parallel = int(parallel)
+    self.timestamp = timestamp
     # write the fragments and spatial cells under another path
     self.frag_path = frag_path
+    # a materialized root-id layer, read instead of graphene lookups
+    self.root_ids_cloudpath = root_ids_cloudpath
 
   def prepare_labels(self, vol: Volume):
     """Download, the object-id masks, the global dust and the hole fill:
@@ -229,8 +230,24 @@ class SkeletonTask(RegisteredTask):
       return None
     # +1 overlap: adjacent tasks share their boundary plane
     cutout = Bbox.intersection(Bbox(core.minpt, core.maxpt + 1), bounds)
-    with telemetry.stage("download"):
-      labels = vol.download(cutout)[..., 0]
+    if vol.graphene is not None and self.root_ids_cloudpath:
+      roots_vol = Volume(
+        self.root_ids_cloudpath, mip=self.mip,
+        fill_missing=self.fill_missing, bounded=False,
+      )
+      with telemetry.stage("download"):
+        labels = roots_vol.download(cutout)[..., 0]
+    elif vol.graphene is not None:
+      # the proofread roots as of the timestamp; the supervoxels are kept
+      # for the autapse voxel graph, so the cutout is read once
+      with telemetry.stage("download"):
+        sv = vol.download(cutout)[..., 0]
+      with telemetry.stage("graphene"):
+        labels = roots_on_device(vol.graphene, sv, self.timestamp)
+      self._graphene_sv = sv
+    else:
+      with telemetry.stage("download"):
+        labels = vol.download(cutout)[..., 0]
     if self.object_ids:
       labels = fastremap.mask_except(labels, self.object_ids)
     if self.mask_ids:
@@ -299,8 +316,32 @@ class SkeletonTask(RegisteredTask):
     if prepared is None:
       return
     labels, cutout, core, bounds = prepared
+    prepared = _prepared = None
     with telemetry.stage("pins"):
       targets = self.targets(labels, cutout, core, bounds)
+    voxel_graph = None
+    if self.fix_autapses and vol.graphene is None:
+      raise ValueError("fix_autapses requires a graphene:// volume")
+    if self.fix_autapses:
+      sv = getattr(self, "_graphene_sv", None)
+      if sv is None:  # prepared elsewhere (a batched runner)
+        with telemetry.stage("download"):
+          sv = vol.download(cutout)[..., 0]
+      else:
+        self._graphene_sv = None
+      with telemetry.stage("voxel_graph"):
+        voxel_graph = vol.graphene.voxel_connectivity_graph(
+          sv, 26, self.timestamp,
+          # the chunk-grid placement, for clients that shade graph-chunk
+          # boundaries: the cutout's global offset at this mip and the
+          # mip -> base scale
+          offset=tuple(int(v) for v in cutout.minpt),
+          downsample_ratio=tuple(
+            int(v) for v in vol.meta.downsample_ratio(self.mip)
+          ),
+        )
+      del sv
+    self._graphene_sv = None
     skels = skeletonize(
       labels,
       anisotropy=tuple(float(v) for v in vol.resolution),
@@ -310,9 +351,11 @@ class SkeletonTask(RegisteredTask):
       extra_targets_per_label=targets,
       parallel=self.parallel,
       edt_field=_edt_field,
+      voxel_graph=voxel_graph,
       fix_branching=self.fix_branching,
       fix_avocados=self.fix_avocados,
     )
+    del voxel_graph
 
     # type the synapse vertices for SWC export
     if self.extra_targets:
@@ -330,8 +373,130 @@ class SkeletonTask(RegisteredTask):
           if len(hit):
             skel.vertex_types[hit[0]] = np.uint8(swc_label)
 
+    if self.cross_sectional_area:
+      with telemetry.stage("cross_section"):
+        self._cross_sections(vol, skels, labels, cutout)
+      del labels
+      if self.csa_repair_sec_per_label != 0:
+        with telemetry.stage("csa_repair"):
+          self._repair_csa_contacts(vol, skels, bounds)
+
     with telemetry.stage("upload"):
       self._upload(vol, skels, core)
+
+  def _cross_sections(self, vol: Volume, skels, labels, cutout: Bbox) -> None:
+    """Each skeleton's ``cross_sectional_area`` vertex attribute, measured
+    on its label's mask cropped to the label's box plus a one-voxel shell
+    (an object ending inside the cutout keeps a background border, so
+    only contacts with the cutout flag as clipped, negative). With
+    ``low_memory_csa`` the masks decode from a ``CompressedLabels`` copy
+    one label at a time."""
+    anis = tuple(float(v) for v in vol.resolution)
+    minpt = np.asarray(cutout.minpt, np.float32)
+    if self.low_memory_csa:
+      comp = CompressedLabels(labels)
+      for label, skel in skels.items():
+        got = comp.mask(int(label), margin=1)
+        if got is None:
+          continue
+        mask, lo = got
+        skel.extra_attributes["cross_sectional_area"] = cross_sectional_area(
+          mask, skel, anisotropy=anis,
+          offset=tuple(minpt + np.asarray(lo, np.float32)),
+          smoothing_window=self.csa_smoothing_window,
+        )
+      return
+    boxes = label_bboxes(labels)
+    for label, skel in skels.items():
+      sl = boxes.get(int(label))
+      if sl is None:
+        continue
+      grow = tuple(
+        slice(max(s.start - 1, 0), min(s.stop + 1, labels.shape[a]))
+        for a, s in enumerate(sl)
+      )
+      crop_off = np.asarray([g.start for g in grow], dtype=np.float32)
+      skel.extra_attributes["cross_sectional_area"] = cross_sectional_area(
+        labels[grow] == label, skel, anisotropy=anis,
+        offset=tuple(minpt + crop_off),
+        smoothing_window=self.csa_smoothing_window,
+      )
+
+  # the context margin of the cross-section contact repair (voxels)
+  CSA_REPAIR_CONTEXT = 150
+
+  def _repair_csa_contacts(self, vol: "Volume", skels, bounds: Bbox) -> None:
+    """Revisit vertices whose slice was clipped by the cutout (negative
+    areas): cluster them (DBSCAN), re-download each cluster's
+    neighborhood with context, recompute, and overwrite where the larger
+    view produced a clean slice. A positive budget is wall-clock seconds
+    a label, so what it repairs depends on time, as in the JAX package."""
+    import time as _time
+
+    anis = np.asarray(vol.resolution, dtype=np.float32)
+    ctx = self.CSA_REPAIR_CONTEXT
+    eps = float(2 * ctx * anis.min())  # one download per nearby group
+    budget = self.csa_repair_sec_per_label
+    for label, skel in skels.items():
+      deadline = _time.monotonic() + budget if budget > 0 else None
+      areas = skel.extra_attributes.get("cross_sectional_area")
+      if areas is None or not len(skel.vertices):
+        continue
+      # clipped slices carry -area; exactly -1.0 is the unrepairable
+      # sentinel (vertex outside mask / zero tangent) — re-downloading
+      # cannot fix those, so skip them
+      bad = np.flatnonzero((areas < 0) & (areas != -1.0))
+      if len(bad) == 0:
+        continue
+      clusters = dbscan(skel.vertices[bad], eps=eps, min_samples=1)
+      for c in np.unique(clusters):
+        if deadline is not None and _time.monotonic() > deadline:
+          break  # per-label budget spent; remaining flags stay negative
+        members = bad[clusters == c]
+        vox = np.round(
+          skel.vertices[members] / anis
+        ).astype(np.int64)
+        region = Bbox(vox.min(axis=0) - ctx, vox.max(axis=0) + ctx + 1)
+        region = Bbox.intersection(region, bounds)
+        if region.empty():
+          continue
+        if vol.graphene is not None:
+          # the skeletons are keyed by proofread ROOT ids — a raw
+          # download would yield supervoxels and an always-empty mask
+          cut = vol.download(
+            region, agglomerate=True, timestamp=self.timestamp
+          )[..., 0]
+        else:
+          cut = vol.download(region)[..., 0]
+        if self.fill_holes:
+          # the mask semantics of the first pass, which measured filled
+          # labels: an unfilled cavity would shrink repaired areas
+          cut = fill_holes(cut, level=self.fill_holes)
+        mask = np.ascontiguousarray(cut == label)
+        vmask = np.zeros(len(skel.vertices), dtype=bool)
+        vmask[members] = True
+        repaired = cross_sectional_area(
+          mask, skel, anisotropy=tuple(float(v) for v in anis),
+          offset=tuple(float(v) for v in region.minpt),
+          window=ctx, vertex_mask=vmask,
+          smoothing_window=self.csa_smoothing_window,
+        )
+        # a clean (positive) recompute wins — but the full slice always
+        # CONTAINS the clipped slice, so a repaired area below the
+        # flagged lower bound means the repair view diverged (e.g. a
+        # cavity that the original whole-cutout fill_holes closed but the
+        # ±ctx crop leaves open at its border); reject those rather than
+        # silently shrink. A still-negative recompute means the section
+        # genuinely reaches the dataset boundary — keep whichever lower
+        # bound is larger.
+        m = members
+        accept = (repaired[m] > 0) & (
+          repaired[m] >= -areas[m] * (1.0 - 1e-6)
+        )
+        areas[m] = np.where(
+          accept, repaired[m], np.minimum(areas[m], repaired[m])
+        )
+      skel.extra_attributes["cross_sectional_area"] = areas
 
   def _upload(self, vol: Volume, skels: Dict[int, Skeleton], core: Bbox) -> None:
     sdir = skel_dir_for(vol, self.skel_dir)

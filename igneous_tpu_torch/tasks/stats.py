@@ -19,11 +19,11 @@ ids (numpy's, uint64 ids at or above 2^63 last), so the gzip bytes are
 equal. ``ReorderTask`` is host code: one z slice read and written at a
 time.
 
-Not ported: the graphene options ``agglomerate`` and ``timestamp``
-(refused when the task is made).
+On a graphene layer, ``agglomerate`` counts the proofread root ids as of
+``timestamp`` (mapped on the device, ``Volume.map_ids``).
 
-Stage timers (``telemetry``): download, unique (the device count with its
-copies), boxes, upload.
+Stage timers (``telemetry``): download, graphene (the id map), unique
+(the device count with its copies), boxes, upload.
 """
 
 from __future__ import annotations
@@ -47,15 +47,6 @@ from ..volume import Volume
 VOXEL_COUNT_DIR = "stats/voxel_counts"
 
 
-def refuse_unported(agglomerate: bool = False, timestamp=None) -> None:
-  """Raise NotImplementedError for the census options of graphene layers."""
-  if agglomerate or timestamp is not None:
-    raise NotImplementedError(
-      "not ported to igneous_tpu_torch yet: agglomerate/timestamp "
-      "(graphene layers)"
-    )
-
-
 class CountVoxelsTask(RegisteredTask):
   """Per-task label -> voxel-count census, uploaded as one JSON."""
 
@@ -69,12 +60,14 @@ class CountVoxelsTask(RegisteredTask):
     agglomerate: bool = False,
     timestamp=None,
   ):
-    refuse_unported(agglomerate, timestamp)
     self.cloudpath = cloudpath
     self.shape = Vec(*shape)
     self.offset = Vec(*offset)
     self.mip = int(mip)
     self.fill_missing = fill_missing
+    # graphene layers: count the proofread root ids as of the timestamp
+    self.agglomerate = bool(agglomerate)
+    self.timestamp = timestamp
 
   def execute(self):
     vol = Volume(self.cloudpath, mip=self.mip, fill_missing=self.fill_missing,
@@ -85,7 +78,8 @@ class CountVoxelsTask(RegisteredTask):
     if bounds.empty():
       return
     with telemetry.stage("download"):
-      img = vol.download(bounds)[..., 0]
+      img = vol.download(bounds)
+    img = vol.map_ids(img, bounds, self.mip, self.agglomerate, self.timestamp)[..., 0]
     with telemetry.stage("unique"):
       labels, counts = unique_on_device(img, get_device(), return_counts=True)
     with telemetry.stage("upload"):

@@ -12,7 +12,16 @@ Pure host numpy: the device work happens in
 through the process-wide decode cache (``chunk_cache.py``), and uploads
 and deletes invalidate it. A chunk that fails to inflate or decode raises
 ``integrity.CorruptChunkError``, ticks ``integrity.corrupt_reads`` and is
-quarantined, and never reaches the cache. Graphene is not ported yet.
+quarantined, and never reaches the cache.
+
+A ``graphene://`` path reads its watershed (supervoxel) layer: the inner
+path, or the ``data_dir`` a PyChunkGraph server publishes. ``download``
+then takes ``agglomerate`` (proofread root ids as of ``timestamp``) and
+``stop_layer`` (1: the supervoxels as uint64; 2: L2 chunk-graph ids),
+with the JAX package's ``ValueError`` on a plain volume or another stop
+layer. The per-voxel work (the unique ids and their inverse, the voxel
+chunk index, the gathers back) runs on the port's device
+(``ops.graphene_ids``); the client's lookups see unique ids only.
 """
 
 from __future__ import annotations
@@ -71,6 +80,14 @@ class Volume:
     info: Optional[dict] = None,
     parallel: int = IO_THREADS,
   ):
+    from .graphene import graphene_client, is_graphene, watershed_path
+
+    self.graphene = None
+    if is_graphene(cloudpath):
+      # chunks and metadata come from the watershed layer; the client maps
+      # supervoxels to roots and L2 ids on download
+      self.graphene = graphene_client(cloudpath)
+      cloudpath = getattr(self.graphene, "data_dir", None) or watershed_path(cloudpath)
     self.meta = PrecomputedMetadata(cloudpath, info=info)
     self.cloudpath = self.meta.cloudpath
     self.cf = self.meta.cf
@@ -220,11 +237,62 @@ class Volume:
     # a corrupt chunk raises here, before it could be stored
     return chunk_cache.store(key, decode())
 
-  def download(self, bbox: Bbox, mip: Optional[int] = None) -> np.ndarray:
+  def download(
+    self, bbox: Bbox, mip: Optional[int] = None, agglomerate: bool = False,
+    timestamp: Optional[float] = None, stop_layer: Optional[int] = None,
+  ) -> np.ndarray:
     """The (x, y, z, c) cutout of ``bbox`` at ``mip``, Fortran-ordered: its
     (c, z, y, x) transpose is C-contiguous, the device layout. A bounded
     volume raises for a box past its bounds; an unbounded one fills the
-    voxels outside them with ``background_color``."""
+    voxels outside them with ``background_color``. On a graphene volume,
+    ``agglomerate`` and ``stop_layer`` map the supervoxels (uint64 out)."""
+    if (agglomerate or stop_layer is not None) and self.graphene is None:
+      raise ValueError(
+        "agglomerate/stop_layer require a graphene:// volume"
+      )
+    if stop_layer not in (None, 1, 2):
+      # argument validation: reject before any chunk is fetched
+      raise ValueError(
+        f"stop_layer={stop_layer!r} unsupported: 1 (supervoxels) and "
+        "2 (L2 chunk ids) are the graphene stop layers"
+      )
+    return self.map_ids(
+      self._download(bbox, mip), bbox, mip, agglomerate, timestamp, stop_layer,
+    )
+
+  def map_ids(
+    self, cutout: np.ndarray, bbox: Bbox, mip: Optional[int] = None,
+    agglomerate: bool = False, timestamp: Optional[float] = None,
+    stop_layer: Optional[int] = None,
+  ) -> np.ndarray:
+    """A downloaded supervoxel ``cutout`` of ``bbox`` at ``mip`` mapped as
+    ``download(agglomerate=, timestamp=, stop_layer=)`` maps it: (x, y,
+    z, 1) uint64, root and L2 ids never narrowed to the layer's dtype. The
+    per-voxel work runs on the port's device; the client looks up unique
+    ids (a transfer calls this on its compute stage, not on the prefetch
+    thread that downloaded the cutout)."""
+    if not (agglomerate or stop_layer is not None):
+      return cutout
+    if self.graphene is None:
+      raise ValueError("agglomerate/stop_layer require a graphene:// volume")
+    from .ops import graphene_ids
+
+    mip = self.mip if mip is None else mip
+    sv = cutout[..., 0]
+    with telemetry.stage("graphene"):
+      if stop_layer == 2:
+        # graph chunks are defined at the watershed base resolution
+        mapped = graphene_ids.l2_ids_on_device(
+          self.graphene, sv, bbox.minpt, self.graphene.chunk_size,
+          scale=self.meta.downsample_ratio(mip), timestamp=timestamp,
+        )
+      elif stop_layer == 1:
+        mapped = sv.astype(np.uint64)  # the supervoxels: no lookup
+      else:
+        mapped = graphene_ids.roots_on_device(self.graphene, sv, timestamp)
+    return mapped[..., np.newaxis]
+
+  def _download(self, bbox: Bbox, mip: Optional[int] = None) -> np.ndarray:
     mip = self.mip if mip is None else mip
     bbox = Bbox(bbox.minpt, bbox.maxpt)
     bounds = self.meta.bounds(mip)

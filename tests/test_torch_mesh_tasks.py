@@ -8,8 +8,8 @@ their own tests), the .spatial files, the <label>:0 manifests) and the
 layer's info must be byte-identical. Also: payloads the JAX package
 serialized run in the port, the command lines agree, ``fill_holes`` and
 ``dust_global`` (after a voxel-count census) write the same fragments,
-sharded ``.frags``, draco fragments and ``merge --nlod`` write the same
-files, and graphene layers raise before anything is written.
+sharded ``.frags``, draco fragments, ``merge --nlod`` and graphene layers
+(meshed at L2 granularity) write the same files.
 """
 
 import pathlib
@@ -367,11 +367,10 @@ LIFTED = {
 
 
 @pytest.mark.parametrize("option", sorted(LIFTED) + ["graphene"])
-def test_unported_options_raise_before_writing(option, tmp_path):
-  """A graphene layer raises before anything is written. Sharded output
-  and draco fragments, refused here until the port ran them, now write
-  the JAX package's bytes (through the factory, and the command line for
-  ``--sharded``)."""
+def test_once_refused_options_match_reference(option, tmp_path):
+  """Sharded output, draco fragments and graphene layers, refused here
+  until the port ran them, write the JAX package's bytes (through the
+  factory, and the command line for ``--sharded`` and graphene)."""
   if option in LIFTED:
     paths = _forge_both(tmp_path, voronoi(), **LIFTED[option])
     ref, got = _mesh_files(paths["jax"]), _mesh_files(paths["port"])
@@ -383,18 +382,36 @@ def test_unported_options_raise_before_writing(option, tmp_path):
                        "--shape", "32,32,32"]) == 0
       assert _mesh_files(cli["port"]) == {k: v for k, v in got.items() if ":0" not in k}
     return
-  path = tmp_path / "layer"
-  Volume.from_numpy(voronoi(), f"file://{path}", resolution=(8, 8, 40),
-                    chunk_size=(16, 16, 16))
-  before = _files(path)
-  layer = f"graphene://file://{path}"
-  with pytest.raises(NotImplementedError):
-    tc.create_meshing_tasks(layer, shape=TASK)
-  with pytest.raises(NotImplementedError):
-    MeshTask(shape=TASK, offset=(0, 0, 0), layer_path=layer)
-  with pytest.raises(NotImplementedError):
-    cli_main(["mesh", "forge", layer])
-  assert _files(path) == before
+  # a graphene layer meshes its L2 ids (each package with its own chunk
+  # graph: one edge, chunks of 32x16x16)
+  from igneous_tpu import graphene as jax_graphene
+  from igneous_tpu_torch import graphene
+
+  # (ids below 2^63: the JAX package's root ids are the ids plus 2^48)
+  data = voronoi(np.uint32)
+  paths = _layers(tmp_path, data)
+  cli = _layers(tmp_path / "cli", data)
+  ids = [int(v) for v in np.unique(data) if v][:2]
+  layers = {}
+  try:
+    for who, mod in (("jax", jax_graphene), ("port", graphene)):
+      for p in (paths[who], cli[who]):
+        layers[p] = f"graphene://file://{p}"
+        mod.use_local_chunkgraph(layers[p], mod.LocalChunkGraph([ids], (32, 16, 16)))
+    JaxQueue(parallel=1, progress=False).insert(
+      jax_tc.create_meshing_tasks(layers[paths["jax"]], shape=TASK))
+    LocalTaskQueue().insert(tc.create_meshing_tasks(layers[paths["port"]], shape=TASK))
+    ref, got = _mesh_files(paths["jax"]), _mesh_files(paths["port"])
+    assert len(got) > 4 and got == ref
+    assert min(int(k.split("/")[-1].split(":")[0]) for k in got if ":0:" in k) >= 2**40
+    res = CliRunner().invoke(jax_cli, ["mesh", "forge", layers[cli["jax"]], "--shape", "32,32,32"])
+    assert res.exit_code == 0, res.output
+    assert cli_main(["mesh", "forge", layers[cli["port"]], "--shape", "32,32,32"]) == 0
+    assert _mesh_files(cli["port"]) == _mesh_files(cli["jax"])
+  finally:
+    for mod in (jax_graphene, graphene):
+      mod._GRAPHENE_CLIENT_FACTORY = None
+      mod._LOCAL_GRAPHS.clear()
 
 
 def test_download_at_and_past_the_bounds_as_the_reference(tmp_path):

@@ -250,12 +250,17 @@ def test_reference_payload_maps_into_the_port_registry(monkeypatch):
 
 
 def test_unported_payloads_raise():
-  """GrapheneMeshTask is the one task class of the JAX package the port
-  does not register; a function payload of an unregistered name raises
-  the JAX package's KeyError when it runs."""
+  """A payload of a class the port does not register raises KeyError (the
+  port registers every task class of the JAX package, GrapheneMeshTask
+  last); a function payload of an unregistered name raises the JAX
+  package's KeyError when it runs."""
   with pytest.raises(KeyError, match="not ported"):
-    deserialize({"class": "GrapheneMeshTask", "module": "igneous_tpu.tasks.mesh",
+    deserialize({"class": "NoSuchTask", "module": "igneous_tpu.tasks.mesh",
                  "params": {}})
+  task = deserialize({"class": "GrapheneMeshTask", "module": "igneous_tpu.tasks.mesh",
+                      "params": {"shape": [8, 8, 8], "offset": [0, 0, 0],
+                                 "layer_path": "graphene://file:///nowhere"}})
+  assert type(task).__name__ == "GrapheneMeshTask" and task.sharded
   with pytest.raises(KeyError, match="is not @queueable-registered"):
     deserialize({"fn": "delete_mesh_files", "args": [], "kwargs": {}}).execute()
 

@@ -316,19 +316,26 @@ def test_payloads_cross_both_ways(tmp_path):
     assert layer_tree(roots["port"] / name) == layer_tree(roots["jax"] / name)
 
 
-def test_graphene_options_are_refused_before_writing(tmp_path):
+def test_graphene_options_on_a_plain_layer_raise_as_the_reference(tmp_path):
+  """The graphene options (refused here until the port ran them) on a
+  layer that is not graphene: the factories raise the JAX package's
+  ``ValueError`` before anything is written; a task given a timestamp
+  alone is made and reads no graphene state, in both."""
   roots = _both(tmp_path, image((128, 128, 16)))
-  src = f"file://{roots['port'] / 'src'}"
   before = sorted(p.name for p in (roots["port"] / "src").rglob("*"))
-  for kw in (dict(agglomerate=True), dict(timestamp=3.0), dict(stop_layer=2)):
-    with pytest.raises(NotImplementedError, match="graphene"):
-      tc.create_image_shard_transfer_tasks(src, f"file://{roots['port'] / 'dest'}", **kw)
-  with pytest.raises(NotImplementedError, match="graphene"):
-    tc.create_image_shard_downsample_tasks(src, agglomerate=True)
-  with pytest.raises(NotImplementedError, match="graphene"):
-    ImageShardDownsampleTask(src, (64, 64, 16), (0, 0, 0), timestamp=1.0)
+  for mod, who in ((jax_tc, "jax"), (tc, "port")):
+    src = f"file://{roots[who] / 'src'}"
+    for kw, match in ((dict(agglomerate=True), "graphene"), (dict(timestamp=3.0), "timestamp"),
+                      (dict(stop_layer=2), "graphene")):
+      with pytest.raises(ValueError, match=match):
+        mod.create_image_shard_transfer_tasks(src, f"file://{roots[who] / 'dest'}", **kw)
+    with pytest.raises(ValueError, match="graphene"):
+      mod.create_image_shard_downsample_tasks(src, agglomerate=True)
+    assert not (roots[who] / "dest").exists()
   assert sorted(p.name for p in (roots["port"] / "src").rglob("*")) == before
-  assert not (roots["port"] / "dest").exists()
+  src = f"file://{roots['port'] / 'src'}"
+  task = ImageShardDownsampleTask(src, (64, 64, 16), (0, 0, 0), timestamp=1.0)
+  assert task.timestamp == 1.0 and not task.agglomerate
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,10 @@ serialized run in the port, the border pins follow the JAX package's
 plane numbering, the command lines agree, ``fill_holes`` and
 ``dust_global`` (after a voxel-count census) write the same fragments,
 ``IGNEOUS_SCRATCH_COMPRESS`` (unset, none, gzip-1) picks the fragments'
-compression in both, ``sharded`` writes the same ``.frags`` containers,
-and the options the port does not run yet raise before anything is read
-or written.
+compression in both, and the options once refused here (``sharded``,
+``cross_sectional_area``, graphene layers, ``root_ids_cloudpath``) write
+the same files, ``fix_autapses`` without graphene raising the same
+``ValueError``.
 """
 
 import pathlib
@@ -356,53 +357,80 @@ def test_cli_fill_holes_and_dust_global_match_reference(tmp_path):
 REFUSED = {
   "sharded": (dict(sharded=True), ["--sharded"]),
   "fix_autapses": (dict(fix_autapses=True), ["--fix-autapses"]),
-  "cross_sectional_area": (dict(cross_sectional_area=True), ["--cross-section", "2"]),
+  "cross_sectional_area": (dict(cross_sectional_area=True, csa_smoothing_window=2),
+                           ["--cross-section", "2"]),
   "root_ids": (dict(root_ids_cloudpath="file:///nowhere"), ["--root-ids", "file:///nowhere"]),
   "graphene": ({}, []),
 }
 
 
 @pytest.mark.parametrize("option", sorted(REFUSED))
-def test_unported_options_raise_before_reading_or_writing(option, tmp_path, monkeypatch):
-  """The options the port does not run yet raise before anything is read
-  or written. ``sharded``, refused here until the port ran it, writes the
-  JAX package's ``.frags`` containers (through the factory and the
-  command line)."""
+def test_once_refused_options_match_reference(option, tmp_path, monkeypatch):
+  """The options refused here until the port ran them write the JAX
+  package's bytes (through the factory and the command line), or raise
+  its exception: ``fix_autapses`` on a layer that is not graphene raises
+  ``ValueError`` in the factory and in the task, before anything is
+  written; ``root_ids_cloudpath`` is read only on graphene layers."""
   kw, cli = REFUSED[option]
-  if option == "sharded":
-    paths = _forge_both(tmp_path, tubes(), (32, 24, 24), merge=False, **kw)
-    got = _skel_files(paths["port"])
-    assert sum(k.endswith(".frags") for k in got) == 4 and got == _skel_files(paths["jax"])
-    layer = tmp_path / "cli"
-    Volume.from_numpy(tubes(), f"file://{layer}", resolution=(8, 8, 40), chunk_size=(16, 16, 8))
-    assert cli_main(["skeleton", "forge", f"file://{layer}", "--shape", "32,24,24",
-                     "--dust-threshold", "40", "--const", "80", *cli]) == 0
-    assert _skel_files(layer) == got
+  if option == "fix_autapses":
+    paths = _layers(tmp_path, tubes())
+    before = {who: _files(p) for who, p in paths.items()}
+    for mod, who in ((jax_tc, "jax"), (tc, "port")):
+      with pytest.raises(ValueError, match="fix_autapses requires a graphene"):
+        mod.create_skeletonizing_tasks(f"file://{paths[who]}", **kw)
+    task = SkeletonTask(f"file://{paths['port']}", shape=(32, 24, 24), offset=(0, 0, 0),
+                        skel_dir="skels", **kw)
+    with pytest.raises(ValueError, match="fix_autapses requires a graphene"):
+      task.execute()
+    with pytest.raises(ValueError, match="fix_autapses requires a graphene"):
+      cli_main(["skeleton", "forge", f"file://{paths['port']}", *cli])
+    res = CliRunner().invoke(jax_cli, ["skeleton", "forge", f"file://{paths['jax']}", *cli])
+    assert isinstance(res.exception, ValueError)
+    assert {who: _files(p) for who, p in paths.items()} == before
     return
-  path = tmp_path / "layer"
-  Volume.from_numpy(tubes(), f"file://{path}", resolution=(8, 8, 40), chunk_size=(16, 16, 8))
-  before = _files(path)
-  layer = f"graphene://file://{path}" if option == "graphene" else f"file://{path}"
-  downloads = []
-  monkeypatch.setattr(Volume, "download", lambda *a, **k: downloads.append(a))
-  with pytest.raises(NotImplementedError):
-    tc.create_skeletonizing_tasks(layer, **kw)
-  with pytest.raises(NotImplementedError):
-    SkeletonTask(layer, shape=(32, 24, 24), offset=(0, 0, 0), **kw)
-  with pytest.raises(NotImplementedError):
-    deserialize({"class": "SkeletonTask", "params": {
-      "cloudpath": layer, "shape": [32, 24, 24], "offset": [0, 0, 0], **kw}})
-  with pytest.raises(NotImplementedError):
-    cli_main(["skeleton", "forge", layer, *cli])
-  assert downloads == []
-  assert _files(path) == before
+  graphs = []
+  if option == "graphene":
+    from igneous_tpu import graphene as jax_graphene
+    from igneous_tpu_torch import graphene
+
+    graphs = [jax_graphene, graphene]
+  try:
+    paths = _layers(tmp_path, tubes())
+    layer = {}
+    for who, mod in zip(("jax", "port"), graphs or [None, None]):
+      layer[who] = f"file://{paths[who]}"
+      if mod is not None:
+        layer[who] = f"graphene://{layer[who]}"
+        ids = sorted(int(v) for v in np.unique(tubes()) if v)
+        mod.use_local_chunkgraph(layer[who], mod.LocalChunkGraph([ids[:2], ids[2:4]]))
+    fkw = {**FORGE, **kw, "shape": (32, 24, 24)}
+    JaxQueue(parallel=1, progress=False).insert(
+      jax_tc.create_skeletonizing_tasks(layer["jax"], **fkw))
+    LocalTaskQueue().insert(tc.create_skeletonizing_tasks(layer["port"], **fkw))
+    got = _skel_files(paths["port"])
+    assert len(got) > 4 and got == _skel_files(paths["jax"])
+    if option == "sharded":
+      assert sum(k.endswith(".frags") for k in got) == 4
+    cli_paths = _layers(tmp_path / "cli", tubes())
+    cli_layer = layer["port"].replace(str(paths["port"]), str(cli_paths["port"]))
+    if graphs:
+      graphene.use_local_chunkgraph(cli_layer, graphene.LocalChunkGraph([ids[:2], ids[2:4]]))
+    assert cli_main(["skeleton", "forge", cli_layer, "--shape", "32,24,24",
+                     "--dust-threshold", "40", "--const", "80", "--scale", "4", *cli]) == 0
+    assert _skel_files(cli_paths["port"]) == got
+  finally:
+    for mod in graphs:
+      mod._GRAPHENE_CLIENT_FACTORY = None
+      mod._LOCAL_GRAPHS.clear()
 
 
 def test_cli_refuses_options_it_does_not_have(tmp_path, capsys):
-  # --queue is ported now; the cross-section repair budget is not
+  # every option of the JAX package's `skeleton forge` is ported (the
+  # cross-section repair budget and --progress last); others are refused
   with pytest.raises(SystemExit):
-    cli_main(["skeleton", "forge", str(tmp_path), "--cross-section-label-repair-sec", "5"])
-  assert "unrecognized arguments: --cross-section-label-repair-sec" in capsys.readouterr().err
+    cli_main(["skeleton", "forge", str(tmp_path), "--cross-section-label-repair-sec",
+              "5", "--progress", "--no-such-option"])
+  assert "unrecognized arguments: --no-such-option" in capsys.readouterr().err
 
 
 def test_skeleton_task_without_cuda_raises_unless_the_cpu_is_asked_for(tmp_path, monkeypatch):

@@ -257,9 +257,19 @@ def test_reference_payload_runs_in_the_port(tmp_path):
   assert _census_files(paths["port"]) == _census_files(paths["jax"])
 
 
-def test_graphene_census_options_are_refused(tmp_path):
+def test_graphene_census_options_on_a_plain_layer_as_the_reference(tmp_path):
+  """``agglomerate`` on a layer that is not graphene raises the JAX
+  package's ``ValueError`` in the factory; a task given a timestamp alone
+  counts the layer as it is, in both. (Graphene layers:
+  ``tests/test_torch_graphene.py``.)"""
   paths = _layers(tmp_path, labels())
-  with pytest.raises(NotImplementedError, match="agglomerate"):
-    tc.create_voxel_counting_tasks(f"file://{paths['port']}", agglomerate=True)
-  with pytest.raises(NotImplementedError, match="timestamp"):
-    CountVoxelsTask(f"file://{paths['port']}", TASK, (0, 0, 0), timestamp=5.0)
+  for mod, who in ((jax_tc, "jax"), (tc, "port")):
+    with pytest.raises(ValueError, match="agglomerate voxel counting requires a graphene"):
+      mod.create_voxel_counting_tasks(f"file://{paths[who]}", agglomerate=True)
+  assert _census_files(paths["port"]) == _census_files(paths["jax"]) == {}
+  from igneous_tpu.tasks.stats import CountVoxelsTask as JaxCountVoxelsTask
+
+  JaxCountVoxelsTask(f"file://{paths['jax']}", TASK, (0, 0, 0), timestamp=5.0).execute()
+  CountVoxelsTask(f"file://{paths['port']}", TASK, (0, 0, 0), timestamp=5.0).execute()
+  got = _census_files(paths["port"])
+  assert len(got) == 1 and got == _census_files(paths["jax"])

@@ -12,8 +12,9 @@ compressed-domain passthrough off, and once at its default on a
 passthrough-eligible transfer, which the port moves the same way); mesh and skeleton
 forge+merge from a compressed_segmentation source; a TransferTask payload
 the JAX package serialized; ``image xfer`` and ``image downsample
---encoding`` on both command lines; and the refused options (graphene,
-also of the sharded transfer and downsample), which write nothing.
+--encoding`` on both command lines; and the graphene options on a layer
+that is not graphene (also of the sharded transfer and downsample), which
+raise the JAX package's ``ValueError`` and write nothing.
 """
 
 import json
@@ -34,7 +35,7 @@ from igneous_tpu.volume import OutOfBoundsError as JaxOutOfBoundsError
 from igneous_tpu_torch import Bbox, Volume, device
 from igneous_tpu_torch import task_creation as tc
 from igneous_tpu_torch.cli import main as cli_main
-from igneous_tpu_torch.queues import LocalTaskQueue, deserialize
+from igneous_tpu_torch.queues import LocalTaskQueue, deserialize, serialize
 from igneous_tpu_torch.tasks import TransferTask
 from igneous_tpu_torch.volume import AlignmentError, OutOfBoundsError
 
@@ -470,10 +471,11 @@ def test_cli_xfer_defaults_match_reference(tmp_path, monkeypatch):
 @pytest.mark.parametrize("option", ["agglomerate", "timestamp", "stop_layer",
                                     "sharded_source", "sharded_dest", "cli_sharded"])
 def test_refused_options_write_nothing(tmp_path, option):
-  """The graphene options of the transfer and of its sharded forms, and
-  the command line's ``--sharded --isotropic``, are refused before
-  anything is written. (Sharded scales themselves are ported:
-  ``tests/test_torch_sharded_image.py``.)"""
+  """The graphene options of the transfer and of its sharded forms on a
+  layer that is not graphene, and the command line's ``--sharded
+  --isotropic``, are refused before anything is written, as in the JAX
+  package. (Graphene layers: ``tests/test_torch_graphene.py``; sharded
+  scales: ``tests/test_torch_sharded_image.py``.)"""
   data = segmentation((64, 64, 32))
   src = tmp_path / "src"
   JaxVolume.from_numpy(data, f"file://{src}", resolution=(8, 8, 40), chunk_size=(32, 32, 32))
@@ -492,15 +494,16 @@ def test_refused_options_write_nothing(tmp_path, option):
     info["scales"][0]["sharding"] = {"@type": "neuroglancer_uint64_sharded_v1"}
     (dest / "info").write_text(json.dumps(info))
     dest_before = _files(dest)
-  with pytest.raises(SystemExit if option == "cli_sharded" else NotImplementedError):
-    if option == "cli_sharded":
-      cli_main(["image", "downsample", f"file://{src}", "--sharded", "--isotropic"])
-    elif option == "sharded_source":
-      tc.create_image_shard_transfer_tasks(f"file://{src}", f"file://{dest}", stop_layer=2)
-    elif option == "sharded_dest":
-      tc.create_image_shard_downsample_tasks(f"file://{dest}", agglomerate=True)
-    else:
-      tc.create_transfer_tasks(f"file://{src}", f"file://{dest}", **kw)
+  for mod in (jax_tc, tc):
+    with pytest.raises(SystemExit if option == "cli_sharded" else ValueError):
+      if option == "cli_sharded":
+        cli_main(["image", "downsample", f"file://{src}", "--sharded", "--isotropic"])
+      elif option == "sharded_source":
+        mod.create_image_shard_transfer_tasks(f"file://{src}", f"file://{dest}", stop_layer=2)
+      elif option == "sharded_dest":
+        mod.create_image_shard_downsample_tasks(f"file://{dest}", agglomerate=True)
+      else:
+        mod.create_transfer_tasks(f"file://{src}", f"file://{dest}", **kw)
   assert _files(src) == before
   if option == "sharded_dest":
     assert _files(dest) == dest_before
@@ -508,9 +511,19 @@ def test_refused_options_write_nothing(tmp_path, option):
     assert not dest.exists()
 
 
-def test_graphene_payload_is_refused():
+def test_graphene_payload_deserializes_as_the_reference():
+  """A graphene TransferTask payload (refused here until the port ran it)
+  makes the port's task with the same params; run with no chunk-graph
+  client for its path, it raises the JAX package's NotImplementedError."""
+  from igneous_tpu.queues.registry import deserialize as jax_deserialize
+
   payload = {"class": "TransferTask", "module": "igneous_tpu.tasks.image", "params": {
-    "src_path": "graphene://x", "dest_path": "file:///nonexistent", "mip": 0,
-    "shape": [64, 64, 64], "offset": [0, 0, 0], "agglomerate": True, "timestamp": 1.0}}
-  with pytest.raises(NotImplementedError, match="graphene"):
-    deserialize(payload)
+    "src_path": "graphene://file:///nonexistent", "dest_path": "file:///nonexistent",
+    "mip": 0, "shape": [64, 64, 64], "offset": [0, 0, 0], "agglomerate": True,
+    "timestamp": 1.0}}
+  task, ref = deserialize(payload), jax_deserialize(payload)
+  assert task.agglomerate and task.timestamp == 1.0
+  assert json.loads(serialize(task))["params"] == ref.payload()["params"]
+  for t in (task, ref):
+    with pytest.raises(NotImplementedError, match="chunk-graph client"):
+      t.execute()
