@@ -4,7 +4,9 @@ batched, pipelined, through the queue worker, on gs:// and s3:// and into
 sharded scales, its image surface (ROIs, spatial index, reorder, ingest),
 its sharded and multires meshes and sharded skeletons, and its graphene
 layers (served by a fake PyChunkGraph server) and cross-sectional areas,
-on one NVIDIA GPU and check them.
+and its fleet observability plane (the worker journal, /metrics, the
+fleet commands, the health engine, profile capture), on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -83,7 +85,7 @@ Phases, each reported on its own line:
      batched grid) and the segmentation as 16 tasks of 512x512x64 with 2
      mips, each through create_downsampling_tasks -> LocalTaskQueue into
      new layers that share phase 3's mip 0, once with IGNEOUS_PIPELINE=off
-     (the serial loop, on the first 4 tasks of each stream since phase 15)
+     (the serial loop, on the first 2 tasks of each stream since phase 17)
      and once at the default (the staged pipeline): per
      run its wall, stage split (thread-seconds), the caller's waits, the
      prefetch buffer's stalls and high-water bytes and the chunk cache's
@@ -228,7 +230,7 @@ Phases, each reported on its own line:
      with three DownsampleTasks (pyramid2x2x1 three times), its second
      round clean, exit 0, every healed chunk its bytes before the damage;
      a flipped mip-0 chunk is UNHEALABLE, exit 2; (d) phase 3d's pipelined
-     image stream (its first 8 tasks since phase 13) with
+     image stream (its first 4 tasks since phase 17, 8 before) with
      IGNEOUS_INTEGRITY=off, at the default and with
      IGNEOUS_INTEGRITY_VERIFY_AFTER_WRITE=1: walls, busy shares, every
      run's chunks phase 3's byte for byte. Each part prints its wall, requests per server, bytes up and
@@ -311,12 +313,38 @@ Phases, each reported on its own line:
      share (device ledger), peak card memory, launches, the requests the
      PCG server answered and the host stages (cross-section and repair
      seconds);
+  17. the journaled campaign (after phase 14, on phase 3's image; its
+     skeleton group after phase 16, on phase 15's crop): (a) 8 of phase 3d's image-stream tasks (1024x1024x64, 3
+     mips; the first two columns of phase 3's image) through `image
+     downsample --queue fq://...` and `execute --batch 4 --metrics-port 0
+     -x` (the fq:// default journal), spans on and off
+     (IGNEOUS_TRACE_SAMPLE=0) in turns, twice each, into new layers: each
+     wall, the card's busy share, the journal's segments, bytes and
+     records a task, the seconds of journal flushes on the worker's
+     thread; the host cost of one trace span (1000 spans); then phase
+     15's tube crop, one skeleton group (edt_pass, three launches),
+     journaled, its .frags phase 15's; (c) `profile capture --duration 2`
+     before a solo run (`execute -x --pipeline`) of the same tasks, then `profile
+     ls`: its Chrome trace holds pyramid2x2x1 kernels on the card; (d)
+     `fleet status` (its task count the queue's tallies), `top`,
+     `devices` (the card's name, the busy share of the worker's last
+     ledger record), `trace <id>` (the pyramid2x2x1 execute span under
+     its task span; the Perfetto export with a device track), `check
+     --json` (its anomalies printed, not failed on), `compact`, `status`
+     from the rollups equal to the raw segments' in every count, `gc`;
+     (b) one /metrics scrape of a worker (`--batch 4 --metrics-port 0
+     --drain-sentinel`) once the queue tallied every task: its delivery
+     counters the tasks, the igneous_device_* gauges there; the sentinel
+     drains it (exit 83, its last will's counters line); (e) the same
+     tasks through LocalTaskQueue, no journal: every journaled run's
+     layer byte for byte its layer;
   7. the card's name and power limit, the programs line (X1-X3, X5-X7),
      the kernels line (each kernel's launches on the main paths, the
      transfer, the batched phase, the pipelined streams, the worker phase,
      where each of the four must have launched, the storage phase, the
-     sharded phase, phase 14, phase 15 (edt_pass) and phase 16
-     (pyramid2x2x1, edt_pass)), and the result.
+     sharded phase, phase 14, phase 15 (edt_pass), phase 16
+     (pyramid2x2x1, edt_pass) and phase 17 (pyramid2x2x1, edt_pass)),
+     and the result.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside it.
@@ -643,7 +671,7 @@ def e2e_phase(root, cp, torch, dev):
     tasks = create_downsampling_tasks(path, mip=0, num_mips=num_mips)
     if len(tasks) != 1:
       fail(f"{name}: expected one task, planned {len(tasks)}")
-    telemetry.reset()
+    telemetry.reset_all()
     t0 = time.perf_counter()
     LocalTaskQueue(parallel=1).insert(tasks)
     wall = time.perf_counter() - t0
@@ -796,7 +824,7 @@ def xfer_e2e_phase(root, cp, torch, dev):
   ))
   plan = time.perf_counter() - t0
   for i, task in enumerate(tasks):
-    telemetry.reset()
+    telemetry.reset_all()
     before = dict(cp.LAUNCHES)
     t0 = time.perf_counter()
     LocalTaskQueue(parallel=1).insert([task])
@@ -1062,7 +1090,7 @@ class TimedQueue:
     from igneous_tpu_torch import telemetry
 
     tasks = list(tasks)
-    telemetry.reset()
+    telemetry.reset_all()
     t0 = time.perf_counter()
     self.queue.insert(tasks)
     t1 = time.perf_counter()
@@ -1415,7 +1443,7 @@ def mesh_e2e_phase(root, torch, dev, shape=MESH_SHAPE, n_seeds=MESH_SEEDS,
   queue = LocalTaskQueue(parallel=1)
   passes = 0
   for i, task in enumerate(tasks):
-    telemetry.reset()
+    telemetry.reset_all()
     ledger_reset(torch, dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
       t0 = time.perf_counter()
@@ -1426,7 +1454,7 @@ def mesh_e2e_phase(root, torch, dev, shape=MESH_SHAPE, n_seeds=MESH_SEEDS,
       fail(f"mesh task {i}: the trace shows no work on the card")
     ledger_line(f"mesh task {i} (traced busy {busy:.4f} s)", wall)
     snap = telemetry.snapshot()
-    counts = telemetry.counters()
+    counts = telemetry.counters_snapshot()
     passes += snap["count"]["count"]
     print(f"e2e mesh task {i}: wall {wall:.3f} s, {simplify_threads} simplification "
           f"thread(s), {counts['labels']} labels, "
@@ -1911,7 +1939,7 @@ def skeleton_e2e_phase(root, ce, edt_ops, torch, dev):
   queue = LocalTaskQueue(parallel=1)
   ce.LAUNCHES["edt_pass"] = 0
   for i, task in enumerate(tasks):
-    telemetry.reset()
+    telemetry.reset_all()
     before = ce.LAUNCHES["edt_pass"]
     ledger_reset(torch, dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1924,7 +1952,7 @@ def skeleton_e2e_phase(root, ce, edt_ops, torch, dev):
     launched = ce.LAUNCHES["edt_pass"] - before
     ledger_line(f"skeleton task {i} (traced busy {busy:.4f} s)", wall, {"edt_pass": launched})
     snap = telemetry.snapshot()
-    counts = telemetry.counters()
+    counts = telemetry.counters_snapshot()
     print(f"e2e skeleton task {i}: wall {wall:.3f} s, {SKEL_TRACE_THREADS} tracing "
           f"threads, {counts.get('labels', 0)} labels, {counts.get('vertices', 0)} "
           f"vertices, edt_pass launches {launched}, card busy {busy:.4f} s (traced; idle "
@@ -2126,7 +2154,7 @@ def morphology_phase(root, cp, cc, ce, torch, dev):
   torch.cuda.empty_cache()
 
   # the census
-  telemetry.reset()
+  telemetry.reset_all()
   t0 = time.perf_counter()
   tasks = list(create_voxel_counting_tasks(path, shape=HOLLOW_CENSUS_TASK))
   LocalTaskQueue(parallel=1).insert(tasks)
@@ -2147,12 +2175,12 @@ def morphology_phase(root, cp, cc, ce, torch, dev):
     fail(f"morphology mesh: expected 2 tasks, planned {len(tasks)}")
   queue = LocalTaskQueue(parallel=1)
   for i, task in enumerate(tasks):
-    telemetry.reset()
+    telemetry.reset_all()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     queue.insert([task])
     wall = time.perf_counter() - t0
-    c = telemetry.counters()
+    c = telemetry.counters_snapshot()
     print(f"morphology mesh task {i}: wall {wall:.3f} s, {c.get('labels', 0)} labels, "
           f"{c.get('faces', 0)} faces, peak "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, stages (s) "
@@ -2254,7 +2282,7 @@ def inference_phase(root, cp, cc, ce, torch, dev):
     for counts in (cp.LAUNCHES, cc.LAUNCHES, ce.LAUNCHES):
       for key in counts:
         counts[key] = 0
-    telemetry.reset()
+    telemetry.reset_all()
     torch.cuda.reset_peak_memory_stats(dev)
     os.environ.update(dict(env))
     queue = LocalTaskQueue(parallel=1)
@@ -2267,7 +2295,7 @@ def inference_phase(root, cp, cc, ce, torch, dev):
         os.environ.pop(k, None)
     wall = time.perf_counter() - t0
     ledger_line(f"infer {name}", wall, launch_counts(cp, cc, ce))
-    counters = telemetry.counters()
+    counters = telemetry.counters_snapshot()
     dispatches = -(-INFER_PATCHES // batch_size)
     want = {"infer.patches": ntasks * INFER_PATCHES,
             "infer.dispatches": ntasks * dispatches,
@@ -2276,7 +2304,7 @@ def inference_phase(root, cp, cc, ce, torch, dev):
     print(f"infer {name}: {len(tasks)} tasks, batch {batch_size}, wall {wall:.3f} s, "
           f"{json.dumps(got)}, runner {json.dumps(queue.pipeline_stats)}, peak "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, "
-          f"{pipeline_line(telemetry.snapshot(), telemetry.gauges(), counters)}", flush=True)
+          f"{pipeline_line(telemetry.snapshot(), telemetry.gauges_snapshot(), counters)}", flush=True)
     if got != want:
       fail(f"infer {name}: counted {got}, expected {want}")
     if queue.completed != ntasks:
@@ -2391,7 +2419,7 @@ def inference_phase(root, cp, cc, ce, torch, dev):
   # the card's busy share over one task
   one = list(create_inference_tasks(src, f"file://{root}/infer_traced", model_path,
                                     bounds=Bbox((0, 0, 0), (256, 256, 64))))
-  telemetry.reset()
+  telemetry.reset_all()
   for counts in (cp.LAUNCHES, cc.LAUNCHES, ce.LAUNCHES):
     for key in counts:
       counts[key] = 0
@@ -2503,7 +2531,7 @@ def batched_downsample_phase(root, cp, torch, dev):
     full, edge, pages = grid_counts(size, shape)
     rounds = -(-pages // PAGE)
     full_dispatches = -(-full // batch)
-    telemetry.reset()
+    telemetry.reset_all()
     before = dict(cp.LAUNCHES)
     prof = profile(activities=[ProfilerActivity.CUDA]) if i == 0 else contextlib.nullcontext()
     with prof:
@@ -2562,10 +2590,10 @@ PIPELINED_RUNS = [
   ("image", 2**27, 16, (1024, 1024, 64), 3),
   ("segmentation", 2**28, 16, (512, 512, 64), 2),
 ]
-# tasks of each stream the serial loop runs: half of them since phase 13
-# and a quarter since phase 15, to make room for them in the time limit
-# (the pipelined runs keep all 16)
-SERIAL_TASKS = 4
+# tasks of each stream the serial loop runs: half of them since phase 13,
+# a quarter since phase 15 and an eighth since phase 17, to make room for
+# them in the time limit (the pipelined runs keep all 16)
+SERIAL_TASKS = 2
 # (source layer, compress): phase 3b's cseg layer (gzip chunks) and phase
 # 3's image, whose mip 0 is stored uncompressed
 PASSTHROUGH_RUNS = [("segmentation_cseg", "gzip"), ("image", None)]
@@ -2624,7 +2652,7 @@ def pipelined_phase(root, cp, cc, ce, torch, dev):
         os.environ["IGNEOUS_PIPELINE"] = "off"
         tasks = tasks[:SERIAL_TASKS]
       nrun = len(tasks)
-      telemetry.reset()
+      telemetry.reset_all()
       chunk_cache.clear()
       for key in cp.LAUNCHES:
         cp.LAUNCHES[key] = 0
@@ -2642,7 +2670,7 @@ def pipelined_phase(root, cp, cc, ce, torch, dev):
       print(f"pipelined {name} {mode}: {nrun} tasks of {shape[0]}x{shape[1]}x{shape[2]}, "
             f"{mips} mips, wall {wall:.3f} s, stats {json.dumps(queue.pipeline_stats)}, "
             f"launches {json.dumps(launched)}, "
-            f"{pipeline_line(telemetry.snapshot(), telemetry.gauges(), telemetry.counters())}",
+            f"{pipeline_line(telemetry.snapshot(), telemetry.gauges_snapshot(), telemetry.counters_snapshot())}",
             flush=True)
       if queue.completed != nrun:
         fail(f"pipelined {name} {mode}: {queue.completed} of {nrun} tasks completed")
@@ -2677,7 +2705,7 @@ def pipelined_phase(root, cp, cc, ce, torch, dev):
       tasks = list(create_transfer_tasks(src, f"file://{dest}", skip_downsamples=True,
                                          compress=compress))
       os.environ.update(env)
-      telemetry.reset()
+      telemetry.reset_all()
       chunk_cache.clear()
       for counts in (cp.LAUNCHES, cc.LAUNCHES, ce.LAUNCHES):
         for k in counts:
@@ -2690,13 +2718,13 @@ def pipelined_phase(root, cp, cc, ce, torch, dev):
         for k in env:
           os.environ.pop(k, None)
       wall = time.perf_counter() - t0
-      counters = telemetry.counters()
+      counters = telemetry.counters_snapshot()
       moved = {k: counters.get(f"transfer.passthrough.{k}", 0)
                for k in ("chunks", "verbatim", "recompressed", "bytes")}
       n = same_files(os.path.join(root, name, key), os.path.join(dest, key))
       print(f"passthrough {name} {route}: {len(tasks)} tasks, wall {wall:.3f} s, "
             f"moved {json.dumps(moved)}, stats {json.dumps(queue.pipeline_stats)}, "
-            f"{pipeline_line(telemetry.snapshot(), telemetry.gauges(), counters)}; "
+            f"{pipeline_line(telemetry.snapshot(), telemetry.gauges_snapshot(), counters)}; "
             f"{n} chunk files byte for byte the source's", flush=True)
       if any(any(c.values()) for c in (cp.LAUNCHES, cc.LAUNCHES, ce.LAUNCHES)):
         fail(f"passthrough {name} {route}: a kernel launched on a copy with no pyramid")
@@ -2788,7 +2816,7 @@ def batched_ccl_phase(root, cc, torch, dev):
   rounds = -(-pages // PAGE)  # one group: every task in one batch of 8
   for key in cc.LAUNCHES:
     cc.LAUNCHES[key] = 0
-  telemetry.reset()
+  telemetry.reset_all()
   t0 = time.perf_counter()
   stats = batched_ccl_faces(src, shape=CCL_TASK_SHAPE)
   wall = time.perf_counter() - t0
@@ -2796,7 +2824,7 @@ def batched_ccl_phase(root, cc, torch, dev):
   stages = stage_split(telemetry.snapshot())
   batched = os.path.join(root, "faces_batched")
   shutil.move(faces, batched)
-  telemetry.reset()
+  telemetry.reset_all()
   t0 = time.perf_counter()
   LocalTaskQueue(parallel=1).insert(create_ccl_face_tasks(src, shape=CCL_TASK_SHAPE))
   task_wall = time.perf_counter() - t0
@@ -2868,7 +2896,7 @@ def batched_skeleton_forge_phase(root, ce, torch, dev):
 
   path = f"file://{root}/frags_skeletons"
   ce.LAUNCHES["edt_pass"] = 0
-  telemetry.reset()
+  telemetry.reset_all()
   t0 = time.perf_counter()
   stats = batched_skeleton_forge(path, shape=FRAGS_SKEL_TASK, sharded=True,
                                  skel_dir="skeletons_batched", parallel=SKEL_TRACE_THREADS)
@@ -3580,7 +3608,7 @@ def worker_lifecycle(root, cp, cc, ce) -> dict:
   spec = f"fq://{root}/queue_heartbeat"
   q = FileQueue(spec)
   q.insert([SleepTask(HEARTBEAT_TASK_S)])
-  telemetry.reset()
+  telemetry.reset_all()
   codes = []
   # quiet, so that only the second worker prints (run_cli takes stdout)
   first = threading.Thread(target=lambda: codes.append(cli_main(
@@ -3592,7 +3620,7 @@ def worker_lifecycle(root, cp, cc, ce) -> dict:
   second = run_cli(["execute", spec, "-x", "--lease-sec", HEARTBEAT_LEASE_SEC])
   first.join()
   wall = time.perf_counter() - t0
-  zombies = {k: v for k, v in telemetry.counters().items() if k.startswith("zombie")}
+  zombies = {k: v for k, v in telemetry.counters_snapshot().items() if k.startswith("zombie")}
   print(f"worker heartbeat: a {HEARTBEAT_TASK_S:.0f} s task at --lease-sec "
         f"{HEARTBEAT_LEASE_SEC}, lease expiry in {ages} s at {HEARTBEAT_LEASE_SEC + 1} s, the "
         f"second worker {second.strip()!r}, wall {wall:.3f} s, completions {q.completed}, "
@@ -3705,8 +3733,9 @@ ENVELOPE_MODES = {
   "verify": {"IGNEOUS_INTEGRITY_VERIFY_AFTER_WRITE": "1"},
 }
 # tasks of phase 3d's image stream each envelope mode runs: half of them
-# since phase 13, to make room for it in the time limit
-ENVELOPE_TASKS = 8
+# since phase 13 and a quarter since phase 17, to make room for them in the
+# time limit
+ENVELOPE_TASKS = 4
 FAKE_PAGE_SIZE = 1000  # listing page of the fakes (the tests force 3)
 FAKE_BACKLOG = 128  # their listen backlog (socketserver's default is 5)
 
@@ -3815,7 +3844,7 @@ def server_line(srvs: dict, counter: StorageCounter) -> str:
 def plane_counters() -> dict:
   from igneous_tpu_torch import telemetry
 
-  return {k: v for k, v in sorted(telemetry.counters().items())
+  return {k: v for k, v in sorted(telemetry.counters_snapshot().items())
           if k.startswith(("retries.", "integrity."))}
 
 
@@ -3907,7 +3936,7 @@ def storage_phase(root, cp, cc, ce, torch, dev) -> dict:
     with gcs, s3:
       try:
         # (a) the image crop on gs://, downsampled by a queue and execute --batch 4
-        telemetry.reset()
+        telemetry.reset_all()
         t0 = time.perf_counter()
         crop = Volume(f"file://{root}/image").download(Bbox((0, 0, 0), GS_CROP))
         gs_path, ref = "gs://chip-smoke/image", f"{root}/image_gs_ref"
@@ -3962,7 +3991,7 @@ def storage_phase(root, cp, cc, ce, torch, dev) -> dict:
               f"{time.perf_counter() - t0:.3f} s", flush=True)
 
         # (b) the segmentation crop on s3://, through LocalTaskQueue
-        telemetry.reset()
+        telemetry.reset_all()
         t0 = time.perf_counter()
         seg = Volume(f"file://{root}/segmentation").download(Bbox((0, 0, 0), S3_CROP))
         s3_path, sref = "s3://chip-smoke/segmentation", f"{root}/segmentation_s3_ref"
@@ -4001,7 +4030,7 @@ def storage_phase(root, cp, cc, ce, torch, dev) -> dict:
               flush=True)
 
         # (c) audit --heal on (a)'s layer
-        telemetry.reset()
+        telemetry.reset_all()
         t0 = time.perf_counter()
         vol = Volume(gs_path)
         intact = stored_objects(gcs, "image")
@@ -4088,7 +4117,7 @@ def storage_phase(root, cp, cc, ce, torch, dev) -> dict:
     link_layer(src, dst)
     tasks = list(create_downsampling_tasks(f"file://{dst}", mip=0, num_mips=mips,
                                            memory_target=target))[:ENVELOPE_TASKS]
-    telemetry.reset()
+    telemetry.reset_all()
     zero_counts(cp, cc, ce)
     os.environ.update(menv)
     ledger_reset(torch, dev)
@@ -4294,7 +4323,7 @@ def sharded_phase(root, cp, cc, ce, torch, dev) -> dict:
     """One command, timed; ``card=False``: a copy, which puts no work on
     the card (the ledger records none)."""
     zero_counts(cp, cc, ce)
-    telemetry.reset()
+    telemetry.reset_all()
     chunk_cache.clear()
     ledger_reset(torch, dev)
     t0 = time.perf_counter()
@@ -4525,7 +4554,7 @@ def surface_run(label, args, cp, cc, ce, cl, torch, dev, card=True):
   from igneous_tpu_torch import chunk_cache, telemetry
 
   zero_counts(cp, cc, ce, cl)
-  telemetry.reset()
+  telemetry.reset_all()
   chunk_cache.clear()
   ledger_reset(torch, dev)
   t0 = time.perf_counter()
@@ -4807,7 +4836,7 @@ def frags_run(label: str, fn, modules, torch, dev, launches_expected, srv=None,
   from igneous_tpu_torch.observability.device import LEDGER
 
   zero_counts(*modules)
-  telemetry.reset()
+  telemetry.reset_all()
   chunk_cache.clear()
   card = dev.type == "cuda"
   if card:
@@ -5519,6 +5548,446 @@ def xsection_phase(root, ce, cp, cc, cl, torch, dev) -> tuple:
   return launched["edt_pass"], wall
 
 
+# ---------------------------------------------------------------------------
+# the journaled campaign (phase 17): the fleet observability plane
+
+# 8 of phase 3d's image-stream tasks: the first two columns of phase 3's
+# image (4096 wide) at the stream's 1024x1024x64 tasks with 3 mips
+JOURNAL_XRANGE = "0,2048"
+JOURNAL_TASKS = 8
+JOURNAL_BATCH = 4
+# the timed runs, in turns: spans on, spans off (IGNEOUS_TRACE_SAMPLE=0,
+# which leaves the counters journaled), twice each
+JOURNAL_TURNS = ("traced", "untraced", "untraced", "traced")
+PROFILE_SEC = 2.0
+PROFILE_WAIT_S = 60.0
+JOURNAL_SPANS = 1000  # trace spans timed for the host cost of one
+
+
+class FlushClock:
+  """Seconds of ``Journal.flush`` on the thread that runs the worker loop
+  (the poll loop's and the lease batcher's flushes), while installed."""
+
+  def __init__(self):
+    import threading
+
+    from igneous_tpu_torch.observability import journal as journal_mod
+
+    self.cls, self.seconds, self.count = journal_mod.Journal, 0.0, 0
+    self.orig, self.thread = self.cls.flush, threading.get_ident()
+
+  def __enter__(self):
+    import threading
+
+    clock, orig = self, self.orig
+
+    def flush(journal, event=None):
+      t0 = time.perf_counter()
+      try:
+        return orig(journal, event=event)
+      finally:
+        if threading.get_ident() == clock.thread:
+          clock.seconds += time.perf_counter() - t0
+          clock.count += 1
+
+    self.cls.flush = flush
+    return self
+
+  def __exit__(self, *exc):
+    self.cls.flush = self.orig
+
+
+def journal_stats(spec: str, ntasks: int) -> dict:
+  """A queue's journal: segments, bytes, records, records a task."""
+  import os
+
+  from igneous_tpu_torch.observability import journal as journal_mod
+
+  path = f"file://{spec[len('fq://'):]}/journal"
+  segs = journal_mod.list_segments(path)
+  nbytes = sum(os.path.getsize(os.path.join(path[len("file://"):], s)) for s in segs)
+  recs = list(journal_mod.read_records(path))
+  kinds = {}
+  for r in recs:
+    kinds[r.get("kind")] = kinds.get(r.get("kind"), 0) + 1
+  return {"segments": len(segs), "bytes": nbytes, "records": len(recs),
+          "records_per_task": round(len(recs) / ntasks, 2), "kinds": kinds}
+
+
+def journal_stream(root: str, label: str):
+  """A new layer sharing phase 3's mip 0 and its 8 tasks through `image
+  downsample --queue`. Returns (queue spec, layer dir, queue)."""
+  import os
+
+  from igneous_tpu_torch.queues import FileQueue
+
+  name, target, _n, _shape, mips = PIPELINED_RUNS[0]
+  dst = os.path.join(root, f"{name}_journal_{label}")
+  link_layer(os.path.join(root, name), dst)
+  spec = f"fq://{root}/queue_journal_{label}"
+  run_cli(["image", "downsample", f"file://{dst}", "--num-mips", mips, "--memory", target,
+           "--xrange", JOURNAL_XRANGE, "--queue", spec])
+  q = FileQueue(spec)
+  if q.inserted != JOURNAL_TASKS:
+    fail(f"journal {label}: {q.inserted} tasks, expected {JOURNAL_TASKS}")
+  return spec, dst, q
+
+
+def trace_span_cost() -> float:
+  """Host microseconds of one trace span (``trace.span`` under a sampled
+  task context, recorded into its thread's buffer): JOURNAL_SPANS of them."""
+  from igneous_tpu_torch.observability import trace
+
+  trace.reset()
+  ctx = trace.SpanContext(trace.new_id(), trace.new_id(), True)
+  with trace.activate(ctx):
+    t0 = time.perf_counter()
+    for _ in range(JOURNAL_SPANS):
+      with trace.span("chip_smoke.empty"):
+        pass
+    us = (time.perf_counter() - t0) / JOURNAL_SPANS * 1e6
+  n = len(trace.drain_spans())
+  if n != JOURNAL_SPANS:
+    fail(f"journal: {n} of {JOURNAL_SPANS} trace spans recorded")
+  return us
+
+
+def scrape_metrics(port: int) -> dict:
+  """One GET of the worker's /metrics: {sample name: value}."""
+  import urllib.request
+
+  with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+    text = r.read().decode()
+  out = {}
+  for line in text.splitlines():
+    if line and not line.startswith("#"):
+      name, value = line.rsplit(" ", 1)
+      out[name] = float(value)
+  return out
+
+
+def metrics_scrape_run(root, spec, q) -> dict:
+  """(b) ``execute --batch 4 --metrics-port 0 --drain-sentinel S`` in this
+  process; once the queue has tallied every task, one scrape of its
+  /metrics from another thread, then the sentinel: the worker drains
+  (exit 83). The scrape's delivery counters (``igneous_device_fastpath_
+  {batched,host}_total``, one a completed delivery) must equal the tasks
+  completed, and the ``igneous_device_*`` gauges be there."""
+  import contextlib
+  import io
+  import os
+  import threading
+
+  from igneous_tpu_torch import telemetry
+  from igneous_tpu_torch.cli import main as cli_main
+  from igneous_tpu_torch.observability import prom
+
+  sentinel = os.path.join(root, "journal_drain")
+  # the counters of this worker run only, as a new worker process has them
+  telemetry.reset_all()
+  got = {}
+
+  def scraper():
+    try:
+      t0 = time.perf_counter()
+      while q.completed < JOURNAL_TASKS or prom._SERVER is None:
+        if time.perf_counter() - t0 > WORKER_START_S:
+          got["error"] = f"{q.completed} tasks after {WORKER_START_S:.0f} s"
+          return
+        time.sleep(0.02)
+      got["completed"] = q.completed
+      got["metrics"] = scrape_metrics(prom._SERVER.port)
+    except Exception as e:  # noqa: BLE001 - reported by the caller
+      got["error"] = repr(e)
+    finally:
+      open(sentinel, "w").close()
+
+  os.environ["IGNEOUS_PREEMPT_POLL_SEC"] = DRAIN_POLL_SEC
+  os.environ["IGNEOUS_JOURNAL_FLUSH_SEC"] = "0"  # every round flushes: the gauges publish
+  thread = threading.Thread(target=scraper, daemon=True)
+  thread.start()
+  out = io.StringIO()
+  try:
+    with contextlib.redirect_stdout(out):
+      rc = cli_main(["execute", spec, "--batch", str(JOURNAL_BATCH), "--metrics-port", "0",
+                     "--drain-sentinel", sentinel, "-q", "--lease-sec", str(WORKER_LEASE_SEC)])
+  finally:
+    os.environ.pop("IGNEOUS_PREEMPT_POLL_SEC", None)
+    os.environ.pop("IGNEOUS_JOURNAL_FLUSH_SEC", None)
+    thread.join(timeout=WORKER_EXIT_S)
+  if "error" in got:
+    fail(f"journal (b): no scrape: {got['error']}")
+  if rc != 83:
+    fail(f"journal (b): the drained worker exited {rc}, expected 83: {out.getvalue()[-2000:]}")
+  will = json.loads(out.getvalue().splitlines()[-1])  # the drain's counters line
+  if will["event"] != "drain" or will["executed"] != JOURNAL_TASKS:
+    fail(f"journal (b): the drain's last will {will['event']}, {will['executed']} executed")
+  m = got["metrics"]
+  delivered = m.get("igneous_device_fastpath_batched_total", 0) + \
+    m.get("igneous_device_fastpath_host_total", 0)
+  gauges = sorted(k for k in m if k.startswith("igneous_device_") and not k.endswith(
+    ("_total", "_sum", "_count")) and "_bucket" not in k)
+  print(f"journal (b): one /metrics scrape of the running worker: {len(m)} samples, "
+        f"deliveries {delivered:.0f} against {got['completed']} tasks the queue tallied, "
+        f"device gauges {json.dumps({k: m[k] for k in gauges})}", flush=True)
+  if delivered != got["completed"]:
+    fail(f"journal (b): the scrape counts {delivered} deliveries, the queue {got['completed']}")
+  for gauge in ("igneous_device_busy_ratio", "igneous_device_fastpath_ratio",
+                "igneous_device_hbm_bytes_limit"):
+    if gauge not in m:
+      fail(f"journal (b): {gauge} missing from the scrape")
+  return m
+
+
+def check_profile(path: str) -> int:
+  """(c) `profile ls` lists the capture, and its Chrome trace holds
+  pyramid2x2x1 kernels on the card. Returns how many."""
+  import os
+
+  from igneous_tpu_torch.observability import device as device_mod
+
+  t0 = time.perf_counter()
+  while not device_mod.list_profiles(path) or device_mod._PROFILE_STATE["active"]:
+    if time.perf_counter() - t0 > PROFILE_WAIT_S:
+      fail(f"journal (c): no profile under {path} within {PROFILE_WAIT_S:.0f} s")
+    time.sleep(0.05)
+  keys = run_cli(["profile", "ls", "--journal", path]).split()
+  if not keys or keys != device_mod.list_profiles(path):
+    fail(f"journal (c): profile ls printed {keys}")
+  events = json.load(open(os.path.join(path[len("file://"):], keys[0])))["traceEvents"]
+  kernels = [e for e in events if e.get("cat") == "kernel"]
+  pyr = [e for e in kernels if TRACE_NAMES["pyramid2x2x1"] in e.get("name", "")]
+  print(f"journal (c): profile {keys[0]}: {len(events)} events, {len(kernels)} kernel "
+        f"events on the card, {len(pyr)} of pyramid2x2x1 "
+        f"({sum(e.get('dur', 0) for e in pyr):.1f} us)", flush=True)
+  if not pyr:
+    fail("journal (c): the profile holds no pyramid2x2x1 kernel on the card")
+  return len(pyr)
+
+
+def fleet_checks(spec: str, q) -> None:
+  """(d) The fleet commands over the solo run's journal."""
+  import contextlib
+  import io
+  import os
+
+  import torch
+
+  from igneous_tpu_torch.cli import main as cli_main
+  from igneous_tpu_torch.observability import fleet
+
+  path = f"file://{spec[len('fq://'):]}/journal"
+  status = json.loads(run_cli(["fleet", "status", "--journal", path, "--json"]))
+  print("journal (d): fleet status\n" + run_cli(["fleet", "status", "--journal", path]).rstrip(),
+        flush=True)
+  if status["tasks"] != q.completed or q.completed != JOURNAL_TASKS or q.enqueued or q.leased:
+    fail(f"journal (d): status counts {status['tasks']} tasks, the queue "
+         f"{q.completed} completed, {q.enqueued} enqueued, {q.leased} leased")
+  top = run_cli(["fleet", "top", "--journal", path, "-n", "3"])
+  print("journal (d): fleet top\n" + top.rstrip(), flush=True)
+  devices = run_cli(["fleet", "devices", "--journal", path])
+  report = json.loads(run_cli(["fleet", "devices", "--journal", path, "--json"]))
+  print("journal (d): fleet devices\n" + devices.rstrip(), flush=True)
+  last = max(report["workers"].values(), key=lambda r: r["ts"])
+  ratio = f"{last['busy_ratio'] * 100:.1f}%"
+  if torch.cuda.get_device_name() not in devices or ratio not in devices:
+    fail(f"journal (d): fleet devices names no {torch.cuda.get_device_name()} or "
+         f"no busy share {ratio}")
+  # one task's trace: its pyramid2x2x1 execute span under its task span
+  recs = fleet.load(path)
+  task = next(r for r in recs if r.get("name") == "task")
+  spans = fleet.trace_records(recs, task["trace"])
+  dev = [s for s in spans if s["name"] == "device.execute" and s.get("kernel") == "pyramid2x2x1"]
+  if not dev or any(s["parent"] != task["span"] for s in dev):
+    fail(f"journal (d): trace {task['trace']} holds {len(dev)} pyramid2x2x1 spans, "
+         f"not all under its task span")
+  out = os.path.join(os.path.dirname(spec[len("fq://"):]), "journal_trace.json")
+  lines = run_cli(["fleet", "trace", task["trace"], "--journal", path, "-o", out])
+  print(f"journal (d): fleet trace {task['trace']}\n" + lines.rstrip(), flush=True)
+  # render_trace: "<offset>ms <two spaces a level><name> [...]"
+  rows = [l.split("ms ", 1)[1] for l in lines.splitlines() if "ms " in l]
+  level = lambda row: (len(row) - len(row.lstrip())) // 2
+  task_level = min(level(r) for r in rows if r.lstrip().startswith("task "))
+  if not any(level(r) > task_level for r in rows if r.lstrip().startswith("device.execute ")):
+    fail("journal (d): fleet trace prints no execute span under the task")
+  doc = json.load(open(out))
+  tracks = [e["args"]["name"] for e in doc["traceEvents"] if e["ph"] == "M"]
+  if f"device {card_label()}" not in tracks:
+    fail(f"journal (d): the Perfetto export has no device track ({tracks})")
+  # `fleet check` exits 2 where it finds anomalies: they are printed, not failed on
+  buf = io.StringIO()
+  with contextlib.redirect_stdout(buf):
+    rc = cli_main(["fleet", "check", "-q", spec, "--json"])
+  report_h = json.loads(buf.getvalue())
+  print(f"journal (d): fleet check exit {rc}, healthy {report_h['healthy']}, anomalies "
+        f"{json.dumps(report_h['anomalies'])}, stragglers "
+        f"{json.dumps(report_h['stragglers'])}, devices {json.dumps(report_h['devices'])}",
+        flush=True)
+  if rc not in (0, 2) or rc != (0 if report_h["healthy"] else 2):
+    fail(f"journal (d): fleet check exited {rc}")
+  # rollups against raw segments, in every count
+  raw = fleet.status(fleet.load(path))
+  compact = json.loads(run_cli(["fleet", "compact", "--journal", path, "--min-segments", "1"]))
+  eff = json.loads(run_cli(["fleet", "status", "--journal", path, "--json"]))
+  counts = lambda st: (st["tasks"], st["tasks_failed"], st["workers"], st["counters"],
+                       {k: v["count"] for k, v in st["stages"].items()})
+  if not compact["segments_compacted"] or counts(eff) != counts(raw):
+    fail(f"journal (d): status from rollups {counts(eff)} against raw {counts(raw)}")
+  gc = json.loads(run_cli(["fleet", "gc", "--journal", path, "--retain-sec", "0"]))
+  print(f"journal (d): fleet compact {json.dumps(compact)}, status from rollups equal to raw "
+        f"in every count ({eff['tasks']} tasks, {len(eff['stages'])} stages), fleet gc "
+        f"{json.dumps(gc)}, Perfetto export {len(doc['traceEvents'])} events, tracks "
+        f"{json.dumps(tracks)}", flush=True)
+
+
+def journal_phase(root, cp, cc, ce, torch, dev) -> tuple:
+  """Phase 17 (a)-(e) on phase 3's image. Returns (launches, wall)."""
+  import os
+
+  from igneous_tpu_torch.observability import trace
+  from igneous_tpu_torch.queues import FileQueue
+
+  t_phase = time.perf_counter()
+  mods = (cp, cc, ce)
+  launches = {k: 0 for m in mods for k in m.LAUNCHES}
+  name, _target, _n, _shape, mips = PIPELINED_RUNS[0]
+  # what the phases before recorded with no journal to take it: each
+  # thread's buffer holds up to trace.MAX_SPANS_PER_THREAD, then drops
+  print(f"journal: spans buffered with no journal before phase 17: "
+        f"{trace.pending_spans()} pending, {trace.dropped_spans()} dropped", flush=True)
+  span_us = trace_span_cost()
+
+  def run(label, args, env=()):
+    zero_counts(*mods)
+    ledger_reset(torch, dev)
+    trace.reset()  # this run's spans only
+    for k, v in env:
+      os.environ[k] = v
+    try:
+      spec, dst, q = journal_stream(root, label)
+      with FlushClock() as clock:
+        t0 = time.perf_counter()
+        run_cli(["execute", spec, *args, "-q", "--lease-sec", WORKER_LEASE_SEC])
+        wall = time.perf_counter() - t0
+    finally:
+      for k, _v in env:
+        os.environ.pop(k, None)
+    launched = launch_counts(*mods)
+    for k, v in launched.items():
+      launches[k] += v
+    snap = ledger_line(f"journal {label}", wall, launched)
+    stats = journal_stats(spec, JOURNAL_TASKS)
+    if q.completed != JOURNAL_TASKS or q.enqueued or q.leased:
+      fail(f"journal {label}: the queue tallied {q.completed} of {JOURNAL_TASKS}")
+    row = {"wall_s": round(wall, 4), "busy_pct": round(100 * snap["busy_s"] / wall, 2),
+           "flush_s": round(clock.seconds, 4), "flushes": clock.count, **stats,
+           "launches": launched}
+    print(f"journal {label}: {json.dumps(row)}", flush=True)
+    return spec, dst, q, row
+
+  # (a) the timed turns
+  rows, dsts = [], {}
+  for i, mode in enumerate(JOURNAL_TURNS):
+    env = (("IGNEOUS_TRACE_SAMPLE", "0"),) if mode == "untraced" else ()
+    spec, dsts[f"{mode}{i}"], q, row = run(f"{mode}{i}", ["--batch", JOURNAL_BATCH,
+                                                         "--metrics-port", 0, "-x"], env)
+    rows.append((mode, row))
+    if (mode == "traced") != bool(row["kinds"].get("span")):
+      fail(f"journal {mode}{i}: {row['kinds']} records")
+  walls = {m: [r["wall_s"] for mm, r in rows if mm == m] for m in ("traced", "untraced")}
+  print(f"journal (a): walls {json.dumps(walls)} s, trace span {span_us:.2f} us on the host "
+        f"({JOURNAL_SPANS} spans)", flush=True)
+
+  # (c) a profile requested before the solo run, which (d) reads
+  spec, dsts["solo"], q = journal_stream(root, "solo")
+  path = f"file://{spec[len('fq://'):]}/journal"
+  run_cli(["profile", "capture", "--journal", path, "--duration", PROFILE_SEC])
+  zero_counts(*mods)
+  ledger_reset(torch, dev)
+  trace.reset()
+  with FlushClock() as clock:
+    t0 = time.perf_counter()
+    try:
+      # --pipeline: each task's encodes and puts on the pool (and their
+      # spans under the task), joined before its lease is deleted
+      run_cli(["execute", spec, "-x", "-q", "--pipeline", "--lease-sec", WORKER_LEASE_SEC])
+    finally:
+      os.environ.pop("IGNEOUS_PIPELINE", None)  # --pipeline set it for spawned workers
+    wall = time.perf_counter() - t0
+  launched = launch_counts(*mods)
+  for k, v in launched.items():
+    launches[k] += v
+  if launched["pyramid2x2x1"] != JOURNAL_TASKS:
+    fail(f"journal solo: launches {launched}, expected {JOURNAL_TASKS} pyramid2x2x1")
+  print(f"journal solo: wall {wall:.3f} s (a {PROFILE_SEC:.0f} s capture inside it), "
+        f"flush {clock.seconds:.4f} s in {clock.count} flushes, "
+        f"{json.dumps(journal_stats(spec, JOURNAL_TASKS))}", flush=True)
+  n_prof = check_profile(path)
+  fleet_checks(spec, q)
+
+  # (b) the scrape
+  zero_counts(*mods)
+  spec, dsts["scraped"], q = journal_stream(root, "scraped")
+  metrics_scrape_run(root, spec, q)
+  for k, v in launch_counts(*mods).items():
+    launches[k] += v
+
+  # (e) the same tasks through LocalTaskQueue, no journal, and every layer alike
+  target = PIPELINED_RUNS[0][1]
+  ref = os.path.join(root, f"{name}_journal_local")
+  link_layer(os.path.join(root, name), ref)
+  zero_counts(*mods)
+  run_cli(["image", "downsample", f"file://{ref}", "--num-mips", mips, "--memory", target,
+           "--xrange", JOURNAL_XRANGE])
+  for k, v in launch_counts(*mods).items():
+    launches[k] += v
+  if os.path.exists(os.path.join(ref, "journal")):
+    fail("journal (e): LocalTaskQueue wrote a journal")
+  n = 0
+  for label, dst in dsts.items():
+    n = mip_files_equal(ref, dst, mips)
+  print(f"journal (e): the {len(dsts)} journaled runs' layers ({', '.join(dsts)}) each "
+        f"{n} chunk files of mips 1-{mips}, byte for byte the LocalTaskQueue run's; "
+        f"{n_prof} profiled pyramid2x2x1 kernels", flush=True)
+  wall = time.perf_counter() - t_phase
+  print(f"journal: phase wall (a)-(e) {wall:.1f} s, launches {json.dumps(launches)}",
+        flush=True)
+  return launches, wall
+
+
+def journal_skeleton_phase(root, ce, cp, cc) -> tuple:
+  """Phase 17 (a), its skeleton group: phase 11's sharded skeleton forge of
+  phase 15's tube crop (2 tasks) through `execute --batch 2`, journaled
+  (one group, three edt_pass launches), its .frags phase 15's byte for
+  byte. Returns (edt_pass launches, the wall)."""
+  from igneous_tpu_torch.queues import FileQueue
+  from igneous_tpu_torch.task_creation import create_skeletonizing_tasks
+
+  t0 = time.perf_counter()
+  path = f"file://{root}/frags_skeletons"
+  spec = f"fq://{root}/queue_skeleton_journal"
+  tasks = list(create_skeletonizing_tasks(path, shape=FRAGS_SKEL_TASK, sharded=True,
+                                          skel_dir="skeletons_journal",
+                                          parallel=SKEL_TRACE_THREADS))
+  FileQueue(spec).insert_batch(tasks, total=len(tasks))
+  zero_counts(cp, cc, ce)
+  with FlushClock() as clock:
+    t1 = time.perf_counter()
+    run_cli(["execute", spec, "--batch", 2, "-x", "-q", "--lease-sec", WORKER_LEASE_SEC])
+    wall = time.perf_counter() - t1
+  launched = launch_counts(cp, cc, ce)
+  frags = same_files(f"{root}/frags_skeletons/{FRAGS_SKEL_DIR}",
+                     f"{root}/frags_skeletons/skeletons_journal",
+                     keep=lambda n: n.endswith(".frags"))
+  stats = journal_stats(spec, len(tasks))
+  print(f"journal skeleton: {len(tasks)} tasks, wall {wall:.3f} s, flush "
+        f"{clock.seconds:.4f} s in {clock.count} flushes, {json.dumps(stats)}, launches "
+        f"{json.dumps(launched)}, {frags} .frags containers equal to phase 15's", flush=True)
+  if launched["edt_pass"] != 3 or frags != 2 or not stats["kinds"].get("device"):
+    fail(f"journal skeleton: launches {launched}, {frags} .frags, {stats['kinds']}")
+  return launched["edt_pass"], time.perf_counter() - t0
+
+
 def main() -> int:
   import argparse
   import os
@@ -5620,6 +6089,8 @@ def main() -> int:
     t_surface = time.perf_counter()
     surface_launches = surface_phase(root, cp, cc, ce, cl, clahe_ops, torch, dev)
     t_surface = time.perf_counter() - t_surface
+    # phase 17 on phase 3's image (its skeleton group runs in phase 6's root)
+    journal_launches, t_journal = journal_phase(root, cp, cc, ce, torch, dev)
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches["tile_resolve"] = ccl_e2e_phase(root, cc, cp, torch, dev)
     t_phase = time.perf_counter()
@@ -5664,7 +6135,13 @@ def main() -> int:
     launched, t_phase = xsection_phase(root, ce, cp, cc, cl, torch, dev)
     graphene_edt += launched
     t_graphene += t_phase
+    launched, t_phase = journal_skeleton_phase(root, ce, cp, cc)
+    journal_launches["edt_pass"] += launched
+    t_journal += t_phase
   print(f"frags: phase wall {t_frags:.1f} s", flush=True)
+  print(f"journal: phase wall {t_journal:.1f} s", flush=True)
+  if not journal_launches["pyramid2x2x1"] or not journal_launches["edt_pass"]:
+    fail(f"journal: launches {journal_launches}: pyramid2x2x1 and edt_pass must launch")
   print(f"graphene: phase wall {t_graphene:.1f} s", flush=True)
   print(f"batched: phase wall {t_batched:.1f} s", flush=True)
   print(f"worker: phase wall {t_worker:.1f} s", flush=True)
@@ -5697,6 +6174,7 @@ def main() -> int:
       "launches_sharded": sharded_launches[name],
       "launches_surface": surface_launches[name],
       "launches_graphene": graphene_pyramid if name == "pyramid2x2x1" else 0,
+      "launches_journal": journal_launches[name],
       "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == name),
       "ms": first["ms"], "plain_ms": first["plain_ms"],
       "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -5711,6 +6189,7 @@ def main() -> int:
     "launches_batched": batched_launches["tile_resolve"],
     "launches_worker": worker_launches["tile_resolve"],
     "launches_surface": surface_launches["tile_resolve"],
+    "launches_journal": journal_launches["tile_resolve"],
     "max_abs_err": max(c["max_abs_err"] for c in ccl_cases),
     "ms": first["ms"], "plain_ms": first["plain_ms"],
     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -5725,6 +6204,7 @@ def main() -> int:
     "launches_worker": worker_launches["edt_pass"],
     "launches_frags": frags_launches,
     "launches_graphene": graphene_edt,
+    "launches_journal": journal_launches["edt_pass"],
     "max_abs_err": max(c["max_abs_err"] for c in edt_cases),
     "ms": first["ms"], "plain_ms": first["plain_ms"],
     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

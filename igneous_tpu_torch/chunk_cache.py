@@ -82,11 +82,11 @@ class ChunkDecodeCache:
     with self._lock:
       arr = self._entries.get(key)
       if arr is None:
-        telemetry.add("chunk_cache.misses", 1)
+        telemetry.incr("chunk_cache.misses", 1)
         return None
       self._entries.move_to_end(key)
-    telemetry.add("chunk_cache.hits", 1)
-    telemetry.add("chunk_cache.bytes_saved", int(arr.nbytes))
+    telemetry.incr("chunk_cache.hits", 1)
+    telemetry.incr("chunk_cache.bytes_saved", int(arr.nbytes))
     return arr
 
   def put(self, key: tuple, arr: np.ndarray) -> np.ndarray:
@@ -117,7 +117,7 @@ class ChunkDecodeCache:
       layer.discard(old_key)
       if not layer:
         self._by_layer.pop((old_key[0], old_key[1]), None)
-    telemetry.add("chunk_cache.evicted", 1)
+    telemetry.incr("chunk_cache.evicted", 1)
 
   def invalidate(self, path: str, mip: Optional[int] = None) -> int:
     """Drop every entry of (path, mip), or of every mip when ``mip`` is
@@ -136,7 +136,7 @@ class ChunkDecodeCache:
             self._bytes -= int(arr.nbytes)
             dropped += 1
     if dropped:
-      telemetry.add("chunk_cache.invalidated", dropped)
+      telemetry.incr("chunk_cache.invalidated", dropped)
     return dropped
 
   def clear(self) -> None:
@@ -186,7 +186,7 @@ def _notify_hooks(path: str, mip: Optional[int]) -> None:
     try:
       fn(path, mip)
     except Exception:  # noqa: BLE001 - counted, by the hook contract
-      telemetry.add("chunk_cache.hook_failed", 1)
+      telemetry.incr("chunk_cache.hook_failed", 1)
 
 
 def shared_cache() -> ChunkDecodeCache:

@@ -12,6 +12,8 @@ spatial-index {create,db}}``,
 ``python -m igneous_tpu_torch execute``, ``python -m igneous_tpu_torch
 queue {status,wait,release,purge,rezero,fsck,cp,mv,dlq {ls,retry,purge}}``,
 ``python -m igneous_tpu_torch audit``, ``python -m igneous_tpu_torch
+fleet {status,trace,top,devices,compact,gc,check,watch}``, ``python -m
+igneous_tpu_torch profile {capture,ls}``, ``python -m igneous_tpu_torch
 design {ds-memory,ds-shape,bounds}``, ``python -m igneous_tpu_torch
 license`` and ``python -m igneous_tpu_torch tune``.
 
@@ -20,9 +22,12 @@ downsample|xfer|infer|rm|roi|reorder|create``, ``igneous-tpu image
 contrast``, ``igneous-tpu image voxels count|sum``, ``igneous-tpu image
 ccl``, ``igneous-tpu mesh``, ``igneous-tpu skeleton``,
 ``igneous-tpu execute``, ``igneous-tpu queue``, ``igneous-tpu audit``,
-``igneous-tpu design``, ``igneous-tpu license`` and ``igneous-tpu tune``
+``igneous-tpu fleet``, ``igneous-tpu profile``, ``igneous-tpu design``, ``igneous-tpu license`` and ``igneous-tpu tune``
 (``igneous_tpu/cli.py``), with the same option
-names; an option the port does not have is refused by the parser. A
+names, output lines and exit codes (where the JAX CLI raises a usage
+error the port exits 2, where it raises any other error it prints
+``Error: ...`` and exits 1); an option the port does not have is
+refused by the parser. A
 command that
 makes tasks runs them in a ``LocalTaskQueue`` on the port's device (cuda;
 ``IGNEOUS_TORCH_DEVICE=cpu`` asks for the CPU), or, with ``--queue
@@ -192,6 +197,12 @@ def build_parser() -> argparse.ArgumentParser:
   groups.add_parser("license", help="Print the license.")
   _add_audit(groups.add_parser(
     "audit", help="Verify a campaign's outputs: presence, decode, manifest digests."))
+  _add_fleet(groups.add_parser(
+    "fleet", help="Fleet observability: merge worker journal segments.").add_subparsers(
+      dest="command", required=True))
+  _add_profile(groups.add_parser(
+    "profile", help="On-demand torch.profiler capture across the fleet.").add_subparsers(
+      dest="command", required=True))
   return parser
 
 
@@ -283,6 +294,14 @@ def _add_execute(cmd) -> None:
                    help="Thread each task's chunk encodes and uploads (joined "
                         "before every lease delete) [default: $IGNEOUS_PIPELINE].")
   cmd.add_argument("--no-pipeline", dest="pipeline", action="store_false")
+  cmd.add_argument("--metrics-port", type=int, default=None,
+                   help="Serve Prometheus text metrics on this port (/metrics; "
+                        "0 picks a free port) [default: $IGNEOUS_METRICS_PORT; "
+                        "unset disables].")
+  cmd.add_argument("--journal", dest="journal_path", default=None,
+                   help="Where to append fleet journal segments [default: "
+                        "$IGNEOUS_JOURNAL, else <queue>/journal/ for fq:// "
+                        "queues].")
 
 
 def _run_execute(parser, args) -> int:
@@ -304,6 +323,12 @@ def _run_execute(parser, args) -> int:
   if args.pipeline is not None:
     # the environment, so that spawned workers inherit the choice
     os.environ["IGNEOUS_PIPELINE"] = "1" if args.pipeline else "off"
+  if args.journal_path is not None:
+    secrets.set_env("IGNEOUS_JOURNAL", args.journal_path)  # children too
+  if args.metrics_port is not None:
+    # several workers each need a port of their own: 0 lets the OS pick
+    secrets.set_env("IGNEOUS_METRICS_PORT",
+                    0 if args.parallel > 1 else args.metrics_port)
   worker_args = (
     queue_spec, lease_sec, args.num_tasks, args.exit_on_empty, args.min_sec,
     args.timing, args.quiet, args.batch_size, args.max_deliveries,
@@ -364,12 +389,30 @@ def _execute_worker(queue_spec, lease_sec, num_tasks, exit_on_empty, min_sec,
   from .queues import TaskQueue
 
   import igneous_tpu_torch.tasks  # noqa: F401  (registers the port's tasks)
+  from .observability import device as device_mod
+  from .observability import journal as journal_mod
+  from .observability import metrics, prom
 
   flag = lifecycle.StopFlag()
   restore = lifecycle.install_signal_handlers(flag)
   watcher = lifecycle.PreemptionWatcher(flag, sentinel=drain_sentinel)
   watcher.start()
   tq = TaskQueue(queue_spec, max_deliveries=max_deliveries)
+
+  # the journal (fq:// queues: <queue>/journal by default), the device
+  # ledger's records and the profiler trigger on its flush cadence, and a
+  # last will so even a crashing worker leaves its counters and last
+  # span batch behind
+  jpath = journal_mod.journal_path_for(tq, queue_spec)
+  if jpath:
+    journal_mod.set_active(journal_mod.Journal(jpath))
+    device_mod.install()
+  journal_mod.install_last_will({"queue": queue_spec})
+  # the liveness gauge: present while this process answers scrapes
+  metrics.gauge_set("worker.up", 1.0)
+  bound_port = prom.start_http_server()
+  if bound_port is not None and not quiet:
+    print(f"metrics: http://0.0.0.0:{bound_port}/metrics", flush=True)
   start = time.time()
 
   def drained() -> bool:
@@ -430,6 +473,12 @@ def _execute_worker(queue_spec, lease_sec, num_tasks, exit_on_empty, min_sec,
       )
       if not quiet:
         print(f"executed {executed} tasks", flush=True)
+  except BaseException:
+    # a crashing worker: the counters line and the journal batch land
+    # now, under the real event's name
+    journal_mod.fire_last_will("crash", {"queue": queue_spec})
+    _end_worker_run()
+    raise
   finally:
     # an audit must find the digests of everything this worker stored
     from . import integrity
@@ -437,15 +486,37 @@ def _execute_worker(queue_spec, lease_sec, num_tasks, exit_on_empty, min_sec,
     integrity.flush_all(swallow=True)
     watcher.stop()
     restore()
-  if flag.is_set():
-    print(f"drained ({flag.reason}) after {executed} tasks", flush=True)
-    return lifecycle.EXIT_PREEMPTED
-  return 0
+  try:
+    if flag.is_set():
+      print(f"drained ({flag.reason}) after {executed} tasks", flush=True)
+      journal_mod.fire_last_will("drain", {"reason": flag.reason, "executed": executed})
+      return lifecycle.EXIT_PREEMPTED
+    # a clean exit: the journal's last segment lands, no counters line
+    journal_mod.disarm_last_will()
+    return 0
+  finally:
+    _end_worker_run()
+
+
+def _end_worker_run() -> None:
+  """The journal and the /metrics server live as long as one worker run:
+  a process that runs the worker loop again (or runs anything else after
+  it) writes nothing more into that run's journal."""
+  from .observability import journal as journal_mod
+  from .observability import prom
+
+  journal_mod.set_active(None)
+  prom.stop_http_server()
 
 
 def _add_queue(queue) -> None:
   cmd = queue.add_parser("status", help="Counts of a queue.")
   cmd.add_argument("queue_spec")
+  cmd.add_argument("--eta", action="store_true",
+                   help="Sample throughput and estimate ETA.")
+  cmd.add_argument("--sample-sec", type=float, default=10.0,
+                   help="Live-sampling window for --eta; skipped entirely when "
+                        "journal segments provide the throughput.")
   cmd = queue.add_parser("wait", help="Block until the queue is empty.")
   cmd.add_argument("queue_spec")
   cmd.add_argument("--interval", "--rate", dest="interval", type=float, default=5.0,
@@ -518,6 +589,16 @@ def _run_queue(parser, args) -> int:
       ages = tq.lease_ages()
       if ages:
         print(f"lease_expiry_sec (min/max): {ages[0]:.0f}/{ages[-1]:.0f}")
+    if args.eta:
+      from .observability import journal as journal_mod
+      from .telemetry import queue_eta
+
+      # the journal's throughput where the fleet left segments (no
+      # sampling sleep); two live samples otherwise
+      stats = queue_eta(tq, sample_seconds=args.sample_sec,
+                        journal_path=journal_mod.journal_path_for(tq, args.queue_spec))
+      print(f"tasks/sec: {stats['tasks_per_sec']} ({stats['source']})")
+      print(f"eta_sec: {stats['eta_sec']}")
   elif cmd == "wait":
     deadline = None if args.timeout is None else time.monotonic() + args.timeout
     while not tq.is_empty():
@@ -553,6 +634,342 @@ def _run_queue(parser, args) -> int:
     else:
       print(f"purged {tq.dlq_purge()} tasks")
   return 0
+
+
+class _CommandError(Exception):
+  """A failure the JAX CLI reports as ``Error: ...`` with exit code 1."""
+
+
+def _journal_opts(cmd) -> None:
+  cmd.add_argument("--journal", dest="journal_path", default=None,
+                   help="Journal path override [default: $IGNEOUS_JOURNAL or "
+                        "<queue>/journal/].")
+  cmd.add_argument("--queue", "-q", dest="queue_spec", default=None,
+                   help="Queue whose journal/ sidecar to read [default: $QUEUE_URL].")
+
+
+def _health_opts(cmd) -> None:
+  cmd.add_argument("--window-sec", type=float, default=None,
+                   help="Analysis window [default: $IGNEOUS_HEALTH_WINDOW_SEC or 600].")
+  cmd.add_argument("--stall-sec", type=float, default=None,
+                   help="Flag a worker whose journal went silent this long with "
+                        "backlog remaining [default: $IGNEOUS_HEALTH_STALL_SEC or 120].")
+  cmd.add_argument("--straggler-ratio", type=float, default=None,
+                   help="Flag a worker at p95 >= ratio x fleet median "
+                        "[default: $IGNEOUS_HEALTH_STRAGGLER_RATIO or 3].")
+  cmd.add_argument("--horizon-sec", type=float, default=None,
+                   help="Autoscaler target: drain the backlog within this many "
+                        "seconds [default: $IGNEOUS_AUTOSCALE_HORIZON_SEC or 600].")
+
+
+def _add_fleet(fleet) -> None:
+  cmd = fleet.add_parser("status", help="Per-stage fleet aggregates.")
+  _journal_opts(cmd)
+  cmd.add_argument("--json", dest="as_json", action="store_true", help="Machine-readable.")
+  cmd = fleet.add_parser("trace", help="One task's merged lineage.")
+  cmd.add_argument("trace_id")
+  _journal_opts(cmd)
+  cmd.add_argument("-o", "--out", dest="out_path", default=None,
+                   help="Also write a Perfetto/Chrome trace JSON here.")
+  cmd = fleet.add_parser("top", help="Slowest task executions by trace.")
+  _journal_opts(cmd)
+  cmd.add_argument("-n", dest="top_n", type=int, default=10)
+  cmd = fleet.add_parser("devices", help="Merged per-device utilization table.")
+  _journal_opts(cmd)
+  cmd.add_argument("--json", dest="as_json", action="store_true", help="Machine-readable.")
+  cmd = fleet.add_parser("compact", help="Fold raw journal segments into windowed rollups.")
+  _journal_opts(cmd)
+  cmd.add_argument("--window-sec", dest="window", type=float, default=None,
+                   help="Rollup window width [default: $IGNEOUS_ROLLUP_WINDOW_SEC or 60].")
+  cmd.add_argument("--min-segments", type=int, default=2,
+                   help="Skip when fewer uncovered raw segments exist.")
+  cmd = fleet.add_parser("gc", help="Delete raw journal segments already folded into rollups.")
+  _journal_opts(cmd)
+  cmd.add_argument("--retain-sec", type=float, default=None,
+                   help="Keep covered raw segments at least this long "
+                        "[default: $IGNEOUS_JOURNAL_RETAIN or 3600].")
+  cmd = fleet.add_parser("check", help="One health evaluation; exit 2 when unhealthy.")
+  _journal_opts(cmd)
+  _health_opts(cmd)
+  cmd.add_argument("--json", dest="as_json", action="store_true", help="Machine-readable.")
+  cmd.add_argument("--out", dest="out_path", default=None,
+                   help="Also write the full report JSON here.")
+  cmd.add_argument("--emit-events", dest="emit_events", action="store_true", default=True,
+                   help="Append structured health.* events to the journal (default).")
+  cmd.add_argument("--no-emit-events", dest="emit_events", action="store_false")
+  cmd.add_argument("--flags", dest="write_flags", action="store_true", default=True,
+                   help="Publish <journal>/health/flags.json (default).")
+  cmd.add_argument("--no-flags", dest="write_flags", action="store_false")
+  cmd.add_argument("--textfile", default=None,
+                   help="Write the Prometheus textfile here "
+                        "[default: $IGNEOUS_METRICS_TEXTFILE].")
+  cmd = fleet.add_parser("watch", help="Live fleet dashboard over the journal.")
+  _journal_opts(cmd)
+  _health_opts(cmd)
+  cmd.add_argument("--interval", type=float, default=5.0, help="Seconds between refreshes.")
+  cmd.add_argument("--iterations", type=int, default=None,
+                   help="Render N frames then exit [default: until Ctrl-C].")
+  cmd.add_argument("--no-clear", action="store_true",
+                   help="Append frames instead of redrawing in place.")
+  cmd.add_argument("--once", action="store_true", help="Render exactly one frame and exit.")
+  cmd.add_argument("--json", dest="as_json", action="store_true",
+                   help="Emit each frame as one JSON object.")
+
+
+def _journal_location(parser, queue_spec, journal_path) -> str:
+  from . import secrets
+  from .observability import journal as journal_mod
+  from .queues import TaskQueue
+
+  path = journal_path or secrets.get_str("IGNEOUS_JOURNAL")
+  if path is None and queue_spec:
+    path = journal_mod.journal_path_for(TaskQueue(queue_spec), queue_spec)
+  if not path:
+    parser.error("no journal location: pass --journal, set $IGNEOUS_JOURNAL, or give "
+                 "an fq:// queue spec (whose journal/ sidecar is implied)")
+  return path
+
+
+def _fleet_records(parser, queue_spec, journal_path, effective=True):
+  """Rollups and uncovered raw segments (``effective``), or every raw
+  segment (``fleet trace`` needs the per-span detail)."""
+  from .observability import fleet
+
+  path = _journal_location(parser, queue_spec, journal_path)
+  records = fleet.load_effective(path) if effective else fleet.load(path)
+  if not records:
+    raise _CommandError(f"no journal segments under {path}")
+  return records
+
+
+def _queue_depth_stats(parser, queue_spec):
+  if not queue_spec:
+    return None
+  from .queues import TaskQueue
+
+  try:
+    tq = TaskQueue(queue_spec)
+  except Exception as e:
+    parser.error(f"cannot open queue {queue_spec}: {e}")
+  if hasattr(tq, "depth_snapshot"):
+    return tq.depth_snapshot()
+  return {"backlog": getattr(tq, "backlog", None) or tq.enqueued}
+
+
+def _evaluate_health(parser, args, queue_spec):
+  from .observability import fleet, health
+
+  path = _journal_location(parser, queue_spec, args.journal_path)
+  records = fleet.load_effective(path)
+  if not records:
+    raise _CommandError(f"no journal segments under {path}")
+  cfg = health.HealthConfig.from_env(
+    window_sec=args.window_sec, stall_sec=args.stall_sec,
+    straggler_ratio=args.straggler_ratio, horizon_sec=args.horizon_sec,
+  )
+  queue_stats = _queue_depth_stats(parser, queue_spec)
+  return path, health.HealthEngine(cfg).evaluate(records, queue_stats), queue_stats
+
+
+def _run_fleet(parser, args) -> int:
+  """``fleet status|trace|top|devices|compact|gc|check|watch``, printing
+  what ``igneous-tpu fleet`` prints."""
+  import sys
+
+  try:
+    return _fleet_command(parser, args)
+  except _CommandError as e:
+    print(f"Error: {e}", file=sys.stderr)
+    return 1
+
+
+def _fleet_command(parser, args) -> int:
+  import json
+  import sys
+  import time
+
+  from . import secrets
+  from .observability import device as device_mod
+  from .observability import fleet, health, perfetto, prom, rollup
+  from .observability import journal as journal_mod
+
+  queue_spec = args.queue_spec or secrets.queue_url()
+  cmd = args.command
+  if cmd == "status":
+    st = fleet.status(_fleet_records(parser, queue_spec, args.journal_path))
+    if args.as_json:
+      print(json.dumps(st, indent=2))
+      return 0
+    print(f"workers: {len(st['workers'])} ({', '.join(st['workers'])})")
+    print(f"window: {st['window_sec']}s")
+    print(f"tasks: {st['tasks']} ({st['tasks_failed']} failed spans, "
+          f"{st['tasks_failed_counter']} failure counters)")
+    if st["tasks_per_sec"] is not None:
+      print(f"tasks/sec: {st['tasks_per_sec']}")
+    if st["stall_ratio"] is not None:
+      print(f"stall ratio: {st['stall_ratio']}")
+    print(f"zombie fences: {st['zombie_fences']}  dlq promoted: {st['dlq_promoted']}")
+    surv = {k: v for k, v in st["counters"].items()
+            if k.startswith(("speculation.", "steal."))}
+    if surv:
+      print("campaign survival: " + "  ".join(
+        f"{k.split('.', 1)[1] if k.startswith('speculation.') else k} {v}"
+        for k, v in sorted(surv.items())))
+    print("stage                                count   total_s  p50_ms   p95_ms")
+    for name, v in st["stages"].items():
+      print(f"{name:<36} {v['count']:>6} {v['total_s']:>9} "
+            f"{v['p50_ms']:>8} {v['p95_ms']:>8}")
+    return 0
+  if cmd == "trace":
+    records = _fleet_records(parser, queue_spec, args.journal_path, effective=False)
+    spans = fleet.trace_records(records, args.trace_id)
+    if not spans:
+      raise _CommandError(f"no spans recorded for trace {args.trace_id}")
+    for line in fleet.render_trace(spans):
+      print(line)
+    if args.out_path:
+      n = perfetto.dump(records, args.out_path, trace_id=args.trace_id)
+      print(f"wrote {n} events to {args.out_path}")
+    return 0
+  if cmd == "top":
+    rows = fleet.slowest_tasks(
+      _fleet_records(parser, queue_spec, args.journal_path), n=args.top_n)
+    if not rows:
+      raise _CommandError("no task spans in the journal")
+    print("dur_s     task                       attempt  trace_id")
+    for r in rows:
+      err = f"  ERROR={r['error']}" if r.get("error") else ""
+      print(f"{r['dur_s']:>8.3f}  {r['task']:<25} {str(r['attempt'] or '-'):>7}"
+            f"  {r['trace_id']}  @{r['worker']}{err}")
+    return 0
+  if cmd == "devices":
+    ledgers = device_mod.device_ledgers(
+      _fleet_records(parser, queue_spec, args.journal_path))
+    if args.as_json:
+      print(device_mod.report_json(ledgers))
+      return 0
+    for line in device_mod.render_devices(ledgers):
+      print(line)
+    return 0
+  if cmd == "compact":
+    path = _journal_location(parser, queue_spec, args.journal_path)
+    print(json.dumps(rollup.compact(path, window=args.window,
+                                    min_segments=args.min_segments)))
+    return 0
+  if cmd == "gc":
+    path = _journal_location(parser, queue_spec, args.journal_path)
+    print(json.dumps(rollup.gc(path, retain=args.retain_sec)))
+    return 0
+  if cmd == "check":
+    path, report, _ = _evaluate_health(parser, args, queue_spec)
+    health.publish_gauges(report)
+    if args.textfile or secrets.get_str("IGNEOUS_METRICS_TEXTFILE"):
+      prom.write_textfile(args.textfile)
+    if args.emit_events:
+      health.emit_events(
+        report, journal_mod.Journal(path, worker_id=health.default_checker_id()))
+    if args.write_flags:
+      health.write_flags(path, report)
+    if args.out_path:
+      with open(args.out_path, "w") as f:
+        f.write(health.report_json(report))
+    if args.as_json:
+      print(health.report_json(report))
+    else:
+      for line in health.check_lines(report):
+        print(line)
+    return 0 if report["healthy"] else 2
+  # watch
+  iterations = 1 if args.once else args.iterations
+  n = 0
+  while True:
+    report = queue_stats = None
+    try:
+      _path, report, queue_stats = _evaluate_health(parser, args, queue_spec)
+      lines = health.render_dashboard(report, queue_stats)
+    except _CommandError as e:
+      lines = [f"fleet watch: {e} (waiting...)"]
+    if args.as_json:
+      print(json.dumps({
+        "report": report, "queue": queue_stats,
+        "error": None if report is not None else lines[0],
+      }))
+    else:
+      if not args.no_clear:
+        sys.stdout.write("\x1b[2J\x1b[H")
+      for line in lines:
+        print(line)
+    sys.stdout.flush()
+    n += 1
+    if iterations is not None and n >= iterations:
+      return 0
+    time.sleep(max(args.interval, 0.0))
+
+
+def _add_profile(profile) -> None:
+  cmd = profile.add_parser("capture", help="Trigger a bounded profiler capture on "
+                                           "fleet workers.")
+  _journal_opts(cmd)
+  cmd.add_argument("--duration", type=float, default=5.0,
+                   help="Seconds of device activity to capture.")
+  cmd.add_argument("--worker", dest="workers", action="append", default=[],
+                   help="Restrict the trigger to these worker ids "
+                        "[default: every worker captures once].")
+  cmd.add_argument("--wait", type=float, default=0.0,
+                   help="Poll up to this many seconds for artifacts to land "
+                        "before returning (0 = fire and forget).")
+  cmd.add_argument("--local", action="store_true",
+                   help="Capture in THIS process instead of publishing a worker "
+                        "trigger.")
+  _journal_opts(profile.add_parser(
+    "ls", help="List captured profile artifacts under <journal>/profiles/."))
+
+
+def _run_profile(parser, args) -> int:
+  """``profile capture|ls``: the request file workers poll on their
+  journal cadence, and the Chrome traces they upload."""
+  import os
+  import sys
+  import time
+
+  from . import secrets
+  from .observability import device as device_mod
+  from .observability import journal as journal_mod
+
+  path = _journal_location(parser, args.queue_spec or secrets.queue_url(),
+                           args.journal_path)
+  if args.command == "ls":
+    keys = device_mod.list_profiles(path)
+    if not keys:
+      print("no profile artifacts")
+    for key in keys:
+      print(key)
+    return 0
+  if args.local:
+    j = journal_mod.Journal(path, worker_id=f"profile-cli-{os.getpid()}")
+    device_mod._capture_blocking(args.duration, j, "manual", None)
+    for key in device_mod.list_profiles(path):
+      print(key)
+    return 0
+  req = device_mod.write_profile_request(
+    path, duration_sec=args.duration, workers=args.workers or None)
+  print(f"published capture request {req['id']} ({args.duration}s) at "
+        f"{path}/{device_mod.PROFILE_REQUEST_KEY}")
+  if args.wait <= 0:
+    return 0
+  deadline = time.monotonic() + args.wait
+  prefix = device_mod.PROFILE_ARTIFACT_PREFIX
+  while time.monotonic() < deadline:
+    found = [k for k in device_mod.list_profiles(path) if req["id"] in k]
+    if found:
+      print(f"{len(found)} artifact file(s):")
+      for key in found:
+        print(f"  {prefix}{key}" if not key.startswith(prefix) else f"  {key}")
+      return 0
+    time.sleep(1.0)
+  print(f"Error: no artifacts for request {req['id']} within {args.wait}s (are "
+        "workers running with a journal?)", file=sys.stderr)
+  return 1
 
 
 def _add_audit(cmd) -> None:
@@ -1711,6 +2128,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     return _run_queue(parser, args)
   if args.group == "audit":
     return _run_audit(args)
+  if args.group == "fleet":
+    return _run_fleet(parser, args)
+  if args.group == "profile":
+    return _run_profile(parser, args)
   if args.group == "mesh":
     return _run_mesh(args)
   if args.group == "skeleton":

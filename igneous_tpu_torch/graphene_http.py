@@ -80,7 +80,7 @@ def _auth_request(method: str, url: str, data=None, extra_headers=None):
   on 401/403 — so a worker whose secret was rotated (or provisioned late)
   recovers without a restart."""
   headers = dict(extra_headers or {})
-  telemetry.add("graphene.requests", 1)
+  telemetry.incr("graphene.requests", 1)
   # unified retry schedule (retry.RetryPolicy): transient 5xx/connection
   # faults back off the same way the storage backends do
   policy = default_policy()

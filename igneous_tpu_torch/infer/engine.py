@@ -198,7 +198,7 @@ def infer_cutout(
     "dispatches": dispatches,
   }
   for name, n in stats.items():
-    telemetry.add(f"infer.{name}", n)
+    telemetry.incr(f"infer.{name}", n)
   return acc, stats
 
 

@@ -92,7 +92,7 @@ class ManifestRecorder:
     dig = digest_hex(payload)
     rec = {"key": stored_key, "digest": dig, "n": len(payload),
            "ts": round(time.time(), 6)}
-    telemetry.add("integrity.records", 1)
+    telemetry.incr("integrity.records", 1)
     flush_now = None
     cloudpath = cloudpath.rstrip("/")
     with self._lock:
@@ -136,7 +136,7 @@ class ManifestRecorder:
         name = f"{INTEGRITY_PREFIX}/manifests/{top}/seg_w{os.getpid()}_{seq:06d}.jsonl"
         body = "".join(json.dumps(r, sort_keys=True) + "\n" for r in recs)
         cf.put(name, body.encode("utf8"), compress=None)
-        telemetry.add("integrity.manifest_segments", 1)
+        telemetry.incr("integrity.manifest_segments", 1)
     except Exception:
       if not swallow:
         raise
@@ -164,7 +164,7 @@ def record_put(cloudpath: str, stored_key: str, payload: bytes, backend=None):
   back = backend.get(stored_key)
   actual = digest_hex(back) if back is not None else None
   if actual != dig:
-    telemetry.add("integrity.verify_failed", 1)
+    telemetry.incr("integrity.verify_failed", 1)
     quarantine(cloudpath, stored_key, "verify-after-write mismatch")
     raise CorruptChunkError(
       cloudpath, stored_key, "verify-after-write mismatch", expected=dig, actual=actual,
@@ -222,7 +222,7 @@ def quarantine(cloudpath: str, key: str, reason: str):
     return
   from .storage import CloudFiles
 
-  telemetry.add("integrity.quarantined", 1)
+  telemetry.incr("integrity.quarantined", 1)
   with _QUARANTINE_LOCK:
     _QUARANTINE_SEQ += 1
     seq = _QUARANTINE_SEQ

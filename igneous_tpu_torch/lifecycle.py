@@ -12,8 +12,10 @@ The counterpart fencing, a worker presumed dead that wakes and tries to
 complete a task the queue re-issued, lives in the queue backends
 (delete/renew/nack refuse stale tokens with ``zombie.*`` counters).
 
-Not ported: the JAX package's journal flush and ``worker.draining`` gauge
-on ``StopFlag.set`` (the port has no journal or metrics endpoint yet).
+``StopFlag.set`` also marks the active journal dirty, so the poll loop's
+next flush writes the last span batch before the worker exits, and sets
+the ``worker.draining`` gauge that tells the health plane a draining
+worker from a stalled one.
 """
 
 from __future__ import annotations
@@ -42,6 +44,14 @@ class StopFlag:
       if self.reason is None:
         self.reason = reason
     self._event.set()
+    # signal-handler safe: only an event and a lock-free gauge write
+    try:
+      from .observability import journal, metrics
+
+      journal.request_flush()
+      metrics.gauge_set_async_safe("worker.draining", 1.0)
+    except Exception:
+      pass
 
   def is_set(self) -> bool:
     return self._event.is_set()

@@ -1,11 +1,15 @@
 """The device ledger: kernel spans, library builds, transfers, padding and
 memory of the port's device, for one process.
 
-The port's own copy of ``igneous_tpu/observability/device.py`` (its
-``DeviceLedger``, ``LEDGER``, ``reset`` and the span context managers),
-trimmed to what the port's paths record. The journal, Prometheus, fleet
-roll-ups, health anomalies and the profiler capture on request are not
-ported (ROADMAP.md).
+The port's own copy of ``igneous_tpu/observability/device.py``: the
+ledger and its span context managers, the ledger's ``{"kind": "device"}``
+journal records (``journal_records``, ``install``), the
+``igneous_device_*`` gauges (``publish_gauges``), the profiler capture on
+request (``profile capture``: ``write_profile_request``,
+``poll_profile_trigger``, ``start_capture``, ``list_profiles``) and every
+``IGNEOUS_PROFILE_EVERY``-th dispatch, and the fleet read side
+(``device_ledgers``, ``render_devices``, ``fleet_summary``,
+``report_json``), with the JAX package's names and record shapes.
 
 What differs on the card:
 
@@ -47,28 +51,56 @@ What differs on the card:
   ``note_signature`` still counts distinct (kernel, shapes, dtypes), so
   ``distinct_signatures`` shows shape churn as in the JAX package.
 * **Memory** comes from ``torch.cuda.memory_stats()`` (allocated bytes,
-  current and peak) and ``torch.cuda.mem_get_info()``'s total, for every
-  CUDA device the process has initialised, labelled ``cuda:N``; on the CPU
-  ``sample_hbm`` returns ``{}`` and sets no gauge.
+  current and peak) and ``torch.cuda.mem_get_info()``'s total (the limit
+  the health engine's HBM high-water reads), for every CUDA device the
+  process has initialised, labelled ``cuda:N``; on the CPU
+  ``sample_hbm`` returns ``{}`` and sets no gauge. The ledger record also
+  names each card (``kinds``: ``torch.cuda.get_device_name``), which
+  ``render_devices`` prints under its table.
+* **Trace spans come from the events.** A span opened under a sampled
+  task or stage context records a ``device.execute`` (``device.h2d``,
+  ``device.d2h``) span parented to that context, as the JAX package's
+  ``record_span`` does; outside a task it lands on the worker trace. On the
+  card the span is recorded when its event pair resolves, with the host's
+  wall time at launch as ``ts`` and the events' interval as ``dur``.
+* **A profile is a Chrome trace.** ``profile capture`` runs
+  ``torch.profiler`` (CPU and CUDA activity on the card, CPU alone
+  elsewhere) on a thread of its own for the requested seconds, and
+  uploads ``trace.json`` under ``<journal>/profiles/<worker>-<id>/``,
+  where the JAX package uploads an xplane.
 
-Counters and gauges go to ``igneous_tpu_torch.telemetry`` under the JAX
+Counters and gauges go to ``observability.metrics`` under the JAX
 package's names: ``device.recompiles``, ``device.execute.s``,
 ``device.compile.s``, ``device.h2d.s``, ``device.d2h.s``,
-``device.pad_waste_ratio``, ``device.fastpath.*``,
-``device.hbm.bytes_in_use|peak_bytes|bytes_limit`` and
-``device.compile_cache.hit|miss|put|corrupt|error``.
+``device.pad_waste_ratio``, ``device.fastpath.*``, ``device.busy_ratio``,
+``device.hbm.bytes_in_use|peak_bytes|bytes_limit``,
+``device.compile_cache.hit|miss|put|corrupt|error`` and
+``device.profile.*``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import threading
 import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
-from .. import telemetry
+from .. import secrets as knobs
+from . import metrics, trace
+
+PROFILE_DIR_ENV = "IGNEOUS_PROFILE_DIR"
+PROFILE_EVERY_ENV = "IGNEOUS_PROFILE_EVERY"
+PROFILE_REQUEST_KEY = "profile/request.json"
+PROFILE_ARTIFACT_PREFIX = "profiles/"
+# how often a worker re-reads <journal>/profile/request.json (one small
+# GET on the journal's maybe_flush cadence)
+PROFILE_POLL_SEC = 15.0
+# a capture request older than this is history, not a trigger
+PROFILE_REQUEST_TTL_SEC = 600.0
 
 # the compile-cache events and their counters
 _CACHE_COUNTER = {"hits": "hit", "misses": "miss", "puts": "put",
@@ -132,6 +164,11 @@ class DeviceLedger:
       self.pad_bytes = 0  # guarded-by: self.lock
       self.real_bytes = 0  # guarded-by: self.lock
       self.hbm: Dict[str, dict] = {}  # guarded-by: self.lock
+      # device label -> the card's name
+      self.kinds: Dict[str, str] = {}  # guarded-by: self.lock
+      # recorded since the last journal record? An idle worker must not
+      # write a segment every flush interval
+      self._dirty = False  # guarded-by: self.lock
     if torch.cuda.is_initialized():
       self._anchor(torch.cuda.current_device())
 
@@ -185,7 +222,8 @@ class DeviceLedger:
       cc["fetch_s"] += float(fetch_s)
       if kernel and event == "hits":
         self._kernel_locked(kernel)["cache_hits"] += 1
-    telemetry.add(f"device.compile_cache.{_CACHE_COUNTER[event]}", 1)
+      self._dirty = True
+    metrics.incr(f"device.compile_cache.{_CACHE_COUNTER[event]}")
 
   def record_compile(self, kernel: str, seconds: float) -> None:
     """One library build (an nvcc or g++ run) of ``seconds``."""
@@ -194,8 +232,9 @@ class DeviceLedger:
       k["compiles"] += 1
       k["compile_s"] += float(seconds)
       self.recompiles += 1
-    telemetry.add("device.recompiles", 1)
-    telemetry.observe("device.compile.s", float(seconds))
+      self._dirty = True
+    metrics.incr("device.recompiles")
+    metrics.observe_quiet("device.compile.s", float(seconds))
 
   def record_execute(self, kernel: str, seconds: float, elements: int = 0,
                      nbytes: int = 0, device: str = "cpu",
@@ -217,7 +256,8 @@ class DeviceLedger:
       k["bytes"] += int(nbytes)
       self.dispatches += int(bool(dispatch))
       self._add_interval_locked(device, *interval)
-    telemetry.observe("device.execute.s", seconds)
+      self._dirty = True
+    metrics.observe_quiet("device.execute.s", seconds)
 
   def record_transfer(self, direction: str, nbytes: int, seconds: float,
                       device: str = "cpu",
@@ -237,7 +277,8 @@ class DeviceLedger:
         self.d2h_bytes += int(nbytes)
         self.d2h_seconds += seconds
       self._add_interval_locked(device, *interval)
-    telemetry.observe(f"device.{direction}.s", seconds)
+      self._dirty = True
+    metrics.observe_quiet(f"device.{direction}.s", seconds)
 
   def record_fastpath(self, batched: int = 0, host: int = 0) -> None:
     """``batched`` deliveries rode a batched dispatch, ``host`` took the
@@ -245,13 +286,14 @@ class DeviceLedger:
     with self.lock:
       self.fastpath["batched"] += int(batched)
       self.fastpath["host"] += int(host)
+      self._dirty = True
       b, h = self.fastpath["batched"], self.fastpath["host"]
     if batched:
-      telemetry.add("device.fastpath.batched", int(batched))
+      metrics.incr("device.fastpath.batched", int(batched))
     if host:
-      telemetry.add("device.fastpath.host", int(host))
+      metrics.incr("device.fastpath.host", int(host))
     if b + h:
-      telemetry.gauge_set("device.fastpath_ratio", b / (b + h))
+      metrics.gauge_set("device.fastpath_ratio", b / (b + h))
 
   def record_pad_waste(self, padded_bytes: int = 0, real_bytes: int = 0) -> None:
     """``padded_bytes`` of filler (a dispatch group's fill, a page's slack)
@@ -259,9 +301,10 @@ class DeviceLedger:
     with self.lock:
       self.pad_bytes += int(padded_bytes)
       self.real_bytes += int(real_bytes)
+      self._dirty = True
       p, r = self.pad_bytes, self.real_bytes
     if r:
-      telemetry.gauge_set("device.pad_waste_ratio", p / r)
+      metrics.gauge_set("device.pad_waste_ratio", p / r)
 
   def sample_hbm(self) -> Dict[str, dict]:
     """Allocated bytes (current, peak) and the memory's size of every CUDA
@@ -269,10 +312,12 @@ class DeviceLedger:
     if not torch.cuda.is_initialized():
       return {}
     out = {}
+    kinds = {}
     for index in range(torch.cuda.device_count()):
       stats = torch.cuda.memory_stats(index)
       if not stats:
         continue
+      kinds[f"cuda:{index}"] = torch.cuda.get_device_name(index)
       out[f"cuda:{index}"] = {
         "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
         "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
@@ -280,15 +325,16 @@ class DeviceLedger:
       }
     if out:
       with self.lock:
+        self.kinds.update(kinds)
         for label, rec in out.items():
           prev = self.hbm.get(label) or {}
           rec["peak_bytes_in_use"] = max(rec["peak_bytes_in_use"],
                                          prev.get("peak_bytes_in_use", 0))
           self.hbm[label] = rec
       worst = max(out.values(), key=lambda r: r["peak_bytes_in_use"])
-      telemetry.gauge_set("device.hbm.bytes_in_use", worst["bytes_in_use"])
-      telemetry.gauge_max("device.hbm.peak_bytes", worst["peak_bytes_in_use"])
-      telemetry.gauge_set("device.hbm.bytes_limit", worst["bytes_limit"])
+      metrics.gauge_set("device.hbm.bytes_in_use", worst["bytes_in_use"])
+      metrics.gauge_max("device.hbm.peak_bytes", worst["peak_bytes_in_use"])
+      metrics.gauge_set("device.hbm.bytes_limit", worst["bytes_limit"])
     return out
 
   # -- CUDA event pairs -------------------------------------------------------
@@ -296,6 +342,7 @@ class DeviceLedger:
   def _queue(self, item) -> None:
     with self.lock:
       self._pending.append(item)
+      self._dirty = True
     self._resolve(wait=False)
 
   def _resolve(self, wait: bool) -> None:
@@ -306,7 +353,7 @@ class DeviceLedger:
         if not self._pending:
           return
         item = self._pending[0]
-      kind, name, label, start, end, elements, nbytes, top = item
+      kind, name, label, start, end, elements, nbytes, top, ident, ts = item
       # wait outside the lock: other threads go on recording spans
       if wait:
         end.synchronize()
@@ -323,6 +370,7 @@ class DeviceLedger:
         self.record_execute(name, e - s, elements, nbytes, label, (s, e), top)
       else:
         self.record_transfer(kind, nbytes, e - s, label, (s, e))
+      _trace_span(ident, kind, name, label, elements, nbytes, ts, e - s)
 
   # -- read side --------------------------------------------------------------
 
@@ -388,6 +436,8 @@ class DeviceLedger:
       }
       if self.hbm:
         snap["hbm"] = {dev: dict(rec) for dev, rec in self.hbm.items()}
+      if self.kinds:
+        snap["kinds"] = dict(self.kinds)
       return snap
 
 
@@ -398,8 +448,47 @@ _DEPTH = threading.local()
 
 
 def reset() -> None:
-  """A fresh ledger."""
+  """A fresh ledger and profiler trigger state."""
   LEDGER.reset()
+  _PROFILE_STATE.update(cache=(0.0, None), served=set(), active=False)
+
+
+def publish_gauges() -> None:
+  """Ledger → ``igneous_device_*`` gauges (rendered by prom.render):
+  the busy ratio and the memory watermarks sampled fresh; the dispatch
+  and recompile counters register as they are recorded."""
+  util = LEDGER.utilization()
+  if util is not None:
+    metrics.gauge_set("device.busy_ratio", util)
+  LEDGER.sample_hbm()
+
+
+# ---------------------------------------------------------------------------
+# trace spans of the ledger's spans
+
+
+def _trace_identity() -> Optional[Tuple[str, Optional[str]]]:
+  """(trace id, parent span id) a device span records under, or None:
+  the active sampled context's node; outside any task the worker trace,
+  as the JAX package's ``record_span`` places lease-round and driver
+  dispatches; an unsampled task keeps its verdict."""
+  ctx = trace.current()
+  if ctx is not None:
+    return (ctx.trace_id, ctx.span_id) if ctx.sampled else None
+  if trace.tracing_enabled():
+    return (trace.worker_trace_id(), None)
+  return None
+
+
+def _trace_span(ident, kind: str, name: str, label: str, elements: int,
+                nbytes: int, ts: float, dur: float) -> None:
+  if ident is None:
+    return
+  if kind == "execute":
+    attrs = dict(kernel=name, elements=int(elements), device=label, devices=1)
+  else:
+    attrs = dict(kernel=None, bytes=int(nbytes), device=label)
+  trace.record_at(f"device.{kind}", ts, dur, ident[0], parent=ident[1], **attrs)
 
 
 def _device(device) -> torch.device:
@@ -420,6 +509,8 @@ def _span(kind: str, name: str, device, elements: int, nbytes: int) -> Iterator[
     return
   if kind == "execute":
     _DEPTH.n = depth + 1
+  ident = _trace_identity()
+  ts = time.time()
   try:
     if dev.type != "cuda":
       t0 = time.perf_counter()
@@ -430,6 +521,7 @@ def _span(kind: str, name: str, device, elements: int, nbytes: int) -> Iterator[
         LEDGER.record_execute(name, e - s, elements, nbytes, _label(dev), (s, e), top)
       else:
         LEDGER.record_transfer(kind, nbytes, e - s, _label(dev), (s, e))
+      _trace_span(ident, kind, name, _label(dev), elements, nbytes, ts, e - s)
       return
     label = _label(dev)
     LEDGER._anchor(int(label.split(":")[1]))
@@ -439,10 +531,12 @@ def _span(kind: str, name: str, device, elements: int, nbytes: int) -> Iterator[
     start.record(stream)
     yield
     end.record(torch.cuda.current_stream(dev))
-    LEDGER._queue((kind, name, label, start, end, elements, nbytes, top))
+    LEDGER._queue((kind, name, label, start, end, elements, nbytes, top, ident, ts))
   finally:
     if kind == "execute":
       _DEPTH.n = depth
+      if top:
+        maybe_sample_profile()
 
 
 def execute_span(kernel: str, elements: int = 0, nbytes: int = 0, device=None,
@@ -466,13 +560,20 @@ def transfer_span(direction: str, nbytes: int, device=None):
 
 @contextlib.contextmanager
 def compile_span(kernel: str) -> Iterator[None]:
-  """Time one library build on the host clock and charge it to the
-  ledger."""
+  """Time one library build on the host clock, charge it to the ledger
+  and record a ``device.compile`` span."""
+  ident = _trace_identity()
+  ts = time.time()
   t0 = time.perf_counter()
   try:
     yield
   finally:
-    LEDGER.record_compile(kernel, time.perf_counter() - t0)
+    dt = time.perf_counter() - t0
+    LEDGER.record_compile(kernel, dt)
+    if ident is not None:
+      trace.record_at("device.compile", ts, dt, ident[0], parent=ident[1], kernel=kernel,
+                      device=(f"cuda:{torch.cuda.current_device()}"
+                              if torch.cuda.is_initialized() else "cpu"))
 
 
 def nbytes_of(tree) -> int:
@@ -495,3 +596,404 @@ def elements_of(tree) -> int:
   if isinstance(tree, torch.Tensor):
     return tree.numel()
   return int(getattr(tree, "size", 0))
+
+
+# ---------------------------------------------------------------------------
+# journal integration
+
+
+def journal_records() -> List[dict]:
+  """The journal flush hook (``journal.register_record_provider``): one
+  cumulative ``device`` record per flush, only when the ledger changed
+  since the last one. Resolving the record waits on the spans' end
+  events (never on the whole device), and turns them into trace spans
+  of the same segment."""
+  with LEDGER.lock:
+    dirty = LEDGER._dirty
+    LEDGER._dirty = False
+  if not dirty:
+    return []
+  publish_gauges()  # refreshes the memory watermarks before the snapshot
+  snap = LEDGER.snapshot()
+  if snap is None:
+    return []
+  snap["kind"] = "device"
+  return [snap]
+
+
+def install() -> None:
+  """Wire the device plane into a journal-bearing worker: ledger records
+  ride every journal flush, and the profiler trigger is polled on the
+  same cadence. Idempotent."""
+  from . import journal as journal_mod
+
+  journal_mod.register_record_provider(journal_records)
+  journal_mod.register_poll_hook(poll_profile_trigger)
+
+
+# ---------------------------------------------------------------------------
+# profiler capture on request
+
+
+_PROFILE_STATE = {
+  "cache": (0.0, None),  # (checked_at_monotonic, request-or-None)
+  "served": set(),       # request ids this process already captured
+  "active": False,       # a capture thread is running
+}
+_PROFILE_LOCK = threading.Lock()
+
+
+def profiler_activities() -> list:
+  """CPU activity, and CUDA activity when the process has a card."""
+  from torch.profiler import ProfilerActivity
+
+  acts = [ProfilerActivity.CPU]
+  if torch.cuda.is_available():
+    acts.append(ProfilerActivity.CUDA)
+  return acts
+
+
+def write_profile_request(journal_path: str, duration_sec: float = 5.0,
+                          workers: Optional[List[str]] = None,
+                          request_id: Optional[str] = None) -> dict:
+  """Publish a capture request where workers see it (``profile
+  capture``). ``workers`` restricts the trigger; None: every worker that
+  polls the flag captures once."""
+  from ..storage import CloudFiles
+
+  req = {
+    "id": request_id or trace.new_id(),
+    "ts": time.time(),
+    "duration_sec": float(duration_sec),
+    "workers": list(workers) if workers else None,
+  }
+  CloudFiles(journal_path).put_json(PROFILE_REQUEST_KEY, req)
+  return req
+
+
+def read_profile_request(journal_path: str) -> Optional[dict]:
+  from ..storage import CloudFiles
+
+  try:
+    req = CloudFiles(journal_path).get_json(PROFILE_REQUEST_KEY)
+  except Exception:
+    return None
+  if not req or not req.get("id"):
+    return None
+  if time.time() - float(req.get("ts") or 0) > PROFILE_REQUEST_TTL_SEC:
+    return None
+  return req
+
+
+def poll_profile_trigger(journal=None) -> bool:
+  """Worker-side poll (cached for ``PROFILE_POLL_SEC``, on the journal's
+  flush cadence): when a fresh request names this worker (or no one in
+  particular), start one bounded capture. True when one started."""
+  j = journal
+  if j is None:
+    from . import journal as journal_mod
+
+    j = journal_mod.get_active()
+  if j is None:
+    return False
+  now = time.monotonic()
+  checked_at, req = _PROFILE_STATE["cache"]
+  if now - checked_at > PROFILE_POLL_SEC:
+    req = read_profile_request(j.cloudpath)
+    _PROFILE_STATE["cache"] = (now, req)
+  if req is None:
+    return False
+  if req["id"] in _PROFILE_STATE["served"]:
+    return False
+  targets = req.get("workers")
+  if targets and j.worker_id not in targets:
+    return False
+  _PROFILE_STATE["served"].add(req["id"])
+  return start_capture(
+    duration_sec=float(req.get("duration_sec") or 5.0),
+    journal=j, request_id=req["id"],
+  )
+
+
+def start_capture(duration_sec: float, journal=None,
+                  request_id: str = "manual",
+                  logdir: Optional[str] = None) -> bool:
+  """Run one bounded ``torch.profiler`` capture on a thread of its own
+  (the worker keeps executing, so the capture sees its kernels) and
+  upload the trace next to the journal. False when a capture is already
+  running: a second request is refused, never queued.
+
+  The thread starts and stops the profiler itself, and is not a daemon:
+  interpreter shutdown joins it, so a draining worker's capture lands
+  instead of dying with the process."""
+  with _PROFILE_LOCK:
+    if _PROFILE_STATE["active"]:
+      return False
+    _PROFILE_STATE["active"] = True
+
+  def run():
+    try:
+      _capture_blocking(duration_sec, journal, request_id, logdir)
+    finally:
+      _PROFILE_STATE["active"] = False
+
+  threading.Thread(target=run, daemon=False, name="igt-profile").start()
+  return True
+
+
+def _capture_blocking(duration_sec, journal, request_id, logdir):
+  import tempfile
+
+  base = logdir or knobs.get_str(PROFILE_DIR_ENV)
+  if not base:
+    base = tempfile.mkdtemp(prefix="igneous-profile-")
+  worker = journal.worker_id if journal is not None else "local"
+  capture_dir = os.path.join(base, f"{worker}-{request_id}")
+  try:
+    import torch.profiler
+
+    prof = torch.profiler.profile(activities=profiler_activities())
+    prof.__enter__()
+  except Exception:
+    metrics.incr("device.profile.start_failed")
+    return
+  try:
+    time.sleep(max(float(duration_sec), 0.0))
+  finally:
+    try:
+      prof.__exit__(None, None, None)
+      os.makedirs(capture_dir, exist_ok=True)
+      prof.export_chrome_trace(os.path.join(capture_dir, "trace.json"))
+    except Exception:
+      metrics.incr("device.profile.stop_failed")
+      return
+  metrics.incr("device.profile.captures")
+  trace.event("device.profile", request_id=request_id, dir=capture_dir,
+              duration_sec=float(duration_sec))
+  if journal is not None:
+    uploaded = _upload_artifacts(journal.cloudpath, capture_dir,
+                                 f"{PROFILE_ARTIFACT_PREFIX}{worker}-{request_id}/")
+    journal.write_records([{
+      "kind": "span", "name": "device.profile", "ts": time.time(),
+      "dur": float(duration_sec), "trace": trace.worker_trace_id(),
+      "span": trace.new_id(), "parent": None,
+      "request_id": request_id, "artifacts": uploaded,
+    }], event="profile")
+
+
+def _upload_artifacts(journal_path: str, local_dir: str, prefix: str) -> int:
+  """Copy the capture's local files under ``<journal>/profiles/``;
+  returns the files uploaded."""
+  from ..storage import CloudFiles
+
+  cf = CloudFiles(journal_path)
+  n = 0
+  for root, _dirs, files in os.walk(local_dir):
+    for fname in files:
+      full = os.path.join(root, fname)
+      rel = os.path.relpath(full, local_dir)
+      try:
+        with open(full, "rb") as f:
+          cf.put(prefix + rel.replace(os.sep, "/"), f.read(), compress=None)
+        n += 1
+      except Exception:
+        metrics.incr("device.profile.upload_failed")
+  return n
+
+
+def list_profiles(journal_path: str) -> List[str]:
+  from ..storage import CloudFiles
+
+  try:
+    return sorted(CloudFiles(journal_path).list(PROFILE_ARTIFACT_PREFIX))
+  except Exception:
+    return []
+
+
+_SAMPLE_COUNT = [0]
+
+
+def maybe_sample_profile() -> None:
+  """Sampled capture: with ``IGNEOUS_PROFILE_DIR`` set and
+  ``IGNEOUS_PROFILE_EVERY=N`` (N>0), every Nth dispatch (an outermost
+  execute span) starts a short capture. Inert by default: two env reads
+  a dispatch."""
+  if not knobs.get_str(PROFILE_DIR_ENV):
+    return
+  every = knobs.get_int(PROFILE_EVERY_ENV)
+  if every <= 0:
+    return
+  _SAMPLE_COUNT[0] += 1
+  if _SAMPLE_COUNT[0] % every:
+    return
+  start_capture(
+    duration_sec=knobs.get_float("IGNEOUS_PROFILE_SEC"),
+    request_id=f"sample-{_SAMPLE_COUNT[0]}",
+  )
+
+
+# ---------------------------------------------------------------------------
+# fleet read side — merged per-device table
+
+
+def device_ledgers(records) -> Dict[str, dict]:
+  """Latest cumulative device record per worker from merged journal
+  records (raw segments or rollups — both carry them verbatim)."""
+  out: Dict[str, dict] = {}
+  for rec in records:
+    if rec.get("kind") != "device":
+      continue
+    worker = rec.get("worker", "local")
+    prev = out.get(worker)
+    if prev is None or rec.get("ts", 0) >= prev.get("ts", 0):
+      out[worker] = rec
+  return out
+
+
+def _fmt_bytes(n) -> str:
+  if n is None:
+    return "-"
+  n = float(n)
+  for unit in ("B", "KB", "MB", "GB", "TB"):
+    if abs(n) < 1024 or unit == "TB":
+      return f"{n:.0f}{unit}" if unit == "B" else f"{n:.1f}{unit}"
+    n /= 1024
+  return f"{n:.1f}TB"
+
+
+def render_devices(ledgers: Dict[str, dict]) -> List[str]:
+  """The ``igneous fleet devices`` table: one row per worker x device
+  with busy ratio + HBM, then per-kernel vox/s rows."""
+  if not ledgers:
+    return ["no device records in the journal (no worker dispatched "
+            "device work, or the device plane is disabled)"]
+  lines = [
+    f"{'worker':<28}{'device':<14}{'busy_s':>9}{'busy%':>7}"
+    f"{'disp':>6}{'recomp':>7}{'hbm_peak':>10}"
+  ]
+  for worker in sorted(ledgers):
+    rec = ledgers[worker]
+    devices = rec.get("devices") or {}
+    hbm = rec.get("hbm") or {}
+    ratio = rec.get("busy_ratio")
+    for i, (dev, busy) in enumerate(sorted(devices.items())):
+      peak = (hbm.get(dev) or {}).get("peak_bytes_in_use")
+      pct = (
+        f"{ratio * 100:.1f}%" if ratio is not None and i == 0 else ""
+      )
+      lines.append(
+        f"{worker if i == 0 else '':<28}{dev:<14}{busy:>9.2f}"
+        f"{pct:>7}"
+        f"{rec.get('dispatches', 0) if i == 0 else '':>6}"
+        f"{rec.get('recompiles', 0) if i == 0 else '':>7}"
+        f"{_fmt_bytes(peak):>10}"
+      )
+    if not devices:
+      lines.append(f"{worker:<28}{'-':<14}{0.0:>9.2f}{'':>7}"
+                   f"{rec.get('dispatches', 0):>6}"
+                   f"{rec.get('recompiles', 0):>7}{'-':>10}")
+  # the port's records name each card; the JAX package's carry no kinds
+  kinds = {}
+  for rec in ledgers.values():
+    kinds.update(rec.get("kinds") or {})
+  if kinds:
+    lines.append("cards: " + ", ".join(
+      f"{dev} {name}" for dev, name in sorted(kinds.items())))
+  lines.append("")
+  lines.append(f"{'worker':<28}{'kernel':<22}{'execs':>6}{'exec_s':>9}"
+               f"{'vox/s':>14}{'compiles':>9}")
+  for worker in sorted(ledgers):
+    for i, (kname, k) in enumerate(
+      sorted((ledgers[worker].get("kernels") or {}).items())
+    ):
+      vox = k.get("vox_per_sec")
+      lines.append(
+        f"{worker if i == 0 else '':<28}{kname:<22}{k.get('executes', 0):>6}"
+        f"{k.get('execute_s', 0.0):>9.3f}"
+        f"{(f'{vox:,.0f}' if vox else '-'):>14}{k.get('compiles', 0):>9}"
+      )
+  fp = {"batched": 0, "host": 0}
+  for rec in ledgers.values():
+    for key in fp:
+      fp[key] += int((rec.get("fastpath") or {}).get(key, 0))
+  total = fp["batched"] + fp["host"]
+  if total:
+    lines.append("")
+    lines.append(
+      f"fast path: {fp['batched']}/{total} deliveries batched "
+      f"({fp['batched'] / total:.1%}), {fp['host']} fell to host"
+    )
+  pad = sum(int(rec.get("pad_bytes") or 0) for rec in ledgers.values())
+  real = sum(int(rec.get("real_bytes") or 0) for rec in ledgers.values())
+  if real:
+    lines.append(
+      f"pad waste: {_fmt_bytes(pad)} padding over {_fmt_bytes(real)} real "
+      f"bytes ({pad / real:.1%})"
+    )
+  cc = _cache_rollup(ledgers)
+  if cc["hits"] or cc["misses"] or cc["puts"] or cc["corrupt"]:
+    lines.append(
+      f"compile cache: {cc['hits']} hits / {cc['misses']} misses, "
+      f"{cc['puts']} puts, {cc['corrupt']} corrupt — "
+      f"{cc['saved_s']:.1f}s compile time saved fleet-wide "
+      f"({cc['fetch_s']:.1f}s spent fetching)"
+    )
+  return lines
+
+
+def _cache_rollup(ledgers: Dict[str, dict]) -> dict:
+  """Summed persistent compile-cache stats across every worker's latest
+  ledger record — the fleet-wide compile-seconds-saved number."""
+  cc = {"hits": 0, "misses": 0, "puts": 0, "corrupt": 0,
+        "saved_s": 0.0, "fetch_s": 0.0}
+  for rec in ledgers.values():
+    src = rec.get("compile_cache") or {}
+    for key in cc:
+      cc[key] += type(cc[key])(src.get(key, 0) or 0)
+  cc["saved_s"] = round(cc["saved_s"], 4)
+  cc["fetch_s"] = round(cc["fetch_s"], 4)
+  return cc
+
+
+def fleet_summary(ledgers: Dict[str, dict]) -> Optional[dict]:
+  """Compact cross-worker rollup for the health report / watch
+  dashboard: fleet busy ratio (busiest device per worker, averaged),
+  total recompiles/dispatches, worst HBM fraction."""
+  if not ledgers:
+    return None
+  ratios = [
+    r["busy_ratio"] for r in ledgers.values()
+    if r.get("busy_ratio") is not None
+  ]
+  hbm_frac = None
+  for rec in ledgers.values():
+    for dev_stats in (rec.get("hbm") or {}).values():
+      limit = dev_stats.get("bytes_limit")
+      if limit:
+        frac = dev_stats.get("peak_bytes_in_use", 0) / limit
+        hbm_frac = frac if hbm_frac is None else max(hbm_frac, frac)
+  fp = {"batched": 0, "host": 0}
+  for rec in ledgers.values():
+    for key in fp:
+      fp[key] += int((rec.get("fastpath") or {}).get(key, 0))
+  pad = sum(int(rec.get("pad_bytes") or 0) for rec in ledgers.values())
+  real = sum(int(rec.get("real_bytes") or 0) for rec in ledgers.values())
+  return {
+    "workers": len(ledgers),
+    "pad_waste_ratio": round(pad / real, 4) if real else None,
+    "busy_ratio": (
+      round(sum(ratios) / len(ratios), 4) if ratios else None
+    ),
+    "dispatches": sum(r.get("dispatches", 0) for r in ledgers.values()),
+    "recompiles": sum(r.get("recompiles", 0) for r in ledgers.values()),
+    "hbm_peak_frac": round(hbm_frac, 4) if hbm_frac is not None else None,
+    "fastpath": fp,
+    "compile_cache": _cache_rollup(ledgers),
+  }
+
+
+def report_json(ledgers: Dict[str, dict]) -> str:
+  return json.dumps(
+    {"summary": fleet_summary(ledgers), "workers": ledgers},
+    indent=2,
+  )

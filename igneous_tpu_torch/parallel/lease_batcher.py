@@ -31,10 +31,16 @@ While round i runs, round i+1's members are leased (and renewed by the
 heartbeat from lease time) and their downsample cutouts downloaded on
 the shared prefetch pool, fenced off every (path, mip) round i writes.
 
+The observability hooks are the JAX package's: each round leases under
+a ``lease.acquire`` span and runs under a ``lease.round`` span on the
+worker trace, each member's completion (or solo run) under its task span,
+and the round's spans flush as one journal segment. A worker that ``fleet
+check`` flags in ``<journal>/health/flags.json`` stops pre-leasing round
+i+1 and hands back what it pre-leased, so healthy workers take the depth.
+
 Not ported: the JAX package's host-backend choices (its native pooling,
 EDT and CCL on CPU-only hosts: the port has one route, which runs the
-plain versions on the CPU), the fleet health plane's straggler flag and
-work stealing, and the trace spans.
+plain versions on the CPU) and work stealing.
 """
 
 from __future__ import annotations
@@ -47,8 +53,22 @@ from typing import Optional
 
 from .. import telemetry
 from ..lib import Bbox
+from ..observability import journal as journal_mod
+from ..observability import trace
 from ..observability.device import LEDGER
 from ..queues.filequeue import failure_reason, run_with_deadline
+
+
+def _range_sizes(tokens):
+  """Member counts per shared range lease of a round, largest first; None
+  when the round held no range members."""
+  from ..queues.ranges import RangeSub
+
+  sizes = {}
+  for tok in tokens:
+    if isinstance(tok, RangeSub):
+      sizes[id(tok.parent)] = sizes.get(id(tok.parent), 0) + 1
+  return sorted(sizes.values(), reverse=True) if sizes else None
 
 
 def _cutout_key(task):
@@ -182,8 +202,10 @@ class LeaseBatcher:
       "executed": 0, "batched": 0, "solo": 0, "failed": 0,
       "group_fallbacks": 0, "released": 0, "rounds": 0,
       "prefetched_rounds": 0, "prefetched_cutouts": 0,
+      "straggler_surrenders": 0, "straggler_prefetch_skips": 0,
       "dispatches": defaultdict(int),
     }
+    self._flag_cache = (0.0, False)  # (checked_at_monotonic, flagged)
     self._completed_in_group = set()
     self._hb = None
     self._next_round = None   # Future -> list[(task, lease_id)]
@@ -191,6 +213,29 @@ class LeaseBatcher:
 
   def _draining(self) -> bool:
     return self.drain_flag is not None and self.drain_flag.is_set()
+
+  # how often a worker re-reads <journal>/health/flags.json (one small GET)
+  FLAG_POLL_SEC = 15.0
+
+  def _straggler_flagged(self) -> bool:
+    """True when the last ``fleet check`` flagged THIS worker (by its
+    journal worker id): it then stops pre-leasing round i+1, so queue
+    depth goes to healthy workers."""
+    j = journal_mod.get_active()
+    if j is None:
+      return False
+    now = time.monotonic()
+    checked_at, flagged = self._flag_cache
+    if now - checked_at < self.FLAG_POLL_SEC:
+      return flagged
+    try:
+      from ..observability import health
+
+      flagged = j.worker_id in health.flagged_workers(j.cloudpath)
+    except Exception:
+      flagged = False
+    self._flag_cache = (now, flagged)
+    return flagged
 
   def _current_id(self, lease_id):
     """The member's CURRENT lease token (renewals re-timestamp fq://
@@ -207,7 +252,7 @@ class LeaseBatcher:
       except Exception:
         continue  # worst case the lease ages out
       self.stats["released"] += 1
-      telemetry.add("drain.released", 1)
+      telemetry.incr("drain.released", 1)
 
   # -- poll loop ------------------------------------------------------------
 
@@ -251,11 +296,18 @@ class LeaseBatcher:
         if cap <= 0:
           self._surrender_prefetch()
           return self.stats["executed"]
+      if self._next_round is not None and self._straggler_flagged():
+        # flagged mid-flight: round i+1's pre-leased members go back to
+        # the queue instead of waiting on this slow worker
+        self._surrender_prefetch()
+        self.stats["straggler_surrenders"] += 1
       members = self._take_prefetched()
       if len(members) > cap:
         # the budget shrank between prefetch and now: the surplus goes back
         self._release_members(members[cap:])
         members = members[:cap]
+      lease_t0 = time.time()
+      synced = []
       while len(members) < cap and not self._draining():
         got = self._lease_many(cap - len(members))
         if not got:
@@ -263,6 +315,14 @@ class LeaseBatcher:
         for leased in got:
           members.append(leased)
           self._hb.track(leased[1])
+          synced.append(leased[1])
+      if synced:
+        # the round's queue interaction, on the worker trace
+        attrs = {"members": len(synced)}
+        sizes = _range_sizes(synced)
+        if sizes:
+          attrs["range_sizes"] = sizes
+        trace.record_root("lease.acquire", lease_t0, time.time() - lease_t0, **attrs)
       if self._draining():
         # drained between lease and dispatch: nothing ran, all go back
         self._release_members(members)
@@ -284,17 +344,22 @@ class LeaseBatcher:
         task_budget is None
         or task_budget - self.stats["executed"] - len(members) > 0
       ):
-        next_cap = self.batch_size
-        if task_budget is not None:
-          next_cap = min(
-            next_cap, task_budget - self.stats["executed"] - len(members)
-          )
-        from ..pipeline import shared_prefetch_pool
+        if self._straggler_flagged():
+          # flagged by the health plane: run what is held, pre-lease no
+          # more; healthy workers take round i+1
+          self.stats["straggler_prefetch_skips"] += 1
+        else:
+          next_cap = self.batch_size
+          if task_budget is not None:
+            next_cap = min(
+              next_cap, task_budget - self.stats["executed"] - len(members)
+            )
+          from ..pipeline import shared_prefetch_pool
 
-        self._next_round = shared_prefetch_pool().submit(
-          self._prelease_and_prefetch, next_cap,
-          self._round_write_set(members),
-        )
+          self._next_round = shared_prefetch_pool().submit(
+            self._prelease_and_prefetch, next_cap,
+            self._round_write_set(members),
+          )
       if self.timing:
         before = dict(self.stats, dispatches=dict(self.stats["dispatches"]))
         t0 = time.perf_counter()
@@ -316,6 +381,9 @@ class LeaseBatcher:
         }), flush=True)
       else:
         self.run_round(members)
+      # round boundary: the round's spans (one lease.round and its
+      # members' task spans) flush as one journal segment
+      journal_mod.maybe_flush_active(event="round")
 
   def _lease_many(self, n: int):
     """One queue interaction for up to ``n`` leases (``lease_batch`` where
@@ -450,7 +518,7 @@ class LeaseBatcher:
         )
         self._img_cache[ckey] = vol.download(box)
         self.stats["prefetched_cutouts"] += 1
-        telemetry.add("pipeline.lease.prefetched_cutouts", 1)
+        telemetry.incr("pipeline.lease.prefetched_cutouts", 1)
       except Exception:
         continue
     return members
@@ -470,9 +538,19 @@ class LeaseBatcher:
     for _task, lease_id in members:
       self._hb.track(lease_id)  # idempotent for pre-leased members
     self.stats["rounds"] += 1
+    t0 = time.time()
+    before_exec = self.stats["executed"]
+    before_fail = self.stats["failed"]
     try:
       self._run_round_inner(members)
     finally:
+      # one lease round (group dispatches and member completions) on the
+      # worker trace
+      trace.record_root(
+        "lease.round", t0, time.time() - t0, members=len(members),
+        executed=self.stats["executed"] - before_exec,
+        failed=self.stats["failed"] - before_fail,
+      )
       # a member re-leased after a failure must never read a cutout that
       # this round's writes made stale
       self._invalidate_cache(self._round_write_set(members))
@@ -530,7 +608,9 @@ class LeaseBatcher:
       if self.verbose:
         print(f"Executing (solo) {task!r}")
       try:
-        run_with_deadline(task.execute, self.task_deadline_seconds)
+        with trace.task_span(task, attempt=self._attempt_of(lease_id),
+                             mode="batch-solo"):
+          run_with_deadline(task.execute, self.task_deadline_seconds)
       except Exception as e:
         self._record_failure(lease_id, e)
         continue
@@ -549,7 +629,7 @@ class LeaseBatcher:
       import traceback
 
       traceback.print_exc()
-    telemetry.add("tasks.failed", 1)
+    telemetry.incr("tasks.failed", 1)
     self.stats["failed"] += 1
     if hasattr(self.queue, "nack"):
       self.queue.nack(self._current_id(lease_id), failure_reason(exc))
@@ -562,14 +642,26 @@ class LeaseBatcher:
     # group membership tracks the ORIGINAL token (what handlers hold)
     self._completed_in_group.add(lease_id)
 
+  def _attempt_of(self, lease_id):
+    try:
+      if hasattr(self.queue, "delivery_count"):
+        return int(self.queue.delivery_count(lease_id))
+    except Exception:
+      pass
+    return None
+
   def _finish_members(self, group, finish_one):
     """Each member's host completion; a failure keeps that member's lease
     only."""
     for idx, (task, lease_id) in enumerate(group):
       try:
-        run_with_deadline(
-          lambda: finish_one(idx, task), self.task_deadline_seconds
-        )
+        # the member's completion span: its share of the round (the
+        # shared dispatch is the round's lease.round span)
+        with trace.task_span(task, attempt=self._attempt_of(lease_id),
+                             mode="batched"):
+          run_with_deadline(
+            lambda: finish_one(idx, task), self.task_deadline_seconds
+          )
       except Exception as e:
         self._record_failure(lease_id, e)
         continue

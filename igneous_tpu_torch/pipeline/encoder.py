@@ -19,9 +19,11 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import threading
+import time
 from typing import Callable, List, Optional
 
 from .. import telemetry
+from ..observability import trace
 from . import config
 
 
@@ -34,10 +36,23 @@ class UploadTicket:
     self._futures: List[cf.Future] = []  # guarded by self._lock
 
   def submit(self, fn: Callable[[], None]) -> None:
+    # the submitting thread's trace context rides onto the pool thread:
+    # the chunk's encode and put (and its storage spans) stay its task's
+    ctx = trace.current()
+    sampled = ctx is not None and ctx.sampled
+
     def timed():
       # thread-seconds of encode + put, summed over the pool's threads
       with telemetry.stage("encode_upload"):
-        fn()
+        if not sampled:
+          fn()
+          return
+        with trace.activate(ctx):
+          t0 = time.perf_counter()
+          try:
+            fn()
+          finally:
+            telemetry.observe("pipeline.encode_upload.s", time.perf_counter() - t0)
 
     fut = self._pool._submit(timed)
     with self._lock:

@@ -39,6 +39,7 @@ from collections import deque
 from typing import Callable, Iterable, Optional
 
 from .. import chunk_cache, telemetry
+from ..observability import trace
 from . import config
 from .buffers import BoundedBuffer, PipelineInterrupted
 from .encoder import SerialSink, shared_encode_pool, shared_prefetch_pool
@@ -94,7 +95,7 @@ def _plan_or_none(task) -> Optional[StagePlan]:
 
 
 class _Member:
-  __slots__ = ("task", "plan", "future", "nbytes", "ticket")
+  __slots__ = ("task", "plan", "future", "nbytes", "ticket", "t_admit")
 
   def __init__(self, task, plan):
     self.task = task
@@ -102,6 +103,7 @@ class _Member:
     self.future = None
     self.nbytes = 0
     self.ticket = None
+    self.t_admit = time.time()
 
 
 def run_tasks_pipelined(
@@ -174,7 +176,7 @@ def run_tasks_pipelined(
       chunk_cache.invalidate_writes(member.plan.writes)
       buffer.release(member.nbytes)
       stats["failed"] += 1
-      telemetry.add("pipeline.tasks.failed", 1)
+      telemetry.incr("pipeline.tasks.failed", 1)
       if on_error is None:
         raise
       on_error(member.task, e)
@@ -184,6 +186,12 @@ def run_tasks_pipelined(
     buffer.release(member.nbytes)
     stats["executed"] += 1
     stats["staged"] += 1
+    # the task's span: admitted → every byte landed (the stage spans of
+    # the observe() sites nest under the same execution root)
+    trace.record_for_task(
+      member.task, "task", member.t_admit,
+      time.time() - member.t_admit, mode="pipelined",
+    )
     if on_complete is not None:
       on_complete(member.task)
 
@@ -193,7 +201,7 @@ def run_tasks_pipelined(
 
   def fail_member(member, exc):
     stats["failed"] += 1
-    telemetry.add("pipeline.tasks.failed", 1)
+    telemetry.incr("pipeline.tasks.failed", 1)
     if on_error is None:
       raise exc
     on_error(member.task, exc)
@@ -204,17 +212,21 @@ def run_tasks_pipelined(
     # the grant order is fixed here, on the caller's thread in task order,
     # so a younger download can never starve the one compute waits on
     seq = buffer.reserve_seq()
+    ctx = trace.task_context(member.task)
 
     def work():
-      buffer.acquire(hint, seq=seq)
-      try:
-        t0 = time.perf_counter()
-        payload = member.plan.download()
-        telemetry.observe("pipeline.download.s", time.perf_counter() - t0)
-        return payload
-      except BaseException:
-        buffer.release(hint)
-        raise
+      # the prefetch thread runs under the member's trace, so its
+      # download and stall spans are ITS task's
+      with trace.activate(ctx):
+        buffer.acquire(hint, seq=seq)
+        try:
+          t0 = time.perf_counter()
+          payload = member.plan.download()
+          telemetry.observe("pipeline.download.s", time.perf_counter() - t0)
+          return payload
+        except BaseException:
+          buffer.release(hint)
+          raise
 
     member.future = io_pool.submit(work)
 
@@ -266,7 +278,8 @@ def run_tasks_pipelined(
         if draining():
           break
         try:
-          member.task.execute()
+          with trace.task_span(member.task, mode="solo"):
+            member.task.execute()
         except Exception as e:  # noqa: BLE001
           fail_member(member, e)
         else:
@@ -300,13 +313,14 @@ def run_tasks_pipelined(
         continue
 
       try:
-        t0 = time.perf_counter()
-        outputs = member.plan.compute(payload)
-        telemetry.observe("pipeline.compute.s", time.perf_counter() - t0)
-        member.ticket = encode_pool.ticket()
-        t0 = time.perf_counter()
-        member.plan.upload(outputs, member.ticket)
-        telemetry.observe("pipeline.upload_submit.s", time.perf_counter() - t0)
+        with trace.activate(trace.task_context(member.task)):
+          t0 = time.perf_counter()
+          outputs = member.plan.compute(payload)
+          telemetry.observe("pipeline.compute.s", time.perf_counter() - t0)
+          member.ticket = encode_pool.ticket()
+          t0 = time.perf_counter()
+          member.plan.upload(outputs, member.ticket)
+          telemetry.observe("pipeline.upload_submit.s", time.perf_counter() - t0)
       except Exception as e:  # noqa: BLE001
         if member.ticket is not None:
           try:
@@ -357,23 +371,24 @@ def _run_tasks_inorder(tasks, stats, drain_flag, on_error, on_complete) -> dict:
       break
     plan = _plan_or_none(task)
     try:
-      if plan is None:
-        task.execute()
-        stats["solo"] += 1
-      else:
-        t0 = time.perf_counter()
-        payload = plan.download()
-        t1 = time.perf_counter()
-        telemetry.observe("pipeline.download.s", t1 - t0)
-        outputs = plan.compute(payload)
-        t2 = time.perf_counter()
-        telemetry.observe("pipeline.compute.s", t2 - t1)
-        plan.upload(outputs, sink)
-        telemetry.observe("pipeline.upload_submit.s", time.perf_counter() - t2)
-        stats["staged"] += 1
+      with trace.task_span(task, mode="inorder"):
+        if plan is None:
+          task.execute()
+          stats["solo"] += 1
+        else:
+          t0 = time.perf_counter()
+          payload = plan.download()
+          t1 = time.perf_counter()
+          telemetry.observe("pipeline.download.s", t1 - t0)
+          outputs = plan.compute(payload)
+          t2 = time.perf_counter()
+          telemetry.observe("pipeline.compute.s", t2 - t1)
+          plan.upload(outputs, sink)
+          telemetry.observe("pipeline.upload_submit.s", time.perf_counter() - t2)
+          stats["staged"] += 1
     except Exception as e:  # noqa: BLE001
       stats["failed"] += 1
-      telemetry.add("pipeline.tasks.failed", 1)
+      telemetry.incr("pipeline.tasks.failed", 1)
       if on_error is None:
         raise
       on_error(task, e)

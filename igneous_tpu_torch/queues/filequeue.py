@@ -37,7 +37,6 @@ import json
 import os
 import random
 import re
-import socket
 import time
 import uuid
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -59,11 +58,6 @@ DEFAULT_RECYCLE_SEC = 5.0
 
 # mid-range failures and DLQ expansions carve per-index classic files
 _CARVE_RE = re.compile(r"^task_([0-9a-f]+)_(\d+)\.json$")
-
-
-def default_worker_id() -> str:
-  host = socket.gethostname().split(".")[0] or "worker"
-  return f"{host}-{os.getpid()}"
 
 
 def seg_parse(name: str) -> Optional[Tuple[str, int]]:
@@ -185,12 +179,30 @@ def poll_loop(
 
   Each task runs through ``pipeline.execute_with_sink``: with
   ``IGNEOUS_PIPELINE=1`` its chunk encodes and puts thread on the shared
-  pool, joined before the lease is deleted."""
+  pool, joined before the lease is deleted.
+
+  Each delivery runs inside ``trace.task_span`` (its queue wait, attempt
+  and the spans of its stages, storage and device work, under the
+  payload's trace). The active journal flushes between tasks on its
+  interval or a drain request, and once more whenever the loop ends."""
+  from ..observability import journal as journal_mod
+  from ..observability import trace
   from ..pipeline import execute_with_sink
   from .heartbeat import LeaseHeartbeat
 
   def draining() -> bool:
     return drain_flag is not None and drain_flag.is_set()
+
+  def attempt_of(lease_id) -> Optional[int]:
+    # fq:// persists delivery counts; SQS reports ApproximateReceiveCount
+    try:
+      if hasattr(queue, "delivery_count"):
+        return int(queue.delivery_count(lease_id))
+      if getattr(queue, "last_receive_count", 0):
+        return int(queue.last_receive_count)
+    except Exception:
+      pass
+    return None
 
   def idle(seconds: float):
     # wake early when a drain request lands mid-backoff
@@ -201,8 +213,12 @@ def poll_loop(
 
   backoff = 1.0
   executed = 0
-  with LeaseHeartbeat(queue, lease_seconds, interval=heartbeat_seconds) as hb:
+  try:
+   with LeaseHeartbeat(queue, lease_seconds, interval=heartbeat_seconds) as hb:
     while True:
+      # the interval's or a drain request's flush, between tasks: the
+      # poll loop is the worker's main thread, so no flusher thread
+      journal_mod.maybe_flush_active()
       if draining():
         return executed
       if stop_fn is not None and stop_fn(executed=executed, empty=False):
@@ -224,7 +240,9 @@ def poll_loop(
       try:
         if before_fn:
           before_fn(task)
-        run_with_deadline(lambda: execute_with_sink(task), task_deadline_seconds)
+        with trace.task_span(task, attempt=attempt_of(lease_id),
+                             queue=type(queue).__name__):
+          run_with_deadline(lambda: execute_with_sink(task), task_deadline_seconds)
         if after_fn:
           after_fn(task)
       except Exception as e:
@@ -235,7 +253,7 @@ def poll_loop(
           import traceback
 
           traceback.print_exc()
-        telemetry.add("tasks.failed", 1)
+        telemetry.incr("tasks.failed", 1)
         current = hb.untrack(key)
         if hasattr(queue, "nack"):
           queue.nack(current, failure_reason(e))
@@ -245,6 +263,9 @@ def poll_loop(
       # zombie's late ack never completes a re-issued task
       queue.delete(hb.untrack(key))
       executed += 1
+  finally:
+    # whatever ends the loop, the pending span batch lands
+    journal_mod.flush_active(event="drain" if draining() else "poll_exit")
 
 
 class FileQueue:
@@ -279,6 +300,9 @@ class FileQueue:
   @property
   def worker_id(self) -> str:
     if self._worker_id is None:
+      # the journal's worker id, so the health plane's flags name holders
+      from ..observability.journal import default_worker_id
+
       self._worker_id = default_worker_id()
     return self._worker_id
 
@@ -375,7 +399,7 @@ class FileQueue:
       os.rename(src_path, os.path.join(self.dlq_dir, name))
     except FileNotFoundError:
       return  # another worker moved it first
-    telemetry.add("dlq.promoted", 1)
+    telemetry.incr("dlq.promoted", 1)
 
   @property
   def dlq_count(self) -> int:
@@ -787,7 +811,7 @@ class FileQueue:
       self._write_meta(name, meta)
       self._record_failure(name, reason)
       self._write_file(self.dlq_dir, name, payload)
-      telemetry.add("dlq.promoted", 1)
+      telemetry.incr("dlq.promoted", 1)
     try:
       os.remove(src)
     except FileNotFoundError:
@@ -904,7 +928,7 @@ class FileQueue:
     deadline = self._lease_deadline(lease_id)
     orig = str(lease_id).split(LEASE_SEP, 1)[-1]
     if deadline is None or deadline < time.time():
-      telemetry.add("zombie.renew", 1)
+      telemetry.incr("zombie.renew", 1)
       raise StaleLeaseError(
         f"lease for {orig!r} already expired; the task is due for re-issue"
       )
@@ -915,7 +939,7 @@ class FileQueue:
         os.path.join(self.lease_dir, new_id),
       )
     except FileNotFoundError:
-      telemetry.add("zombie.renew", 1)
+      telemetry.incr("zombie.renew", 1)
       raise StaleLeaseError(
         f"lease for {orig!r} was re-issued (or completed) by another worker"
       ) from None
@@ -930,13 +954,13 @@ class FileQueue:
     self._refuse_survival_sidecars()
     deadline = self._lease_deadline(lease_id)
     if deadline is not None and deadline < time.time():
-      telemetry.add("zombie.delete", 1)
+      telemetry.incr("zombie.delete", 1)
       return False
     orig = str(lease_id).split(LEASE_SEP, 1)[-1]
     try:
       os.remove(os.path.join(self.lease_dir, lease_id))
     except FileNotFoundError:
-      telemetry.add("zombie.delete", 1)
+      telemetry.incr("zombie.delete", 1)
       return False
     self._drop_meta(orig)
     self._tally("completions")
@@ -955,7 +979,7 @@ class FileQueue:
     orig = lease_id.split(LEASE_SEP, 1)[-1]
     src = os.path.join(self.lease_dir, lease_id)
     if not os.path.exists(src):
-      telemetry.add("zombie.nack", 1)
+      telemetry.incr("zombie.nack", 1)
       return
     if self._exhausted(orig):
       self._quarantine_to_dlq(src, orig, reason)
@@ -1057,17 +1081,17 @@ class FileQueue:
     todo = [int(i) for i in indices]
     with rl.lock:
       if rl.deadline < time.time():
-        telemetry.add("zombie.delete", len(todo))
+        telemetry.incr("zombie.delete", len(todo))
         return {i: False for i in todo}
       hit = sorted({i for i in todo if i in rl.entries})
       miss = [i for i in todo if i not in rl.entries]
       if miss:
-        telemetry.add("zombie.delete", len(miss))
+        telemetry.incr("zombie.delete", len(miss))
       if not hit:
         return {i: False for i in todo}
       remaining = {i: p for i, p in rl.entries.items() if i not in set(hit)}
       if not self._range_rewrite(rl, remaining):
-        telemetry.add("zombie.delete", len(hit))
+        telemetry.incr("zombie.delete", len(hit))
         return {i: False for i in todo}
       self._tally("completions", len(hit))
       if not remaining:
@@ -1087,7 +1111,7 @@ class FileQueue:
     index = int(index)
     with rl.lock:
       if rl.deadline < time.time() or index not in rl.entries:
-        telemetry.add("zombie.nack", 1)
+        telemetry.incr("zombie.nack", 1)
         return
       carve = f"task_{rl.segid}_{index}.json"
       seg_meta = self._read_meta(f"{SEG_PREFIX}{rl.segid}")
@@ -1109,7 +1133,7 @@ class FileQueue:
           os.remove(os.path.join(self.lease_dir, carve_lease))
         except FileNotFoundError:
           pass
-        telemetry.add("zombie.nack", 1)
+        telemetry.incr("zombie.nack", 1)
         return
     return self.nack(carve_lease, reason, requeue=requeue)
 
@@ -1155,7 +1179,7 @@ class FileQueue:
           f"range {rl.segid!r} fully completed; nothing left to renew"
         )
       if rl.deadline < now:
-        telemetry.add("zombie.renew", 1)
+        telemetry.incr("zombie.renew", 1)
         raise StaleLeaseError(
           f"range lease {rl.segid!r} already expired; due for re-issue"
         )
@@ -1171,7 +1195,7 @@ class FileQueue:
           os.path.join(self.lease_dir, new_token),
         )
       except FileNotFoundError:
-        telemetry.add("zombie.renew", 1)
+        telemetry.incr("zombie.renew", 1)
         raise StaleLeaseError(
           f"range lease {rl.segid!r} was re-issued by another worker"
         ) from None

@@ -23,7 +23,11 @@ from .registry import deserialize, serialize
 
 
 def _execute_payload(payload: str) -> bool:
-  deserialize(payload).execute()
+  from ..observability import trace
+
+  task = deserialize(payload)
+  with trace.task_span(task, queue="LocalTaskQueue"):
+    task.execute()
   return True
 
 
@@ -81,7 +85,7 @@ class LocalTaskQueue:
     from .. import telemetry
 
     self.dead_letters.append({"payload": payload, "error": error})
-    telemetry.add("dlq.promoted", 1)
+    telemetry.incr("dlq.promoted", 1)
 
   def insert(self, tasks: Iterable, total=None):
     del total  # accepted for call compatibility; local execution needs no count

@@ -15,8 +15,13 @@ The port keeps its own ``TASK_REGISTRY`` and ``FN_REGISTRY``, so a process
 that loads both packages keeps both sets. ``deserialize`` maps a payload's
 class or function name into these registries and never imports the
 ``module`` the payload names: a payload serialized by the JAX package runs
-here unchanged, and the port's payloads run there. The ``trace`` field
-such payloads carry is observability metadata and is ignored.
+here unchanged, and the port's payloads run there.
+
+Every task mints its trace identity at construction
+(``observability.trace.mint``, none when ``IGNEOUS_TRACE_SAMPLE=0``) and
+carries it in the payload's ``trace`` field; ``deserialize`` puts the
+wire's identity back on the task, so a trace minted by either package
+survives every hop through a worker of either package.
 """
 
 from __future__ import annotations
@@ -27,9 +32,28 @@ import json
 from typing import Callable, Dict, Union
 
 from ..lib import jsonify
+from ..observability import trace
 
 TASK_REGISTRY: Dict[str, type] = {}
 FN_REGISTRY: Dict[str, Callable] = {}
+
+
+def _with_trace(task, out: dict) -> dict:
+  tinfo = getattr(task, "_trace", None)
+  if tinfo:
+    # exec_span_id is per-delivery state, never part of the wire trace
+    out["trace"] = {k: v for k, v in tinfo.items() if k != "exec_span_id"}
+  return out
+
+
+def _reenter_trace(task, payload: dict):
+  """Put the payload's trace identity back on a deserialized task (its
+  constructor minted a fresh one; the wire's wins, so redeliveries and
+  hops between workers stay one trace)."""
+  tinfo = payload.get("trace")
+  if tinfo and isinstance(tinfo, dict) and tinfo.get("trace_id"):
+    task._trace = dict(tinfo)
+  return task
 
 
 class RegisteredTask:
@@ -50,6 +74,7 @@ class RegisteredTask:
         params = dict(bound.arguments)
         params.pop("self", None)
         self._params = jsonify(params)
+        self._trace = trace.mint()
       orig_init(self, *args, **kwargs)
 
     cls.__init__ = wrapped_init
@@ -58,11 +83,11 @@ class RegisteredTask:
     raise NotImplementedError
 
   def payload(self) -> dict:
-    return {
+    return _with_trace(self, {
       "class": type(self).__name__,
       "module": type(self).__module__,
       "params": self._params,
-    }
+    })
 
   def to_json(self) -> str:
     return json.dumps(self.payload())
@@ -92,11 +117,11 @@ class FunctionTask(RegisteredTask):
     self.kwargs = kwargs or {}
 
   def payload(self) -> dict:
-    return {
+    return _with_trace(self, {
       "fn": self.fn_name,
       "args": jsonify(list(self.args)),
       "kwargs": jsonify(dict(self.kwargs)),
-    }
+    })
 
   def execute(self):
     if self.fn_name not in FN_REGISTRY:
@@ -130,7 +155,10 @@ def deserialize(payload: Union[str, bytes, dict]) -> RegisteredTask:
   if isinstance(payload, (str, bytes)):
     payload = json.loads(payload)
   if "fn" in payload:
-    return FunctionTask(payload["fn"], payload.get("args"), payload.get("kwargs"))
+    return _reenter_trace(
+      FunctionTask(payload["fn"], payload.get("args"), payload.get("kwargs")),
+      payload,
+    )
   name = payload["class"]
   if name not in TASK_REGISTRY:
     import igneous_tpu_torch.tasks  # noqa: F401  (registers the port's tasks)
@@ -139,7 +167,7 @@ def deserialize(payload: Union[str, bytes, dict]) -> RegisteredTask:
       f"Task class {name!r} is not ported to igneous_tpu_torch. "
       f"Ported: {sorted(TASK_REGISTRY)}"
     )
-  return TASK_REGISTRY[name](**payload.get("params", {}))
+  return _reenter_trace(TASK_REGISTRY[name](**payload.get("params", {})), payload)
 
 
 

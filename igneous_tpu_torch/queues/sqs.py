@@ -442,7 +442,7 @@ class SQSQueue:
     ok = sum(results)
     self._completed += ok
     if ok < len(results):
-      telemetry.add("zombie.delete", len(results) - ok)
+      telemetry.incr("zombie.delete", len(results) - ok)
     return results
 
   def nack_batch(self, tokens, reason: str = "", requeue: bool = False):
@@ -471,7 +471,7 @@ class SQSQueue:
         "error": self._failure_reasons.pop(body, ""),
       })
     self.transport.delete_message(receipt)
-    telemetry.add("dlq.promoted", 1)
+    telemetry.incr("dlq.promoted", 1)
 
   def renew(self, lease_id: str, seconds: float = 600) -> str:
     """Extend the visibility timeout (ChangeMessageVisibility). The
@@ -480,7 +480,7 @@ class SQSQueue:
     while this worker stalled — raises StaleLeaseError (``zombie.renew``),
     matching the fq:// fencing contract."""
     if not self.transport.change_visibility(lease_id, seconds):
-      telemetry.add("zombie.renew", 1)
+      telemetry.incr("zombie.renew", 1)
       raise StaleLeaseError(
         "receipt no longer owns its message (redelivered after the "
         "visibility timeout)"
@@ -496,7 +496,7 @@ class SQSQueue:
       return True
     # stale receipt: the task outlived its visibility and was re-issued;
     # this worker's late ack must not count as a completion
-    telemetry.add("zombie.delete", 1)
+    telemetry.incr("zombie.delete", 1)
     return False
 
   def nack(self, lease_id: str, reason: str = "", requeue: bool = False):

@@ -76,7 +76,7 @@ class RetryPolicy:
       self.sleep_fn(d)
       slept += d
       if counter:
-        telemetry.add(f"retries.{counter}", 1)
+        telemetry.incr(f"retries.{counter}", 1)
       yield i
 
 

@@ -33,6 +33,7 @@ except ImportError:  # zstd is readable and writable only where the codec is ins
   zstandard = None
 
 from . import integrity
+from .observability import trace as _trace
 from .lib import jsonify
 
 COMPRESSION_EXTS = {"gzip": ".gz", "zstd": ".zstd", None: "", False: "", "": ""}
@@ -341,7 +342,9 @@ class CloudFiles:
     zero-decode transfer), and record them in the write envelope."""
     stored_key = key + COMPRESSION_EXTS[method]
     payload = bytes(data)
-    self.backend.put(stored_key, payload)
+    # a span only under a sampled task trace (else one thread-local check)
+    with _trace.maybe_span("storage.put", protocol=self.pth.protocol):
+      self.backend.put(stored_key, payload)
     integrity.record_put(self.cloudpath, stored_key, payload, backend=self.backend)
 
   def puts(self, files: Iterable, compress=None) -> int:
@@ -364,14 +367,15 @@ class CloudFiles:
 
   def get_stored(self, key: str) -> Tuple[Optional[bytes], Optional[str]]:
     """(stored bytes, compression method) of ``key``, or (None, None)."""
-    data = self.backend.get(key)
-    if data is not None:
-      return data, None
-    for ext, method in _EXT_TO_COMPRESSION.items():
-      data = self.backend.get(key + ext)
+    with _trace.maybe_span("storage.get", protocol=self.pth.protocol):
+      data = self.backend.get(key)
       if data is not None:
-        return data, method
-    return None, None
+        return data, None
+      for ext, method in _EXT_TO_COMPRESSION.items():
+        data = self.backend.get(key + ext)
+        if data is not None:
+          return data, method
+      return None, None
 
   def get(self, key: Union[str, Iterable[str]], raw: bool = False):
     """The content of ``key`` (decompressed unless ``raw``), or None; for

@@ -65,6 +65,10 @@ class IntegrityAuditTask(RegisteredTask):
     self.check_digest = check_digest
     self.require_present = require_present
 
+  def trace_attrs(self) -> dict:
+    """Task-span attributes for ``fleet top|trace``."""
+    return {"mip": int(self.mip), "layer": self.layer_path[-60:]}
+
   def execute(self):
     vol = Volume(self.layer_path, mip=self.mip, bounded=False)
     bounds = Bbox(Vec(*self.offset), Vec(*self.offset) + Vec(*self.shape))
@@ -103,9 +107,9 @@ class IntegrityAuditTask(RegisteredTask):
           "digest_mismatch", key, chunk_bbx, expected=rec["digest"], actual=actual,
         ))
 
-    telemetry.add("integrity.audit.chunks", len(chunks))
+    telemetry.incr("integrity.audit.chunks", len(chunks))
     if findings:
-      telemetry.add("integrity.audit.findings", len(findings))
+      telemetry.incr("integrity.audit.findings", len(findings))
     summary = {
       "kind": "summary",
       "mip": int(self.mip),

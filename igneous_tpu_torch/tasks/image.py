@@ -173,6 +173,15 @@ class TransferTask(RegisteredTask):
         "set agglomerate=True (roots) or stop_layer=2 (L2 ids)"
       )
 
+  def trace_attrs(self) -> dict:
+    """Task-span attributes for ``fleet top|trace``: which cutout this
+    was, as the JAX package names it."""
+    return {
+      "dest": self.dest_path,
+      "mip": self.mip,
+      "bbox": f"{tuple(self.offset)}+{tuple(self.shape)}",
+    }
+
   def _volumes_and_bounds(self):
     src = Volume(self.src_path, mip=self.mip, fill_missing=self.fill_missing)
     dest = Volume(
@@ -366,13 +375,13 @@ class TransferTask(RegisteredTask):
           key = dm.chunk_name(mip, c)
 
           def put_one(key=key, data=data, method=method):
-            telemetry.add("transfer.passthrough.chunks", 1)
-            telemetry.add("transfer.passthrough.bytes", len(data))
+            telemetry.incr("transfer.passthrough.chunks", 1)
+            telemetry.incr("transfer.passthrough.bytes", len(data))
             if wire_ext(method) == dest_ext:
-              telemetry.add("transfer.passthrough.verbatim", 1)
+              telemetry.incr("transfer.passthrough.verbatim", 1)
               dest_cf.put_stored(key, data, method)
             else:
-              telemetry.add("transfer.passthrough.recompressed", 1)
+              telemetry.incr("transfer.passthrough.recompressed", 1)
               dest_cf.put_stored(
                 key, compress_bytes(decompress_bytes(data, method), self.compress),
                 self.compress,

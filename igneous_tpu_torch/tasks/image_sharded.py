@@ -70,6 +70,15 @@ class ImageShardTransferTask(RegisteredTask):
     self.timestamp = timestamp
     self.stop_layer = stop_layer
 
+  def trace_attrs(self) -> dict:
+    """Task-span attributes for ``fleet top|trace``: which cutout this
+    was, as the JAX package names it."""
+    return {
+      "dest": self.dest_path,
+      "mip": self.mip,
+      "bbox": f"{tuple(self.offset)}+{tuple(self.shape)}",
+    }
+
   def execute(self):
     plan = self.stage_plan()
     plan.upload(plan.compute(plan.download()), SerialSink())
@@ -136,6 +145,15 @@ class ImageShardDownsampleTask(RegisteredTask):
     self.num_mips = int(num_mips)
     self.agglomerate = bool(agglomerate)
     self.timestamp = timestamp
+
+  def trace_attrs(self) -> dict:
+    """Task-span attributes for ``fleet top|trace``: which cutout this
+    was, as the JAX package names it."""
+    return {
+      "dest": self.src_path,  # a sharded downsample writes back to its source
+      "mip": self.mip,
+      "bbox": f"{tuple(self.offset)}+{tuple(self.shape)}",
+    }
 
   def execute(self):
     plan = self.stage_plan()

@@ -76,6 +76,15 @@ class InferenceTask(RegisteredTask):
         f"postprocess must be one of {POSTPROCESS_MODES}: {postprocess!r}"
       )
 
+  def trace_attrs(self) -> dict:
+    """Task-span attributes for ``fleet top|trace``."""
+    return {
+      "dest": self.dest_path,
+      "model": self.model_path,
+      "mip": self.mip,
+      "bbox": f"{tuple(self.offset)}+{tuple(self.shape)}",
+    }
+
   def _volumes_and_bounds(self):
     # bounded=False: the halo pokes outside the volume at its edges and
     # reads background there (context decays to background; the core is

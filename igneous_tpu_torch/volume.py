@@ -219,7 +219,7 @@ class Volume:
       except (OSError, EOFError, ValueError, zlib.error) as e:
         # a torn or bit-flipped object: typed, counted and quarantined
         key = self.meta.chunk_name(mip, chunk_bbx)
-        telemetry.add("integrity.corrupt_reads", 1)
+        telemetry.incr("integrity.corrupt_reads", 1)
         reason = f"{type(e).__name__}: {e}"
         integrity.quarantine(self.cloudpath, key, reason)
         raise integrity.CorruptChunkError(self.cloudpath, key, reason) from e

@@ -22,7 +22,7 @@ from igneous_tpu_torch import Bbox, CloudFiles, Volume, chunk_cache, device, int
 
 PACKAGES = {
   "port": dict(cache=chunk_cache, Volume=Volume, Bbox=Bbox, CloudFiles=CloudFiles,
-               counters=telemetry.counters),
+               counters=telemetry.counters_snapshot),
   "jax": dict(cache=jax_chunk_cache, Volume=JaxVolume, Bbox=JaxBbox,
               CloudFiles=JaxCloudFiles, counters=jax_telemetry.counters_snapshot),
 }
@@ -36,7 +36,7 @@ def _clean(monkeypatch):
   device.reset_device()
   for pkg in PACKAGES.values():
     pkg["cache"].clear()
-  telemetry.reset()
+  telemetry.reset_all()
   jax_telemetry.reset_counters()
   yield
   for pkg in PACKAGES.values():

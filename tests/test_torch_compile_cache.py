@@ -34,7 +34,7 @@ def _fresh(monkeypatch, tmp_path):
   monkeypatch.setattr(_build, "BUILD_LOG", {})
   monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build1")
   ledger_mod.reset()
-  telemetry.reset()
+  telemetry.reset_all()
   yield
 
 
@@ -120,7 +120,7 @@ def test_store_round_trip_without_a_compiler(tmp_path, monkeypatch):
   snap = LEDGER.snapshot()
   assert snap["compile_cache"]["hits"] == 1 and snap["recompiles"] == 1
   assert snap["kernels"]["cseg"]["cache_hits"] == 1
-  assert telemetry.counters()["device.compile_cache.hit"] == 1
+  assert telemetry.counters_snapshot()["device.compile_cache.hit"] == 1
 
 
 @pytest.mark.parametrize("damage", ["truncate", "bitflip", "magic"])
@@ -147,7 +147,7 @@ def test_corrupt_entry_is_quarantined_and_rebuilt(tmp_path, monkeypatch, damage)
   assert body == path.read_bytes()
   snap = LEDGER.snapshot()["compile_cache"]
   assert snap["corrupt"] == 1 and snap["puts"] == 2 and snap["misses"] == 2
-  assert telemetry.counters()["device.compile_cache.corrupt"] == 1
+  assert telemetry.counters_snapshot()["device.compile_cache.corrupt"] == 1
 
 
 def header_meta(entry):
@@ -210,14 +210,14 @@ def test_unreadable_store_counts_an_error_and_builds(tmp_path, monkeypatch):
   path = _build.build("cseg")
   assert path.exists() and _build.BUILD_LOG["cseg"]["seconds"] > 0
   assert LEDGER.snapshot()["compile_cache"]["errors"] >= 1
-  assert telemetry.counters()["device.compile_cache.error"] >= 1
+  assert telemetry.counters_snapshot()["device.compile_cache.error"] >= 1
 
 
 def test_unported_store_scheme_counts_an_error(monkeypatch):
   # https:// has no storage backend in either package (gs:// and s3:// do)
   monkeypatch.setenv(cc.CACHE_ENV, "https://host/cache")
   assert cc.get_active() is None
-  assert telemetry.counters()["device.compile_cache.error"] == 1
+  assert telemetry.counters_snapshot()["device.compile_cache.error"] == 1
 
 
 @pytest.fixture

@@ -8,6 +8,15 @@ the same task; busy seconds are the union of the spans (nested spans and
 two threads count a moment once); memory sampling is a no-op without a
 card; the span code never synchronises the device.
 
+Journal and profile: the ledger's ``{"kind": "device"}`` journal record
+(only when it changed), its ``igneous_device_*`` gauges, the device spans
+of the trace (under the active task, else on the worker trace, none when
+the task is unsampled), a profile request published by either package
+and served once by the port's CPU capture (``torch.profiler``, a Chrome
+trace), a second capture refused while one runs, and ``fleet devices``
+naming the card where the record names it (byte for byte the JAX
+package's table where it does not).
+
 Tuner: resolution is the environment, then ``tuned/<device_kind>.json``,
 then the default, with ``IGNEOUS_TUNE_CONFIG`` before
 ``IGNEOUS_COMPILE_CACHE`` as the root and a bad tuned file ignored (as the
@@ -37,6 +46,8 @@ from igneous_tpu_torch import task_creation as tc
 from igneous_tpu_torch.cli import main as cli_main
 from igneous_tpu_torch.infer import registry
 from igneous_tpu_torch.observability import device as ledger_mod
+from igneous_tpu_torch.observability import journal as journal_mod
+from igneous_tpu_torch.observability import prom, trace
 from igneous_tpu_torch.observability.device import LEDGER, execute_span, transfer_span
 from igneous_tpu_torch.ops import ccl, cuda_ccl, cuda_pooling
 from igneous_tpu_torch.parallel import batch_runner, paged
@@ -54,7 +65,8 @@ def _torch_cpu(monkeypatch):
   device.reset_device()
   tune.reset_cache()
   ledger_mod.reset()
-  telemetry.reset()
+  telemetry.reset_all()
+  trace.reset()
   yield
   device.reset_device()
   tune.reset_cache()
@@ -118,7 +130,7 @@ def test_batched_downsample_executes_equal_the_plain_calls(tmp_path, monkeypatch
                               "host": 0}
   # the page packer's slack, with no filler pages
   assert snap["real_bytes"] > 0 and 0 < snap["pad_waste_ratio"] < 8
-  assert telemetry.gauges()["device.pad_waste_ratio"] == snap["pad_waste_ratio"]
+  assert telemetry.gauges_snapshot()["device.pad_waste_ratio"] == snap["pad_waste_ratio"]
   assert snap["busy_s"] <= snap["wall_s"]
 
 
@@ -292,7 +304,7 @@ def test_transfer_direction_is_checked():
 
 def test_hbm_gauges_noop_gracefully_on_cpu():
   assert LEDGER.sample_hbm() == {}
-  assert not any(k.startswith("device.hbm") for k in telemetry.gauges())
+  assert not any(k.startswith("device.hbm") for k in telemetry.gauges_snapshot())
   LEDGER.record_execute("k", 0.1, device="cpu")
   assert "hbm" not in LEDGER.snapshot()
 
@@ -305,7 +317,7 @@ def test_builds_are_the_recompiles():
   snap = LEDGER.snapshot()
   assert snap["recompiles"] == 1 and snap["distinct_signatures"] == 2
   assert snap["kernels"]["cseg"]["compiles"] == 1
-  assert telemetry.counters()["device.recompiles"] == 1
+  assert telemetry.counters_snapshot()["device.recompiles"] == 1
 
 
 def test_compile_span_charges_a_build():
@@ -442,3 +454,142 @@ def test_cli_tune_writes_the_file_and_refuses_a_pinned_knob(tmp_path, monkeypatc
   assert "refusing to tune" in capsys.readouterr().err
   with pytest.raises(SystemExit):
     cli_main(["tune", "--knob", "IGNEOUS_EDT_LINE_BLOCK"])
+
+
+# ---------------------------------------------------------------------------
+# the journal, the gauges, the trace and the profiler
+
+
+def test_journal_records_only_when_the_ledger_changed():
+  assert ledger_mod.journal_records() == []
+  with execute_span("pyramid2x2x1", 64, 128, device="cpu"):
+    pass
+  recs = ledger_mod.journal_records()
+  assert len(recs) == 1 and recs[0]["kind"] == "device"
+  assert recs[0]["kernels"]["pyramid2x2x1"]["executes"] == 1
+  assert ledger_mod.journal_records() == []  # nothing new since
+  assert "igneous_device_busy_ratio" in prom.render()
+  assert 0.0 < telemetry.gauges_snapshot()["device.busy_ratio"] <= 1.0
+  # the registry's device timers carry no span of their own
+  assert telemetry.snapshot()["device.execute.s"]["count"] == 1
+
+
+def test_installed_ledger_rides_the_journal_flush(tmp_path):
+  j = journal_mod.Journal(f"file://{tmp_path}/j", worker_id="w-dev", flush_interval=3600)
+  journal_mod.set_active(j)
+  try:
+    ledger_mod.install()
+    ledger_mod.install()  # idempotent
+    with execute_span("edt_pass", 8, 8, device="cpu"):
+      pass
+    assert j.flush(event="round")
+    assert not j.flush()  # nothing new: no segment
+  finally:
+    journal_mod.set_active(None)
+  from igneous_tpu_torch.observability import fleet
+
+  recs = fleet.load(f"file://{tmp_path}/j")
+  ledgers = ledger_mod.device_ledgers(recs)
+  assert list(ledgers) == ["w-dev"] and ledgers["w-dev"]["dispatches"] == 1
+  spans = [r for r in recs if r.get("name") == "device.execute"]
+  assert [(r["kernel"], r["device"], r["trace"]) for r in spans] == [
+    ("edt_pass", "cpu", trace.worker_trace_id())]
+
+
+def test_device_spans_nest_under_the_active_task(monkeypatch):
+  trace.reset()
+  ctx = trace.SpanContext("a" * 16, "task-root", True)
+  with trace.activate(ctx):
+    with execute_span("pooling.pyramid[average]", 64, 64, device="cpu"):
+      with execute_span("pyramid2x2x1", 64, 64, device="cpu"):
+        pass
+    with transfer_span("d2h", 32, "cpu"):
+      pass
+    with trace.activate(trace.SpanContext("b" * 16, "other", False)):
+      with execute_span("unsampled", 1, 1, device="cpu"):
+        pass
+  with ledger_mod.compile_span("pooling"):
+    pass
+  spans = trace.drain_spans()
+  got = [(s["name"], s.get("kernel"), s["trace"], s["parent"]) for s in spans]
+  assert got == [
+    ("device.execute", "pyramid2x2x1", "a" * 16, "task-root"),
+    ("device.execute", "pooling.pyramid[average]", "a" * 16, "task-root"),
+    ("device.d2h", None, "a" * 16, "task-root"),
+    ("device.compile", "pooling", trace.worker_trace_id(), None),
+  ]
+  assert spans[2]["bytes"] == 32 and spans[0]["devices"] == 1
+  monkeypatch.setenv("IGNEOUS_TRACE_SAMPLE", "0")
+  with execute_span("k", device="cpu"):
+    pass
+  assert trace.drain_spans() == []
+
+
+def _wait_capture(seconds=60.0):
+  deadline = time.monotonic() + seconds
+  while ledger_mod._PROFILE_STATE["active"] and time.monotonic() < deadline:
+    time.sleep(0.05)
+  assert not ledger_mod._PROFILE_STATE["active"]
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_profile_request_is_served_once_by_the_cpu_capture(writer, tmp_path):
+  path = f"file://{tmp_path}/j"
+  mod = jax_device if writer == "jax" else ledger_mod
+  req = mod.write_profile_request(path, duration_sec=0.05, workers=["w-a"])
+  assert ledger_mod.read_profile_request(path)["id"] == req["id"]
+  other = journal_mod.Journal(path, worker_id="w-b")
+  assert not ledger_mod.poll_profile_trigger(other)  # not named
+  j = journal_mod.Journal(path, worker_id="w-a")
+  assert ledger_mod.poll_profile_trigger(j)
+  _wait_capture()
+  assert not ledger_mod.poll_profile_trigger(j)  # served
+  keys = ledger_mod.list_profiles(path)
+  assert keys == jax_device.list_profiles(path) == [f"profiles/w-a-{req['id']}/trace.json"]
+  doc = json.loads((tmp_path / "j" / keys[0]).read_bytes())
+  assert isinstance(doc["traceEvents"], list)
+  assert telemetry.counters_snapshot()["device.profile.captures"] == 1
+
+
+def test_second_capture_is_refused_while_one_runs(tmp_path):
+  assert ledger_mod.start_capture(0.3, logdir=str(tmp_path))
+  try:
+    assert not ledger_mod.start_capture(0.01, logdir=str(tmp_path))
+  finally:
+    _wait_capture()
+  assert os.path.exists(tmp_path / "local-manual" / "trace.json")
+
+
+def test_every_nth_dispatch_samples_a_capture(tmp_path, monkeypatch):
+  monkeypatch.setattr(ledger_mod, "_SAMPLE_COUNT", [0])
+  monkeypatch.setenv("IGNEOUS_PROFILE_EVERY", "2")
+  monkeypatch.setenv("IGNEOUS_PROFILE_SEC", "0.05")
+  for _ in range(3):  # no directory: inert
+    with execute_span("k", device="cpu"):
+      pass
+  assert ledger_mod._SAMPLE_COUNT == [0]
+  monkeypatch.setenv("IGNEOUS_PROFILE_DIR", str(tmp_path))
+  for _ in range(3):
+    with execute_span("outer", device="cpu"):
+      with execute_span("inner", device="cpu"):  # not a dispatch
+        pass
+  _wait_capture()
+  assert ledger_mod._SAMPLE_COUNT == [3]
+  assert os.listdir(tmp_path) == ["local-sample-2"]
+  assert os.path.exists(tmp_path / "local-sample-2" / "trace.json")
+
+
+def test_render_devices_names_the_card_where_the_record_does():
+  rec = {"kind": "device", "worker": "w0", "ts": 5.0, "busy_ratio": 0.04,
+         "dispatches": 3, "recompiles": 1, "devices": {"cuda:0": 0.2},
+         "kernels": {"pyramid2x2x1": {"executes": 3, "execute_s": 0.002,
+                                      "vox_per_sec": 1e10, "compiles": 1}},
+         "hbm": {"cuda:0": {"peak_bytes_in_use": 2 << 30, "bytes_limit": 80 << 30}}}
+  plain = ledger_mod.device_ledgers([rec])
+  assert ledger_mod.render_devices(plain) == jax_device.render_devices(plain)
+  named = ledger_mod.device_ledgers([dict(rec, kinds={"cuda:0": "NVIDIA H100 80GB HBM3"})])
+  lines = ledger_mod.render_devices(named)
+  assert "cards: cuda:0 NVIDIA H100 80GB HBM3" in lines
+  assert [l for l in lines if not l.startswith("cards:")] == jax_device.render_devices(plain)
+  assert ledger_mod.fleet_summary(named) == jax_device.fleet_summary(plain)
+

@@ -259,11 +259,11 @@ def test_engine_counts_patches_padding_and_dispatches(tmp_path):
   path = _model(f"file://{tmp_path}/m")
   Volume.from_numpy(image((48, 48, 16)), f"file://{tmp_path}/src",
                     chunk_size=(16, 16, 16), layer_type="image")
-  telemetry.reset()
+  telemetry.reset_all()
   LocalTaskQueue().insert(tc.create_inference_tasks(
     f"file://{tmp_path}/src", f"file://{tmp_path}/out", path,
     shape=(48, 48, 16), batch_size=4))
-  counts = telemetry.counters()
+  counts = telemetry.counters_snapshot()
   assert counts["infer.patches"] == 18
   assert counts["infer.padded_slots"] == 2
   assert counts["infer.dispatches"] == 5

@@ -49,7 +49,7 @@ SIDE = {
               counters=lambda: jax_telemetry.counters_snapshot(),
               queue=lambda: JaxLocalTaskQueue(parallel=1, progress=False)),
   "port": dict(integrity=integrity, storage=storage, Volume=Volume, tc=tc,
-               audit=audit, chunk_cache=chunk_cache, counters=telemetry.counters,
+               audit=audit, chunk_cache=chunk_cache, counters=telemetry.counters_snapshot,
                queue=lambda: LocalTaskQueue(parallel=1)),
 }
 
@@ -80,7 +80,7 @@ def _clean(monkeypatch):
   device.reset_device()
   flush_local()
   jax_telemetry.reset_all()
-  telemetry.reset()
+  telemetry.reset_all()
   for side in SIDE.values():
     side["chunk_cache"].clear()
   yield
@@ -263,7 +263,7 @@ def test_verify_after_write_passes_sound_puts(tmp_path, monkeypatch):
   cf = storage.CloudFiles(f"file://{tmp_path}")
   cf.put("1_1_1/0-32_0-32_0-32", b"\x03" * 128, compress="gzip")
   assert cf.get("1_1_1/0-32_0-32_0-32") == b"\x03" * 128
-  assert telemetry.counters().get("integrity.verify_failed", 0) == 0
+  assert telemetry.counters_snapshot().get("integrity.verify_failed", 0) == 0
 
 
 # -- the read path's guard ---------------------------------------------------

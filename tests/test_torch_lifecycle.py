@@ -44,7 +44,7 @@ def _torch_cpu(monkeypatch):
   monkeypatch.setenv("IGNEOUS_QUEUE_RECYCLE_SEC", "0")
   monkeypatch.delenv("IGNEOUS_HEARTBEAT_SEC", raising=False)
   device.reset_device()
-  telemetry.reset()
+  telemetry.reset_all()
   yield
   device.reset_device()
 
@@ -126,10 +126,10 @@ def test_a_long_task_runs_once_under_the_heartbeat(tmp_path, heartbeat):
   assert q.completed == 1 and q.enqueued == 0
   if heartbeat:
     assert runs.read_text() == "ran\n" and sorted(results) == [0, 1]
-    assert "zombie.delete" not in telemetry.counters()
+    assert "zombie.delete" not in telemetry.counters_snapshot()
   else:
     assert runs.read_text() == "ran\nran\n"
-    assert telemetry.counters()["zombie.delete"] == 1
+    assert telemetry.counters_snapshot()["zombie.delete"] == 1
 
 
 def test_without_the_heartbeat_an_overrun_is_contained(tmp_path):
@@ -140,7 +140,7 @@ def test_without_the_heartbeat_an_overrun_is_contained(tmp_path):
   # the loop counts the delivery it ran; its ack is fenced
   assert q.poll(lease_seconds=0.2, heartbeat_seconds=0,
                 stop_fn=lambda executed, empty: empty) == 1
-  assert telemetry.counters()["zombie.delete"] == 1
+  assert telemetry.counters_snapshot()["zombie.delete"] == 1
   assert (tmp_path / "runs").read_text() == "ran\n"
   assert q.completed == 0 and q.enqueued == 0 and q.dlq_count == 1
   [rec] = q.dlq_ls()
@@ -296,7 +296,8 @@ def test_local_queue_in_two_processes_records_the_serial_dead_letters(tmp_path, 
     q.insert(tasks)
     letters[parallel] = (q.dead_letters, q.completed, q.inserted)
   assert letters[2] == letters[1]
-  assert letters[1][0] == [{"payload": FailTask("poison").to_json(),
+  # the dead letter is the inserted payload, its trace identity included
+  assert letters[1][0] == [{"payload": tasks[1].to_json(),
                             "error": "RuntimeError: poison"}]
 
 

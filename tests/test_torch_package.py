@@ -71,6 +71,11 @@ import igneous_tpu_torch.storage_s3, igneous_tpu_torch.integrity
 import igneous_tpu_torch.tasks.audit, igneous_tpu_torch.task_creation.audit
 import igneous_tpu_torch.sharding, igneous_tpu_torch.sharded_image
 import igneous_tpu_torch.tasks.image_sharded
+import igneous_tpu_torch.observability.trace, igneous_tpu_torch.observability.metrics
+import igneous_tpu_torch.observability.journal, igneous_tpu_torch.observability.rollup
+import igneous_tpu_torch.observability.fleet, igneous_tpu_torch.observability.prom
+import igneous_tpu_torch.observability.perfetto, igneous_tpu_torch.observability.health
+import igneous_tpu_torch.observability.autoscale, igneous_tpu_torch.cli
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'igneous_tpu')]
 assert not bad, bad
 from igneous_tpu_torch.ops import _build

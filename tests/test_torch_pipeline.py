@@ -49,7 +49,7 @@ def _torch_cpu(monkeypatch):
   for name in KNOBS:
     monkeypatch.delenv(name, raising=False)
   device.reset_device()
-  telemetry.reset()
+  telemetry.reset_all()
   yield
   device.reset_device()
 
@@ -651,7 +651,7 @@ def test_passthrough_decodes_nothing_and_writes_the_source_bytes(tmp_path, monke
   assert_same_files(port, jax, min_files=19)
   chunks = {k: v for k, v in port.items() if k.startswith("8_8_40/")}
   assert len(chunks) == 3 * 3 * 2
-  counts = telemetry.counters()
+  counts = telemetry.counters_snapshot()
   jax_counts = jax_telemetry.counters_snapshot()
   for name in ("chunks", "bytes", "verbatim", "recompressed"):
     key = f"transfer.passthrough.{name}"
@@ -723,7 +723,7 @@ def test_ineligible_transfer_takes_the_decode_route_with_the_reference_bytes(
       _existing_dest(roots, who, **dest_info)
   for who in ("jax", "port"):
     _transfer(roots, who, **kw)
-  counts = telemetry.counters()
+  counts = telemetry.counters_snapshot()
   assert counts.get("transfer.passthrough.chunks", 0) == 0
   assert_same_files(_files(roots["port"] / "dest"), _files(roots["jax"] / "dest"),
                     min_files=5)
@@ -749,7 +749,7 @@ def test_passthrough_runs_beside_a_downsample_stream(tmp_path, forced_threads):
       q = LocalTaskQueue()
       q.insert(tasks)
       assert q.pipeline_stats["staged"] == len(tasks)
-      assert telemetry.counters()["transfer.passthrough.verbatim"] == 18
+      assert telemetry.counters_snapshot()["transfer.passthrough.verbatim"] == 18
     trees[who] = _files(root / "dest")
   assert_same_files(trees["port"], trees["jax"], min_files=25)
   chunk_cache.clear()

@@ -109,7 +109,7 @@ def _dlq(q) -> list:
 
 
 def _counters(who) -> dict:
-  snap = jax_telemetry.counters_snapshot() if who == "jax" else telemetry.counters()
+  snap = jax_telemetry.counters_snapshot() if who == "jax" else telemetry.counters_snapshot()
   return {k: v for k, v in snap.items()
           if k.split(".")[0] in ("zombie", "dlq", "tasks", "drain")}
 
@@ -122,7 +122,7 @@ def _payloads(root: pathlib.Path, n: int, tag: str) -> list:
 def _script(who: str, root: pathlib.Path, payloads, reset_ids, monkeypatch):
   """Run the script on one package's queue; returns [(step, observation)]."""
   FQ, Stale = PACKAGES[who]
-  (jax_telemetry.reset_counters if who == "jax" else telemetry.reset)()
+  (jax_telemetry.reset_counters if who == "jax" else telemetry.reset_all)()
   reset_ids()
   monkeypatch.setenv("IGNEOUS_QUEUE_SEG_TASKS", "256")
   qdir = root / "q"

@@ -138,14 +138,16 @@ def test_execute_drains_sqs_through_an_explicit_transport(tmp_path, monkeypatch,
   from igneous_tpu_torch.tasks import FailTask, TouchFileTask
 
   feeder.insert_batch([TouchFileTask(str(tmp_path / f"t{i}")) for i in range(5)])
-  feeder.insert(FailTask("poison"))
+  poison = FailTask("poison")
+  feeder.insert(poison)
   rc = cli_main(["execute", "sqs://work", "-x", "--lease-sec", "0",
                  "--max-deliveries", "2", "--heartbeat-sec", "0"])
   assert rc == 0
   assert sorted(os.listdir(tmp_path)) == [f"t{i}" for i in range(5)]
   worker = queues[-1]
   assert worker.completed == 5
-  assert [d["payload"] for d in worker.dead_letters] == [FailTask("poison").to_json()]
+  # the dead letter is the inserted payload, its trace identity included
+  assert [d["payload"] for d in worker.dead_letters] == [poison.to_json()]
   assert worker.dead_letters[0]["error"] == "RuntimeError: poison"
   assert fake.approximate_counts() == (0, 0)
 

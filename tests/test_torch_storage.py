@@ -41,7 +41,7 @@ def _clean(monkeypatch):
   for mod in PACKAGES.values():
     for proto in ("gs", "s3"):  # the real clients, not a memory double
       mod._PROTOCOL_HOOKS.pop(proto, None)
-  telemetry.reset()
+  telemetry.reset_all()
   yield
   flush_local()
   clear_memory_storage()
@@ -257,10 +257,10 @@ def test_retry_on_503(proto, gcs_server, s3_server):
   cf.put("k", b"payload", compress=None)
   srv.state.fail_next = 2  # two 503s, then success
   assert cf.get("k") == b"payload"
-  assert telemetry.counters().get("retries.storage_http") == 2
+  assert telemetry.counters_snapshot().get("retries.storage_http") == 2
   srv.state.fail_next = 2
   assert sorted(cf.list("")) == ["k"]
-  assert telemetry.counters().get("retries.storage_http") == 4
+  assert telemetry.counters_snapshot().get("retries.storage_http") == 4
 
 
 @pytest.mark.parametrize("proto", ["gs", "s3"])
@@ -275,7 +275,7 @@ def test_retries_exhausted_raise(proto, gcs_server, s3_server):
       cf.get("k")
   finally:
     retry.set_default_policy(None)
-  assert telemetry.counters().get("retries.storage_http") == 2
+  assert telemetry.counters_snapshot().get("retries.storage_http") == 2
 
 
 @pytest.mark.parametrize("proto", ["gs", "s3"])
