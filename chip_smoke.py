@@ -193,7 +193,8 @@ Phases, each reported on its own line:
      candidate's time, all byte for byte the default's, the tuned file
      of the card's kind written and read back by resolve;
   11. the queue worker (after phase 3d, and after the batched parts of
-     phases 4 and 6): (a) phase 3d's two 16-task streams inserted with
+     phases 4 and 6): (a) phase 3d's 16-task image stream (both streams
+     before phase 18) inserted with
      `image downsample --queue fq://...` and drained by two workers at
      once, a worker process (`python -m igneous_tpu_torch execute
      --batch 4 -x`) and, once it holds leases, `execute --batch 8 -x
@@ -338,12 +339,33 @@ Phases, each reported on its own line:
      drains it (exit 83, its last will's counters line); (e) the same
      tasks through LocalTaskQueue, no journal: every journaled run's
      layer byte for byte its layer;
+  18. campaign survival (after phase 17, in phase 3's root): (a) 8 of
+     phase 3d's image-stream tasks in two ranges; a worker process S
+     stopped (SIGSTOP) once it holds a range; `campaign run --actuator
+     local` twins S's silent ranges and its spawned worker finishes the
+     campaign on the card; S resumed and drained (its acks fenced): the
+     tally exactly 8, won + fenced == issued >= 1 (queue and journal), a
+     scale-up and a scale-down, the spawned workers' exits 83 or 0 and
+     pyramid2x2x1 in their device records, every chunk phase 17's; (b)
+     phase 3's ragged image as 16 tasks behind a 6 s SleepTask in one
+     range: a holder process whose pre-leased round sits unstarted, a
+     thief in this process (IGNEOUS_STEAL=1) claiming it and running the
+     tail the holder's renewal grants: claims, grants and stolen tasks,
+     the tally exact, every chunk phase 3's; (c) the same 16 tasks to a
+     worker named in health/flags.json, which runs its 9 full members in
+     one pyramid2x2x1 launch and sheds the 7 clamped ones, none of whose
+     pages ran, to a healthy worker (28 page rounds of pool2x2x1); (d)
+     `fleet simulate` of (a)'s journal twice: equal forecasts and
+     journal bytes, `fleet status` on them, the forecast printed beside
+     (a)'s wall; each part's wall, workers, busy share and the survival
+     counters printed;
   7. the card's name and power limit, the programs line (X1-X3, X5-X7),
      the kernels line (each kernel's launches on the main paths, the
      transfer, the batched phase, the pipelined streams, the worker phase,
      where each of the four must have launched, the storage phase, the
      sharded phase, phase 14, phase 15 (edt_pass), phase 16
-     (pyramid2x2x1, edt_pass) and phase 17 (pyramid2x2x1, edt_pass)),
+     (pyramid2x2x1, edt_pass), phase 17 (pyramid2x2x1, edt_pass) and
+     phase 18 (pyramid2x2x1, pool2x2x1)),
      and the result.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -3282,6 +3304,10 @@ WORKER_SUMMARY = re.compile(
   r"(\d+) failed, (\d+) released\)"
 )
 WORKER_LEASE_SEC = 600
+# phase 3d's streams that (a) drains with two workers: the image stream
+# alone since phase 18 (both before), to make room for phase 18; (c)
+# still drains segmentation-stream tasks through a worker process
+WORKER_STREAMS = 1
 # a card's worker process reaches the card in 8-10 s; the drain, the
 # dead letters and the heartbeat each wait on short leases
 WORKER_START_S, WORKER_EXIT_S = 180.0, 600.0
@@ -3395,8 +3421,8 @@ def mip_files_equal(src: str, dst: str, mips: int, complete: bool = True) -> int
 
 
 def worker_streams(root, cp, cc, ce, walls3d, torch, dev) -> dict:
-  """(a) Phase 3d's two 16-task streams through ``image downsample
-  --queue`` and two workers at once: a worker process (``execute --batch
+  """(a) Phase 3d's first ``WORKER_STREAMS`` 16-task streams through
+  ``image downsample --queue`` and two workers at once: a worker process (``execute --batch
   4 -x --time``) and, once it holds leases, ``execute --batch 8 -x
   --time`` in this process, whose launches and ledger are read. No group
   of either falls back to solo. The written mips byte
@@ -3408,7 +3434,7 @@ def worker_streams(root, cp, cc, ce, walls3d, torch, dev) -> dict:
   from igneous_tpu_torch.queues import FileQueue
 
   launches = {}
-  for name, target, ntasks, shape, mips in PIPELINED_RUNS:
+  for name, target, ntasks, shape, mips in PIPELINED_RUNS[:WORKER_STREAMS]:
     src, dst = os.path.join(root, name), os.path.join(root, f"{name}_worker")
     spec = f"fq://{root}/queue_{name}"
     link_layer(src, dst)
@@ -5559,7 +5585,10 @@ JOURNAL_BATCH = 4
 # the timed runs, in turns: spans on, spans off (IGNEOUS_TRACE_SAMPLE=0,
 # which leaves the counters journaled), twice each
 JOURNAL_TURNS = ("traced", "untraced", "untraced", "traced")
-PROFILE_SEC = 2.0
+# the capture opens as the run begins and must outlast its downloads: the
+# run took 2.0-3.4 s on the H100's host, and a 2 s window that closed
+# before the first cutout arrived held no kernel
+PROFILE_SEC = 8.0
 PROFILE_WAIT_S = 60.0
 JOURNAL_SPANS = 1000  # trace spans timed for the host cost of one
 
@@ -5919,7 +5948,7 @@ def journal_phase(root, cp, cc, ce, torch, dev) -> tuple:
     launches[k] += v
   if launched["pyramid2x2x1"] != JOURNAL_TASKS:
     fail(f"journal solo: launches {launched}, expected {JOURNAL_TASKS} pyramid2x2x1")
-  print(f"journal solo: wall {wall:.3f} s (a {PROFILE_SEC:.0f} s capture inside it), "
+  print(f"journal solo: wall {wall:.3f} s (a {PROFILE_SEC:.0f} s capture opened with it), "
         f"flush {clock.seconds:.4f} s in {clock.count} flushes, "
         f"{json.dumps(journal_stats(spec, JOURNAL_TASKS))}", flush=True)
   n_prof = check_profile(path)
@@ -5986,6 +6015,403 @@ def journal_skeleton_phase(root, ce, cp, cc) -> tuple:
   if launched["edt_pass"] != 3 or frags != 2 or not stats["kinds"].get("device"):
     fail(f"journal skeleton: launches {launched}, {frags} .frags, {stats['kinds']}")
   return launched["edt_pass"], time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# campaign survival (phase 18): straggler speculation, autoscale, work
+# stealing, a flagged worker's paged split and the fleet simulator
+
+# (a) S holds its ranges at a lease short enough to expire while it is
+# stopped; the campaign runner ticks every second and calls S silent after 2 s
+CAMPAIGN_HOLDER_LEASE_SEC = 8
+CAMPAIGN_STALL_SEC = "2"
+CAMPAIGN_TICK_SEC = 1
+CAMPAIGN_MAX_WORKERS = 2
+CAMPAIGN_MAX_WALL_SEC = 240
+# (b) H renews every second (lease/3) and holds its prefetched round while
+# it sleeps through the SleepTask that leads its range; T may claim a
+# range held half a second and polls for 8 s
+STEAL_HOLDER_LEASE_SEC = 3
+STEAL_SLEEP_S = 6.0
+STEAL_MIN_HELD_SEC = "0.5"
+STEAL_THIEF_SEC = 8.0
+STEAL_BATCH = 8
+RAGGED_TASKS = 16  # phase 11 (b)'s: 256x256x64 over the 1000x1000x64 image, 2 mips
+
+
+class EnvSet:
+  """Set environment variables for a block and restore them after."""
+
+  def __init__(self, **env):
+    self.env, self.saved = env, {}
+
+  def __enter__(self):
+    import os
+
+    for k, v in self.env.items():
+      self.saved[k] = os.environ.get(k)
+      os.environ[k] = str(v)
+    return self
+
+  def __exit__(self, *exc):
+    import os
+
+    for k, v in self.saved.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+
+
+def worker_id_of(pid: int) -> str:
+  """The journal's worker id of a process on this host."""
+  import socket
+
+  return f"{socket.gethostname().split('.')[0] or 'worker'}-{pid}"
+
+
+def journal_kernel_executes(jpath: str, name: str, skip=()) -> int:
+  """A kernel's executes in the device records of a journal, summed over
+  its workers but those in ``skip``."""
+  from igneous_tpu_torch.observability import device as device_mod
+  from igneous_tpu_torch.observability import fleet
+
+  ledgers = device_mod.device_ledgers(fleet.load_effective(jpath))
+  return sum(int((rec.get("kernels") or {}).get(name, {}).get("executes", 0))
+             for worker, rec in ledgers.items() if worker not in skip)
+
+
+def stop_process(proc) -> None:
+  """Resume and kill a worker process the phase left behind."""
+  import signal
+
+  if proc.poll() is None:
+    proc.send_signal(signal.SIGCONT)
+    proc.kill()
+    proc.wait()
+
+
+def campaign_speculation(root, cp, cc, ce) -> dict:
+  """Phase 18 (a): 8 of phase 3d's image-stream tasks in two ranges of 4
+  (``IGNEOUS_QUEUE_SHARDS=2``); worker S leases and is stopped (SIGSTOP,
+  a signal to this script's own child); ``campaign run --actuator local``
+  twins S's silent ranges and its spawned workers finish the campaign on
+  the card; S resumes and drains, its late acks fenced. Every chunk
+  equals phase 17's LocalTaskQueue layer."""
+  import os
+  import signal
+
+  from igneous_tpu_torch import telemetry
+  from igneous_tpu_torch.observability import fleet
+  from igneous_tpu_torch.queues import FileQueue
+
+  here = os.path.dirname(os.path.abspath(__file__))
+  name, target, _n, _shape, mips = PIPELINED_RUNS[0]
+  dst = os.path.join(root, f"{name}_campaign")
+  link_layer(os.path.join(root, name), dst)
+  spec = f"fq://{root}/queue_campaign"
+  jpath = f"file://{root}/queue_campaign/journal"
+  with EnvSet(IGNEOUS_QUEUE_SHARDS=2):
+    run_cli(["image", "downsample", f"file://{dst}", "--num-mips", mips, "--memory", target,
+             "--xrange", JOURNAL_XRANGE, "--queue", spec])
+  q = FileQueue(spec)
+  if q.inserted != JOURNAL_TASKS or q.queue_files != 2:
+    fail(f"campaign (a): {q.inserted} tasks in {q.queue_files} files, expected "
+         f"{JOURNAL_TASKS} in 2 ranges")
+  t0 = time.perf_counter()
+  proc, out = start_worker(root, "campaign_straggler",
+                           [spec, "--batch", 4, "--journal", jpath, "--lease-sec",
+                            CAMPAIGN_HOLDER_LEASE_SEC])
+  sid = worker_id_of(proc.pid)
+  try:
+    wait_for(lambda: any(r["holder"] == sid for r in q.range_leases()), WORKER_START_S,
+             "worker S holding a range lease", proc)
+    proc.send_signal(signal.SIGSTOP)
+    held = sorted(r["count"] for r in q.range_leases() if r["holder"] == sid)
+    t_stopped = time.perf_counter()
+    telemetry.reset_all()
+    with EnvSet(IGNEOUS_HEALTH_STALL_SEC=CAMPAIGN_STALL_SEC, PYTHONPATH=here):
+      text = run_cli(["campaign", "run", "-q", spec, "--actuator", "local",
+                      "--worker-arg", "--batch", "--worker-arg", 4,
+                      "--worker-arg", "-q", "--tick-sec", CAMPAIGN_TICK_SEC,
+                      "--min-workers", 0, "--max-workers", CAMPAIGN_MAX_WORKERS,
+                      "--cooldown-sec", 0, "--max-wall-sec", CAMPAIGN_MAX_WALL_SEC, "--json"])
+    t_campaign = time.perf_counter() - t_stopped
+    issued = telemetry.counters_snapshot().get("speculation.issued", 0)
+    proc.send_signal(signal.SIGCONT)
+    proc.send_signal(signal.SIGTERM)
+    straggler = finish_worker(proc, out, "campaign S", codes=(83, 0))
+  finally:
+    stop_process(proc)
+  wall = time.perf_counter() - t0
+  ticks = [json.loads(line) for line in text.strip().splitlines()]
+  summary = ticks.pop()
+  counters = fleet.status(fleet.load_effective(jpath))["counters"]
+  exits = summary["actuator"]["exits"]
+  won, fenced = q.speculation_won, q.speculation_fenced
+  spawned_pyramids = journal_kernel_executes(jpath, "pyramid2x2x1", skip=(sid,))
+  auto = {k: v for k, v in counters.items() if k.startswith("autoscale.")}
+  row = {
+    "wall_s": round(wall, 3), "campaign_s": round(t_campaign, 3), "held": held,
+    "ticks": summary["ticks"], "actions": summary["actions"],
+    "spawned": summary["actuator"]["spawned"], "exits": exits,
+    "issued": issued, "won": won, "fenced": fenced,
+    "journal": {k: counters.get(k, 0) for k in (
+      "speculation.issued", "speculation.won", "speculation.fenced",
+      "speculation.duplicate_ack", "speculation.deduped", "zombie.delete")},
+    "autoscale": auto, "completed": q.completed, "spawned_pyramid2x2x1": spawned_pyramids,
+    "straggler": straggler.strip().splitlines()[-1:] if straggler.strip() else [],
+  }
+  print(f"campaign (a): {json.dumps(row)}", flush=True)
+  if q.completed != JOURNAL_TASKS or q.enqueued or q.leased or q.dlq_count:
+    fail(f"campaign (a): the queue tallied {q.completed} of {JOURNAL_TASKS} "
+         f"({json.dumps(q.depth_snapshot())})")
+  if issued < 1 or won + fenced != issued:
+    fail(f"campaign (a): speculation issued {issued}, won {won}, fenced {fenced}")
+  if counters.get("speculation.won", 0) + counters.get("speculation.fenced", 0) != issued \
+     or counters.get("speculation.issued", 0) != issued:
+    fail(f"campaign (a): the journal's speculation counters {row['journal']} against "
+         f"issued {issued}")
+  if not auto.get("autoscale.scale_up") or not auto.get("autoscale.scale_down"):
+    fail(f"campaign (a): autoscale counters {auto}: a scale-up and a scale-down must show")
+  if not exits or set(exits) - {"83", "0"}:
+    fail(f"campaign (a): the spawned workers exited {exits}")
+  if spawned_pyramids < 1:
+    fail("campaign (a): no pyramid2x2x1 launch in the spawned workers' device records")
+  n = mip_files_equal(os.path.join(root, f"{name}_journal_local"), dst, mips)
+  print(f"campaign (a): {n} chunk files of mips 1-{mips} byte for byte phase 17's "
+        f"LocalTaskQueue layer", flush=True)
+  row["jpath"] = jpath
+  return row
+
+
+def ragged_queue(root: str, label: str, lead=()):
+  """Phase 11 (b)'s 16 ragged tasks into a new layer sharing phase 3's
+  ragged mip 0, after the tasks in ``lead``, as one range. Returns (spec,
+  layer dir, queue)."""
+  import os
+
+  from igneous_tpu_torch.queues import FileQueue
+  from igneous_tpu_torch.task_creation import create_downsampling_tasks
+
+  dst = os.path.join(root, f"ragged_image_{label}")
+  link_layer(os.path.join(root, "ragged_image"), dst)
+  tasks = list(create_downsampling_tasks(f"file://{dst}", mip=0, num_mips=2,
+                                         memory_target=2**23))
+  if len(tasks) != RAGGED_TASKS:
+    fail(f"campaign {label}: {len(tasks)} ragged tasks, expected {RAGGED_TASKS}")
+  spec = f"fq://{root}/queue_{label}"
+  q = FileQueue(spec)
+  with EnvSet(IGNEOUS_QUEUE_SHARDS=1):
+    q.insert_batch(list(lead) + tasks, total=len(lead) + len(tasks))
+  if q.queue_files != 1:
+    fail(f"campaign {label}: {q.queue_files} queue files, expected one range")
+  return spec, dst, q
+
+
+def campaign_stealing(root, cp, cc, ce, torch, dev) -> tuple:
+  """Phase 18 (b): holder H (a worker process, ``--batch 8 --lease-sec
+  3``) leases a range led by a 6 s ``SleepTask`` and pre-leases its next
+  round, which sits unstarted while H sleeps; thief T (``IGNEOUS_STEAL=1``,
+  the lease batcher at batch 4 in this process) finds the queue empty,
+  claims that range, and runs the tail H's next renewal releases, on the
+  card. Returns (row, launches)."""
+  import os
+
+  from igneous_tpu_torch import telemetry
+  from igneous_tpu_torch.observability import fleet
+  from igneous_tpu_torch.parallel.lease_batcher import poll_batched
+  from igneous_tpu_torch.queues import FileQueue
+  from igneous_tpu_torch.tasks import SleepTask
+
+  t0 = time.perf_counter()
+  spec, dst, q = ragged_queue(root, "steal", lead=[SleepTask(STEAL_SLEEP_S)])
+  ntasks = RAGGED_TASKS + 1
+  jpath = f"file://{root}/queue_steal/journal"
+  proc, out = start_worker(root, "campaign_holder",
+                           [spec, "--batch", STEAL_BATCH, "-x", "--lease-sec",
+                            STEAL_HOLDER_LEASE_SEC])
+  hid = worker_id_of(proc.pid)
+  try:
+    # H holds its round and the next one it pre-leased
+    wait_for(lambda: sum(r["holder"] == hid for r in q.range_leases()) >= 2, WORKER_START_S,
+             "holder H holding two ranges", proc)
+    zero_counts(cp, cc, ce)
+    ledger_reset(torch, dev)
+    telemetry.reset_all()
+    thief = FileQueue(spec, worker_id="thief")
+    t1 = time.perf_counter()
+    with EnvSet(IGNEOUS_STEAL=1, IGNEOUS_STEAL_MIN_HELD_SEC=STEAL_MIN_HELD_SEC):
+      executed, stats = poll_batched(
+        thief, batch_size=4, lease_seconds=WORKER_LEASE_SEC,
+        stop_fn=lambda executed, empty: empty and time.perf_counter() - t1 > STEAL_THIEF_SEC,
+      )
+    t_thief = time.perf_counter() - t1
+    launched = launch_counts(cp, cc, ce)
+    snap = ledger_line("campaign (b) thief", t_thief, launched)
+    holder = worker_summary(finish_worker(proc, out, "campaign H"), "campaign H")
+  finally:
+    stop_process(proc)
+  counters = fleet.status(fleet.load_effective(jpath))["counters"]
+  steal = {k: counters.get(k, 0) for k in ("steal.granted", "steal.tasks", "steal.denied")}
+  row = {
+    "wall_s": round(time.perf_counter() - t0, 3), "thief_s": round(t_thief, 3),
+    "thief_executed": executed, "steal_claims": stats["steal_claims"],
+    "claims": telemetry.counters_snapshot().get("steal.claims", 0), **steal,
+    "holder": holder, "completed": q.completed, "launches": launched,
+    "busy_pct": round(100 * snap["busy_s"] / t_thief, 2),
+  }
+  print(f"campaign (b): {json.dumps(row)}", flush=True)
+  if row["claims"] < 1 or stats["steal_claims"] < 1 or steal["steal.granted"] < 1 \
+     or steal["steal.tasks"] < 1:
+    fail(f"campaign (b): no steal claimed and granted: {row}")
+  # H also runs the members granted away from its pre-leased round (their
+  # acks are fenced), so only the thief's count is bounded below
+  if executed < steal["steal.tasks"]:
+    fail(f"campaign (b): the thief ran {executed} tasks of the {steal['steal.tasks']} granted")
+  if q.completed != ntasks or q.enqueued or q.dlq_count:
+    fail(f"campaign (b): the queue tallied {q.completed} of {ntasks}")
+  if not (launched["pyramid2x2x1"] or launched["pool2x2x1"]):
+    fail(f"campaign (b): the stolen tasks launched no kernel: {launched}")
+  n = mip_files_equal(os.path.join(root, "ragged_image"), dst, 2)
+  print(f"campaign (b): {n} chunk files of mips 1-2 byte for byte phase 3's (and phase "
+        f"11 (b)'s)", flush=True)
+  return row, launched
+
+
+def campaign_paged_split(root, cp, cc, ce, torch, dev) -> tuple:
+  """Phase 18 (c): worker F, named in ``<journal>/health/flags.json``
+  before it leases, takes the 16 ragged tasks at batch 16: its 9 full
+  members run in one ``pyramid2x2x1`` dispatch and it sheds the 7 clamped
+  members, none of whose pages ran, back to the queue; a healthy worker G
+  runs their ``pool2x2x1`` page rounds. Returns (row, launches)."""
+  import os
+
+  from igneous_tpu_torch.observability import health
+  from igneous_tpu_torch.observability import journal as journal_mod
+  from igneous_tpu_torch.parallel.lease_batcher import poll_batched
+  from igneous_tpu_torch.queues import FileQueue
+
+  t0 = time.perf_counter()
+  spec, dst, q = ragged_queue(root, "split")
+  jpath = f"file://{root}/queue_split/journal"
+  health.write_flags(jpath, {"ts": time.time(), "flagged_workers": ["flagged-F"],
+                             "autoscale": {"desired_workers": 1}})
+  zero_counts(cp, cc, ce)
+  ledger_reset(torch, dev)
+  journal_mod.set_active(journal_mod.Journal(jpath, worker_id="flagged-F"))
+  try:
+    t1 = time.perf_counter()
+    f_exec, f_stats = poll_batched(
+      FileQueue(spec, worker_id="flagged-F"), batch_size=RAGGED_TASKS,
+      lease_seconds=WORKER_LEASE_SEC, task_budget=RAGGED_TASKS,
+      stop_fn=lambda executed, empty: empty or executed > 0,
+    )
+    t_f = time.perf_counter() - t1
+  finally:
+    journal_mod.flush_active(event="exit")
+    journal_mod.set_active(None)
+  f_launched = launch_counts(cp, cc, ce)
+  snap_f = ledger_line("campaign (c) F", t_f, f_launched)
+  shed = f_stats["paged_splits"]
+  left = q.depth_snapshot()
+  zero_counts(cp, cc, ce)
+  ledger_reset(torch, dev)
+  t1 = time.perf_counter()
+  g_exec, g_stats = poll_batched(FileQueue(spec, worker_id="healthy-G"), batch_size=8,
+                                 lease_seconds=WORKER_LEASE_SEC,
+                                 stop_fn=lambda executed, empty: empty)
+  t_g = time.perf_counter() - t1
+  g_launched = launch_counts(cp, cc, ce)
+  snap_g = ledger_line("campaign (c) G", t_g, g_launched)
+  row = {
+    "wall_s": round(time.perf_counter() - t0, 3), "F_s": round(t_f, 3), "G_s": round(t_g, 3),
+    "F_executed": f_exec, "paged_splits": shed, "F_released": f_stats["released"],
+    "F_dispatches": dict(f_stats["dispatches"]), "F_launches": f_launched,
+    "queue_after_F": left, "G_executed": g_exec, "G_dispatches": dict(g_stats["dispatches"]),
+    "G_launches": g_launched, "completed": q.completed,
+    "busy_pct": round(100 * (snap_f["busy_s"] + snap_g["busy_s"]) / (t_f + t_g), 2),
+  }
+  print(f"campaign (c): {json.dumps(row)}", flush=True)
+  if shed < 1 or f_stats["released"] != shed or left["enqueued"] != shed \
+     or f_exec + shed != RAGGED_TASKS or f_stats["solo"] or f_stats["group_fallbacks"]:
+    fail(f"campaign (c): F shed {shed} and executed {f_exec}: {row}")
+  if f_launched["pyramid2x2x1"] != 1 or f_stats["dispatches"].get("downsample") != 1:
+    fail(f"campaign (c): F's full members took {f_launched} launches, not one pyramid2x2x1")
+  if g_exec != shed or not g_launched["pool2x2x1"] or g_stats["paged_splits"]:
+    fail(f"campaign (c): G ran {g_exec} of the {shed} shed members: {g_launched}")
+  if q.completed != RAGGED_TASKS or q.enqueued or q.dlq_count:
+    fail(f"campaign (c): the queue tallied {q.completed} of {RAGGED_TASKS}")
+  n = mip_files_equal(os.path.join(root, "ragged_image"), dst, 2)
+  print(f"campaign (c): {n} chunk files of mips 1-2 byte for byte phase 3's (and (b)'s)",
+        flush=True)
+  launched = {k: f_launched[k] + g_launched[k] for k in f_launched}
+  return row, launched
+
+
+def campaign_simulation(root, jpath: str, wall: float) -> dict:
+  """Phase 18 (d): (a)'s journal mined and simulated twice (``fleet
+  simulate --workers 2 --seed 0 --speculate``): equal forecasts and
+  equal emitted journal bytes; ``fleet status`` reads the emitted
+  journal. The forecast's makespan is printed beside (a)'s wall."""
+  import os
+
+  runs = []
+  for i in (1, 2):
+    emit = f"file://{root}/campaign_sim{i}"
+    text = run_cli(["fleet", "simulate", "--from-journal", jpath, "--workers", 2, "--seed", 0,
+                    "--speculate", "--emit-journal", emit, "--json"])
+    files = {}
+    for base, _dirs, names in os.walk(emit[len("file://"):]):
+      for n in names:
+        path = os.path.join(base, n)
+        with open(path, "rb") as f:
+          files[os.path.relpath(path, emit[len("file://"):])] = f.read()
+    runs.append((json.loads(text.replace(emit, "EMIT")), files))
+  (a, fa), (b, fb) = runs
+  if a != b or fa != fb or not fa:
+    fail("campaign (d): two simulations of one journal, seed and config differ")
+  status = run_cli(["fleet", "status", "--journal", f"file://{root}/campaign_sim1"])
+  f = a["forecast"]
+  row = {"tasks": f["tasks"], "predicted_s": f["makespan_sec"], "measured_s": round(wall, 3),
+         "error_pct": round(100 * (f["makespan_sec"] - wall) / wall, 1) if wall else None,
+         "speculation": f["speculation"], "segments": len(fa), "completed_all": f["completed_all"]}
+  print(f"campaign (d): {json.dumps(row)}; fleet status of the emitted journal: "
+        f"{status.strip().splitlines()[0]!r}", flush=True)
+  return row
+
+
+def campaign_phase(root, cp, cc, ce, torch, dev) -> tuple:
+  """Phase 18 (a)-(d) on phase 3's image and ragged image. Returns
+  (launches in this process, wall)."""
+  t0 = time.perf_counter()
+  launches = {k: 0 for m in (cp, cc, ce) for k in m.LAUNCHES}
+  walls = {}
+  t = time.perf_counter()
+  a = campaign_speculation(root, cp, cc, ce)
+  walls["a"] = time.perf_counter() - t
+  t = time.perf_counter()
+  b, launched = campaign_stealing(root, cp, cc, ce, torch, dev)
+  walls["b"] = time.perf_counter() - t
+  for k, v in launched.items():
+    launches[k] += v
+  t = time.perf_counter()
+  c, launched = campaign_paged_split(root, cp, cc, ce, torch, dev)
+  walls["c"] = time.perf_counter() - t
+  for k, v in launched.items():
+    launches[k] += v
+  t = time.perf_counter()
+  d = campaign_simulation(root, a["jpath"], a["campaign_s"])
+  walls["d"] = time.perf_counter() - t
+  wall = time.perf_counter() - t0
+  print(f"campaign: phase wall {wall:.1f} s, parts {json.dumps({k: round(v, 1) for k, v in walls.items()})}, "
+        f"workers (a) S + {a['spawned']} spawned, (b) H + this process, (c) this process "
+        f"twice; busy (b) {b['busy_pct']}% (c) {c['busy_pct']}%; survival: issued {a['issued']} "
+        f"won {a['won']} fenced {a['fenced']}, steal claims {b['claims']} granted "
+        f"{b['steal.granted']} tasks {b['steal.tasks']}, paged splits {c['paged_splits']}; "
+        f"simulated {d['predicted_s']} s against {d['measured_s']} s measured; launches "
+        f"{json.dumps(launches)}", flush=True)
+  return launches, wall
 
 
 def main() -> int:
@@ -6091,6 +6517,8 @@ def main() -> int:
     t_surface = time.perf_counter() - t_surface
     # phase 17 on phase 3's image (its skeleton group runs in phase 6's root)
     journal_launches, t_journal = journal_phase(root, cp, cc, ce, torch, dev)
+    # phase 18 on phase 3's image and ragged image, after phase 17's layer
+    campaign_launches, t_campaign = campaign_phase(root, cp, cc, ce, torch, dev)
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches["tile_resolve"] = ccl_e2e_phase(root, cc, cp, torch, dev)
     t_phase = time.perf_counter()
@@ -6140,6 +6568,9 @@ def main() -> int:
     t_journal += t_phase
   print(f"frags: phase wall {t_frags:.1f} s", flush=True)
   print(f"journal: phase wall {t_journal:.1f} s", flush=True)
+  print(f"campaign: phase wall {t_campaign:.1f} s", flush=True)
+  if not campaign_launches["pyramid2x2x1"] or not campaign_launches["pool2x2x1"]:
+    fail(f"campaign: launches {campaign_launches}: pyramid2x2x1 and pool2x2x1 must launch")
   if not journal_launches["pyramid2x2x1"] or not journal_launches["edt_pass"]:
     fail(f"journal: launches {journal_launches}: pyramid2x2x1 and edt_pass must launch")
   print(f"graphene: phase wall {t_graphene:.1f} s", flush=True)
@@ -6175,6 +6606,7 @@ def main() -> int:
       "launches_surface": surface_launches[name],
       "launches_graphene": graphene_pyramid if name == "pyramid2x2x1" else 0,
       "launches_journal": journal_launches[name],
+      "launches_campaign": campaign_launches[name],
       "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == name),
       "ms": first["ms"], "plain_ms": first["plain_ms"],
       "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

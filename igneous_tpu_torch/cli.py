@@ -203,6 +203,9 @@ def build_parser() -> argparse.ArgumentParser:
   _add_profile(groups.add_parser(
     "profile", help="On-demand torch.profiler capture across the fleet.").add_subparsers(
       dest="command", required=True))
+  _add_campaign(groups.add_parser(
+    "campaign", help="Closed-loop campaign survival: autoscale + speculation + "
+                     "stealing.").add_subparsers(dest="command", required=True))
   return parser
 
 
@@ -714,6 +717,11 @@ def _add_fleet(fleet) -> None:
   cmd.add_argument("--once", action="store_true", help="Render exactly one frame and exit.")
   cmd.add_argument("--json", dest="as_json", action="store_true",
                    help="Emit each frame as one JSON object.")
+  _add_fleet_simulate(fleet.add_parser(
+    "simulate", help="Forecast a campaign on virtual workers from mined journal history."))
+  _add_fleet_autoscale(fleet.add_parser(
+    "autoscale", help="Closed-loop fleet autoscaler: act on the HealthEngine's "
+                      "desired_workers signal."))
 
 
 def _journal_location(parser, queue_spec, journal_path) -> str:
@@ -772,11 +780,15 @@ def _evaluate_health(parser, args, queue_spec):
 
 
 def _run_fleet(parser, args) -> int:
-  """``fleet status|trace|top|devices|compact|gc|check|watch``, printing
-  what ``igneous-tpu fleet`` prints."""
+  """``fleet status|trace|top|devices|compact|gc|check|watch|simulate|
+  autoscale``, printing what ``igneous-tpu fleet`` prints."""
   import sys
 
   try:
+    if args.command == "simulate":
+      return _fleet_simulate(parser, args)
+    if args.command == "autoscale":
+      return _fleet_autoscale(parser, args)
     return _fleet_command(parser, args)
   except _CommandError as e:
     print(f"Error: {e}", file=sys.stderr)
@@ -904,6 +916,450 @@ def _fleet_command(parser, args) -> int:
     if iterations is not None and n >= iterations:
       return 0
     time.sleep(max(args.interval, 0.0))
+
+
+def _parse_kv_spec(parser, spec, caster=float):
+  out = {}
+  for part in (spec or "").split(","):
+    part = part.strip()
+    if not part:
+      continue
+    if "=" not in part:
+      parser.error(f"expected key=value, got {part!r}")
+    k, v = part.split("=", 1)
+    try:
+      out[k.strip()] = caster(v)
+    except ValueError:
+      parser.error(f"bad value in {part!r}")
+  return out
+
+
+def _load_or_mine_model(mine_path, model_path, window_sec=None):
+  import json
+
+  from .observability import replay
+
+  if model_path:
+    with open(model_path) as f:
+      return replay.WorkloadModel.from_dict(json.load(f))
+  model = replay.mine_journal(mine_path, window_sec=window_sec)
+  if not model.task_types:
+    raise _CommandError(
+      f"no task spans to mine under {mine_path} — run a journaled "
+      "campaign first, or pass --model"
+    )
+  return model
+
+
+def _autoscale_policy_opts(cmd) -> None:
+  cmd.add_argument("--min-workers", type=int, default=None,
+                   help="Fleet floor [default: $IGNEOUS_AUTOSCALE_MIN or 1].")
+  cmd.add_argument("--max-workers", type=int, default=None,
+                   help="Fleet ceiling [default: $IGNEOUS_AUTOSCALE_MAX or 1000].")
+  cmd.add_argument("--horizon-sec", dest="as_horizon_sec", type=float, default=None,
+                   help="Drain the backlog within this many seconds "
+                        "[default: $IGNEOUS_AUTOSCALE_HORIZON_SEC or 600].")
+  cmd.add_argument("--hysteresis", type=float, default=None,
+                   help="Dead band around current size "
+                        "[default: $IGNEOUS_AUTOSCALE_HYSTERESIS or 0.2].")
+  cmd.add_argument("--cooldown-sec", type=float, default=None,
+                   help="Min seconds between scale actions "
+                        "[default: $IGNEOUS_AUTOSCALE_COOLDOWN_SEC or 60].")
+  cmd.add_argument("--step-max", type=int, default=None,
+                   help="Max workers added/removed per action "
+                        "[default: $IGNEOUS_AUTOSCALE_STEP_MAX or uncapped].")
+
+
+def _policy_from_opts(args):
+  from .observability import autoscale
+
+  return autoscale.AutoscalePolicy.from_env(
+    min_workers=args.min_workers, max_workers=args.max_workers,
+    horizon_sec=args.as_horizon_sec, hysteresis=args.hysteresis,
+    cooldown_sec=args.cooldown_sec, step_max=args.step_max,
+  )
+
+
+def _actuator_opts(cmd, help_) -> None:
+  cmd.add_argument("--actuator", dest="actuator_kind",
+                   choices=["local", "textfile", "command"], default="local",
+                   help=help_)
+  cmd.add_argument("--target-file", default=None, help="Path for --actuator textfile.")
+
+
+def _make_actuator(parser, args, env=None):
+  from .observability import autoscale
+
+  if args.actuator_kind == "local":
+    return autoscale.LocalPoolActuator(
+      args.queue_spec, worker_args=list(args.worker_args), env=env,
+    )
+  if args.actuator_kind == "textfile":
+    if not args.target_file:
+      parser.error("--actuator textfile needs --target-file")
+    return autoscale.TextfileActuator(args.target_file)
+  if not args.scale_command:
+    parser.error("--actuator command needs --scale-command")
+  return autoscale.CommandActuator(args.scale_command)
+
+
+def _add_fleet_simulate(cmd) -> None:
+  _journal_opts(cmd)
+  cmd.add_argument("--from-journal", dest="mine_path", default=None,
+                   help="Journal to mine the workload model from [default: the "
+                        "--journal/--queue location].")
+  cmd.add_argument("--model", dest="model_path", default=None,
+                   help="Load a saved workload_model.json instead of mining.")
+  cmd.add_argument("--save-model", dest="save_model_path", default=None,
+                   help="Write the mined model JSON here (commit it, diff it, "
+                        "re-simulate it months later).")
+  cmd.add_argument("--workers", type=int, default=4)
+  cmd.add_argument("--tasks", type=int, default=None,
+                   help="Scale the campaign to N total tasks (mined mix "
+                        "proportions kept) [default: replay the mined counts].")
+  cmd.add_argument("--seed", type=int, default=0)
+  cmd.add_argument("--batch-size", type=int, default=None,
+                   help="Members per lease round [default: $IGNEOUS_SIM_BATCH or 1].")
+  cmd.add_argument("--fail-scale", type=float, default=None,
+                   help="Multiply mined failure probabilities (what-if on "
+                        "fault rates) [default: $IGNEOUS_SIM_FAIL_SCALE or 1].")
+  cmd.add_argument("--policy", dest="policy_mode", choices=["fixed", "auto"],
+                   default="fixed",
+                   help="fixed = N workers for the whole run; auto = a virtual "
+                        "autoscale controller (the SAME PolicyLoop `fleet "
+                        "autoscale` runs) sizes the fleet as it goes.")
+  _autoscale_policy_opts(cmd)
+  cmd.add_argument("--chaos", dest="chaos_spec", default=None,
+                   help="Fault injection, e.g. "
+                        "'preempt=1,kill=1,stragglers=2,stall=1'. Keys: "
+                        "preempt, preempt_at, kill, kill_at, stragglers, "
+                        "straggler_factor, stall, stall_at.")
+  cmd.add_argument("--speculate", dest="sim_speculate", action="store_true",
+                   help="Model cross-host straggler speculation (duplicate-issue "
+                        "with first-ack-wins fencing) [default: "
+                        "$IGNEOUS_SIM_SPECULATE].")
+  cmd.add_argument("--steal", dest="sim_steal", action="store_true",
+                   help="Model idle-worker work stealing (unstarted tails carved "
+                        "off long-held rounds) [default: $IGNEOUS_SIM_STEAL].")
+  cmd.add_argument("--what-if", dest="what_if_spec", default=None,
+                   help="Comma-separated alternative worker counts to forecast "
+                        "alongside the base run, e.g. '1,8,32'.")
+  cmd.add_argument("--cost-per-worker-hour", type=float, default=0.0,
+                   help="Price forecasts in $ (0 = no cost column).")
+  cmd.add_argument("--emit-journal", dest="emit_path", default=None,
+                   help="Write the simulated run AS journal segments here: "
+                        "`fleet status|watch|top|trace` and the Perfetto "
+                        "exporter work on it unchanged.")
+  cmd.add_argument("--base-ts", type=float, default=0.0,
+                   help="Timestamp anchor for --emit-journal (0 keeps output "
+                        "bit-identical across same-seed reruns; pass a unix "
+                        "time to overlay simulated history on live dashboards).")
+  cmd.add_argument("--json", dest="as_json", action="store_true", help="Machine-readable.")
+  cmd.add_argument("--out", dest="out_path", default=None,
+                   help="Also write the full forecast JSON here (CI artifact).")
+
+
+def _fleet_simulate(parser, args) -> int:
+  """Forecast a campaign on virtual workers from mined journal history:
+  the JAX CLI's ``fleet simulate``, the same forecast and the same
+  journal bytes for the same seed, model and config."""
+  import json
+
+  from . import secrets
+  from .observability import sim as sim_mod
+
+  queue_spec = args.queue_spec or secrets.queue_url()
+  mine_path = args.mine_path
+  if not args.model_path:
+    mine_path = mine_path or _journal_location(parser, queue_spec, args.journal_path)
+  model = _load_or_mine_model(mine_path, args.model_path)
+  if args.save_model_path:
+    with open(args.save_model_path, "w") as f:
+      json.dump(model.to_dict(), f)
+
+  chaos = sim_mod.ChaosSpec(**{
+    k: (int(v) if k in ("preempt", "kill", "stragglers", "stall") else v)
+    for k, v in _parse_kv_spec(parser, args.chaos_spec).items()
+  }) if args.chaos_spec else sim_mod.ChaosSpec()
+  policy = _policy_from_opts(args)
+  cfg = sim_mod.SimConfig.from_env(
+    workers=args.workers, seed=args.seed, tasks=args.tasks,
+    batch_size=args.batch_size, fail_scale=args.fail_scale, base_ts=args.base_ts,
+    cost_per_worker_hour=args.cost_per_worker_hour,
+    speculate=1 if args.sim_speculate else None,
+    steal=1 if args.sim_steal else None,
+  )
+  cfg.chaos = chaos
+  cfg.autoscale = args.policy_mode == "auto"
+  cfg.policy = policy
+
+  results = sim_mod.simulate(model, cfg, journal_path=args.emit_path)
+  alternatives = []
+  if args.what_if_spec:
+    counts = [int(x) for x in args.what_if_spec.split(",") if x.strip()]
+    alternatives = sim_mod.what_if(model, cfg, counts)
+
+  payload = {
+    "model": model.summary(),
+    "config": {
+      "workers": cfg.workers, "seed": cfg.seed,
+      "batch_size": cfg.batch_size, "policy": args.policy_mode,
+      "fail_scale": cfg.fail_scale, "tasks": results["tasks"],
+    },
+    "forecast": results,
+    "what_if": alternatives,
+  }
+  if args.out_path:
+    with open(args.out_path, "w") as f:
+      json.dump(payload, f, indent=2)
+  if args.as_json:
+    print(json.dumps(payload, indent=2))
+    return 0
+
+  ms = model.summary()
+  print(f"model: {ms['tasks_seen']} tasks mined across "
+        f"{len(ms['task_types'])} type(s); round overhead p50 "
+        f"{ms['round_overhead_p50_ms']}ms")
+  for name, t in ms["task_types"].items():
+    print(f"  {name:<30} n={t['count']:<6} p50 {t['p50_ms']}ms  "
+          f"p95 {t['p95_ms']}ms  fail {t['fail_prob'] * 100:.1f}%")
+  r = results
+  mode = "autoscaled" if cfg.autoscale else "fixed"
+  print(f"forecast ({mode}, {r['workers']} worker(s), seed {r['seed']}): "
+        f"{r['tasks']} tasks in {r['makespan_sec']}s "
+        f"({r['tasks_per_sec']}/s, utilization "
+        f"{r['utilization'] * 100:.0f}%)")
+  print(f"  completed {r['completed']}  dlq {r['dlq']}  retries "
+        f"{r['failed_deliveries']}  lease recycles {r['lease_recycles']}  "
+        f"released {r['released']}"
+        + (f"  cost ${r['cost_usd']}" if r["cost_usd"] is not None else ""))
+  spec, steals = r.get("speculation") or {}, r.get("steals") or {}
+  if spec.get("issued") or steals.get("claims"):
+    print(f"  campaign survival: speculated {spec.get('issued', 0)} "
+          f"(won {spec.get('won', 0)}, fenced {spec.get('fenced', 0)})  "
+          f"steals {steals.get('claims', 0)} "
+          f"({steals.get('tasks', 0)} task(s))")
+  if r["scale_events"]:
+    print(f"  scale events: {len(r['scale_events'])} "
+          f"(peak {r['peak_workers']} workers)")
+  if not r["completed_all"]:
+    print("  WARNING: campaign did not complete "
+          f"(timed_out={r['timed_out']})")
+  if alternatives:
+    print("what-if:")
+    print(f"  {'workers':>8}  {'makespan_s':>11}  {'delta':>8}  "
+          f"{'dlq':>5}  {'util':>6}  cost")
+    for alt in alternatives:
+      delta = alt["makespan_sec"] - r["makespan_sec"]
+      cost = f"${alt['cost_usd']}" if alt["cost_usd"] is not None else "-"
+      print(f"  {alt['workers']:>8}  {alt['makespan_sec']:>11}  "
+            f"{delta:>+8.1f}  {alt['dlq']:>5}  "
+            f"{alt['utilization'] * 100:>5.0f}%  {cost}")
+  if args.emit_path:
+    print(f"emitted {results['journal_segments']} journal segment(s) to "
+          f"{args.emit_path} (try: igneous fleet status --journal {args.emit_path})")
+  return 0
+
+
+def _add_fleet_autoscale(cmd) -> None:
+  _journal_opts(cmd)
+  _autoscale_policy_opts(cmd)
+  _actuator_opts(cmd, "local = spawn/drain real `igneous execute` "
+                      "subprocesses; textfile = atomically publish the "
+                      "target for an external reconciler; command = shell "
+                      "out to a template with {n}.")
+  cmd.add_argument("--scale-command", default=None,
+                   help="Template for --actuator command, e.g. "
+                        "'kubectl scale --replicas={n} deploy/igneous-worker'.")
+  cmd.add_argument("--worker-arg", dest="worker_args", action="append", default=[],
+                   help="Extra args for spawned workers (local actuator), repeatable.")
+  cmd.add_argument("--interval", type=float, default=None,
+                   help="Seconds between controller ticks "
+                        "[default: $IGNEOUS_AUTOSCALE_INTERVAL_SEC or 15].")
+  cmd.add_argument("--iterations", type=int, default=None,
+                   help="Tick N times then exit [default: until drained or Ctrl-C].")
+  cmd.add_argument("--drain-exit", dest="drain_exit", action="store_true", default=True,
+                   help="Exit once the backlog is empty and the pool is at "
+                        "the policy floor (batch-campaign mode) (default).")
+  cmd.add_argument("--no-drain-exit", dest="drain_exit", action="store_false",
+                   help="Run as a service.")
+  cmd.add_argument("--validate", dest="validate", action="store_true", default=True,
+                   help="Before touching the fleet, replay the mined journal "
+                        "through the simulator under THIS policy and abort if "
+                        "the simulated campaign fails to complete (default).")
+  cmd.add_argument("--no-validate", dest="validate", action="store_false")
+  cmd.add_argument("--json", dest="as_json", action="store_true",
+                   help="One JSON object per controller decision.")
+
+
+def _fleet_autoscale(parser, args) -> int:
+  """The JAX CLI's ``fleet autoscale``: each tick reads the journal and
+  the live queue depth, runs the policy formula the health report and
+  the simulator use, damps it and actuates. Scale-down is always a
+  graceful SIGTERM drain."""
+  import json
+  import sys
+  import time
+
+  from . import secrets
+  from .observability import autoscale, replay, sim as sim_mod
+  from .queues import TaskQueue
+
+  args.queue_spec = args.queue_spec or secrets.queue_url()
+  if not args.queue_spec:
+    parser.error("fleet autoscale needs a queue (-q or $QUEUE_URL): backlog "
+                 "drives the policy")
+  path = _journal_location(parser, args.queue_spec, args.journal_path)
+  policy = _policy_from_opts(args)
+  if args.validate:
+    try:
+      model = replay.mine_journal(path)
+    except Exception:
+      model = None
+    if model and model.task_types:
+      cfg = sim_mod.SimConfig.from_env(workers=policy.min_workers)
+      cfg.autoscale = True
+      cfg.policy = policy
+      forecast = sim_mod.simulate(model, cfg)
+      if not forecast["completed_all"]:
+        raise _CommandError(
+          "policy validation failed: the simulated campaign did not "
+          f"complete (dlq={forecast['dlq']}, "
+          f"timed_out={forecast['timed_out']}). Loosen the policy or "
+          "pass --no-validate."
+        )
+      print(f"policy validated in simulation: {forecast['tasks']} tasks in "
+            f"{forecast['makespan_sec']}s, peak {forecast['peak_workers']} "
+            f"worker(s), {len(forecast['scale_events'])} scale event(s)",
+            file=sys.stderr)
+    else:
+      print("policy validation skipped: no task history to mine yet", file=sys.stderr)
+
+  actuator = _make_actuator(parser, args)
+  controller = autoscale.AutoscaleController(
+    path, TaskQueue(args.queue_spec), actuator,
+    policy=policy, interval_sec=args.interval,
+  )
+  n = 0
+  try:
+    while True:
+      decision = controller.step()
+      if args.as_json:
+        print(json.dumps(decision), flush=True)
+      else:
+        print(f"[{time.strftime('%H:%M:%S')}] backlog "
+              f"{decision['backlog']}  rate {decision['per_worker_rate']}/s"
+              f"/worker  {decision['current']} -> {decision['target']} "
+              f"({decision['reason']})", flush=True)
+      n += 1
+      actuator.reap()
+      if (
+        args.drain_exit and decision["backlog"] <= 0
+        and actuator.current() <= policy.min_workers
+        and n > 1
+      ):
+        break
+      if args.iterations is not None and n >= args.iterations:
+        break
+      time.sleep(controller.interval_sec)
+  finally:
+    actuator.shutdown()
+  summary = {
+    "ticks": n,
+    "actions": sum(1 for d in controller.history if d["actuated"]),
+  }
+  if isinstance(actuator, autoscale.LocalPoolActuator):
+    summary["spawned"] = actuator.stats["spawned"]
+    summary["drained"] = actuator.stats["drained"]
+    summary["exits"] = actuator.stats["exits"]
+  print(json.dumps(summary))
+  return 0
+
+
+def _add_campaign(campaign) -> None:
+  cmd = campaign.add_parser(
+    "run", help="Run a campaign to completion on a hostile fleet.")
+  _journal_opts(cmd)
+  _autoscale_policy_opts(cmd)
+  cmd.add_argument("--tick-sec", type=float, default=None,
+                   help="Seconds between driver ticks "
+                        "[default: $IGNEOUS_CAMPAIGN_TICK_SEC or 5].")
+  cmd.add_argument("--max-wall-sec", type=float, default=None,
+                   help="Abort (gracefully) after this much wall clock "
+                        "[default: $IGNEOUS_CAMPAIGN_MAX_WALL_SEC; 0 = never].")
+  cmd.add_argument("--iterations", type=int, default=None,
+                   help="Tick N times then exit [default: until drained].")
+  cmd.add_argument("--speculate", dest="speculate", action="store_true", default=None,
+                   help="Twin the tails of flagged/slow holders' range leases "
+                        "[default: $IGNEOUS_CAMPAIGN_SPECULATE or on].")
+  cmd.add_argument("--no-speculate", dest="speculate", action="store_false")
+  cmd.add_argument("--steal", dest="steal", action="store_true", default=None,
+                   help="Let idle workers claim unstarted sub-ranges off "
+                        "long-held range leases [default: $IGNEOUS_STEAL or off].")
+  cmd.add_argument("--no-steal", dest="steal", action="store_false")
+  cmd.add_argument("--worker-arg", dest="worker_args", action="append", default=[],
+                   help="Extra args for spawned workers, repeatable "
+                        "(e.g. --worker-arg=--batch-size=4).")
+  _actuator_opts(cmd, "How scale actions reach the fleet (see fleet autoscale).")
+  cmd.add_argument("--scale-command", default=None,
+                   help="Template for --actuator command with {n}.")
+  cmd.add_argument("--json", dest="as_json", action="store_true",
+                   help="One JSON object per tick + a summary object.")
+
+
+def _run_campaign(parser, args) -> int:
+  """``campaign run``: autoscale sizes the fleet, health flags route queue
+  depth away from stragglers, speculation twins their unfinished tails,
+  and (with ``--steal``) idle workers carve unstarted sub-ranges off
+  long-held leases. Exits 0 once the queue is drained, 3 when it timed
+  out or left work behind."""
+  import json
+  import time
+
+  from . import secrets
+  from .observability import campaign as campaign_mod
+  from .queues import TaskQueue
+
+  args.queue_spec = args.queue_spec or secrets.queue_url()
+  if not args.queue_spec:
+    parser.error("campaign run needs a queue (-q or $QUEUE_URL)")
+  path = _journal_location(parser, args.queue_spec, args.journal_path)
+  policy = _policy_from_opts(args)
+  worker_env = {}
+  if args.steal is not None:
+    # ship the steal knob into every worker this command spawns; the
+    # command itself never steals (it holds no leases)
+    secrets.set_env("IGNEOUS_STEAL", "1" if args.steal else "0")
+    worker_env["IGNEOUS_STEAL"] = "1" if args.steal else "0"
+  actuator = _make_actuator(parser, args, env=worker_env or None)
+  runner = campaign_mod.CampaignRunner(
+    path, TaskQueue(args.queue_spec), actuator,
+    policy=policy, tick_sec=args.tick_sec, speculate=args.speculate,
+    max_wall_sec=args.max_wall_sec,
+  )
+
+  def narrate(sleep_sec):
+    d = runner.history[-1]
+    if args.as_json:
+      print(json.dumps(d), flush=True)
+    else:
+      extras = ""
+      if d["speculated"]:
+        extras += f"  speculated {d['speculated']}"
+      if d["flagged"]:
+        extras += f"  flagged {','.join(d['flagged'])}"
+      print(f"[{time.strftime('%H:%M:%S')}] backlog {d['backlog']}  "
+            f"workers {d['current']} -> {d['target']} ({d['reason']})"
+            + extras, flush=True)
+    time.sleep(sleep_sec)
+
+  summary = runner.run(iterations=args.iterations, sleep_fn=narrate)
+  print(json.dumps(summary if args.as_json else {
+    k: v for k, v in summary.items() if k != "fleet_status"
+  }))
+  if summary["timed_out"] or summary["queue"].get("enqueued", 0) > 0:
+    return 3
+  return 0
 
 
 def _add_profile(profile) -> None:
@@ -2112,9 +2568,26 @@ def _run_design(args) -> int:
   return 0
 
 
+def _glue_worker_args(argv: List[str]) -> List[str]:
+  """``--worker-arg --batch`` as the JAX CLI takes it: argparse would read
+  a value that starts with ``-`` as an option, so glue it on with ``=``."""
+  out = []
+  it = iter(argv)
+  for tok in it:
+    if tok == "--worker-arg":
+      val = next(it, None)
+      out.append(tok if val is None else f"--worker-arg={val}")
+    else:
+      out.append(tok)
+  return out
+
+
 def main(argv: Optional[List[str]] = None) -> int:
+  import sys
+
   parser = build_parser()
-  args = parser.parse_args(argv)
+  args = parser.parse_args(_glue_worker_args(
+    list(sys.argv[1:] if argv is None else argv)))
   if args.group == "license":
     print("igneous-tpu is licensed under the BSD 3-Clause license.")
     return 0
@@ -2132,6 +2605,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     return _run_fleet(parser, args)
   if args.group == "profile":
     return _run_profile(parser, args)
+  if args.group == "campaign":
+    return _run_campaign(parser, args)
   if args.group == "mesh":
     return _run_mesh(args)
   if args.group == "skeleton":

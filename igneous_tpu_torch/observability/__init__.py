@@ -25,9 +25,15 @@ The device plane (``device``): the ledger of the hand kernels' spans on
 CUDA events, its ``{"kind": "device"}`` journal records and
 ``igneous_device_*`` gauges, ``fleet devices``, and ``profile capture``
 on ``torch.profiler``. Every record, line and exposition is the JAX
-package's, so a fleet may mix workers of both packages. The replay,
-simulator and autoscale controller of the JAX package are not ported yet
-(``autoscale`` holds its policy formula only).
+package's, so a fleet may mix workers of both packages.
+
+The forward plane: ``replay`` mines the journal into a ``WorkloadModel``;
+``sim`` replays it through a deterministic discrete-event fleet
+simulation that emits journal segments (the JAX package's bytes for the
+same seed); ``autoscale`` closes the loop (``PolicyLoop``, the actuators,
+``AutoscaleController``: ``fleet autoscale``); ``campaign`` drives a
+campaign (autoscale, flags and straggler speculation a tick: ``campaign
+run``).
 
 ``igneous_tpu_torch.telemetry`` is the shim over :mod:`.metrics` that the
 port's stage sites call.
@@ -35,13 +41,16 @@ port's stage sites call.
 
 from . import (
   autoscale,
+  campaign,
   device,
   fleet,
   health,
   journal,
   perfetto,
   prom,
+  replay,
   rollup,
+  sim,
   trace,
 )
 from .metrics import (
@@ -66,8 +75,8 @@ from .metrics import (
 )
 
 __all__ = [
-  "autoscale", "device", "fleet", "health", "journal", "perfetto",
-  "prom", "rollup", "trace",
+  "autoscale", "campaign", "device", "fleet", "health", "journal",
+  "perfetto", "prom", "replay", "rollup", "sim", "trace",
   "StageTimes", "counters_snapshot", "device_trace", "emit_counters",
   "gauge_max", "gauge_set", "gauges_snapshot", "histograms_snapshot",
   "incr", "observe", "observe_quiet", "queue_eta", "reset_all",

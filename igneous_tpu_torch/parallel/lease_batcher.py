@@ -36,11 +36,18 @@ a ``lease.acquire`` span and runs under a ``lease.round`` span on the
 worker trace, each member's completion (or solo run) under its task span,
 and the round's spans flush as one journal segment. A worker that ``fleet
 check`` flags in ``<journal>/health/flags.json`` stops pre-leasing round
-i+1 and hands back what it pre-leased, so healthy workers take the depth.
+i+1 and hands back what it pre-leased, so healthy workers take the depth;
+between the page rounds of a downsample group it sheds the ragged members
+none of whose pages ran (``PagedPyramid.split_unstarted``) back to the
+queue (``paged_splits``). Each member is marked started as its work
+begins, so work stealing carves only untouched members off a range; with
+``IGNEOUS_STEAL`` on, a worker that finds the queue empty claims the
+biggest long-held foreign range (``steal_claims``) and re-polls within
+1-2 s, when the holder's next renewal has released the unstarted tail.
 
 Not ported: the JAX package's host-backend choices (its native pooling,
 EDT and CCL on CPU-only hosts: the port has one route, which runs the
-plain versions on the CPU) and work stealing.
+plain versions on the CPU).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ import time
 from collections import defaultdict
 from typing import Optional
 
+from .. import secrets as knobs
 from .. import telemetry
 from ..lib import Bbox
 from ..observability import journal as journal_mod
@@ -203,6 +211,9 @@ class LeaseBatcher:
       "group_fallbacks": 0, "released": 0, "rounds": 0,
       "prefetched_rounds": 0, "prefetched_cutouts": 0,
       "straggler_surrenders": 0, "straggler_prefetch_skips": 0,
+      # members a flagged worker shed between page rounds, and the steal
+      # claims this worker filed while the queue looked empty
+      "paged_splits": 0, "steal_claims": 0,
       "dispatches": defaultdict(int),
     }
     self._flag_cache = (0.0, False)  # (checked_at_monotonic, flagged)
@@ -332,6 +343,11 @@ class LeaseBatcher:
           executed=self.stats["executed"], empty=True
         ):
           return self.stats["executed"]
+        if self._try_steal():
+          # a claim is filed: the holder's next renewal releases the
+          # unstarted tail, so re-poll soon instead of backing off
+          time.sleep(1.0 + random.random())
+          continue
         if self.drain_flag is not None and hasattr(self.drain_flag, "wait"):
           self.drain_flag.wait(backoff + random.random())
         else:
@@ -384,6 +400,33 @@ class LeaseBatcher:
       # round boundary: the round's spans (one lease.round and its
       # members' task spans) flush as one journal segment
       journal_mod.maybe_flush_active(event="round")
+
+  def _try_steal(self) -> bool:
+    """The idle worker's half of work stealing: the queue looks empty,
+    but a long-held range lease may still pin unstarted members; claim
+    the biggest so its holder's next renewal releases the unstarted tail
+    to the pool. Off unless ``IGNEOUS_STEAL``; queues without
+    ``steal_claim`` are skipped."""
+    steal_claim = getattr(self.queue, "steal_claim", None)
+    if steal_claim is None or not knobs.get_bool("IGNEOUS_STEAL"):
+      return False
+    try:
+      seg = steal_claim()
+    except Exception:
+      return False
+    if seg is None:
+      return False
+    self.stats["steal_claims"] += 1
+    return True
+
+  @staticmethod
+  def _mark_started(lease_id):
+    """Fence this member off work stealing, which carves only UNSTARTED
+    members off a claimed range. Classic tokens have no mark and need
+    none: stealing is range-only."""
+    mark = getattr(lease_id, "mark_started", None)
+    if mark is not None:
+      mark()
 
   def _lease_many(self, n: int):
     """One queue interaction for up to ``n`` leases (``lease_batch`` where
@@ -586,6 +629,8 @@ class LeaseBatcher:
         "mesh": self._run_mesh_group,
       }[key[0]]
       self._completed_in_group = set()
+      for _task, lease_id in group:
+        self._mark_started(lease_id)  # the group's work begins now
       try:
         handler(key, group)
       except Exception:
@@ -607,6 +652,7 @@ class LeaseBatcher:
         return
       if self.verbose:
         print(f"Executing (solo) {task!r}")
+      self._mark_started(lease_id)
       try:
         with trace.task_span(task, attempt=self._attempt_of(lease_id),
                              mode="batch-solo"):
@@ -672,7 +718,10 @@ class LeaseBatcher:
   def _run_downsample_group(self, key, group):
     """K downsample cutouts → one ``ChunkExecutor`` pyramid launch for the
     full-shape members and a ``PagedPyramid`` for the clamped ones; the
-    uploads go through ``downsample_and_upload`` so chunk bytes are solo's."""
+    uploads go through ``downsample_and_upload`` so chunk bytes are solo's.
+    Between page rounds a straggler-flagged worker sheds the clamped
+    members none of whose pages ran back to the queue, so healthy workers
+    take them; it finishes only the members it kept."""
     from ..ops import pooling
     from ..pipeline import SerialSink, config as pcfg
     from ..pipeline import shared_encode_pool, shared_prefetch_pool
@@ -733,6 +782,7 @@ class LeaseBatcher:
 
     pyramid = None
     ragged_pos = {k: j for j, k in enumerate(ragged_idx)}
+    released = set()
     if ragged_idx:
       from .paged import PagedPyramid
 
@@ -741,11 +791,26 @@ class LeaseBatcher:
         method=method, sparse=t0.sparse,
       )
       while pyramid.pending:
+        if self._straggler_flagged():
+          shed = pyramid.split_unstarted()
+          if shed:
+            self._release_members([group[ragged_idx[j]] for j in shed])
+            self.stats["paged_splits"] += len(shed)
+            for j in shed:
+              k = ragged_idx[j]
+              released.add(k)
+              # the lease is back in the queue for a healthy worker: a
+              # group fallback must not also rerun it solo here
+              self._completed_in_group.add(group[k][1])
+        if not pyramid.pending:
+          break
         pyramid.run_round()
         self.stats["dispatches"]["downsample_paged"] += 1
     del imgs
+    idx_map = [k for k in range(len(group)) if k not in released]
 
-    def finish(k, task):
+    def finish(j, task):
+      k = idx_map[j]
       # the member's chunk encodes and puts on the shared pool, joined
       # inside its own deadline window before its lease is deleted
       sink = (
@@ -766,7 +831,7 @@ class LeaseBatcher:
       finally:
         sink.join()
 
-    self._finish_members(group, finish)
+    self._finish_members([group[k] for k in idx_map], finish)
 
   def _run_skeleton_group(self, key, group):
     """K skeleton cutouts → one ``paged_edt`` (three ``edt_pass``

@@ -301,7 +301,9 @@ class PagedPyramid:
 
   def split_unstarted(self) -> List[int]:
     """Drop every item none of whose pages has run and return their
-    indices; the items in flight stay to finish."""
+    indices (in order), marking them released (``results`` leaves them
+    out); the items in flight stay, in order, to finish. The lease
+    batcher's flagged worker hands the dropped members back to the queue."""
     started = {e[0] for e in self._entries[: self._next]}
     rest = self._entries[self._next :]
     dropped = sorted({e[0] for e in rest} - started)

@@ -15,7 +15,6 @@ from .local import LocalTaskQueue
 from .filequeue import (
   FileQueue,
   StaleLeaseError,
-  SurvivalSidecarError,
   TaskDeadlineError,
   failure_reason,
   poll_loop,

@@ -19,16 +19,19 @@ Layout under the queue directory:
   the last failure reasons;
 * ``dlq/`` tasks that exhausted ``max_deliveries`` (segments expand into
   one ``task_<segid>_<index>.json`` per member);
-* ``insertions`` and ``completions`` one byte per task.
+* ``insertions`` and ``completions`` one byte per task;
+* ``spec/`` straggler speculation: ``pair_<segid>.json`` per speculated
+  range, ``done_<pair>_<index>`` first-resolution markers (O_EXCL) and
+  ``side_<pair>_<segid>`` lineage markers of its splits; the twin's and
+  the original's meta carry ``spec`` (``{"pair", "side"}``);
+  ``speculation_won`` and ``speculation_fenced`` one byte per index;
+* ``steal/<segid>.claim`` a thief's claim on a held range, serviced by
+  the holder's next renewal.
 
 A segment leases as ONE :class:`~.ranges.RangeLease` whose members ack,
-nack, release and renew one by one (``ranges``).
-
-Not ported: the JAX package's campaign-survival sidecars (straggler
-speculation under ``spec/`` and work stealing under ``steal/``). The port
-cannot keep their fences, so it refuses to lease, ack or renew on a queue
-where either sidecar holds an entry (:class:`SurvivalSidecarError`); a
-queue that never speculated or stole has neither and reads as usual.
+nack, release and renew one by one (``ranges``). ``spec/`` and ``steal/``
+exist only once something speculated or stole, so a queue that never did
+keeps the plain layout.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import uuid
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from .. import telemetry
+from .. import secrets as knobs
 from ..secrets import env_number
 from .ranges import RangeLease, RangeSub
 from .registry import RegisteredTask, deserialize, serialize
@@ -55,6 +59,13 @@ SEG_SUFFIX = ".jsonl"
 DEFAULT_QUEUE_SHARDS = 16
 DEFAULT_SEG_TASKS = 1024
 DEFAULT_RECYCLE_SEC = 5.0
+DEFAULT_SPECULATE_MIN_TASKS = 1
+DEFAULT_SPECULATE_MAX_TWINS = 4
+DEFAULT_SPECULATE_MIN_HELD_SEC = 0.0
+DEFAULT_STEAL_MIN_TASKS = 2
+DEFAULT_STEAL_MIN_HELD_SEC = 2.0
+DEFAULT_STEAL_FRACTION = 0.5
+DEFAULT_STEAL_CLAIM_TTL_SEC = 300.0
 
 # mid-range failures and DLQ expansions carve per-index classic files
 _CARVE_RE = re.compile(r"^task_([0-9a-f]+)_(\d+)\.json$")
@@ -99,11 +110,6 @@ class StaleLeaseError(Exception):
   expired, or the queue re-issued the task to someone else. The worker is
   a *zombie* for that task and must stop acting on it (tasks are
   idempotent; the current owner completes it)."""
-
-
-class SurvivalSidecarError(RuntimeError):
-  """The queue holds live speculation (``spec/``) or work-stealing
-  (``steal/``) state, whose fences the port does not keep."""
 
 
 def iter_tasks(tasks):
@@ -234,6 +240,9 @@ def poll_loop(
         continue
       backoff = 1.0
       task, lease_id = leased
+      if isinstance(lease_id, RangeSub):
+        # stealing carves only UNSTARTED members; this one is in flight
+        lease_id.mark_started()
       key = hb.track(lease_id)
       if verbose:
         print(f"Executing {task!r}")
@@ -282,7 +291,7 @@ class FileQueue:
     self.lease_dir = os.path.join(self.path, "leased")
     self.dlq_dir = os.path.join(self.path, "dlq")
     self.meta_dir = os.path.join(self.path, "meta")
-    # the JAX package's survival sidecars, never created here
+    # the survival sidecars, made at their first use
     self.spec_dir = os.path.join(self.path, "spec")
     self.steal_dir = os.path.join(self.path, "steal")
     self._worker_id = worker_id
@@ -305,23 +314,6 @@ class FileQueue:
 
       self._worker_id = default_worker_id()
     return self._worker_id
-
-  def _refuse_survival_sidecars(self) -> None:
-    """Raise when ``spec/`` or ``steal/`` holds an entry: leasing or
-    acking there without the JAX package's first-resolution markers and
-    claim service could double-count or strand tasks."""
-    for name, d in (("spec/", self.spec_dir), ("steal/", self.steal_dir)):
-      try:
-        live = os.listdir(d)
-      except FileNotFoundError:
-        continue
-      if live:
-        raise SurvivalSidecarError(
-          f"queue {self.path!r} has a live {name} sidecar ({len(live)} "
-          f"entries): straggler speculation and work stealing are not "
-          f"ported to igneous_tpu_torch; drain it with the JAX package's "
-          f"workers or purge it first"
-        )
 
   # -- per-task attempt metadata --------------------------------------------
 
@@ -475,6 +467,16 @@ class FileQueue:
   @property
   def completed(self) -> int:
     return self._count("completions")
+
+  @property
+  def speculation_won(self) -> int:
+    """Crash-safe count of pair indices the TWIN resolved first."""
+    return self._count("speculation_won")
+
+  @property
+  def speculation_fenced(self) -> int:
+    """Crash-safe count of pair indices the ORIGINAL resolved first."""
+    return self._count("speculation_fenced")
 
   @property
   def enqueued(self) -> int:
@@ -668,13 +670,32 @@ class FileQueue:
 
   def _copy_meta(self, src_segid: str, dst_segid: str):
     """A split inherits its parent segment's attempt record, so per-task
-    DLQ attribution survives any number of splits. Holder identity does
-    not copy: the split lands pending."""
+    DLQ attribution survives any number of splits. Pair membership rides
+    along too: a twin's tail split off at the batch cap (or a stolen or
+    released remainder) must still route its acks through the
+    first-resolution markers, else both copies of an index would tally.
+    Holder identity does not copy: the split lands pending."""
     meta = self._read_meta(f"{SEG_PREFIX}{src_segid}")
     meta.pop("holder", None)
     meta.pop("leased_at", None)
-    if meta.get("deliveries") or meta.get("failures"):
+    if not meta.get("spec") and self._spec_active():
+      spec = self._spec_of(src_segid)   # heals a clobbered orig meta
+      if spec is not None:
+        meta["spec"] = spec
+    if meta.get("deliveries") or meta.get("failures") or meta.get("spec"):
       self._write_meta(f"{SEG_PREFIX}{dst_segid}", meta)
+    spec = meta.get("spec")
+    if isinstance(spec, dict) and spec.get("pair"):
+      # lineage marker: the pair's done markers must outlive this
+      # descendant, or a lingering copy would tally again after GC
+      try:
+        fd = os.open(
+          self._spec_path(f"side_{spec['pair']}_{dst_segid}"),
+          os.O_CREAT | os.O_WRONLY,
+        )
+        os.close(fd)
+      except OSError:
+        pass
 
   # -- producer -------------------------------------------------------------
 
@@ -787,6 +808,8 @@ class FileQueue:
       n += 1
       if self._pending_cache is not None:
         self._pending_cache.append(orig)
+    if os.path.isdir(self.spec_dir) or os.path.isdir(self.steal_dir):
+      self._survival_gc(now)
     return n
 
   def _expire_segment_to_dlq(self, src: str, segid: str, reason: str):
@@ -799,7 +822,13 @@ class FileQueue:
     except FileNotFoundError:
       return  # another worker expanded it first
     seg_meta = self._read_meta(f"{SEG_PREFIX}{segid}")
+    spec = seg_meta.get("spec") if self._spec_active() else None
     for idx, payload in entries:
+      if spec and self._spec_resolved(spec["pair"], idx):
+        # the pair's other copy completed (and tallied) this index:
+        # dropping it is the resolution, not a quarantine
+        self._spec_collapse(None, None, 1)
+        continue
       name = f"task_{segid}_{idx}.json"
       meta = self._read_meta(name)
       meta["deliveries"] = max(
@@ -808,6 +837,8 @@ class FileQueue:
       meta["failures"] = (
         seg_meta.get("failures", []) + meta.get("failures", [])
       )[-MAX_RECORDED_FAILURES:]
+      if spec:
+        meta["spec"] = spec
       self._write_meta(name, meta)
       self._record_failure(name, reason)
       self._write_file(self.dlq_dir, name, payload)
@@ -834,7 +865,8 @@ class FileQueue:
     ``cap`` members: the remainder returns to the pool under a new segid
     (attempt meta copied) BEFORE the lease shrinks, so a crash between
     duplicates deliveries but never loses tasks. Returns (task, token)
-    pairs, or None when the rename race was lost."""
+    pairs, None when the rename race was lost, or [] when the file held
+    only indices the pair's other copy already resolved."""
     deadline = time.time() + seconds
     lease_name = f"{deadline:.3f}{LEASE_SEP}{name}"
     src = os.path.join(self.queue_dir, name)
@@ -845,6 +877,14 @@ class FileQueue:
       return None  # lost the race; the caller tries another
     parsed = seg_parse(name)
     if parsed is None:
+      spec = self._spec_of_name(name) if self._spec_active() else None
+      if spec is not None:
+        carve = _CARVE_RE.match(name)
+        if carve and self._spec_resolved(spec["pair"], int(carve.group(2))):
+          # the pair's other copy completed (and tallied) this index:
+          # drop the duplicate instead of delivering it
+          self._spec_collapse(dst, name, 1)
+          return []
       meta = self._read_meta(name)
       meta["deliveries"] = int(meta.get("deliveries", 0)) + 1
       self._write_meta(name, meta)
@@ -852,6 +892,30 @@ class FileQueue:
         return [(deserialize(f.read()), lease_name)]
     segid = parsed[0]
     entries = self._read_segment(dst)
+    if self._spec_active():
+      spec = self._spec_of(segid)
+      if spec is not None:
+        live = [
+          (i, p) for i, p in entries
+          if not self._spec_resolved(spec["pair"], i)
+        ]
+        if len(live) != len(entries):
+          self._spec_collapse(None, None, len(entries) - len(live))
+          if not live:
+            try:
+              os.remove(dst)
+            except FileNotFoundError:
+              pass
+            self._drop_meta(f"{SEG_PREFIX}{segid}")
+            return []
+          new_lease = f"{deadline:.3f}{LEASE_SEP}{seg_name(segid, len(live))}"
+          self._write_file(self.lease_dir, new_lease, _seg_content(live))
+          try:
+            os.remove(dst)
+          except FileNotFoundError:
+            pass
+          lease_name, entries = new_lease, live
+          dst = os.path.join(self.lease_dir, lease_name)
     cap = max(int(cap), 1)
     if len(entries) > cap:
       keep, rest = entries[:cap], entries[cap:]
@@ -871,6 +935,8 @@ class FileQueue:
       lease_name, entries = lease_name_new, keep
     meta = self._read_meta(f"{SEG_PREFIX}{segid}")
     meta["deliveries"] = int(meta.get("deliveries", 0)) + 1
+    # holder identity: what speculation targets (a flagged worker's
+    # leases) and stealing filters (a thief never claims its own range)
     meta["holder"] = self.worker_id
     meta["leased_at"] = round(time.time(), 3)
     self._write_meta(f"{SEG_PREFIX}{segid}", meta)
@@ -881,7 +947,6 @@ class FileQueue:
     """Lease up to ``max_tasks`` tasks in one call: segment members come
     back as (task, :class:`RangeSub`) pairs sharing one lease, classic
     files as (task, lease_id) pairs. [] when the queue is drained."""
-    self._refuse_survival_sidecars()
     self._recycle_expired()
     out: List[Tuple[RegisteredTask, object]] = []
     refreshed = False
@@ -951,7 +1016,6 @@ class FileQueue:
     counts ``zombie.delete``. A range member acks its index."""
     if isinstance(lease_id, RangeSub):
       return self._range_ack(lease_id.parent, lease_id.index)
-    self._refuse_survival_sidecars()
     deadline = self._lease_deadline(lease_id)
     if deadline is not None and deadline < time.time():
       telemetry.incr("zombie.delete", 1)
@@ -962,7 +1026,18 @@ class FileQueue:
     except FileNotFoundError:
       telemetry.incr("zombie.delete", 1)
       return False
+    spec = self._spec_of_name(orig) if self._spec_active() else None
     self._drop_meta(orig)
+    if spec is not None:
+      # a speculated index carved out as a classic task: the O_EXCL
+      # marker arbitrates the tally exactly as in _range_ack_many
+      carve = _CARVE_RE.match(orig)
+      idx = int(carve.group(2)) if carve else None
+      if idx is not None:
+        if not self._spec_mark_first(spec["pair"], idx):
+          self._spec_wasted(spec, 1)
+          return False  # the pair's other copy completed (and tallied) it
+        self._spec_account_first(spec, 1)
     self._tally("completions")
     return True
 
@@ -1077,7 +1152,6 @@ class FileQueue:
 
   def _range_ack_many(self, rl: RangeLease, indices) -> Dict[int, bool]:
     """Complete several members of one range with a single rewrite."""
-    self._refuse_survival_sidecars()
     todo = [int(i) for i in indices]
     with rl.lock:
       if rl.deadline < time.time():
@@ -1093,7 +1167,22 @@ class FileQueue:
       if not self._range_rewrite(rl, remaining):
         telemetry.incr("zombie.delete", len(hit))
         return {i: False for i in todo}
-      self._tally("completions", len(hit))
+      # first-RESOLUTION-wins: with a live speculation pair, the per-index
+      # O_EXCL marker, tried only AFTER the rewrite proved this worker
+      # still owns its copy, arbitrates the tally. Exactly one side makes
+      # each marker (and tallies); the loser's ack shrank its lease above
+      # but tallies nothing.
+      spec = self._spec_of(rl.segid) if self._spec_active() else None
+      if spec is None:
+        first = hit
+      else:
+        first = [i for i in hit if self._spec_mark_first(spec["pair"], i)]
+        if first:
+          self._spec_account_first(spec, len(first))
+        if len(first) != len(hit):
+          self._spec_wasted(spec, len(hit) - len(first))
+      if first:
+        self._tally("completions", len(first))
       if not remaining:
         self._drop_meta(f"{SEG_PREFIX}{rl.segid}")
       hitset = set(hit)
@@ -1122,6 +1211,10 @@ class FileQueue:
       meta["failures"] = (
         seg_meta.get("failures", []) + meta.get("failures", [])
       )[-MAX_RECORDED_FAILURES:]
+      if seg_meta.get("spec"):
+        # pair membership rides along: the carve's ack must still go
+        # through the first-resolution markers
+        meta["spec"] = seg_meta["spec"]
       self._write_meta(carve, meta)
       carve_lease = f"{rl.deadline:.3f}{LEASE_SEP}{carve}"
       self._write_file(self.lease_dir, carve_lease, rl.entries[index])
@@ -1170,7 +1263,6 @@ class FileQueue:
     """Extend the range's ONE lease (its token rotates inside; RangeSub
     handles stay valid). A no-op while the deadline already covers ~the
     requested extension, so K tracked members cost one rename a beat."""
-    self._refuse_survival_sidecars()
     with rl.lock:
       now = time.time()
       if not rl.entries:
@@ -1183,6 +1275,10 @@ class FileQueue:
         raise StaleLeaseError(
           f"range lease {rl.segid!r} already expired; due for re-issue"
         )
+      # work stealing: the heartbeat is the holder's claim inbox; serve a
+      # pending claim before the freshness guard can return, so a thief
+      # never waits past one renewal interval
+      self._steal_service(rl)
       if rl.deadline >= now + float(seconds) * 0.9:
         return rl.token
       new_deadline = now + float(seconds)
@@ -1203,9 +1299,399 @@ class FileQueue:
       rl.deadline = new_deadline
       return rl.token
 
+  # -- campaign survival: straggler speculation and work stealing ----------
+
+  def _spec_active(self) -> bool:
+    """One stat call gates every speculation hook: the ``spec/`` sidecar
+    exists only once something speculated, so a queue that never did
+    reads exactly as a plain one."""
+    return os.path.isdir(self.spec_dir)
+
+  def _spec_path(self, name: str) -> str:
+    return os.path.join(self.spec_dir, name)
+
+  def _spec_of(self, segid: str) -> Optional[dict]:
+    """Pair membership of a segment: ``{"pair": …, "side": "orig"|"twin"}``
+    from its attempt meta. The ORIG side gets a pair-file fallback:
+    ``speculate_lease`` (the campaign runner's process) stamping ``meta["spec"]`` can
+    race the holder's own meta read-modify-write (a lease split's
+    delivery bump, a failure record) and lose — but the pair file is
+    NAMED after the orig segid, so its existence alone proves
+    membership no matter which write landed last."""
+    spec = self._read_meta(f"{SEG_PREFIX}{segid}").get("spec")
+    if isinstance(spec, dict) and "pair" in spec:
+      return spec
+    if os.path.exists(self._spec_path(f"pair_{segid}.json")):
+      return {"pair": segid, "side": "orig"}
+    return None
+
+  def _spec_of_name(self, name: str) -> Optional[dict]:
+    """Pair membership of a classic queue/lease/dlq file name (carves
+    inherit it into their own meta; plain per-task files never have
+    any)."""
+    spec = self._read_meta(self._meta_key(name)).get("spec")
+    return spec if isinstance(spec, dict) and "pair" in spec else None
+
+  def _spec_resolved(self, pairid: str, index: int) -> bool:
+    return os.path.exists(self._spec_path(f"done_{pairid}_{int(index)}"))
+
+  def _spec_mark_first(self, pairid: str, index: int) -> bool:
+    """Atomically claim first resolution of (pair, index). The O_EXCL
+    create is the ONE commitment point for the completion tally: the
+    creator tallies, everyone else is fenced."""
+    try:
+      fd = os.open(
+        self._spec_path(f"done_{pairid}_{int(index)}"),
+        os.O_CREAT | os.O_EXCL | os.O_WRONLY,
+      )
+    except FileExistsError:
+      return False
+    os.close(fd)
+    return True
+
+  def _spec_account_first(self, spec: dict, n: int):
+    """Exactly one of won/fenced per issued index, settled at first
+    resolution — the twin resolving first means speculation paid off,
+    the original resolving first means the twin's copy is now waste.
+    Besides the in-process telemetry counter (journal-flushed, LOSSY
+    when the acking worker is SIGKILLed before its next flush) the
+    resolution appends to a crash-safe queue tally, committed in the
+    same breath as the done marker — the campaign runner reconciles
+    the journal ledger from these after the pool is down."""
+    if spec.get("side") == "twin":
+      telemetry.incr("speculation.won", n)
+      self._tally("speculation_won", n)
+    else:
+      telemetry.incr("speculation.fenced", n)
+      self._tally("speculation_fenced", n)
+
+  def _spec_wasted(self, spec: dict, n: int):
+    """A duplicate ack: the loser executed work the winner already
+    tallied. ``speculation.wasted_ms`` accumulates the pair-open window
+    per duplicate — the wall-clock bound on the duplicated effort."""
+    telemetry.incr("speculation.duplicate_ack", n)
+    pair = self._read_pair(spec["pair"])
+    if pair and pair.get("ts"):
+      window_ms = int(max(0.0, time.time() - float(pair["ts"])) * 1000)
+      telemetry.incr("speculation.wasted_ms", window_ms * n)
+
+  def _spec_collapse(self, lease_path: Optional[str],
+                     meta_name: Optional[str], n: int):
+    """Drop an already-resolved duplicate copy at lease/expiry time. No
+    tally — the winner tallied at resolution; this is how a fenced
+    twin's leftover copies drain out of rotation."""
+    if lease_path is not None:
+      try:
+        os.remove(lease_path)
+      except FileNotFoundError:
+        pass
+    if meta_name is not None:
+      self._drop_meta(meta_name)
+    telemetry.incr("speculation.deduped", n)
+
+  def _read_pair(self, pairid: str) -> Optional[dict]:
+    try:
+      with open(self._spec_path(f"pair_{pairid}.json")) as f:
+        return json.load(f)
+    except (FileNotFoundError, ValueError):
+      return None
+
+  def range_leases(self) -> List[dict]:
+    """Live range leases with holder identity — the planner's view for
+    speculation targeting and steal candidate selection."""
+    now = time.time()
+    spec_on = self._spec_active()
+    out = []
+    for name in os.listdir(self.lease_dir):
+      try:
+        deadline = float(name.split(LEASE_SEP, 1)[0])
+      except ValueError:
+        continue
+      parsed = seg_parse(name.split(LEASE_SEP, 1)[-1])
+      if parsed is None:
+        continue
+      segid, count = parsed
+      meta = self._read_meta(f"{SEG_PREFIX}{segid}")
+      paired = bool(meta.get("spec")) or (
+        # pair-file fallback: a clobbered orig meta must not make this
+        # lease look stealable/re-speculatable (see _spec_of)
+        spec_on
+        and os.path.exists(self._spec_path(f"pair_{segid}.json"))
+      )
+      out.append({
+        "lease": name, "segid": segid, "count": count,
+        "deadline": deadline, "expired": deadline < now,
+        "holder": meta.get("holder"),
+        "leased_at": meta.get("leased_at"),
+        "spec": paired,
+      })
+    return out
+
+  @staticmethod
+  def _held_sec(r: dict, now: float) -> float:
+    """How long a listed range lease has been held. ``leased_at`` is
+    rounded to the millisecond, so a lease taken in this millisecond can
+    read as held for a negative time: clamp at 0, or a threshold of 0
+    would skip a lease just taken."""
+    return max(now - float(r["leased_at"] or now), 0.0)
+
+  def speculate_lease(self, lease_name: str) -> int:
+    """Double-issue the unfinished tail of one held range lease as a
+    speculative TWIN segment: fresh segid, fresh delivery budget, the
+    SAME global task indices. The twin enters normal rotation; whichever
+    copy resolves an index first tallies it (see ``_range_ack_many``)
+    and the loser's copy is fenced. One live pair per segment —
+    re-speculation waits until the pair resolves and GCs. Returns the
+    number of indices twinned (0 when the target is not a range lease,
+    is already paired, is below ``IGNEOUS_SPECULATE_MIN_TASKS``, or
+    rotated away since it was listed)."""
+    orig = str(lease_name).split(LEASE_SEP, 1)[-1]
+    parsed = seg_parse(orig)
+    if parsed is None:
+      return 0
+    segid = parsed[0]
+    key = f"{SEG_PREFIX}{segid}"
+    meta = self._read_meta(key)
+    if meta.get("spec"):
+      return 0
+    v = knobs.get_int("IGNEOUS_SPECULATE_MIN_TASKS")
+    min_tasks = DEFAULT_SPECULATE_MIN_TASKS if v is None else int(v)
+    try:
+      entries = self._read_segment(os.path.join(self.lease_dir, lease_name))
+    except FileNotFoundError:
+      return 0  # rotated or completed since the listing; next sweep
+    if len(entries) < max(min_tasks, 1):
+      return 0
+    os.makedirs(self.spec_dir, exist_ok=True)
+    # the pair file is the mutex: an O_EXCL loss means a racing speculator
+    # just speculated this segment
+    try:
+      fd = os.open(
+        self._spec_path(f"pair_{segid}.json"),
+        os.O_CREAT | os.O_EXCL | os.O_WRONLY,
+      )
+    except FileExistsError:
+      return 0
+    twin = uuid.uuid4().hex
+    with os.fdopen(fd, "w") as f:
+      json.dump({
+        "pair": segid, "orig": segid, "twin": twin,
+        "indices": [int(i) for i, _ in entries],
+        "ts": round(time.time(), 3), "holder": meta.get("holder"),
+      }, f)
+    self._write_meta(
+      f"{SEG_PREFIX}{twin}",
+      {"deliveries": 0, "failures": [],
+       "spec": {"pair": segid, "side": "twin"}},
+    )
+    meta["spec"] = {"pair": segid, "side": "orig"}
+    self._write_meta(key, meta)
+    # the twin entering rotation is the commit point
+    twin_name = seg_name(twin, len(entries))
+    self._write_file(self.queue_dir, twin_name, _seg_content(entries))
+    if self._pending_cache is not None:
+      self._pending_cache.append(twin_name)
+    telemetry.incr("speculation.issued", len(entries))
+    return len(entries)
+
+  def speculate_flagged(self, workers, max_twins: Optional[int] = None) -> int:
+    """Driver entry point: twin the tails of every unexpired, unpaired
+    range lease held by a flagged worker — biggest ranges first, capped
+    at ``max_twins`` new pairs per sweep (IGNEOUS_SPECULATE_MAX_TWINS).
+    Returns the total number of indices twinned."""
+    workers = {str(w) for w in workers}
+    if not workers:
+      return 0
+    if max_twins is None:
+      v = knobs.get_int("IGNEOUS_SPECULATE_MAX_TWINS")
+      max_twins = DEFAULT_SPECULATE_MAX_TWINS if v is None else int(v)
+    held = knobs.get_float("IGNEOUS_SPECULATE_MIN_HELD_SEC")
+    min_held = DEFAULT_SPECULATE_MIN_HELD_SEC if held is None else float(held)
+    now = time.time()
+    cands = [
+      r for r in self.range_leases()
+      if not r["expired"] and not r["spec"] and r["holder"] in workers
+      and self._held_sec(r, now) >= min_held
+    ]
+    cands.sort(key=lambda r: (-r["count"], r["lease"]))
+    issued = twins = 0
+    for r in cands:
+      if twins >= max_twins:
+        break
+      n = self.speculate_lease(r["lease"])
+      if n:
+        issued += n
+        twins += 1
+    return issued
+
+  def steal_claim(self, thief: Optional[str] = None) -> Optional[str]:
+    """Thief entry point: claim the biggest long-held foreign range so
+    its holder's next heartbeat renewal releases the unstarted tail back
+    to the pool, where the thief (or any idle worker) leases it. One
+    claim file per segment; O_EXCL creation makes racing thieves
+    converge on distinct targets deterministically. Returns the claimed
+    segid, or None when nothing qualifies."""
+    thief = thief or self.worker_id
+    v = knobs.get_int("IGNEOUS_STEAL_MIN_TASKS")
+    min_tasks = DEFAULT_STEAL_MIN_TASKS if v is None else int(v)
+    held = knobs.get_float("IGNEOUS_STEAL_MIN_HELD_SEC")
+    min_held = DEFAULT_STEAL_MIN_HELD_SEC if held is None else float(held)
+    now = time.time()
+    cands = [
+      r for r in self.range_leases()
+      if not r["expired"] and r["count"] >= max(min_tasks, 1)
+      and r["holder"] not in (None, thief)
+      and self._held_sec(r, now) >= min_held
+    ]
+    cands.sort(key=lambda r: (-r["count"], r["lease"]))
+    for r in cands:
+      os.makedirs(self.steal_dir, exist_ok=True)
+      try:
+        fd = os.open(
+          os.path.join(self.steal_dir, f"{r['segid']}.claim"),
+          os.O_CREAT | os.O_EXCL | os.O_WRONLY,
+        )
+      except FileExistsError:
+        continue  # another thief got this range; try the next
+      with os.fdopen(fd, "w") as f:
+        json.dump({"thief": thief, "ts": round(now, 3)}, f)
+      telemetry.incr("steal.claims")
+      return r["segid"]
+    return None
+
+  def _steal_service(self, rl: RangeLease) -> int:
+    """Holder side, under ``rl.lock`` from ``_range_renew``: a pending
+    claim releases ``IGNEOUS_STEAL_FRACTION`` of the UNSTARTED tail
+    through the expiry-fenced range-release seam, always keeping at
+    least one member so the holder's in-flight work keeps its lease.
+    Too-small grants deny the claim (file removed) rather than starve
+    the thief silently."""
+    if not os.path.isdir(self.steal_dir):
+      return 0
+    claim = os.path.join(self.steal_dir, f"{rl.segid}.claim")
+    if not os.path.exists(claim):
+      return 0
+    frac = knobs.get_float("IGNEOUS_STEAL_FRACTION")
+    frac = DEFAULT_STEAL_FRACTION if frac is None else float(frac)
+    v = knobs.get_int("IGNEOUS_STEAL_MIN_TASKS")
+    min_tasks = DEFAULT_STEAL_MIN_TASKS if v is None else int(v)
+    unstarted = sorted(set(rl.entries) - rl.started)
+    grant_n = min(
+      int(len(unstarted) * max(min(frac, 1.0), 0.0)),
+      len(rl.entries) - 1,
+    )
+    granted = 0
+    if grant_n >= 1 and len(unstarted) >= max(min_tasks, 1):
+      granted = self._range_release(rl, unstarted[-grant_n:])
+    try:
+      os.remove(claim)
+    except FileNotFoundError:
+      pass
+    if granted:
+      telemetry.incr("steal.granted")
+      telemetry.incr("steal.tasks", granted)
+    else:
+      telemetry.incr("steal.denied")
+    return granted
+
+  def _survival_gc(self, now: float):
+    """Recycle-pass housekeeping for the survival sidecars: TTL-expired
+    steal claims recycle (so a re-leased range can be claimed again),
+    DLQ carves whose index the pair's other copy completed are pruned
+    as stale duplicates, and fully-resolved pairs drop their markers +
+    pair file — but only once NOTHING on disk references either segid,
+    because any lingering copy must keep deduping against the markers."""
+    if os.path.isdir(self.steal_dir):
+      ttl = knobs.get_float("IGNEOUS_STEAL_CLAIM_TTL_SEC")
+      ttl = DEFAULT_STEAL_CLAIM_TTL_SEC if ttl is None else float(ttl)
+      for name in os.listdir(self.steal_dir):
+        if not name.endswith(".claim"):
+          continue
+        path = os.path.join(self.steal_dir, name)
+        try:
+          with open(path) as f:
+            ts = float(json.load(f).get("ts") or 0)
+        except (FileNotFoundError, ValueError, TypeError):
+          ts = 0.0
+        if now - ts > max(ttl, 0.0):
+          try:
+            os.remove(path)
+            telemetry.incr("steal.expired_claims")
+          except FileNotFoundError:
+            pass
+    if not self._spec_active():
+      return
+    names = os.listdir(self.spec_dir)
+    pairs = [n for n in names if n.startswith("pair_")]
+    if not pairs:
+      return
+    markers = {n for n in names if n.startswith("done_")}
+    qlive = os.listdir(self.queue_dir) + os.listdir(self.lease_dir)
+
+    for pname in pairs:
+      try:
+        with open(self._spec_path(pname)) as f:
+          pair = json.load(f)
+      except (FileNotFoundError, ValueError):
+        continue
+      pid = pair.get("pair")
+      # descendants (lease splits, stolen/released tails) carry the
+      # pair under fresh segids; their side_ lineage markers make them
+      # visible here so the pair outlives every circulating copy
+      side_pref = f"side_{pid}_"
+      lineage = [n[len(side_pref):] for n in names if n.startswith(side_pref)]
+      sides = tuple(
+        [pair.get("orig", ""), pair.get("twin", "")] + lineage
+      )
+      # stale DLQ duplicates: the other copy completed this index AFTER
+      # it was quarantined — zero-DLQ-leakage means pruning them
+      for n in os.listdir(self.dlq_dir):
+        m = _CARVE_RE.match(n)
+        if not m or m.group(1) not in sides:
+          continue
+        if f"done_{pid}_{int(m.group(2))}" in markers:
+          try:
+            os.remove(os.path.join(self.dlq_dir, n))
+          except FileNotFoundError:
+            continue
+          self._drop_meta(n)
+          telemetry.incr("speculation.dlq_pruned")
+      idxs = pair.get("indices", [])
+      done = [f"done_{pid}_{i}" for i in idxs]
+      if not all(d in markers for d in done):
+        continue
+
+      def referenced(segid: str, listing) -> bool:
+        seg_pref = f"{SEG_PREFIX}{segid}_"
+        carve_pref = f"task_{segid}_"
+        return any(seg_pref in n or carve_pref in n for n in listing)
+
+      dlq_live = os.listdir(self.dlq_dir)
+      if any(
+        referenced(s, qlive) or referenced(s, dlq_live) for s in sides
+      ):
+        continue
+      for d in done:
+        try:
+          os.remove(self._spec_path(d))
+        except FileNotFoundError:
+          pass
+      for n in names:
+        if n.startswith(side_pref):
+          try:
+            os.remove(self._spec_path(n))
+          except FileNotFoundError:
+            pass
+      try:
+        os.remove(self._spec_path(pname))
+      except FileNotFoundError:
+        pass
+      for s in sides:
+        self._drop_meta(f"{SEG_PREFIX}{s}")
+
   def purge(self):
     """Drop every pending, leased and dead-lettered task, all metadata and
-    the counters (and the JAX package's sidecars, as it does)."""
+    the counters, and the survival sidecars."""
     for d in (self.queue_dir, self.lease_dir, self.dlq_dir, self.meta_dir,
               self.spec_dir, self.steal_dir):
       if not os.path.isdir(d):

@@ -10,7 +10,9 @@ long mesh and skeleton tasks still run exactly once.
 Renewal goes through ``queue.renew(lease_id, seconds)``: fq:// renames the
 lease (the token CHANGES; this class maps each tracked token to its
 current one), sqs:// changes the message's visibility (token stable). A
-queue without ``renew`` disables the heartbeat.
+queue without ``renew`` disables the heartbeat. A range member's renewal
+reaches ``FileQueue._range_renew``, which first serves a pending steal
+claim on the range, so a thief waits at most one interval.
 
 A renewal refused with StaleLeaseError means this worker became a zombie
 for that lease; the lease is dropped from tracking and recorded in

@@ -43,6 +43,11 @@ class RangeSub:
     self.parent = parent
     self.index = int(index)
 
+  def mark_started(self):
+    """Record that work on this member has begun (see
+    :meth:`RangeLease.mark_started`)."""
+    self.parent.mark_started(self.index)
+
   def __repr__(self):
     return f"RangeSub({self.parent.segid[:8]}:{self.index})"
 
@@ -60,6 +65,7 @@ class RangeLease:
     self.segid = segid          # stable across rewrites; keys attempt meta
     self.entries = dict(entries)  # index -> serialized payload, pending only
     self.deadline = float(deadline)
+    self.started = set()        # members whose execution has begun
     self.lock = threading.RLock()
 
   # -- shape ----------------------------------------------------------------
@@ -118,3 +124,17 @@ class RangeLease:
     callers keep using their RangeSub handles unchanged. Raises
     StaleLeaseError once the range expired or fully completed."""
     return self.queue._range_renew(self, seconds)
+
+  def mark_started(self, index: int):
+    """Record that work on a member has begun. Work stealing carves only
+    UNSTARTED members off a claimed range, so marking keeps work in
+    flight from going to a thief. A worker that never marks still
+    converges (a member granted away mid-run fences its late ack), only
+    less efficiently."""
+    with self.lock:
+      self.started.add(int(index))
+
+  def unstarted(self) -> List[int]:
+    """Surviving members no one has begun: the stealable tail."""
+    with self.lock:
+      return sorted(set(self.entries) - self.started)

@@ -9,9 +9,11 @@ on/off knob as the JAX package's knob registry does
 (``igneous_tpu/analysis/knobs.py``); the queues, the lifecycle, the
 pipeline and the storage plane read their knobs through them.
 
-``KNOBS`` is the port's copy of that registry's observability knobs (the
-journal, roll-ups, tracing, ``/metrics``, the profiler, health and SLOs,
-the autoscale policy), with the same types and defaults; ``get_str``,
+``KNOBS`` is the port's copy of that registry's observability and
+campaign knobs (the journal, roll-ups, tracing, ``/metrics``, the
+profiler, health and SLOs, the autoscale controller, straggler
+speculation, work stealing, the campaign runner and the fleet simulator),
+with the same types and defaults; ``get_str``,
 ``get_int``, ``get_float``, ``opt_float`` and ``get_bool`` read them with
 the registry's parses (unset or empty: the default; unparseable number:
 the default; a flag is off for 0, off, false and no), and refuse a name
@@ -75,8 +77,8 @@ def env_flag(name: str, default: bool) -> bool:
   return val.strip().lower() not in _FALSE_WORDS
 
 
-# name -> (type, default): the observability knobs of the JAX package's
-# registry, with its defaults (None: unset, derived where it is read)
+# name -> (type, default): the observability and campaign knobs of the
+# JAX package's registry, with its defaults (None: unset, derived where it is read)
 KNOBS: Dict[str, Tuple[str, Union[str, int, float, bool, None]]] = {
   # journal and roll-ups
   "IGNEOUS_JOURNAL": ("str", None),
@@ -116,8 +118,6 @@ KNOBS: Dict[str, Tuple[str, Union[str, int, float, bool, None]]] = {
   "IGNEOUS_SERVE_SHED_RATIO": ("float", 0.2),
   "IGNEOUS_SERVE_MISS_RATIO": ("float", 0.9),
   "IGNEOUS_SERVE_MIN_REQUESTS": ("int", 50),
-  "IGNEOUS_SPECULATE_WASTE_MAX": ("float", 0.5),
-  "IGNEOUS_SPECULATE_MIN_ISSUED": ("int", 8),
   # the autoscale policy
   "IGNEOUS_AUTOSCALE_MIN": ("int", 1),
   "IGNEOUS_AUTOSCALE_MAX": ("int", 1000),
@@ -125,6 +125,35 @@ KNOBS: Dict[str, Tuple[str, Union[str, int, float, bool, None]]] = {
   "IGNEOUS_AUTOSCALE_HYSTERESIS": ("float", 0.2),
   "IGNEOUS_AUTOSCALE_COOLDOWN_SEC": ("float", 60.0),
   "IGNEOUS_AUTOSCALE_STEP_MAX": ("int", 0),
+  "IGNEOUS_AUTOSCALE_INTERVAL_SEC": ("float", 15.0),
+  # campaign survival: speculation, stealing, the campaign runner
+  "IGNEOUS_SPECULATE_MIN_TASKS": ("int", 1),
+  "IGNEOUS_SPECULATE_MAX_TWINS": ("int", 4),
+  "IGNEOUS_SPECULATE_MIN_HELD_SEC": ("float", 0.0),
+  "IGNEOUS_SPECULATE_TAIL_RATIO": ("float", 1.5),
+  "IGNEOUS_SPECULATE_WASTE_MAX": ("float", 0.5),
+  "IGNEOUS_SPECULATE_MIN_ISSUED": ("int", 8),
+  "IGNEOUS_STEAL": ("bool", False),
+  "IGNEOUS_STEAL_MIN_TASKS": ("int", 2),
+  "IGNEOUS_STEAL_MIN_HELD_SEC": ("float", 2.0),
+  "IGNEOUS_STEAL_FRACTION": ("float", 0.5),
+  "IGNEOUS_STEAL_CLAIM_TTL_SEC": ("float", 300.0),
+  "IGNEOUS_CAMPAIGN_TICK_SEC": ("float", 5.0),
+  "IGNEOUS_CAMPAIGN_MAX_WALL_SEC": ("float", 0.0),
+  "IGNEOUS_CAMPAIGN_SPECULATE": ("bool", True),
+  # the fleet simulator
+  "IGNEOUS_SIM_WORKERS": ("int", 4),
+  "IGNEOUS_SIM_SEED": ("int", 0),
+  "IGNEOUS_SIM_BATCH": ("int", 1),
+  "IGNEOUS_SIM_LEASE_SEC": ("float", 60.0),
+  "IGNEOUS_SIM_MAX_DELIVERIES": ("int", 5),
+  "IGNEOUS_SIM_POLL_SEC": ("float", 2.0),
+  "IGNEOUS_SIM_WORKER_START_SEC": ("float", 5.0),
+  "IGNEOUS_SIM_FAIL_SCALE": ("float", 1.0),
+  "IGNEOUS_SIM_MAX_SEC": ("float", 30 * 24 * 3600.0),
+  "IGNEOUS_SIM_RANGE_LEASE": ("int", 0),
+  "IGNEOUS_SIM_SPECULATE": ("int", 0),
+  "IGNEOUS_SIM_STEAL": ("int", 0),
 }
 
 

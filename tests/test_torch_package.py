@@ -76,6 +76,8 @@ import igneous_tpu_torch.observability.journal, igneous_tpu_torch.observability.
 import igneous_tpu_torch.observability.fleet, igneous_tpu_torch.observability.prom
 import igneous_tpu_torch.observability.perfetto, igneous_tpu_torch.observability.health
 import igneous_tpu_torch.observability.autoscale, igneous_tpu_torch.cli
+import igneous_tpu_torch.observability.campaign, igneous_tpu_torch.observability.replay
+import igneous_tpu_torch.observability.sim
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'igneous_tpu')]
 assert not bad, bad
 from igneous_tpu_torch.ops import _build

@@ -11,7 +11,8 @@ the fsck report and the whole directory tree (lease deadlines and meta
 times normalised) are equal. (b) Each package's poll loop drains a queue
 that the other inserted. (c) ``queue status|release --reset-deliveries|
 fsck|dlq ls|retry|purge|cp|mv`` print what the JAX CLI prints on the same
-queue. (d) A live ``spec/`` or ``steal/`` sidecar is refused.
+queue. (d) A queue with a live ``spec/`` pair or ``steal/`` claim leases,
+acks and renews in the port as in the JAX package.
 """
 
 import json
@@ -36,7 +37,7 @@ from igneous_tpu.tasks import TouchFileTask as JaxTouchFileTask
 from igneous_tpu_torch import device, telemetry
 from igneous_tpu_torch.cli import main as cli_main
 from igneous_tpu_torch.queues import filequeue as port_filequeue
-from igneous_tpu_torch.queues import FileQueue, StaleLeaseError, SurvivalSidecarError, TaskQueue
+from igneous_tpu_torch.queues import FileQueue, StaleLeaseError, TaskQueue
 from igneous_tpu_torch.tasks import TouchFileTask
 
 PACKAGES = {
@@ -231,19 +232,42 @@ def test_each_package_drains_the_others_queue(tmp_path, inserter, poller):
 
 
 @pytest.mark.parametrize("sidecar", ["spec", "steal"])
-def test_a_live_survival_sidecar_is_refused(tmp_path, sidecar):
-  q = FileQueue(f"fq://{tmp_path / 'q'}")
-  q.insert_batch([TouchFileTask(str(tmp_path / f"t{i}")) for i in range(4)])
-  (tmp_path / "q" / sidecar).mkdir()
-  task, token = q.lease(30)  # an empty sidecar reads as usual
-  (tmp_path / "q" / sidecar / "x_entry").write_text("{}")
-  with pytest.raises(SurvivalSidecarError, match=f"{sidecar}/"):
-    q.lease(30)
-  with pytest.raises(SurvivalSidecarError, match=f"{sidecar}/"):
-    q.delete(token)
-  with pytest.raises(SurvivalSidecarError, match=f"{sidecar}/"):
-    q.renew(token, 30)
-  assert q.depth_snapshot()["leased"] == 1  # nothing was leased or acked
+def test_a_live_survival_sidecar_is_read(tmp_path, sidecar, monkeypatch):
+  """A live speculation pair (``spec``) or steal claim (``steal``) on a
+  held range: each package leases, renews and acks through it, with the
+  same tallies and the same files left behind."""
+  monkeypatch.setenv("IGNEOUS_SPECULATE_MIN_HELD_SEC", "0")
+  monkeypatch.setenv("IGNEOUS_STEAL_MIN_HELD_SEC", "0")
+  payloads = [JaxTouchFileTask(str(tmp_path / f"t{i}")).to_json() for i in range(6)]
+  seen = {}
+  for who, (FQ, _stale) in PACKAGES.items():
+    qdir = tmp_path / who
+    q = FQ(f"fq://{qdir}", worker_id="holder")
+    q.insert_batch(payloads)
+    held = q.lease_batch(30, max_tasks=6)
+    held[0][1].mark_started()
+    time.sleep(0.002)  # past the millisecond leased_at is rounded to
+    other = FQ(f"fq://{qdir}", worker_id="other")
+    if sidecar == "spec":
+      assert other.speculate_flagged({"holder"}) == 6
+    else:
+      assert other.steal_claim() == held[0][1].parent.segid
+    assert os.listdir(qdir / sidecar)
+    q.renew(held[0][1], 30)  # services a claim
+    got = other.lease_batch(30, max_tasks=6)  # the twin, or the granted tail
+    acked = q.ack_batch([t for _x, t in held]) + other.ack_batch([t for _x, t in got])
+    seen[who] = {
+      "other": len(got), "acked": acked, "completed": q.completed,
+      "won": q.speculation_won, "fenced": q.speculation_fenced,
+      "empty": q.is_empty(), "steal": sorted(os.listdir(qdir / "steal"))
+      if (qdir / "steal").exists() else None,
+    }
+  assert seen["port"] == seen["jax"]
+  assert seen["port"]["completed"] == 6 and seen["port"]["empty"]
+  if sidecar == "spec":
+    assert seen["port"]["other"] == 6 and seen["port"]["fenced"] == 6
+  else:
+    assert seen["port"]["other"] == 2 and seen["port"]["steal"] == []
 
 
 # ---------------------------------------------------------------------------
