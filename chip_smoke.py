@@ -99,9 +99,11 @@ Phases, each reported on its own line:
      launched; the decode route (IGNEOUS_TRANSFER_PASSTHROUGH=off, and for
      the cseg layer once more with IGNEOUS_CHUNK_CACHE=off) writes the
      same bytes; every wall printed;
-  4. e2e ccl: two file:// layers (an 896x448x224 thresholded smooth image
-     at half the task's depth and an 896x448x112 uint64 segmentation of
-     375 balls at a quarter of it, two tasks each) through ccl_auto (the four passes on a
+  4. e2e ccl: two file:// layers (a 448x448x224 thresholded smooth image
+     at half the task's depth, one task, and an 896x448x56 uint64
+     segmentation of 188 balls at an eighth of it, two tasks, whose
+     faces and equivalences join across the task boundary) through
+     ccl_auto (the four passes on a
      LocalTaskQueue, task shape 448^3, raw destination), with the wall time
      of every pass and the stage split of its tasks; the launch counts are
      set to 0 just before each layer and read just after, tile_resolve must
@@ -359,13 +361,31 @@ Phases, each reported on its own line:
      journal bytes, `fleet status` on them, the forecast printed beside
      (a)'s wall; each part's wall, workers, busy share and the survival
      counters printed;
+  19. serving and chaos (after phase 18, in phase 3's root): (a) new
+     layers holding phase 3's whole info and only its mip 0 (hard links),
+     the image's and the segmentation's, served by a ServeApp on
+     localhost; 16 clients request every mip-4 chunk of the image (a walk
+     of 4 levels from mip 0), 16 of its mip-1 chunks and every mip-3
+     chunk of the segmentation (mode), each synthesized on the card with
+     one pyramid2x2x1 launch and served with phase 3's offline chunk's
+     stored bytes; the same list again from the RAM tier with no launch;
+     the requests' p50 and p99, the card's busy share; (b) a second
+     replica peered with the first asks for 8 mip-2 chunks the first
+     owns, each twice: one synthesis and one peer fill a chunk, launches
+     the number of distinct chunks; (c) 8 of phase 3d's image-stream
+     tasks on the first two columns of phase 3's image (re-ingested with
+     gzip) drained by this process's lease batcher, clean and under
+     chaos_storage and ChaosQueue (put_fail 0.2, get_corrupt 0.1, one
+     crash between compute and upload, drop_delete 0.2): the faults
+     fired, the failed deliveries, the launches, and the two layers byte
+     for byte equal;
   7. the card's name and power limit, the programs line (X1-X3, X5-X7),
      the kernels line (each kernel's launches on the main paths, the
      transfer, the batched phase, the pipelined streams, the worker phase,
      where each of the four must have launched, the storage phase, the
      sharded phase, phase 14, phase 15 (edt_pass), phase 16
-     (pyramid2x2x1, edt_pass), phase 17 (pyramid2x2x1, edt_pass) and
-     phase 18 (pyramid2x2x1, pool2x2x1)),
+     (pyramid2x2x1, edt_pass), phase 17 (pyramid2x2x1, edt_pass), phase
+     18 (pyramid2x2x1, pool2x2x1) and phase 19 (serve, chaos)),
      and the result.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -1044,15 +1064,16 @@ def blobs(shape, n_labels: int, n_blobs: int, rng, torch, dev) -> np.ndarray:
 CCL_LAYERS = [
   # name, shape (x, y, z), dtype, ccl_auto options, cut so that the whole
   # script stays inside its time limit: the mask layer at half the depth of
-  # the default 448^3 task (since the mesh phase) and half its width (since
-  # the device plane's phase 10), the segmentation at half that depth since
-  # phases 8 and 9 and a quarter since the storage phase 12. The mask layer
-  # keeps its depth: its first task is the traced one of phase 10, whose
+  # the default 448^3 task (since the mesh phase), half its width (since
+  # the device plane's phase 10) and one task (since phase 19), the
+  # segmentation at half that depth since phases 8 and 9, a quarter since
+  # the storage phase 12 and an eighth since phase 19. The mask layer keeps
+  # its depth: its first task is the traced one of phase 10, whose
   # tile_resolve must outlast a launch's host path (the ledger check)
-  ("ccl_mask", (896, 448, 224), "uint8", {"threshold_gte": 128}),
-  ("ccl_segmentation", (896, 448, 112), "uint64", {}),
+  ("ccl_mask", (448, 448, 224), "uint8", {"threshold_gte": 128}),
+  ("ccl_segmentation", (896, 448, 56), "uint64", {}),
 ]
-CCL_BLOBS = 375  # balls of the segmentation layer (1500 at its full depth)
+CCL_BLOBS = 188  # balls of the segmentation layer (1500 at its full depth)
 
 
 def oracle(data: np.ndarray, kw: dict, torch, dev):
@@ -2478,13 +2499,16 @@ PAGE = 32  # the default page edge (IGNEOUS_PAGE_SHAPE) and pages a round
 X5_REPLACES = "igneous_tpu/parallel/paged.py:163"  # _make_page_kernel (XLA)
 
 
-def link_layer(src: str, dst: str) -> None:
+def link_layer(src: str, dst: str, every_scale: bool = False) -> None:
   """A new layer at ``dst``: ``src``'s mip-0 chunk files hard-linked (the
-  batched runs only read them) and its info cut to mip 0."""
+  batched runs only read them) and its info cut to mip 0, or with
+  ``every_scale`` kept whole (the served layers of phase 19, whose other
+  mips are absent)."""
   import os
 
   info = json.load(open(os.path.join(src, "info")))
-  info["scales"] = info["scales"][:1]
+  if not every_scale:
+    info["scales"] = info["scales"][:1]
   key = info["scales"][0]["key"]
   os.makedirs(os.path.join(dst, key))
   for name in os.listdir(os.path.join(src, key)):
@@ -6414,6 +6438,293 @@ def campaign_phase(root, cp, cc, ce, torch, dev) -> tuple:
   return launches, wall
 
 
+# ---------------------------------------------------------------------------
+# serving and chaos (phase 19): mip synthesis on the card through the
+# serving tier, a peer fill across two replicas, a downsample under faults
+
+# (a) every mip-4 chunk of phase 3's image (a walk of 4 levels from mip 0),
+# 16 of its mip-1 chunks and every mip-3 chunk of its segmentation (mode),
+# at this many clients, then the same list again from the RAM tier
+SERVE_CLIENTS = 16
+SERVE_MIP1_CHUNKS = 16
+# (b) mip-2 chunks of the image that (a)'s replica owns, each requested
+# twice through the second replica
+SERVE_FED_CHUNKS = 8
+# (c) phase 3d's image stream on the first two columns of phase 3's image
+# (8 tasks of 1024x1024x64, 3 mips), clean and under faults. get_corrupt on
+# phase 3's uncompressed mip 0 would hand a task wrong voxels silently (a
+# raw chunk carries nothing a reader can check), so the columns are
+# re-ingested with gzip, whose CRC turns a flipped byte into a failed task
+CHAOS_SEED = 19
+CHAOS_FAULTS_PER_KIND = 6
+CHAOS_LEASE_SEC = 3.0
+CHAOS_BATCH = 4
+
+
+def http_get(port: int, path: str):
+  """(status, headers, body, seconds) of one GET with gzip accepted."""
+  import http.client
+
+  t0 = time.perf_counter()
+  conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+  try:
+    conn.request("GET", path, headers={"Accept-Encoding": "gzip"})
+    resp = conn.getresponse()
+    body = resp.read()
+    return resp.status, dict(resp.getheaders()), body, time.perf_counter() - t0
+  finally:
+    conn.close()
+
+
+def chunk_keys(root: str, name: str, mip: int) -> list:
+  """The chunk keys of ``mip`` of phase 3's layer ``name`` (its offline
+  chunk files, gzip), sorted."""
+  import os
+
+  from igneous_tpu_torch import Volume
+
+  key = Volume(f"file://{root}/{name}").meta.key(mip)
+  return sorted(f"{key}/{f[:-3]}" for f in os.listdir(os.path.join(root, name, key)))
+
+
+def offline_bytes(root: str, name: str, key: str) -> bytes:
+  import os
+
+  with open(os.path.join(root, name, key + ".gz"), "rb") as f:
+    return f.read()
+
+
+def serve_requests(port, reqs, label: str, root: str) -> list:
+  """``reqs`` ((layer, key) pairs) at SERVE_CLIENTS clients; fails unless
+  each answer is 200 with the offline chunk's stored bytes. Returns
+  (status, headers, body, seconds) in order."""
+  with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+    out = list(pool.map(lambda lk: http_get(port, f"/{lk[0]}_serve/{lk[1]}"), reqs))
+  for (name, key), (status, headers, body, _s) in zip(reqs, out):
+    if status != 200 or headers.get("Content-Encoding") != "gzip":
+      fail(f"serve {label}: {name} {key} answered {status} {headers}")
+    if body != offline_bytes(root, name, key):
+      fail(f"serve {label}: {name} {key} differs from phase 3's offline chunk")
+  return out
+
+
+def serve_phase(root, cp, cc, ce, torch, dev) -> tuple:
+  """Phase 19 (a)-(b): phase 3's image and segmentation served from new
+  layers that hold only their mip 0; the missing chunks synthesized on
+  the card. Returns (launches, wall)."""
+  import os
+
+  from igneous_tpu_torch.observability import metrics
+  from igneous_tpu_torch.serve import Federation, HashRing, ServeApp, ServeConfig, ServeServer
+
+  t_phase = time.perf_counter()
+  mods = (cp, cc, ce)
+  for name in ("image", "segmentation"):
+    link_layer(os.path.join(root, name), os.path.join(root, f"{name}_serve"), every_scale=True)
+  layers = {f"{n}_serve": f"file://{root}/{n}_serve" for n in ("image", "segmentation")}
+  mip1 = chunk_keys(root, "image", 1)
+  reqs = ([("image", k) for k in chunk_keys(root, "image", 4)]
+          + [("image", k) for k in mip1[::max(len(mip1) // SERVE_MIP1_CHUNKS, 1)]]
+          + [("segmentation", k) for k in chunk_keys(root, "segmentation", 3)])
+  metrics.reset_all()
+  config = ServeConfig(ram_mb=4096.0, synth_mips=True)
+  a = ServeServer(ServeApp(dict(layers), config=config), host="127.0.0.1", port=0)
+  b = None
+  try:
+    port_a = a.server_address[1]
+    # (a) the synthesis: every chunk once, then again from RAM
+    zero_counts(*mods)
+    ledger_reset(torch, dev)
+    t0 = time.perf_counter()
+    first = serve_requests(port_a, reqs, "(a)", root)
+    wall_a = time.perf_counter() - t0
+    launched = launch_counts(*mods)
+    snap = ledger_line("serve (a)", wall_a, launched)
+    tiers = sorted({h["X-Igneous-Cache"] for _s, h, _b, _t in first})
+    if launched["pyramid2x2x1"] != len(reqs) or any(
+        n for k, n in launched.items() if k != "pyramid2x2x1"):
+      fail(f"serve (a): launches {launched} for {len(reqs)} synthesized chunks")
+    zero_counts(*mods)
+    t0 = time.perf_counter()
+    again = serve_requests(port_a, reqs, "(a) repeated", root)
+    wall_again = time.perf_counter() - t0
+    if any(launch_counts(*mods).values()):
+      fail(f"serve (a): the repeated requests launched {launch_counts(*mods)}")
+    if {h["X-Igneous-Cache"] for _s, h, _b, _t in again} != {"ram"}:
+      fail("serve (a): a repeated request missed the RAM tier")
+    secs = np.array([t for _s, _h, _b, t in first])
+    c = metrics.counters_snapshot()
+    kinds = {k: sum(1 for r in reqs if (r[0], r[1].split("/")[0]) == k)
+             for k in dict.fromkeys((r[0], r[1].split("/")[0]) for r in reqs)}
+    print(f"serve (a): {len(reqs)} chunks ({', '.join(f'{n} {lk[0]} {lk[1]}' for lk, n in kinds.items())}; "
+          f"image mip 4 from mip 0, segmentation by mode) at {SERVE_CLIENTS} clients: wall "
+          f"{wall_a:.3f} s, request p50 {np.percentile(secs, 50) * 1e3:.1f} ms p99 "
+          f"{np.percentile(secs, 99) * 1e3:.1f} ms (server p50 "
+          f"{metrics.histogram_quantile('serve.request', 0.5) * 1e3:.1f} ms, p99 "
+          f"{metrics.histogram_quantile('serve.request', 0.99) * 1e3:.1f} ms), tiers {tiers}, "
+          f"launches {json.dumps(launched)}, synth {c.get('serve.synth', 0)}, card busy "
+          f"{100 * snap['busy_s'] / wall_a:.2f}%; repeated: wall {wall_again:.3f} s, launches 0, ram hits "
+          f"{c.get('serve.cache.ram.hits', 0)}, every chunk phase 3's offline bytes", flush=True)
+    launches = dict(launched)
+
+    # (b) the peer fill: B misses, asks its ring owner A, A synthesizes once
+    b = ServeServer(ServeApp(dict(layers), config=config), host="127.0.0.1", port=0)
+    urls = [f"http://127.0.0.1:{s.server_address[1]}" for s in (a, b)]
+    fed = Federation(peers=urls, timeout_ms=120000.0, retry_sec=30.0)
+    fed.activate(urls[1])
+    b.app.federation = fed
+    ring = HashRing(urls)
+    owned = [k for k in chunk_keys(root, "image", 2)
+             if ring.owner("image_serve", k) == urls[0]][:SERVE_FED_CHUNKS]
+    if len(owned) != SERVE_FED_CHUNKS:
+      fail(f"serve (b): only {len(owned)} mip-2 chunks owned by (a)'s replica")
+    zero_counts(*mods)
+    c0 = metrics.counters_snapshot()
+    t0 = time.perf_counter()
+    fills = serve_requests(b.server_address[1], [("image", k) for k in owned] * 2, "(b)", root)
+    wall_b = time.perf_counter() - t0
+    launched = launch_counts(*mods)
+    c1 = metrics.counters_snapshot()
+    delta = {k: c1.get(k, 0) - c0.get(k, 0)
+             for k in ("serve.peer.hits", "serve.peer.served", "serve.synth", "serve.peer.errors")}
+    tiers = sorted({h["X-Igneous-Cache"] for _s, h, _b, _t in fills})
+    if launched["pyramid2x2x1"] != SERVE_FED_CHUNKS or delta["serve.peer.errors"]:
+      fail(f"serve (b): launches {launched}, counters {delta} for {SERVE_FED_CHUNKS} chunks")
+    if delta["serve.synth"] != SERVE_FED_CHUNKS or delta["serve.peer.hits"] != SERVE_FED_CHUNKS:
+      fail(f"serve (b): counters {delta}: each chunk synthesized once and filled once")
+    print(f"serve (b): {2 * SERVE_FED_CHUNKS} requests for {SERVE_FED_CHUNKS} mip-2 chunks "
+          f"owned by (a)'s replica through the second: wall {wall_b:.3f} s, tiers {tiers}, "
+          f"launches {json.dumps(launched)}, counters {json.dumps(delta)}, every chunk phase 3's "
+          f"offline bytes", flush=True)
+    for k, n in launched.items():
+      launches[k] += n
+  finally:
+    if b is not None:
+      b.shutdown()
+    a.shutdown()
+  return launches, time.perf_counter() - t_phase
+
+
+def budgeted_chaos(**rates):
+  """Phase 19 (c)'s ``ChaosConfig``: each kind of fault fires at its rate
+  until CHAOS_FAULTS_PER_KIND of it have fired in the run, and the crash
+  between compute and upload fires once, on the first put of a mip-1
+  chunk. A task reads 64 mip-0 chunks: with the per-key budget alone,
+  get_corrupt at 0.1 fails nearly every delivery until each of them has
+  faulted twice (some 20 deliveries a task)."""
+  from dataclasses import dataclass, field
+
+  from igneous_tpu_torch import telemetry
+  from igneous_tpu_torch.chaos import ChaosConfig
+
+  @dataclass
+  class Config(ChaosConfig):
+    crashed: str = ""
+    fired: dict = field(default_factory=dict)
+
+    def should_fault(self, op, key, rate):
+      if op == "crash_put":
+        if self.crashed or not key.startswith("16_16_40/"):
+          return False
+        self.crashed = key
+        telemetry.incr("chaos.crash_put")
+        return True
+      if self.fired.get(op, 0) >= CHAOS_FAULTS_PER_KIND:
+        return False
+      hit = super().should_fault(op, key, rate)
+      self.fired[op] = self.fired.get(op, 0) + int(hit)
+      return hit
+
+  return Config(**rates)
+
+
+def chaos_phase(root, cp, cc, ce, torch, dev) -> tuple:
+  """Phase 19 (c): phase 3d's image stream on the first two columns of
+  phase 3's image, drained by this process's lease batcher clean and then
+  under chaos_storage and ChaosQueue. Returns (launches, wall)."""
+  import os
+
+  from igneous_tpu_torch import Bbox, Volume, telemetry
+  from igneous_tpu_torch.chaos import ChaosQueue, chaos_storage
+  from igneous_tpu_torch.parallel.lease_batcher import poll_batched
+  from igneous_tpu_torch.queues import FileQueue
+
+  t_phase = time.perf_counter()
+  mods = (cp, cc, ce)
+  name, target, _n, _shape, mips = PIPELINED_RUNS[0]
+  t0 = time.perf_counter()
+  x1 = int(JOURNAL_XRANGE.split(",")[1])
+  src = Volume(f"file://{root}/{name}")
+  cols = src.download(Bbox((0, 0, 0), (x1, *src.meta.volume_size(0)[1:])))
+  Volume.from_numpy(cols, f"file://{root}/chaos_src", resolution=(8, 8, 40),
+                    chunk_size=tuple(src.meta.chunk_size(0)), compress="gzip")
+  del cols
+  t_ingest = time.perf_counter() - t0
+  out = {}
+  for label, cfg in (("clean", None), ("chaos", budgeted_chaos(
+      seed=CHAOS_SEED, put_fail=0.2, get_corrupt=0.1, drop_delete=0.2,
+      max_faults_per_key=2))):
+    dst = os.path.join(root, f"chaos_{label}")
+    link_layer(os.path.join(root, "chaos_src"), dst)
+    spec = f"fq://{root}/queue_chaos_{label}"
+    run_cli(["image", "downsample", f"file://{dst}", "--num-mips", mips, "--memory", target,
+             "--queue", spec])
+    q = FileQueue(spec, max_deliveries=25)
+    if q.inserted != JOURNAL_TASKS:
+      fail(f"chaos {label}: {q.inserted} tasks, expected {JOURNAL_TASKS}")
+    telemetry.reset_all()
+    zero_counts(*mods)
+    ledger_reset(torch, dev)
+    deadline = time.monotonic() + 240.0
+
+    def stop(executed, empty):
+      if time.monotonic() > deadline:
+        fail(f"chaos {label}: the queue did not drain (enqueued {q.enqueued})")
+      return empty and q.enqueued == 0
+
+    t0 = time.perf_counter()
+    if cfg is None:
+      executed, stats = poll_batched(q, batch_size=CHAOS_BATCH, lease_seconds=CHAOS_LEASE_SEC,
+                                     stop_fn=stop, max_backoff_window=0.2)
+    else:
+      with chaos_storage(cfg):
+        executed, stats = poll_batched(ChaosQueue(q, cfg), batch_size=CHAOS_BATCH,
+                                       lease_seconds=CHAOS_LEASE_SEC, stop_fn=stop,
+                                       max_backoff_window=0.2)
+    wall = time.perf_counter() - t0
+    c = telemetry.counters_snapshot()
+    faults = {k: v for k, v in c.items() if k.startswith("chaos.")}
+    if not q.is_empty() or q.dlq_count or q.completed != JOURNAL_TASKS:
+      last = [f["error"][:300] for r in q.dlq_ls()[:2] for f in r.get("failures", [])[-2:]]
+      fail(f"chaos {label}: completed {q.completed}, dlq {q.dlq_count}, empty {q.is_empty()}, "
+           f"last failures {last}")
+    out[label] = dict(wall=wall, launches=launch_counts(*mods), faults=faults,
+                      failed=c.get("tasks.failed", 0), executed=executed)
+    ledger_line(f"chaos {label}", wall, out[label]["launches"])
+    print(f"chaos {label}: {JOURNAL_TASKS} tasks at batch {CHAOS_BATCH}, lease "
+          f"{CHAOS_LEASE_SEC} s: wall {wall:.3f} s, executions {executed}, failed deliveries "
+          f"{out[label]['failed']}, faults fired {json.dumps(faults)}, launches "
+          f"{json.dumps(out[label]['launches'])}", flush=True)
+  if not out["chaos"]["faults"].get("chaos.crash_put") or len(out["chaos"]["faults"]) < 3:
+    fail(f"chaos: faults {out['chaos']['faults']}: put, corrupt, crash_put and drop_delete "
+         "should fire")
+  if out["chaos"]["failed"] < 1:
+    fail("chaos: no delivery failed: the faults were absorbed before the queue saw them")
+  vol = Volume(f"file://{root}/chaos_clean")
+  n = 0
+  for mip in range(1, vol.meta.num_mips):
+    key = vol.meta.key(mip)
+    n += same_files(os.path.join(root, "chaos_clean", key), os.path.join(root, "chaos_chaos", key),
+                    keep=lambda f: ".tmp." not in f)
+  same_files(root + "/chaos_clean", root + "/chaos_chaos", keep=lambda f: f == "info")
+  print(f"chaos: the faulted layer equals the clean one byte for byte ({n} chunk files of mips "
+        f"1-{vol.meta.num_mips - 1}); ingest of the gzip columns {t_ingest:.1f} s", flush=True)
+  launches = {k: out["clean"]["launches"][k] + out["chaos"]["launches"][k]
+              for k in out["clean"]["launches"]}
+  return launches, time.perf_counter() - t_phase
+
+
+
 def main() -> int:
   import argparse
   import os
@@ -6519,6 +6830,11 @@ def main() -> int:
     journal_launches, t_journal = journal_phase(root, cp, cc, ce, torch, dev)
     # phase 18 on phase 3's image and ragged image, after phase 17's layer
     campaign_launches, t_campaign = campaign_phase(root, cp, cc, ce, torch, dev)
+    # phase 19 on phase 3's image and segmentation: the serving tier, then chaos
+    serve_launches, t_serve = serve_phase(root, cp, cc, ce, torch, dev)
+    chaos_launches, t_chaos = chaos_phase(root, cp, cc, ce, torch, dev)
+    print(f"serve: phase wall {t_serve + t_chaos:.1f} s ((a)-(b) {t_serve:.1f} s, "
+          f"(c) {t_chaos:.1f} s)", flush=True)
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches["tile_resolve"] = ccl_e2e_phase(root, cc, cp, torch, dev)
     t_phase = time.perf_counter()
@@ -6607,6 +6923,8 @@ def main() -> int:
       "launches_graphene": graphene_pyramid if name == "pyramid2x2x1" else 0,
       "launches_journal": journal_launches[name],
       "launches_campaign": campaign_launches[name],
+      "launches_serve": serve_launches[name],
+      "launches_chaos": chaos_launches[name],
       "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == name),
       "ms": first["ms"], "plain_ms": first["plain_ms"],
       "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -15,14 +15,17 @@ queue {status,wait,release,purge,rezero,fsck,cp,mv,dlq {ls,retry,purge}}``,
 fleet {status,trace,top,devices,compact,gc,check,watch}``, ``python -m
 igneous_tpu_torch profile {capture,ls}``, ``python -m igneous_tpu_torch
 design {ds-memory,ds-shape,bounds}``, ``python -m igneous_tpu_torch
-license`` and ``python -m igneous_tpu_torch tune``.
+license``, ``python -m igneous_tpu_torch tune``, ``python -m
+igneous_tpu_torch serve`` and ``python -m igneous_tpu_torch view``.
 
 A minimal counterpart of ``igneous-tpu image
 downsample|xfer|infer|rm|roi|reorder|create``, ``igneous-tpu image
 contrast``, ``igneous-tpu image voxels count|sum``, ``igneous-tpu image
 ccl``, ``igneous-tpu mesh``, ``igneous-tpu skeleton``,
 ``igneous-tpu execute``, ``igneous-tpu queue``, ``igneous-tpu audit``,
-``igneous-tpu fleet``, ``igneous-tpu profile``, ``igneous-tpu design``, ``igneous-tpu license`` and ``igneous-tpu tune``
+``igneous-tpu fleet``, ``igneous-tpu profile``, ``igneous-tpu design``,
+``igneous-tpu license``, ``igneous-tpu tune``, ``igneous-tpu serve`` and
+``igneous-tpu view``
 (``igneous_tpu/cli.py``), with the same option
 names, output lines and exit codes (where the JAX CLI raises a usage
 error the port exits 2, where it raises any other error it prints
@@ -206,7 +209,162 @@ def build_parser() -> argparse.ArgumentParser:
   _add_campaign(groups.add_parser(
     "campaign", help="Closed-loop campaign survival: autoscale + speculation + "
                      "stealing.").add_subparsers(dest="command", required=True))
+  _add_view(groups.add_parser(
+    "view", help="Serve PATH locally and print a Neuroglancer link."))
+  _add_serve(groups.add_parser(
+    "serve", help="Serve one or more Precomputed layers over HTTP."))
   return parser
+
+
+def _add_view(cmd) -> None:
+  cmd.add_argument("path")
+  cmd.add_argument("--port", type=int, default=1337, help="[default: 1337]")
+  cmd.add_argument("--browser", dest="browser", action="store_true", default=True,
+                   help="Open the link in the system browser. [default: browser]")
+  cmd.add_argument("--no-browser", dest="browser", action="store_false")
+  cmd.add_argument("--ng", default=None, help="Alternative Neuroglancer deployment URL.")
+  cmd.add_argument("--pos", type=_tuple3, default=None,
+                   help="Open the view centered at this voxel position.")
+  cmd.add_argument("--name", default=None, help="Custom layer name.")
+  cmd.add_argument("--indirect", action="store_true",
+                   help="Accepted for parity: private buckets are served "
+                        "through the local server as any layer.")
+
+
+def _run_view(args) -> int:
+  """``view``: the first free port from ``--port`` on (ten tries), then
+  ``view.serve`` until interrupted."""
+  import socket
+
+  from .view import serve
+
+  port = args.port
+  for _ in range(10):
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+      if sock.connect_ex(("localhost", port)) != 0:
+        break
+    port += 1
+  serve(args.path, port=port, block=True, browser=args.browser, ng_url=args.ng,
+        position=args.pos, layer_name=args.name)
+  return 0
+
+
+def _add_serve(cmd) -> None:
+  cmd.add_argument("paths", nargs="+")
+  cmd.add_argument("--port", type=int, default=8080, help="[default: 8080]")
+  cmd.add_argument("--host", default="0.0.0.0", help="[default: 0.0.0.0]")
+  cmd.add_argument("--ram-mb", type=float, default=None,
+                   help="RAM cache budget (env IGNEOUS_SERVE_RAM_MB; default 256).")
+  cmd.add_argument("--ssd-dir", default=None,
+                   help="Local-SSD spill directory (env IGNEOUS_SERVE_SSD_DIR; "
+                        "default off). Entries survive restarts.")
+  cmd.add_argument("--ssd-mb", type=float, default=None,
+                   help="SSD spill budget (env IGNEOUS_SERVE_SSD_MB; default 4096).")
+  cmd.add_argument("--synth", dest="synth", action="store_true", default=None,
+                   help="Synthesize missing mips on the fly from the parent "
+                        "scale (env IGNEOUS_SERVE_SYNTH_MIPS; default on).")
+  cmd.add_argument("--no-synth", dest="synth", action="store_false")
+  cmd.add_argument("--writeback", dest="writeback", action="store_true", default=None,
+                   help="Write synthesized mips back to storage "
+                        "(env IGNEOUS_SERVE_WRITEBACK; default off).")
+  cmd.add_argument("--no-writeback", dest="writeback", action="store_false")
+  cmd.add_argument("--cache-control", default=None,
+                   help="Cache-Control header for CDN fronting "
+                        "(env IGNEOUS_SERVE_CACHE_CONTROL; default "
+                        "'public, max-age=300').")
+  cmd.add_argument("--journal", default=None,
+                   help="Journal cloudpath for request traces (env IGNEOUS_JOURNAL).")
+  cmd.add_argument("--metrics-port", type=int, default=None,
+                   help="Prometheus /metrics port (also served inline at "
+                        "/metrics on the main port; 0 auto-assigns).")
+  cmd.add_argument("--peers", default=None,
+                   help="Comma-separated replica base URLs: static federation "
+                        "ring membership (env IGNEOUS_SERVE_FLEET_PEERS).")
+  cmd.add_argument("--peers-file", default=None,
+                   help="Shared membership directory cloudpath: replicas "
+                        "heartbeat + discover the ring here "
+                        "(env IGNEOUS_SERVE_FLEET_MEMBERSHIP).")
+  cmd.add_argument("--self-url", default=None,
+                   help="This replica's advertised base URL (env "
+                        "IGNEOUS_SERVE_FLEET_SELF; default derived from the "
+                        "bound host/port).")
+  cmd.add_argument("--prewarm", dest="prewarm", action="store_true", default=None,
+                   help="Telemetry-driven prefetch of predicted-hot chunks "
+                        "mined from journal traces (env IGNEOUS_SERVE_PREWARM; "
+                        "default off).")
+  cmd.add_argument("--no-prewarm", dest="prewarm", action="store_false")
+
+
+def _run_serve(parser, args) -> int:
+  """``serve``: PATHS are cloudpaths, optionally named (``name=gs://...``);
+  one unnamed path also serves at the root. It prints one JSON line with
+  the bound ports once it listens, and SIGTERM or SIGINT drains it (exit
+  0)."""
+  import json
+  import os
+  import signal
+  import socket
+
+  from . import secrets
+  from .observability import journal as journal_mod
+  from .observability import prom
+  from .serve import Federation, ServeApp, ServeConfig, ServeServer
+
+  layers = {}
+  for spec in args.paths:
+    if "=" in spec.split("://")[0]:
+      name, _, cloudpath = spec.partition("=")
+    else:
+      cloudpath = spec
+      name = cloudpath.rstrip("/").split("/")[-1] or "layer"
+    if name in layers:
+      parser.error(f"duplicate layer name: {name!r}")
+    layers[name] = cloudpath
+  default_layer = next(iter(layers)) if len(layers) == 1 else None
+
+  jpath = args.journal if args.journal is not None else os.environ.get(journal_mod.PATH_ENV)
+  if jpath:
+    worker_id = f"serve-{socket.gethostname().split('.')[0]}-{os.getpid()}"
+    journal_mod.set_active(journal_mod.Journal(jpath, worker_id=worker_id))
+  journal_mod.install_last_will({"role": "serve"})
+
+  config = ServeConfig.from_env(
+    ram_mb=args.ram_mb, ssd_dir=args.ssd_dir, ssd_mb=args.ssd_mb, synth_mips=args.synth,
+    writeback=args.writeback, cache_control=args.cache_control,
+  )
+  federation = Federation.from_env(peers=args.peers, membership_dir=args.peers_file)
+  app = ServeApp(layers, config=config, default_layer=default_layer,
+                 federation=federation, prewarm=args.prewarm)
+  server = ServeServer(app, host=args.host, port=args.port, drain_timeout=config.drain_sec)
+  bound_metrics = None
+  if args.metrics_port is not None:
+    bound_metrics = prom.start_http_server(args.metrics_port)
+    if bound_metrics is not None:
+      print(f"metrics: http://0.0.0.0:{bound_metrics}/metrics")
+  # the advertised URL needs the bound port (--port 0 picks one), so the
+  # federation starts once the socket listens
+  if federation.configured:
+    adv = args.self_url or secrets.get_str("IGNEOUS_SERVE_FLEET_SELF")
+    if not adv:
+      adv_host = args.host
+      if adv_host in ("0.0.0.0", "::", ""):
+        adv_host = socket.gethostname().split(".")[0]
+      adv = f"http://{adv_host}:{server.server_address[1]}"
+    federation.activate(adv)
+  print(json.dumps({
+    "event": "serve.listening", "port": server.server_address[1],
+    "host": args.host, "layers": sorted(layers),
+    "metrics_port": bound_metrics,
+    "self_url": federation.self_url if federation.configured else None,
+  }), flush=True)
+
+  def _on_signal(_signum, _frame):
+    server.request_shutdown()
+
+  signal.signal(signal.SIGTERM, _on_signal)
+  signal.signal(signal.SIGINT, _on_signal)
+  server.join()
+  return 0
 
 
 def _add_tune(cmd) -> None:
@@ -2607,6 +2765,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     return _run_profile(parser, args)
   if args.group == "campaign":
     return _run_campaign(parser, args)
+  if args.group == "view":
+    return _run_view(args)
+  if args.group == "serve":
+    return _run_serve(parser, args)
   if args.group == "mesh":
     return _run_mesh(args)
   if args.group == "skeleton":

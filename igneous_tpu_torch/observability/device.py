@@ -353,7 +353,7 @@ class DeviceLedger:
         if not self._pending:
           return
         item = self._pending[0]
-      kind, name, label, start, end, elements, nbytes, top, ident, ts = item
+      kind, name, label, start, end, elements, nbytes, top, ident, ts, attrs = item
       # wait outside the lock: other threads go on recording spans
       if wait:
         end.synchronize()
@@ -370,7 +370,7 @@ class DeviceLedger:
         self.record_execute(name, e - s, elements, nbytes, label, (s, e), top)
       else:
         self.record_transfer(kind, nbytes, e - s, label, (s, e))
-      _trace_span(ident, kind, name, label, elements, nbytes, ts, e - s)
+      _trace_span(ident, kind, name, label, elements, nbytes, ts, e - s, attrs)
 
   # -- read side --------------------------------------------------------------
 
@@ -481,13 +481,14 @@ def _trace_identity() -> Optional[Tuple[str, Optional[str]]]:
 
 
 def _trace_span(ident, kind: str, name: str, label: str, elements: int,
-                nbytes: int, ts: float, dur: float) -> None:
+                nbytes: int, ts: float, dur: float, extra=None) -> None:
   if ident is None:
     return
   if kind == "execute":
     attrs = dict(kernel=name, elements=int(elements), device=label, devices=1)
   else:
     attrs = dict(kernel=None, bytes=int(nbytes), device=label)
+  attrs.update(extra or {})
   trace.record_at(f"device.{kind}", ts, dur, ident[0], parent=ident[1], **attrs)
 
 
@@ -500,7 +501,8 @@ def _device(device) -> torch.device:
 
 
 @contextlib.contextmanager
-def _span(kind: str, name: str, device, elements: int, nbytes: int) -> Iterator[None]:
+def _span(kind: str, name: str, device, elements: int, nbytes: int,
+          attrs=None) -> Iterator[None]:
   dev = _device(device)
   depth = getattr(_DEPTH, "n", 0)
   top = depth == 0
@@ -521,7 +523,7 @@ def _span(kind: str, name: str, device, elements: int, nbytes: int) -> Iterator[
         LEDGER.record_execute(name, e - s, elements, nbytes, _label(dev), (s, e), top)
       else:
         LEDGER.record_transfer(kind, nbytes, e - s, _label(dev), (s, e))
-      _trace_span(ident, kind, name, _label(dev), elements, nbytes, ts, e - s)
+      _trace_span(ident, kind, name, _label(dev), elements, nbytes, ts, e - s, attrs)
       return
     label = _label(dev)
     LEDGER._anchor(int(label.split(":")[1]))
@@ -531,7 +533,7 @@ def _span(kind: str, name: str, device, elements: int, nbytes: int) -> Iterator[
     start.record(stream)
     yield
     end.record(torch.cuda.current_stream(dev))
-    LEDGER._queue((kind, name, label, start, end, elements, nbytes, top, ident, ts))
+    LEDGER._queue((kind, name, label, start, end, elements, nbytes, top, ident, ts, attrs))
   finally:
     if kind == "execute":
       _DEPTH.n = depth
@@ -540,14 +542,16 @@ def _span(kind: str, name: str, device, elements: int, nbytes: int) -> Iterator[
 
 
 def execute_span(kernel: str, elements: int = 0, nbytes: int = 0, device=None,
-                 signature=None):
+                 signature=None, **attrs):
   """Account the device work launched inside the context to ``kernel`` on
   ``device`` (default: the port's device). ``signature`` (shapes, dtypes)
   feeds ``note_signature``. On the card it records CUDA events and never
-  synchronises; the caller need not wait for the work."""
+  synchronises; the caller need not wait for the work. Extra keyword
+  ``attrs`` ride onto the ``device.execute`` span (the fused pyramid's
+  ``mip_from`` and ``mip_to``)."""
   if signature is not None:
     LEDGER.note_signature(kernel, signature)
-  return _span("execute", kernel, device, elements, nbytes)
+  return _span("execute", kernel, device, elements, nbytes, attrs)
 
 
 def transfer_span(direction: str, nbytes: int, device=None):

@@ -26,7 +26,7 @@ is the launches of one.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -277,13 +277,19 @@ def downsample(
   method: str = "average",
   sparse: bool = False,
   device=None,
+  mip_from: Optional[int] = None,
 ) -> List[np.ndarray]:
   """Pool ``img`` (x,y,z[,c]) iteratively; returns one array per mip.
 
   ``factor`` is one (fx,fy,fz) triple applied every mip, or a per-mip
   sequence of triples. ``device`` defaults to the port's resolved device
   (``igneous_tpu_torch.device``). The results are (x,y,z[,c]) views of
-  C-contiguous (c,z,y,x) host arrays, i.e. Fortran-ordered."""
+  C-contiguous (c,z,y,x) host arrays, i.e. Fortran-ordered.
+
+  ``mip_from``: ``img`` is a cutout of that mip. The walk's execute span is
+  then ``pooling.fused_pyramid[method]`` and carries ``mip_from`` and
+  ``mip_to`` (the results are mips ``mip_from+1 .. mip_from+num_mips``), as
+  in the JAX package; the launches and the bytes are the same either way."""
   dev = get_device() if device is None else torch.device(device)
   squeeze = img.ndim == 3
   orig_dtype = img.dtype
@@ -295,8 +301,12 @@ def downsample(
   with telemetry.stage("h2d"), transfer_span("h2d", work.nbytes, dev):
     x = torch.from_numpy(work.transpose(3, 2, 1, 0)).to(dev).contiguous()
   with telemetry.stage("kernel"):
-    with execute_span(f"pooling.pyramid[{method}]", x.numel(), work.nbytes, dev,
-                      signature=(tuple(x.shape), str(x.dtype), factors, sparse)):
+    labels = {}
+    if mip_from is not None:
+      labels = dict(mip_from=int(mip_from), mip_to=int(mip_from) + len(factors))
+    kernel = "fused_pyramid" if mip_from is not None else "pyramid"
+    with execute_span(f"pooling.{kernel}[{method}]", x.numel(), work.nbytes, dev,
+                      signature=(tuple(x.shape), str(x.dtype), factors, sparse), **labels):
       outs = device_pyramid(x, factors, method, sparse)
     if dev.type == "cuda":
       torch.cuda.synchronize(dev)
@@ -316,7 +326,10 @@ def downsample_auto(
   num_mips: int = 1,
   method: str = "average",
   sparse: bool = False,
+  mip_from: Optional[int] = None,
 ) -> List[np.ndarray]:
   """The tasks' entry point: ``downsample`` on the resolved device (the
-  port has no host C++ path; on the CPU the kernels' plain versions run)."""
-  return downsample(img, factor, num_mips, method=method, sparse=sparse)
+  port has no host C++ path; on the CPU the kernels' plain versions run).
+  ``mip_from`` labels the walk's span (see ``downsample``)."""
+  return downsample(img, factor, num_mips, method=method, sparse=sparse,
+                    mip_from=mip_from)

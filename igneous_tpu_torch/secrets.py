@@ -9,10 +9,11 @@ on/off knob as the JAX package's knob registry does
 (``igneous_tpu/analysis/knobs.py``); the queues, the lifecycle, the
 pipeline and the storage plane read their knobs through them.
 
-``KNOBS`` is the port's copy of that registry's observability and
-campaign knobs (the journal, roll-ups, tracing, ``/metrics``, the
+``KNOBS`` is the port's copy of that registry's observability, campaign
+and serving knobs (the journal, roll-ups, tracing, ``/metrics``, the
 profiler, health and SLOs, the autoscale controller, straggler
-speculation, work stealing, the campaign runner and the fleet simulator),
+speculation, work stealing, the campaign runner, the fleet simulator, and
+the serving tier's cache, fleet, QoS, prewarm and fill verification),
 with the same types and defaults; ``get_str``,
 ``get_int``, ``get_float``, ``opt_float`` and ``get_bool`` read them with
 the registry's parses (unset or empty: the default; unparseable number:
@@ -112,6 +113,32 @@ KNOBS: Dict[str, Tuple[str, Union[str, int, float, bool, None]]] = {
   "IGNEOUS_HEALTH_INTEGRITY_MAX": ("float", 0.0),
   "IGNEOUS_SLO_SUCCESS": ("float", 0.99),
   "IGNEOUS_SLO_P95_MS": ("float", None),
+  # the serving tier: the cache, the fleet, QoS and prewarm
+  "IGNEOUS_SERVE_RAM_MB": ("float", 256.0),
+  "IGNEOUS_SERVE_SSD_DIR": ("str", None),
+  "IGNEOUS_SERVE_SSD_MB": ("float", 4096.0),
+  "IGNEOUS_SERVE_CACHE_CONTROL": ("str", "public, max-age=300"),
+  "IGNEOUS_SERVE_SYNTH_MIPS": ("bool", True),
+  "IGNEOUS_SERVE_WRITEBACK": ("bool", False),
+  "IGNEOUS_SERVE_MAX_OBJECT_MB": ("float", 64.0),
+  "IGNEOUS_SERVE_IO_THREADS": ("int", 16),
+  "IGNEOUS_SERVE_DRAIN_SEC": ("float", 30.0),
+  "IGNEOUS_SERVE_FLEET_PEERS": ("str", None),
+  "IGNEOUS_SERVE_FLEET_MEMBERSHIP": ("str", None),
+  "IGNEOUS_SERVE_FLEET_SELF": ("str", None),
+  "IGNEOUS_SERVE_FLEET_TTL_SEC": ("float", 15.0),
+  "IGNEOUS_SERVE_FLEET_TIMEOUT_MS": ("float", 2000.0),
+  "IGNEOUS_SERVE_FLEET_RETRY_SEC": ("float", 10.0),
+  "IGNEOUS_SERVE_PREWARM": ("bool", False),
+  "IGNEOUS_SERVE_PREWARM_INTERVAL_SEC": ("float", 30.0),
+  "IGNEOUS_SERVE_PREWARM_TOP": ("int", 16),
+  "IGNEOUS_SERVE_PREWARM_BUDGET": ("int", 64),
+  "IGNEOUS_SERVE_QOS_RPS": ("float", 0.0),
+  "IGNEOUS_SERVE_QOS_WEIGHTS": ("str", None),
+  "IGNEOUS_SERVE_QOS_BURST_SEC": ("float", 2.0),
+  "IGNEOUS_INTEGRITY_SERVE_VERIFY": ("bool", True),
+  "IGNEOUS_INTEGRITY_SSD_VERIFY": ("bool", True),
+  # the serving tier's health detectors
   "IGNEOUS_SERVE_SLO_P99_MS": ("float", None),
   "IGNEOUS_SERVE_PEER_FAIL_RATIO": ("float", 0.5),
   "IGNEOUS_SERVE_PEER_MIN": ("int", 8),

@@ -62,6 +62,12 @@ def method_for_ext(ext: str) -> Optional[str]:
   return _EXT_TO_COMPRESSION.get(ext)
 
 
+def stored_exts() -> Tuple[str, ...]:
+  """Every extension a stored object may carry, "" first (the order
+  ``CloudFiles.get_stored`` probes them in)."""
+  return ("",) + tuple(_EXT_TO_COMPRESSION)
+
+
 def compress_bytes(data: bytes, method) -> bytes:
   if method in (None, False, ""):
     return data

@@ -22,6 +22,7 @@ written.
 
 from __future__ import annotations
 
+import sys
 import warnings
 from typing import Optional, Sequence
 
@@ -1245,13 +1246,12 @@ def compute_rois(
   z_step = nz if not z_step else int(z_step)
   rois = []
   z_starts = range(0, nz, z_step)
-  if progress:
-    from tqdm import tqdm
-
-    z_starts = tqdm(z_starts, desc="ROI z-slabs")
   vx_scale = np.asarray([scale_xy, scale_xy, 1], dtype=np.int64)
   dev = get_device()
-  for z0 in z_starts:
+  for i, z0 in enumerate(z_starts, start=1):
+    if progress:
+      # progress goes to stderr, so stdout keeps the ROI lines alone
+      print(f"ROI z-slabs: {i}/{len(z_starts)}", file=sys.stderr)
     slab = fg[:, :, z0:z0 + z_step]
     cc, n = connected_components(slab, connectivity=6, return_N=True)
     if not n:

@@ -525,6 +525,33 @@ def test_device_spans_nest_under_the_active_task(monkeypatch):
   assert trace.drain_spans() == []
 
 
+@pytest.mark.parametrize("mip_from", [None, 2])
+def test_downsample_auto_mip_from_labels_the_walk(mip_from):
+  """``mip_from`` names the fused walk's execute span and puts
+  ``mip_from`` and ``mip_to`` on it, as the JAX package's
+  ``pooling.fused_pyramid`` does; the ledger counts it and no byte moves."""
+  from igneous_tpu.ops import pooling as jax_pooling
+  from igneous_tpu_torch.ops import pooling
+
+  img = np.asfortranarray(np.random.default_rng(3).integers(
+    0, 255, (37, 29, 6)).astype(np.uint8))
+  factors = [(2, 2, 1), (2, 2, 1), (2, 2, 2)]
+  LEDGER.reset()
+  trace.reset()
+  with trace.activate(trace.SpanContext("c" * 16, "synth", True)):
+    outs = pooling.downsample_auto(img, factors, 3, method="average", mip_from=mip_from)
+  want = jax_pooling.downsample_auto(img, factors, 3, method="average", mip_from=mip_from)
+  assert all(np.array_equal(o, w) and o.dtype == w.dtype for o, w in zip(outs, want))
+  name = "pooling.pyramid[average]" if mip_from is None else "pooling.fused_pyramid[average]"
+  assert LEDGER.snapshot()["kernels"][name]["executes"] == 1
+  walk = [s for s in trace.drain_spans() if s.get("kernel") == name]
+  assert len(walk) == 1 and walk[0]["parent"] == "synth"
+  if mip_from is None:
+    assert "mip_from" not in walk[0] and "mip_to" not in walk[0]
+  else:
+    assert (walk[0]["mip_from"], walk[0]["mip_to"]) == (2, 5)
+
+
 def _wait_capture(seconds=60.0):
   deadline = time.monotonic() + seconds
   while ledger_mod._PROFILE_STATE["active"] and time.monotonic() < deadline:

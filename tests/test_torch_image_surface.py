@@ -136,6 +136,26 @@ def test_cli_image_roi_matches_reference(tmp_path, capsys):
           == (roots["jax"] / "src" / "info").read_bytes())
 
 
+def test_cli_image_roi_progress_without_tqdm(tmp_path, capsys, monkeypatch):
+  """``--progress`` needs no tqdm: its lines go to stderr, and stdout
+  holds the JAX CLI's ROI lines, as without ``--progress``."""
+  roots = layers(tmp_path, _blobs((97, 83, 12), 25, seed=11), chunk_size=(32, 32, 12))
+  args = ["image", "roi", "file://ROOT/src", "--threshold", "100", "--dust", "4",
+          "--z-step", "4"]
+  res = CliRunner().invoke(jax_cli, [a.replace("ROOT", str(roots["jax"])) for a in args])
+  assert res.exit_code == 0, res.output
+  monkeypatch.setitem(sys.modules, "tqdm", None)  # any import of it raises
+  capsys.readouterr()
+  port = [a.replace("ROOT", str(roots["port"])) for a in args]
+  assert cli_main(port + ["--progress"]) == 0
+  out = capsys.readouterr()
+  assert out.out == res.output
+  assert "ROI detected. info file updated." in out.out
+  assert out.err.splitlines() == [f"ROI z-slabs: {i}/3" for i in (1, 2, 3)]
+  assert cli_main(port) == 0
+  assert capsys.readouterr().out == res.output
+
+
 # ---------------------------------------------------------------------------
 # statistics
 

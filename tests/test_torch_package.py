@@ -78,6 +78,10 @@ import igneous_tpu_torch.observability.perfetto, igneous_tpu_torch.observability
 import igneous_tpu_torch.observability.autoscale, igneous_tpu_torch.cli
 import igneous_tpu_torch.observability.campaign, igneous_tpu_torch.observability.replay
 import igneous_tpu_torch.observability.sim
+import igneous_tpu_torch.chaos, igneous_tpu_torch.view, igneous_tpu_torch.serve
+import igneous_tpu_torch.serve.app, igneous_tpu_torch.serve.cache, igneous_tpu_torch.serve.server
+import igneous_tpu_torch.serve.federation, igneous_tpu_torch.tools.chaos_soak
+import igneous_tpu_torch.scripts.remap2npy, igneous_tpu_torch.scripts.validate_provenance
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'igneous_tpu')]
 assert not bad, bad
 from igneous_tpu_torch.ops import _build
