@@ -5,8 +5,9 @@ sharded scales, its image surface (ROIs, spatial index, reorder, ingest),
 its sharded and multires meshes and sharded skeletons, and its graphene
 layers (served by a fake PyChunkGraph server) and cross-sectional areas,
 and its fleet observability plane (the worker journal, /metrics, the
-fleet commands, the health engine, profile capture), on one NVIDIA GPU and
-check them.
+fleet commands, the health engine, profile capture), its campaign
+survival, serving tier and chaos layer, and its multi-host pods over
+torch.distributed, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -46,8 +47,8 @@ Phases, each reported on its own line:
      produced mip read back and compared with the plain pyramid computed
      on the card; the kernels' launch counts are set to 0 just before and
      read just after, and each kernel must have launched;
-  3a. codecs (host): 32 chunks of the segmentation layer's mip 0 and all 4
-     of its mip 3, chosen from seed 1, through the compressed_segmentation
+  3a. codecs (host): 4 chunks of the segmentation layer's mip 0 (32
+     before phase 20) and all 4 of its mip 3, chosen from seed 1, through the compressed_segmentation
      codec's native, numpy and per-block loop routes (one stream, each
      decoder gives the chunk back) and through compresso (round trip
      equal), with their rates on one host thread;
@@ -138,9 +139,9 @@ Phases, each reported on its own line:
      counts set to 0 before) and the other kernels not at all; every tube
      component across x = 512 one connected merged skeleton; the first
      task's EDT field equal to the plain version's (run on the card) bit
-     for bit, and 32 of its labels (seed 1) plus its largest skeletonized
-     to the same bytes on the card and on the CPU route, and equal to the
-     written fragments;
+     for bit, and 8 of its labels (seed 1; 32 before phase 20) plus its
+     largest skeletonized to the same bytes on the card and on the CPU
+     route, and equal to the written fragments;
   8. morphology and the census (after phase 6): a 448x448x112 uint64
      "hollow cells" layer (75 Voronoi cells with cavities, every third
      opened by a one-voxel channel, and 200 specks, a quarter across
@@ -379,14 +380,29 @@ Phases, each reported on its own line:
      crash between compute and upload, drop_delete 0.2): the faults
      fired, the failed deliveries, the launches, and the two layers byte
      for byte equal;
+  20. pods (after phase 19, in phase 3's root): two rank processes on the
+     card (IGNEOUS_COORDINATOR, IGNEOUS_NUM_PROCESSES, IGNEOUS_PROCESS_ID;
+     they share the card, so their group is gloo): (a) a lease of 7
+     cutouts of 1024x1024x64 of phase 3's image split by lease_partition
+     (4 slots a rank, one zero-pad slot), ChunkExecutor.run_global with 3
+     mips of (2,2,1); (b) a lease of 3 cutouts of 512x512x64 of phase 3's
+     segmentation as (lo, hi) uint32 planes, by mode; (c) phase 3's
+     ragged image cut into 32^3 pages (2048), split by page_partition,
+     through PagedGlobalRunner (3 mips); every real row (page) a rank
+     addresses equal to phase 3's stored mip 1-3 bytes, the all-reduced
+     nonzero count of (a) and (b) the cutouts' count on both ranks, each
+     rank's pyramid2x2x1 and pool2x2x1 launches (counted from 0 before
+     each part) above 0; (d) a one-rank NCCL group in this process whose
+     run_global all-reduces its count as a CUDA tensor, then destroyed;
+     the ranks' and the parts' walls;
   7. the card's name and power limit, the programs line (X1-X3, X5-X7),
      the kernels line (each kernel's launches on the main paths, the
      transfer, the batched phase, the pipelined streams, the worker phase,
      where each of the four must have launched, the storage phase, the
      sharded phase, phase 14, phase 15 (edt_pass), phase 16
      (pyramid2x2x1, edt_pass), phase 17 (pyramid2x2x1, edt_pass), phase
-     18 (pyramid2x2x1, pool2x2x1) and phase 19 (serve, chaos)),
-     and the result.
+     18 (pyramid2x2x1, pool2x2x1), phase 19 (serve, chaos) and phase 20
+     (pod: the ranks' and (d)'s)), and the result.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside it.
@@ -753,7 +769,9 @@ def e2e_phase(root, cp, torch, dev):
 # ---------------------------------------------------------------------------
 # chunk codecs and the transfer (host codecs, the pyramid on the card)
 
-CODEC_SAMPLE = 32  # chunks of each mip, chosen from seed 1 (all, where fewer)
+# chunks of each mip, chosen from seed 1 (all, where fewer); 4 since phase
+# 20 (32 before), to make room for it in the time limit
+CODEC_SAMPLE = 4
 CODEC_MIPS = (0, 3)
 XFER_CHUNK = (64, 64, 64)
 XFER_MIPS = 4
@@ -1500,8 +1518,8 @@ def mesh_e2e_phase(root, torch, dev, shape=MESH_SHAPE, n_seeds=MESH_SEEDS,
     counts = telemetry.counters_snapshot()
     passes += snap["count"]["count"]
     print(f"e2e mesh task {i}: wall {wall:.3f} s, {simplify_threads} simplification "
-          f"thread(s), {counts['labels']} labels, "
-          f"{counts['faces']} faces, {counts['faces_simplified']} simplified, "
+          f"thread(s), {counts['mesh.labels']} labels, "
+          f"{counts['mesh.faces']} faces, {counts['mesh.faces_simplified']} simplified, "
           f"card busy {busy:.4f} s (traced; idle {100 * (1 - busy / wall):.2f}%), "
           f"peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, "
           f"stages (s) {json.dumps({k: round(v['seconds'], 4) for k, v in snap.items()})}, "
@@ -1526,7 +1544,9 @@ def mesh_e2e_phase(root, torch, dev, shape=MESH_SHAPE, n_seeds=MESH_SEEDS,
 # a quarter since the storage phase 12), so that the run fits its limit
 SKEL_SHAPE = (1024, 512, 128)
 SKEL_TUBES = 75
-SKEL_SAMPLE = 32  # labels of the first task held card against CPU, + its largest
+# labels of the first task held card against CPU, + its largest; 8 since
+# phase 20 (32 before), to make room for it in the time limit
+SKEL_SAMPLE = 8
 SKEL_MIN_CROSSING = 10  # boundary-crossing tube components the merge check needs
 # threads for the per-label tracing of each task (the task's ``parallel``;
 # its output does not depend on it), as the mesh phase uses 8 threads
@@ -1997,7 +2017,7 @@ def skeleton_e2e_phase(root, ce, edt_ops, torch, dev):
     snap = telemetry.snapshot()
     counts = telemetry.counters_snapshot()
     print(f"e2e skeleton task {i}: wall {wall:.3f} s, {SKEL_TRACE_THREADS} tracing "
-          f"threads, {counts.get('labels', 0)} labels, {counts.get('vertices', 0)} "
+          f"threads, {counts.get('skeleton.labels', 0)} labels, {counts.get('skeleton.vertices', 0)} "
           f"vertices, edt_pass launches {launched}, card busy {busy:.4f} s (traced; idle "
           f"{100 * (1 - busy / wall):.2f}%), peak "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, stages (s) "
@@ -2224,8 +2244,8 @@ def morphology_phase(root, cp, cc, ce, torch, dev):
     queue.insert([task])
     wall = time.perf_counter() - t0
     c = telemetry.counters_snapshot()
-    print(f"morphology mesh task {i}: wall {wall:.3f} s, {c.get('labels', 0)} labels, "
-          f"{c.get('faces', 0)} faces, peak "
+    print(f"morphology mesh task {i}: wall {wall:.3f} s, {c.get('mesh.labels', 0)} labels, "
+          f"{c.get('mesh.faces', 0)} faces, peak "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, stages (s) "
           f"{json.dumps(stage_split(telemetry.snapshot()))}", flush=True)
   mdir = Volume(path).info["mesh"]
@@ -3283,10 +3303,11 @@ def tune_phase(root: str) -> None:
   import os
 
   from igneous_tpu_torch import tune
+  from igneous_tpu_torch.analysis import knobs
   from igneous_tpu_torch.storage import CloudFiles
 
   t_phase = time.perf_counter()
-  pinned = [n for n in tune.TUNABLE if os.environ.get(n)]
+  pinned = [n for n in tune.TUNABLE if knobs.raw(n)]
   if pinned:
     fail(f"tune: {pinned} pinned in the environment")
   tuned_root = f"file://{root}/tuned_root"
@@ -3979,7 +4000,8 @@ def storage_phase(root, cp, cc, ce, torch, dev) -> dict:
     "IGNEOUS_S3_MULTIPART_THRESHOLD": str(S3_MULTIPART),
     "IGNEOUS_S3_MULTIPART_CHUNK": str(S3_MULTIPART),
   }
-  saved = {k: os.environ.get(k) for k in env}
+  prior = os.environ.copy()
+  saved = {k: prior.get(k) for k in env}
   os.environ.update(env)
   storage.set_backend_wrapper(counter)
   try:
@@ -6072,8 +6094,9 @@ class EnvSet:
   def __enter__(self):
     import os
 
+    prior = os.environ.copy()
     for k, v in self.env.items():
-      self.saved[k] = os.environ.get(k)
+      self.saved[k] = prior.get(k)
       os.environ[k] = str(v)
     return self
 
@@ -6725,6 +6748,288 @@ def chaos_phase(root, cp, cc, ce, torch, dev) -> tuple:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 20: pods over torch.distributed (two ranks sharing the card over
+# gloo; a one-rank NCCL group in this process)
+
+POD_RANKS = 2
+POD_IMAGE = (7, (1024, 1024, 64), 3)  # (a): cutouts of phase 3's image, size, mips
+POD_SEGMENTATION = (3, (512, 512, 64), 3)  # (b): of phase 3's segmentation, by mode
+POD_PAGE_MIPS = 3  # (c): phase 3's ragged image in pages, its mips
+POD_TIMEOUT_S = 300.0
+
+
+def pod_boxes(vol, n: int, size):
+  """The first ``n`` cutouts of ``size`` on ``vol``'s mip-0 grid, x fastest."""
+  from igneous_tpu_torch import Bbox
+
+  X, Y, _Z = (int(v) for v in vol.meta.volume_size(0))
+  sx, sy, sz = size
+  return [Bbox((x, y, 0), (x + sx, y + sy, sz))
+          for y in range(0, Y - sy + 1, sy) for x in range(0, X - sx + 1, sx)][:n]
+
+
+def at_mip(box, mip: int):
+  """A mip-0 box of (2, 2, 1) factors in mip ``mip``'s voxels."""
+  from igneous_tpu_torch import Bbox
+
+  f = np.array([2 ** mip, 2 ** mip, 1])
+  return Bbox(np.asarray(box.minpt) // f, np.asarray(box.maxpt) // f)
+
+
+def stored_zyx(path: str, mip: int, box) -> np.ndarray:
+  """Phase 3's stored mip ``mip`` of ``box`` (mip-0 voxels) as (c, z, y, x)."""
+  from igneous_tpu_torch import Volume
+
+  return Volume(path, mip=mip).download(at_mip(box, mip)).transpose(3, 2, 1, 0)
+
+
+def pod_rank(root: str, report_path: str) -> int:
+  """One rank of phase 20's pod, started by ``pod_phase`` with the rank's
+  ``IGNEOUS_COORDINATOR``, ``IGNEOUS_NUM_PROCESSES`` and
+  ``IGNEOUS_PROCESS_ID``: (a) ``ChunkExecutor.run_global`` on its rows of
+  a lease of phase 3's image cutouts, (b) the plane-pair mode pyramid on
+  its rows of a lease of segmentation cutouts, (c) ``PagedGlobalRunner``
+  on its range of phase 3's ragged image's pages. Every real row it
+  addresses must equal phase 3's stored mips; its launches are counted
+  from 0 before each part. Writes its report as JSON."""
+  import torch
+  import torch.distributed as dist
+
+  from igneous_tpu_torch import Volume, set_device
+  from igneous_tpu_torch.ops import cuda_pooling as cp
+  from igneous_tpu_torch.parallel import ChunkExecutor, multihost
+  from igneous_tpu_torch.parallel.paged import PagedGlobalRunner, page_shape, to_pages
+
+  dev = set_device("cuda")
+  t0 = time.perf_counter()
+  multihost.initialize()
+  pod = multihost.pod_mesh()
+  report = {"rank": pod.rank, "backend": dist.get_backend(), "device": str(pod.device),
+            "init_s": time.perf_counter() - t0}
+  if report["backend"] != "gloo" or pod.world_size != POD_RANKS or pod.device.type != "cuda":
+    fail(f"pod rank: {report}, world {pod.world_size}: expected gloo ranks on the card")
+
+  # (a) the image lease by run_global
+  n, size, mips = POD_IMAGE
+  path = f"file://{root}/image"
+  t0 = time.perf_counter()
+  boxes = pod_boxes(Volume(path), n, size)
+  mine, per = multihost.lease_partition(n)
+  vol = Volume(path)
+  local = np.stack([vol.download(boxes[k]).transpose(3, 2, 1, 0) for k in mine])
+  zero_counts(cp)
+  batch = multihost.from_process_local(pod, local, per)
+  outs, nonzero = ChunkExecutor(((2, 2, 1),) * mips, "average").run_global(batch)
+  torch.cuda.synchronize(dev)
+  launched = dict(cp.LAUNCHES)
+  rows = 0
+  for mip, out in enumerate(outs, start=1):
+    for shard in out.addressable_shards:
+      k = shard.index[0].start
+      if k >= n:
+        continue
+      if not np.array_equal(shard.data[0].cpu().numpy(), stored_zyx(path, mip, boxes[k])):
+        fail(f"pod (a) rank {pod.rank}: cutout {k} mip {mip} differs from phase 3's")
+      rows += 1
+  report["a"] = dict(wall=time.perf_counter() - t0, rows=rows, per=per, cutouts=list(mine),
+                     nonzero=nonzero, local_nonzero=int(np.count_nonzero(local)),
+                     launches=launched)
+  del local, batch, outs
+
+  # (b) the segmentation lease, uint64 as (lo, hi) planes, by mode
+  n, size, mips = POD_SEGMENTATION
+  path = f"file://{root}/segmentation"
+  t0 = time.perf_counter()
+  boxes = pod_boxes(Volume(path), n, size)
+  mine, per = multihost.lease_partition(n)
+  vol = Volume(path)
+  local = np.stack([vol.download(boxes[k]).transpose(3, 2, 1, 0) for k in mine])
+  zero_counts(cp)
+  planes = (multihost.from_process_local(pod, (local & np.uint64(0xFFFFFFFF)).astype(np.uint32), per),
+            multihost.from_process_local(pod, (local >> np.uint64(32)).astype(np.uint32), per))
+  outs, nonzero = ChunkExecutor(((2, 2, 1),) * mips, "mode", planes=2).run_global(planes)
+  torch.cuda.synchronize(dev)
+  launched = dict(cp.LAUNCHES)
+  rows = 0
+  for mip, (lo, hi) in enumerate(outs, start=1):
+    for slo, shi in zip(lo.addressable_shards, hi.addressable_shards):
+      k = slo.index[0].start
+      if k >= n:
+        continue
+      got = (slo.data[0].cpu().numpy().astype(np.uint64)
+             | (shi.data[0].cpu().numpy().astype(np.uint64) << np.uint64(32)))
+      if not np.array_equal(got, stored_zyx(path, mip, boxes[k])):
+        fail(f"pod (b) rank {pod.rank}: cutout {k} mip {mip} differs from phase 3's")
+      rows += 1
+  report["b"] = dict(wall=time.perf_counter() - t0, rows=rows, per=per, cutouts=list(mine),
+                     nonzero=nonzero, local_nonzero=int(np.count_nonzero(local)),
+                     launches=launched)
+  del local, planes, outs
+
+  # (c) the ragged image's pages by PagedGlobalRunner
+  path = f"file://{root}/ragged_image"
+  t0 = time.perf_counter()
+  vol = Volume(path)
+  page = page_shape()
+  img = torch.from_numpy(vol.download(vol.mip_bounds(0)).transpose(3, 2, 1, 0).copy()).to(dev)
+  Z, Y, X = img.shape[1:]
+  pads = [(-s) % p for s, p in zip((Z, Y, X), page)]
+  pages = to_pages(torch.nn.functional.pad(img, (0, pads[2], 0, pads[1], 0, pads[0])), page)
+  exts = np.array([(min(page[0], Z - oz), min(page[1], Y - oy), min(page[2], X - ox))
+                   for oz in range(0, Z, page[0]) for oy in range(0, Y, page[1])
+                   for ox in range(0, X, page[2])], np.int32)
+  start, stop, per = multihost.page_partition(len(pages))
+  zero_counts(cp)
+  outs = PagedGlobalRunner(((2, 2, 1),) * POD_PAGE_MIPS, "average", mesh=pod)(
+    multihost.from_process_local(pod, pages[start:stop], per),
+    multihost.from_process_local(pod, exts[start:stop], per))
+  torch.cuda.synchronize(dev)
+  launched = dict(cp.LAUNCHES)
+  rows = 0
+  for mip, out in enumerate(outs, start=1):
+    ref = Volume(path, mip=mip)
+    ref = torch.from_numpy(ref.download(ref.mip_bounds(mip)).transpose(3, 2, 1, 0).copy())
+    q = (page[0], page[1] >> mip, page[2] >> mip)
+    rz, ry, rx = ref.shape[1:]
+    ref = to_pages(torch.nn.functional.pad(
+      ref, (0, (-rx) % q[2], 0, (-ry) % q[1], 0, (-rz) % q[0])), q).to(dev)
+    for shard in out.addressable_shards:
+      k = shard.index[0].start
+      if not start <= k < stop:
+        continue
+      ez, ey, ex = (int(exts[k][0]), -(-int(exts[k][1]) >> mip), -(-int(exts[k][2]) >> mip))
+      if not torch.equal(shard.data[0][:, :ez, :ey, :ex], ref[k][:, :ez, :ey, :ex]):
+        fail(f"pod (c) rank {pod.rank}: page {k} mip {mip} differs from phase 3's")
+      rows += 1
+  report["c"] = dict(wall=time.perf_counter() - t0, rows=rows, per=per, pages=[start, stop],
+                     launches=launched)
+  with open(report_path, "w") as f:
+    json.dump(report, f)
+  multihost.shutdown()
+  return 0
+
+
+def pod_phase(root, cp, torch, dev) -> tuple:
+  """Phase 20: POD_RANKS rank processes on the card (``pod_rank``), their
+  group over gloo (they share one card), on phase 3's image,
+  segmentation and ragged image; then (d) a one-rank NCCL group in this
+  process, whose ``run_global`` all-reduces its count as a CUDA tensor.
+  Returns (launches of the ranks and of (d), wall)."""
+  import os
+  import socket
+
+  import torch.distributed as dist
+
+  from igneous_tpu_torch import Volume, set_device
+  from igneous_tpu_torch.parallel import ChunkExecutor, multihost
+
+  t_phase = time.perf_counter()
+  here = os.path.dirname(os.path.abspath(__file__))
+
+  def free_port() -> int:
+    with socket.socket() as s:
+      s.bind(("127.0.0.1", 0))
+      return s.getsockname()[1]
+
+  port = free_port()
+  procs, reports = [], []
+  src = ("import sys; sys.path.insert(0, {!r}); import chip_smoke; "
+         "sys.exit(chip_smoke.pod_rank({!r}, {!r}))")
+  for rank in range(POD_RANKS):
+    env = dict(os.environ, PYTHONPATH=here, IGNEOUS_TORCH_DEVICE="cuda",
+               IGNEOUS_COORDINATOR=f"tcp://127.0.0.1:{port}",
+               IGNEOUS_NUM_PROCESSES=str(POD_RANKS), IGNEOUS_PROCESS_ID=str(rank))
+    for name in ("LOCAL_RANK", "LOCAL_WORLD_SIZE", "RANK", "WORLD_SIZE"):
+      env.pop(name, None)
+    report = os.path.join(root, f"pod_rank{rank}.json")
+    reports.append(report)
+    with open(report + ".err", "w") as fe:
+      procs.append(subprocess.Popen(
+        [sys.executable, "-c", src.format(here, root, report)],
+        cwd=here, env=env, stdout=fe, stderr=subprocess.STDOUT))
+  deadline = time.monotonic() + POD_TIMEOUT_S
+  for rank, proc in enumerate(procs):
+    try:
+      proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+      for q in procs:
+        q.kill()
+        q.wait()
+      fail(f"pod: rank {rank} still running after {POD_TIMEOUT_S:.0f} s")
+  for rank, proc in enumerate(procs):
+    if proc.returncode != 0:
+      fail(f"pod: rank {rank} exit {proc.returncode}: "
+           f"{open(reports[rank] + '.err').read()[-3000:]}")
+  ranks = [json.load(open(r)) for r in reports]
+  t_ranks = time.perf_counter() - t_phase
+  launches = {k: 0 for k in cp.LAUNCHES}
+  for r in ranks:
+    for part, kernel in (("a", "pyramid2x2x1"), ("b", "pyramid2x2x1"), ("c", "pool2x2x1")):
+      if r[part]["launches"][kernel] < 1:
+        fail(f"pod ({part}) rank {r['rank']}: {kernel} launched no time")
+      for k, v in r[part]["launches"].items():
+        launches[k] += v
+  for part, n, mips in (("a", POD_IMAGE[0], POD_IMAGE[2]),
+                        ("b", POD_SEGMENTATION[0], POD_SEGMENTATION[2])):
+    total = sum(r[part]["local_nonzero"] for r in ranks)
+    if any(r[part]["nonzero"] != total for r in ranks):
+      fail(f"pod ({part}): all-reduced counts {[r[part]['nonzero'] for r in ranks]}, "
+           f"the cutouts hold {total} nonzero voxels")
+    if sum(r[part]["rows"] for r in ranks) != n * mips:
+      fail(f"pod ({part}): {sum(r[part]['rows'] for r in ranks)} rows checked, expected "
+           f"{n * mips}")
+  pages = ranks[-1]["c"]["pages"][1]
+  if sum(r["c"]["rows"] for r in ranks) != pages * POD_PAGE_MIPS:
+    fail(f"pod (c): {sum(r['c']['rows'] for r in ranks)} page rows checked, expected "
+         f"{pages * POD_PAGE_MIPS}")
+  for r in ranks:
+    print(f"pod rank {r['rank']} ({r['backend']}, {r['device']}): init {r['init_s']:.2f} s; "
+          f"(a) cutouts {r['a']['cutouts']} of {POD_IMAGE[0]} in {r['a']['per']} slots, wall "
+          f"{r['a']['wall']:.3f} s, launches {json.dumps(r['a']['launches'])}; (b) cutouts "
+          f"{r['b']['cutouts']} in {r['b']['per']} slots, wall {r['b']['wall']:.3f} s, launches "
+          f"{json.dumps(r['b']['launches'])}; (c) pages {r['c']['pages']} in {r['c']['per']} "
+          f"slots, wall {r['c']['wall']:.3f} s, launches {json.dumps(r['c']['launches'])}",
+          flush=True)
+  print(f"pod: (a) tally {ranks[0]['a']['nonzero']} nonzero voxels all-reduced over "
+        f"{POD_RANKS} ranks, (b) {ranks[0]['b']['nonzero']}; every real row of mips 1-"
+        f"{POD_IMAGE[2]} equal to phase 3's stored bytes ({POD_IMAGE[0]} image and "
+        f"{POD_SEGMENTATION[0]} segmentation cutouts, {pages} ragged-image pages); the ranks' "
+        f"wall {t_ranks:.1f} s", flush=True)
+
+  # (d) a one-rank NCCL group in this process
+  t0 = time.perf_counter()
+  multihost.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0)
+  try:
+    if dist.get_backend() != "nccl":
+      fail(f"pod (d): backend {dist.get_backend()}, expected nccl for one rank on its card")
+    pod = multihost.pod_mesh()
+    path = f"file://{root}/image"
+    box = pod_boxes(Volume(path), 1, POD_IMAGE[1])[0]
+    local = Volume(path).download(box).transpose(3, 2, 1, 0)[None]
+    zero_counts(cp)
+    mine, per = multihost.lease_partition(1)
+    outs, nonzero = ChunkExecutor(((2, 2, 1),) * POD_IMAGE[2], "average").run_global(
+      multihost.from_process_local(pod, local, per))
+    for k, v in cp.LAUNCHES.items():
+      launches[k] += v
+    if nonzero != int(np.count_nonzero(local)) or cp.LAUNCHES["pyramid2x2x1"] != 1:
+      fail(f"pod (d): count {nonzero} of {np.count_nonzero(local)}, launches {cp.LAUNCHES}")
+    if not np.array_equal(outs[-1].data[0].cpu().numpy(),
+                          stored_zyx(path, POD_IMAGE[2], box)):
+      fail("pod (d): the cutout's last mip differs from phase 3's")
+  finally:
+    multihost.shutdown()
+    set_device(dev)
+  t_nccl = time.perf_counter() - t0
+  wall = time.perf_counter() - t_phase
+  print(f"pod (d): one rank over nccl on {pod.device}, tally {nonzero} all-reduced as a CUDA "
+        f"tensor, the group destroyed: wall {t_nccl:.3f} s", flush=True)
+  print(f"pod: phase wall {wall:.1f} s (ranks {t_ranks:.1f} s, (d) {t_nccl:.1f} s), launches "
+        f"{json.dumps(launches)}", flush=True)
+  return launches, wall
+
+
 def main() -> int:
   import argparse
   import os
@@ -6835,6 +7140,8 @@ def main() -> int:
     chaos_launches, t_chaos = chaos_phase(root, cp, cc, ce, torch, dev)
     print(f"serve: phase wall {t_serve + t_chaos:.1f} s ((a)-(b) {t_serve:.1f} s, "
           f"(c) {t_chaos:.1f} s)", flush=True)
+    # phase 20 on phase 3's image, segmentation and ragged image: pods
+    pod_launches, _t_pod = pod_phase(root, cp, torch, dev)
   with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
     launches["tile_resolve"] = ccl_e2e_phase(root, cc, cp, torch, dev)
     t_phase = time.perf_counter()
@@ -6925,6 +7232,7 @@ def main() -> int:
       "launches_campaign": campaign_launches[name],
       "launches_serve": serve_launches[name],
       "launches_chaos": chaos_launches[name],
+      "launches_pod": pod_launches[name],
       "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == name),
       "ms": first["ms"], "plain_ms": first["plain_ms"],
       "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],

@@ -26,7 +26,6 @@ that fails to decode is never stored. Counters: ``chunk_cache.hits``,
 from __future__ import annotations
 
 import hashlib
-import os
 import threading
 from collections import OrderedDict
 from typing import Iterable, Optional, Tuple
@@ -34,18 +33,16 @@ from typing import Iterable, Optional, Tuple
 import numpy as np
 
 from . import telemetry
+from .analysis import knobs, racecheck
 
 
 def enabled() -> bool:
-  val = os.environ.get("IGNEOUS_CHUNK_CACHE", "").strip().lower()
+  val = (knobs.get_str("IGNEOUS_CHUNK_CACHE") or "").strip().lower()
   return val not in ("0", "off", "false", "no")
 
 
 def budget_bytes() -> int:
-  try:
-    mb = float(os.environ.get("IGNEOUS_CHUNK_CACHE_MB", "") or 0)
-  except ValueError:
-    mb = 0.0
+  mb = knobs.get_float("IGNEOUS_CHUNK_CACHE_MB")
   if mb:
     return max(int(mb * 1e6), 1)
   from .pipeline import config
@@ -65,9 +62,12 @@ class ChunkDecodeCache:
   def __init__(self, budget: Optional[int] = None):
     self._budget = budget
     self._lock = threading.Lock()
-    self._entries: OrderedDict = OrderedDict()  # guarded by self._lock
-    self._by_layer: dict = {}  # (path, mip) -> keys; guarded by self._lock
-    self._bytes = 0  # guarded by self._lock
+    self._entries = racecheck.guard(  # guarded-by: self._lock
+      OrderedDict(), self._lock, "ChunkDecodeCache._entries")
+    # (path, mip) -> keys
+    self._by_layer = racecheck.guard(  # guarded-by: self._lock
+      {}, self._lock, "ChunkDecodeCache._by_layer")
+    self._bytes = 0  # guarded-by: self._lock
 
   @property
   def budget(self) -> int:

@@ -42,6 +42,8 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
+from .analysis import knobs
+
 
 def _tuple3(text: str):
   parts = [int(v) for v in text.split(",")]
@@ -213,6 +215,10 @@ def build_parser() -> argparse.ArgumentParser:
     "view", help="Serve PATH locally and print a Neuroglancer link."))
   _add_serve(groups.add_parser(
     "serve", help="Serve one or more Precomputed layers over HTTP."))
+  from .analysis import runner as lint_runner
+
+  lint_runner.add_arguments(groups.add_parser(
+    "lint", help="The port's static analysis (see README 'The port's static analysis')."))
   return parser
 
 
@@ -305,7 +311,6 @@ def _run_serve(parser, args) -> int:
   import signal
   import socket
 
-  from . import secrets
   from .observability import journal as journal_mod
   from .observability import prom
   from .serve import Federation, ServeApp, ServeConfig, ServeServer
@@ -322,7 +327,7 @@ def _run_serve(parser, args) -> int:
     layers[name] = cloudpath
   default_layer = next(iter(layers)) if len(layers) == 1 else None
 
-  jpath = args.journal if args.journal is not None else os.environ.get(journal_mod.PATH_ENV)
+  jpath = args.journal if args.journal is not None else knobs.get_str(journal_mod.PATH_ENV)
   if jpath:
     worker_id = f"serve-{socket.gethostname().split('.')[0]}-{os.getpid()}"
     journal_mod.set_active(journal_mod.Journal(jpath, worker_id=worker_id))
@@ -344,7 +349,7 @@ def _run_serve(parser, args) -> int:
   # the advertised URL needs the bound port (--port 0 picks one), so the
   # federation starts once the socket listens
   if federation.configured:
-    adv = args.self_url or secrets.get_str("IGNEOUS_SERVE_FLEET_SELF")
+    adv = args.self_url or knobs.get_str("IGNEOUS_SERVE_FLEET_SELF")
     if not adv:
       adv_host = args.host
       if adv_host in ("0.0.0.0", "::", ""):
@@ -395,7 +400,7 @@ def _run_tune(parser, args) -> int:
   for name in args.only:
     if name not in tune.TUNABLE:
       parser.error(f"unknown tunable {name!r}; choose from {', '.join(tune.TUNABLE)}")
-  pinned = [n for n in (args.only or tune.TUNABLE) if os.environ.get(n, "").strip()]
+  pinned = [n for n in (args.only or tune.TUNABLE) if (knobs.raw(n) or "").strip()]
   if pinned:
     parser.error(
       f"refusing to tune while {', '.join(pinned)} is pinned in the environment: "
@@ -485,10 +490,10 @@ def _run_execute(parser, args) -> int:
     # the environment, so that spawned workers inherit the choice
     os.environ["IGNEOUS_PIPELINE"] = "1" if args.pipeline else "off"
   if args.journal_path is not None:
-    secrets.set_env("IGNEOUS_JOURNAL", args.journal_path)  # children too
+    knobs.set_env("IGNEOUS_JOURNAL", args.journal_path)  # children too
   if args.metrics_port is not None:
     # several workers each need a port of their own: 0 lets the OS pick
-    secrets.set_env("IGNEOUS_METRICS_PORT",
+    knobs.set_env("IGNEOUS_METRICS_PORT",
                     0 if args.parallel > 1 else args.metrics_port)
   worker_args = (
     queue_spec, lease_sec, args.num_tasks, args.exit_on_empty, args.min_sec,
@@ -883,11 +888,10 @@ def _add_fleet(fleet) -> None:
 
 
 def _journal_location(parser, queue_spec, journal_path) -> str:
-  from . import secrets
   from .observability import journal as journal_mod
   from .queues import TaskQueue
 
-  path = journal_path or secrets.get_str("IGNEOUS_JOURNAL")
+  path = journal_path or knobs.get_str("IGNEOUS_JOURNAL")
   if path is None and queue_spec:
     path = journal_mod.journal_path_for(TaskQueue(queue_spec), queue_spec)
   if not path:
@@ -1033,7 +1037,7 @@ def _fleet_command(parser, args) -> int:
   if cmd == "check":
     path, report, _ = _evaluate_health(parser, args, queue_spec)
     health.publish_gauges(report)
-    if args.textfile or secrets.get_str("IGNEOUS_METRICS_TEXTFILE"):
+    if args.textfile or knobs.get_str("IGNEOUS_METRICS_TEXTFILE"):
       prom.write_textfile(args.textfile)
     if args.emit_events:
       health.emit_events(
@@ -1487,7 +1491,7 @@ def _run_campaign(parser, args) -> int:
   if args.steal is not None:
     # ship the steal knob into every worker this command spawns; the
     # command itself never steals (it holds no leases)
-    secrets.set_env("IGNEOUS_STEAL", "1" if args.steal else "0")
+    knobs.set_env("IGNEOUS_STEAL", "1" if args.steal else "0")
     worker_env["IGNEOUS_STEAL"] = "1" if args.steal else "0"
   actuator = _make_actuator(parser, args, env=worker_env or None)
   runner = campaign_mod.CampaignRunner(
@@ -2769,6 +2773,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     return _run_view(args)
   if args.group == "serve":
     return _run_serve(parser, args)
+  if args.group == "lint":
+    from .analysis import runner as lint_runner
+
+    return lint_runner.run_args(args)
   if args.group == "mesh":
     return _run_mesh(args)
   if args.group == "skeleton":

@@ -62,6 +62,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from .analysis import knobs
 from .observability.device import LEDGER
 from .storage_http import HttpError
 
@@ -219,7 +220,7 @@ class CompileCache:
 def get_active() -> Optional[CompileCache]:
   """The store at ``IGNEOUS_COMPILE_CACHE``; None where it is unset, or
   where no storage backend serves its scheme (the error counter ticks)."""
-  spec = os.environ.get(CACHE_ENV, "").strip()
+  spec = (knobs.get_str(CACHE_ENV) or "").strip()
   if not spec:
     return None
   try:

@@ -9,10 +9,11 @@ run unchanged.
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import torch
+
+from .analysis import knobs
 
 ENV = "IGNEOUS_TORCH_DEVICE"
 
@@ -48,5 +49,5 @@ def reset_device() -> None:
 def get_device() -> torch.device:
   global _DEVICE
   if _DEVICE is None:
-    _DEVICE = _resolve(os.environ.get(ENV, "").strip() or "cuda")
+    _DEVICE = _resolve((knobs.get_str(ENV) or "").strip() or "cuda")
   return _DEVICE

@@ -31,7 +31,7 @@ from hashlib import blake2b
 from typing import Dict, List, Optional
 
 from . import telemetry
-from .secrets import env_flag, env_number
+from .analysis import knobs
 
 INTEGRITY_PREFIX = "integrity"
 
@@ -61,7 +61,7 @@ class CorruptChunkError(Exception):
 
 
 def enabled() -> bool:
-  return env_flag("IGNEOUS_INTEGRITY", True)
+  return knobs.get_bool("IGNEOUS_INTEGRITY")
 
 
 def exempt(key: str) -> bool:
@@ -98,7 +98,7 @@ class ManifestRecorder:
     with self._lock:
       buf = self._buf.setdefault(cloudpath, [])
       buf.append(rec)
-      if len(buf) >= max(1, env_number("IGNEOUS_INTEGRITY_BATCH", 256, int)):
+      if len(buf) >= max(1, knobs.get_int("IGNEOUS_INTEGRITY_BATCH")):
         flush_now, self._buf[cloudpath] = buf, []
     if flush_now:
       self._write_segments(cloudpath, flush_now, swallow=False)
@@ -159,7 +159,7 @@ def record_put(cloudpath: str, stored_key: str, payload: bytes, backend=None):
   dig = _RECORDER.record(cloudpath, stored_key, payload)
   if dig is None or backend is None:
     return
-  if not env_flag("IGNEOUS_INTEGRITY_VERIFY_AFTER_WRITE", False):
+  if not knobs.get_bool("IGNEOUS_INTEGRITY_VERIFY_AFTER_WRITE"):
     return
   back = backend.get(stored_key)
   actual = digest_hex(back) if back is not None else None

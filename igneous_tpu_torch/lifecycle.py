@@ -24,7 +24,7 @@ import os
 import threading
 from typing import Optional
 
-from .secrets import env_number
+from .analysis import knobs
 
 # distinct from any Python or argparse failure code, so a pod spec can map
 # it: preempted workers restart quietly, real failures alarm
@@ -37,7 +37,7 @@ class StopFlag:
   def __init__(self):
     self._event = threading.Event()
     self._lock = threading.Lock()
-    self.reason: Optional[str] = None  # guarded by self._lock
+    self.reason: Optional[str] = None  # guarded-by: self._lock
 
   def set(self, reason: str = "stop"):
     with self._lock:
@@ -117,14 +117,14 @@ class PreemptionWatcher:
     self.flag = flag
     self.sentinel = (
       sentinel if sentinel is not None
-      else os.environ.get("IGNEOUS_PREEMPT_SENTINEL") or None
+      else knobs.get_str("IGNEOUS_PREEMPT_SENTINEL") or None
     )
     self.metadata_url = (
       metadata_url if metadata_url is not None
-      else os.environ.get("IGNEOUS_PREEMPT_URL") or None
+      else knobs.get_str("IGNEOUS_PREEMPT_URL") or None
     )
     if interval is None:
-      interval = env_number("IGNEOUS_PREEMPT_POLL_SEC", 1.0, float)
+      interval = knobs.get_float("IGNEOUS_PREEMPT_POLL_SEC")
     self.interval = float(interval)
     self._stop = threading.Event()
     self._thread: Optional[threading.Thread] = None

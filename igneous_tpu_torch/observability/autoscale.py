@@ -36,7 +36,7 @@ from typing import List, Optional
 
 from . import metrics
 
-from .. import secrets as knobs
+from ..analysis import knobs
 
 COOLDOWN_ENV = "IGNEOUS_AUTOSCALE_COOLDOWN_SEC"
 INTERVAL_ENV = "IGNEOUS_AUTOSCALE_INTERVAL_SEC"

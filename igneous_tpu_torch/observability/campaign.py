@@ -38,7 +38,7 @@ from typing import List, Optional
 from . import fleet, health, metrics
 from .autoscale import AutoscaleController, AutoscalePolicy
 
-from .. import secrets as knobs
+from ..analysis import knobs
 
 
 class CampaignRunner:

@@ -89,7 +89,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
-from .. import secrets as knobs
+from ..analysis import knobs
 from . import metrics, trace
 
 PROFILE_DIR_ENV = "IGNEOUS_PROFILE_DIR"

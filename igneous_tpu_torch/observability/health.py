@@ -45,7 +45,7 @@ from typing import Iterable, List, Optional
 
 from . import fleet, metrics
 
-from .. import secrets as knobs
+from ..analysis import knobs
 
 FLAGS_KEY = "health/flags.json"
 

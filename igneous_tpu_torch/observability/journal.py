@@ -36,7 +36,7 @@ from typing import Iterable, Iterator, List, Optional
 
 from . import metrics, trace
 
-from .. import secrets as knobs
+from ..analysis import knobs
 
 FLUSH_SEC_ENV = "IGNEOUS_JOURNAL_FLUSH_SEC"
 PATH_ENV = "IGNEOUS_JOURNAL"

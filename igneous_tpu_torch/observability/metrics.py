@@ -31,7 +31,7 @@ from typing import Dict, Iterator, Optional
 
 from . import trace
 
-from .. import secrets as knobs
+from ..analysis import knobs
 
 _local = threading.local()
 

@@ -29,7 +29,7 @@ from typing import Optional
 
 from . import metrics
 
-from .. import secrets as knobs
+from ..analysis import knobs
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 PORT_ENV = "IGNEOUS_METRICS_PORT"

@@ -54,7 +54,7 @@ from typing import Dict, List, Optional, Tuple
 from . import journal as journal_mod
 from . import metrics
 
-from .. import secrets as knobs
+from ..analysis import knobs
 
 ROLLUP_PREFIX = "rollup/"
 WINDOW_SEC_ENV = "IGNEOUS_ROLLUP_WINDOW_SEC"

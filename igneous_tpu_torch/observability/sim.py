@@ -48,7 +48,7 @@ from typing import Dict, List, Optional
 
 from .autoscale import AutoscalePolicy, PolicyLoop
 
-from .. import secrets as knobs
+from ..analysis import knobs
 
 
 @dataclass

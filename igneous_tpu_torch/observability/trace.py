@@ -31,7 +31,7 @@ import time
 import uuid
 from typing import Iterator, Optional
 
-from .. import secrets as knobs
+from ..analysis import knobs
 
 SAMPLE_ENV = "IGNEOUS_TRACE_SAMPLE"
 

@@ -677,6 +677,6 @@ def skeletonize(
   for result in results:
     if result is not None:
       out[result[0]] = result[1]
-  telemetry.incr("labels", len(out))
-  telemetry.incr("vertices", sum(len(s.vertices) for s in out.values()))
+  telemetry.incr("skeleton.labels", len(out))
+  telemetry.incr("skeleton.vertices", sum(len(s.vertices) for s in out.values()))
   return out

@@ -9,10 +9,14 @@ dimension of the same hand-kernel launches (each kernel already takes a
 leading run of planes or tiles), and the mesh's ``psum`` of nonzero
 voxels is a count on the card.
 
-Not ported: ``make_mesh``, ``ChunkExecutor.run_global``, ``LRUCache`` and
+Not ported: ``make_mesh``, ``LRUCache`` and
 the compile cache (PyTorch runs eagerly and compiles no signatures), and
 the power-of-two padding of K (it only bounded the JAX package's compiled
 signatures; the outputs are the same without it).
+
+``ChunkExecutor.run_global`` is the multi-host entry point
+(``multihost``): each rank of a pod runs the same launches on its own rows
+of the lease, and the nonzero count is all-reduced across the ranks.
 """
 
 from __future__ import annotations
@@ -104,6 +108,7 @@ class BatchKernelExecutor:
       xs = _tree_map(lambda a: to_device(a, dev), batch)
       if consts is not None:
         consts = _tree_map(lambda a: to_device(a, dev), consts)
+    # lint: allow=IGN503 the stage is the caller's literal (kernel, infer)
     with telemetry.stage(self.stage):
       with execute_span(self.name, elements_of(xs), nbytes_of(xs), dev):
         out = self.kernel(xs) if consts is None else self.kernel(consts, xs)
@@ -175,6 +180,37 @@ class ChunkExecutor:
       raise ValueError(f"expected a (K, c, z, y, x) batch, got shape {tuple(x.shape)}")
     outs = device_pyramid(x.contiguous(), self.factors, self.method, self.sparse)
     return outs, torch.count_nonzero(x.view(SIGNED_VIEW.get(x.dtype, x.dtype)))
+
+  def run_global(self, global_batch):
+    """The multi-host entry point: the pyramid of an already-sharded
+    ``multihost.GlobalBatch`` (a (lo, hi) tuple of them, planes=2), run on
+    this rank's rows on its device -> (per-mip global batches, or (lo, hi)
+    tuples of them; the pod's count of nonzero voxels). The caller owns
+    the padding (``multihost.lease_partition``: zero rows add no nonzero
+    voxel) and reads the outputs through ``.addressable_shards``; no
+    global gather happens here. The count is all-reduced across the
+    ranks (the JAX package's ``psum``)."""
+    from . import multihost
+
+    arrs = global_batch if isinstance(global_batch, tuple) else (global_batch,)
+    if len(arrs) != self.planes:
+      raise ValueError(f"expected {self.planes} plane(s), got {len(arrs)}")
+    arrs = multihost.same_rows(arrs)
+    xs = [a.data for a in arrs]
+    with execute_span(self.name, elements_of(xs), nbytes_of(xs), self.device,
+                      signature=("global", tuple(xs[0].shape), str(xs[0].dtype),
+                                 self.factors)):
+      x = join_planes(*xs) if self.planes == 2 else xs[0]
+      outs, nonzero = self.run(x)
+      if self.planes == 2:
+        outs = [split_planes(o) for o in outs]
+    sync(self.device)
+    lead = arrs[0]
+    if self.planes == 2:
+      result = [(lead.like(lo), lead.like(hi)) for lo, hi in outs]
+    else:
+      result = [lead.like(o) for o in outs]
+    return result, multihost.all_reduce_count(nonzero)
 
   def __call__(self, batch):
     """batch: a (K, c, z, y, x) array or tensor (planes=1), or a (lo, hi)

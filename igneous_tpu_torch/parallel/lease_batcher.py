@@ -58,7 +58,7 @@ import time
 from collections import defaultdict
 from typing import Optional
 
-from .. import secrets as knobs
+from ..analysis import knobs
 from .. import telemetry
 from ..lib import Bbox
 from ..observability import journal as journal_mod

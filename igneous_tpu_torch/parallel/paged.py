@@ -38,8 +38,11 @@ Knobs: ``IGNEOUS_PAGE_SHAPE=pz,py,px`` (default 32,32,32) and
 ``IGNEOUS_PAGE_BATCH`` (pages a round, default 32, rounded up to a power
 of two), each resolved as ``tune.resolve`` says: the environment, then
 the tuned file of this device kind, then the default. The device ledger
-records each round's page slack as pad waste (``record_pad_waste``). ``PagedGlobalRunner``, the JAX package's multi-process runner,
-is not ported.
+records each round's page slack as pad waste (``record_pad_waste``).
+
+``PagedGlobalRunner`` is the multi-host entry point (``multihost``): each
+rank of a pod runs ``page_pyramid`` on its own range of a global page
+table (``multihost.page_partition``).
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ from ..ops import cuda_pooling
 from ..ops.cuda_pooling import SIGNED_VIEW
 from ..ops.pooling import _normalize_factors, _pool_once, _work_array, route
 from ..tune import resolve
-from .executor import sync
+from .executor import join_planes, split_planes, sync
 
 _DEFAULT_PAGE = (32, 32, 32)
 _DEFAULT_PAGE_BATCH = 32
@@ -569,3 +572,55 @@ def paged_edt(
       f = field[k, 1 : Z + 1, 1 : Y + 1, 1 : X + 1].contiguous().cpu().numpy()
       outs.append(f.transpose(2, 1, 0))
   return outs
+
+
+# ---------------------------------------------------------------------------
+# pod entry: the paged pyramid over a global page batch
+
+
+class PagedGlobalRunner:
+  """The multi-host paged pyramid (the counterpart of
+  ``ChunkExecutor.run_global``): ``page_pyramid`` over this rank's rows
+  of already-sharded global page and extent batches, assembled by
+  ``multihost.from_process_local`` from each host's ``page_partition``
+  range. Callers read the outputs through ``.addressable_shards``; a rank
+  addresses only its own pages, so no global gather happens here."""
+
+  def __init__(self, factors, method: str = "average", sparse: bool = False,
+               planes: int = 1, mesh=None):
+    from . import multihost
+
+    self.mesh = mesh if mesh is not None else multihost.pod_mesh()
+    self.axis = self.mesh.axis_names[0]
+    self.factors = tuple(tuple(int(v) for v in f) for f in factors)
+    self.method = method
+    self.sparse = sparse
+    self.planes = int(planes)
+    if self.planes not in (1, 2):
+      raise ValueError("planes must be 1 or 2")
+    self.name = f"pooling.paged_pyramid[{method}]"
+
+  def __call__(self, pages, exts):
+    """pages: a global (K, c, pz, py, px) batch (a (lo, hi) tuple of them,
+    planes=2); exts: the global (K, 3) batch of valid extents (z, y, x).
+    Returns the per-mip global batches (or (lo, hi) tuples of them)."""
+    from . import multihost
+
+    arrs = pages if isinstance(pages, tuple) else (pages,)
+    if len(arrs) != self.planes:
+      raise ValueError(f"expected {self.planes} plane(s), got {len(arrs)}")
+    arrs = multihost.same_rows(arrs + (exts,))[:-1]
+    xs = [a.data for a in arrs]
+    with execute_span(self.name, sum(int(x.numel()) for x in xs),
+                      sum(int(x.numel()) * x.element_size() for x in xs),
+                      self.mesh.device):
+      x = join_planes(*xs) if self.planes == 2 else xs[0]
+      outs = page_pyramid(x, exts.data.to(torch.int64), self.factors,
+                          self.method, self.sparse)
+      if self.planes == 2:
+        outs = [split_planes(o) for o in outs]
+    sync(self.mesh.device)
+    lead = arrs[0]
+    if self.planes == 2:
+      return tuple((lead.like(lo), lead.like(hi)) for lo, hi in outs)
+    return tuple(lead.like(o) for o in outs)

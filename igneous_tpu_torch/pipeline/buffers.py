@@ -38,14 +38,15 @@ class BoundedBuffer:
     self._lock = threading.Lock()
     self._not_full = threading.Condition(self._lock)
     self._not_empty = threading.Condition(self._lock)
-    self._items: deque = deque()  # guarded by self._lock
-    self._bytes_held = 0  # acquired weight, producers mid-work included
-    self._closed = False
+    self._items: deque = deque()  # guarded-by: self._lock
+    # acquired weight, producers mid-work included
+    self._bytes_held = 0  # guarded-by: self._lock
+    self._closed = False  # guarded-by: self._lock
     self._flag = None
     # budget is granted in the order producers were submitted: a younger
     # producer must never starve the oldest one, which the consumer waits on
-    self._seq_next = 0
-    self._seq_grant = 0
+    self._seq_next = 0  # guarded-by: self._lock
+    self._seq_grant = 0  # guarded-by: self._lock
 
   def interrupt(self, flag) -> None:
     """Attach a drain flag; waits poll it and raise PipelineInterrupted
@@ -63,11 +64,13 @@ class BoundedBuffer:
     t0 = time.perf_counter()
     while not pred():
       if self._interrupted():
+        # lint: allow=IGN503 stall_stage forwards literals from call sites
         telemetry.observe(stall_stage, time.perf_counter() - t0)
         raise PipelineInterrupted(self.name)
       if self._closed:
         break
       cond.wait(timeout=0.1)
+    # lint: allow=IGN503 stall_stage forwards literals from call sites
     telemetry.observe(stall_stage, time.perf_counter() - t0)
 
   # -- producer side --------------------------------------------------------

@@ -27,7 +27,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-from ..secrets import env_number
+from ..analysis import knobs
 
 # the downsample planner's default task byte target
 # (task_creation.image.create_downsampling_tasks memory_target)
@@ -45,7 +45,7 @@ def _cores() -> int:
 
 
 def _env_str(name: str) -> str:
-  return os.environ.get(name, "").strip().lower()
+  return (knobs.get_str(name) or "").strip().lower()
 
 
 def enabled(default: Optional[bool] = None) -> bool:
@@ -66,7 +66,7 @@ def memory_budget_bytes(
   """Byte budget of the stage buffers: ``IGNEOUS_PIPELINE_MEM_MB`` when
   set, else the memory target (at most twice ``task_nbytes``, a known
   cutout size)."""
-  mb = env_number("IGNEOUS_PIPELINE_MEM_MB", None, float)
+  mb = knobs.get_float("IGNEOUS_PIPELINE_MEM_MB")
   if mb:
     return max(int(mb * 1e6), 1)
   base = memory_target if memory_target else DEFAULT_MEMORY_TARGET
@@ -76,8 +76,7 @@ def memory_budget_bytes(
 
 
 def prefetch_depth() -> int:
-  depth = env_number("IGNEOUS_PIPELINE_PREFETCH", None, int)
-  return max(2 if depth is None else depth, 1)
+  return max(knobs.get_int("IGNEOUS_PIPELINE_PREFETCH"), 1)
 
 
 def use_threads() -> bool:
@@ -93,14 +92,14 @@ def use_threads() -> bool:
 
 
 def io_threads() -> int:
-  env = env_number("IGNEOUS_PIPELINE_IO_THREADS", None, int)
+  env = knobs.get_int("IGNEOUS_PIPELINE_IO_THREADS")
   if env:
     return max(env, 1)
   return min(8, _cores() * 2)
 
 
 def encode_threads() -> int:
-  env = env_number("IGNEOUS_PIPELINE_ENCODE_THREADS", None, int)
+  env = knobs.get_int("IGNEOUS_PIPELINE_ENCODE_THREADS")
   if env:
     return max(env, 1)
   return min(8, max(_cores(), 1))

@@ -33,7 +33,7 @@ class UploadTicket:
   def __init__(self, pool: "EncodePool"):
     self._pool = pool
     self._lock = threading.Lock()
-    self._futures: List[cf.Future] = []  # guarded by self._lock
+    self._futures: List[cf.Future] = []  # guarded-by: self._lock
 
   def submit(self, fn: Callable[[], None]) -> None:
     # the submitting thread's trace context rides onto the pool thread:

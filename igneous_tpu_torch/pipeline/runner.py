@@ -168,6 +168,7 @@ def run_tasks_pipelined(
   def join_member(member):
     """Join one member's uploads and count its completion or failure."""
     try:
+      # lint: allow=IGN501 a caller wait: the prefix keeps it out of the pools' stage split
       with telemetry.stage("pipeline.upload_join_s"):
         member.ticket.join()
     except Exception as e:  # noqa: BLE001 - routed to on_error or re-raised
@@ -302,6 +303,7 @@ def run_tasks_pipelined(
         join_member(uploading.popleft())
 
       try:
+        # lint: allow=IGN501 a caller wait: the prefix keeps it out of the pools' stage split
         with telemetry.stage("pipeline.download_wait_s"):
           payload = member.future.result()
       except PipelineInterrupted:

@@ -45,8 +45,8 @@ import uuid
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from .. import telemetry
-from .. import secrets as knobs
-from ..secrets import env_number
+from ..analysis import knobs
+from ..analysis import knobs
 from .ranges import RangeLease, RangeSub
 from .registry import RegisteredTask, deserialize, serialize
 
@@ -728,11 +728,11 @@ class FileQueue:
     sizes segments so the batch spreads over ``IGNEOUS_QUEUE_SHARDS``
     (16) files; unknown totals stream at the cap.
     ``IGNEOUS_QUEUE_SEG_TASKS=0`` falls back to the classic layout."""
-    seg_cap = env_number("IGNEOUS_QUEUE_SEG_TASKS", DEFAULT_SEG_TASKS, int)
+    seg_cap = knobs.get_int("IGNEOUS_QUEUE_SEG_TASKS")
     if seg_cap <= 0:
       return self.insert(tasks, total=total)
     shards = max(
-      env_number("IGNEOUS_QUEUE_SHARDS", DEFAULT_QUEUE_SHARDS, int)
+      knobs.get_int("IGNEOUS_QUEUE_SHARDS")
       or DEFAULT_QUEUE_SHARDS, 1,
     )
     if total:
@@ -772,9 +772,7 @@ class FileQueue:
     it. Returns the number of files returned to the pool."""
     now = time.time()
     if not force:
-      interval = env_number(
-        "IGNEOUS_QUEUE_RECYCLE_SEC", DEFAULT_RECYCLE_SEC, float
-      )
+      interval = knobs.get_float("IGNEOUS_QUEUE_RECYCLE_SEC")
       if interval > 0 and now - self._last_recycle < interval:
         return 0
     self._last_recycle = now

@@ -24,6 +24,7 @@ from __future__ import annotations
 import threading
 from typing import Optional
 
+from ..analysis import racecheck
 from .filequeue import StaleLeaseError
 
 
@@ -56,9 +57,11 @@ class LeaseHeartbeat:
     self.enabled = self.interval > 0 and hasattr(queue, "renew")
     self.renewals = 0
     self._lock = threading.Lock()
-    self.lost = set()  # guarded by self._lock
-    # token at track() time -> current token; guarded by self._lock
-    self._current = {}
+    self.lost = racecheck.guard(  # guarded-by: self._lock
+      set(), self._lock, "LeaseHeartbeat.lost")
+    # token at track() time -> current token
+    self._current = racecheck.guard(  # guarded-by: self._lock
+      {}, self._lock, "LeaseHeartbeat._current")
     self._stop = threading.Event()
     self._thread: Optional[threading.Thread] = None
 

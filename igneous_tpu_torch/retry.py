@@ -23,7 +23,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from . import telemetry
-from .secrets import env_number
+from .analysis import knobs
 
 RETRYABLE_STATUS = (408, 429, 500, 502, 503, 504)
 
@@ -50,10 +50,10 @@ class RetryPolicy:
   @classmethod
   def from_env(cls, **overrides) -> "RetryPolicy":
     kw = dict(
-      attempts=env_number("IGNEOUS_RETRY_ATTEMPTS", 6, int),
-      base_s=env_number("IGNEOUS_RETRY_BASE_S", 0.25, float),
-      cap_s=env_number("IGNEOUS_RETRY_CAP_S", 30.0, float),
-      budget_s=env_number("IGNEOUS_RETRY_BUDGET_S", 120.0, float),
+      attempts=knobs.get_int("IGNEOUS_RETRY_ATTEMPTS"),
+      base_s=knobs.get_float("IGNEOUS_RETRY_BASE_S"),
+      cap_s=knobs.get_float("IGNEOUS_RETRY_CAP_S"),
+      budget_s=knobs.get_float("IGNEOUS_RETRY_BUDGET_S"),
     )
     kw.update(overrides)
     return cls(**kw)

@@ -31,7 +31,7 @@ counters and the ``serve.request`` histogram export through
 ``observability.prom``; the health engine's serve detectors and
 Perfetto's serve track read the journaled spans and counters.
 
-Knobs (``IGNEOUS_SERVE_*`` in ``secrets.KNOBS``): RAM_MB, SSD_DIR, SSD_MB,
+Knobs (``IGNEOUS_SERVE_*`` in ``knobs.KNOBS``): RAM_MB, SSD_DIR, SSD_MB,
 CACHE_CONTROL, SYNTH_MIPS, WRITEBACK, MAX_OBJECT_MB, IO_THREADS,
 DRAIN_SEC, and the federation's ``IGNEOUS_SERVE_FLEET_*``,
 ``IGNEOUS_SERVE_QOS_*`` and ``IGNEOUS_SERVE_PREWARM*`` (``federation``).
@@ -53,7 +53,8 @@ from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 
-from .. import chunk_cache, secrets
+from .. import chunk_cache
+from ..analysis import knobs
 from ..lib import Bbox, Vec
 from ..observability import journal as journal_mod
 from ..observability import metrics, trace
@@ -86,15 +87,15 @@ class ServeConfig:
   @classmethod
   def from_env(cls, **overrides) -> "ServeConfig":
     kw = dict(
-      ram_mb=secrets.get_float("IGNEOUS_SERVE_RAM_MB"),
-      ssd_dir=secrets.get_str("IGNEOUS_SERVE_SSD_DIR") or None,
-      ssd_mb=secrets.get_float("IGNEOUS_SERVE_SSD_MB"),
-      cache_control=secrets.get_str("IGNEOUS_SERVE_CACHE_CONTROL"),
-      synth_mips=secrets.get_bool("IGNEOUS_SERVE_SYNTH_MIPS"),
-      writeback=secrets.get_bool("IGNEOUS_SERVE_WRITEBACK"),
-      max_object_mb=secrets.get_float("IGNEOUS_SERVE_MAX_OBJECT_MB"),
-      io_threads=secrets.get_int("IGNEOUS_SERVE_IO_THREADS"),
-      drain_sec=secrets.get_float("IGNEOUS_SERVE_DRAIN_SEC"),
+      ram_mb=knobs.get_float("IGNEOUS_SERVE_RAM_MB"),
+      ssd_dir=knobs.get_str("IGNEOUS_SERVE_SSD_DIR") or None,
+      ssd_mb=knobs.get_float("IGNEOUS_SERVE_SSD_MB"),
+      cache_control=knobs.get_str("IGNEOUS_SERVE_CACHE_CONTROL"),
+      synth_mips=knobs.get_bool("IGNEOUS_SERVE_SYNTH_MIPS"),
+      writeback=knobs.get_bool("IGNEOUS_SERVE_WRITEBACK"),
+      max_object_mb=knobs.get_float("IGNEOUS_SERVE_MAX_OBJECT_MB"),
+      io_threads=knobs.get_int("IGNEOUS_SERVE_IO_THREADS"),
+      drain_sec=knobs.get_float("IGNEOUS_SERVE_DRAIN_SEC"),
     )
     for name, val in overrides.items():
       if val is not None:
@@ -174,7 +175,7 @@ class ServeApp:
     self.federation = federation if federation is not None else Federation.from_env()
     self._qos = qos if qos is not None else QosGate(layer_names=list(self._layers))
     if prewarm is None:
-      prewarm = secrets.get_bool("IGNEOUS_SERVE_PREWARM")
+      prewarm = knobs.get_bool("IGNEOUS_SERVE_PREWARM")
     self._prewarmer = Prewarmer(self) if prewarm else None
     # overwrite/delete anywhere in this process (Volume.upload/delete,
     # pipeline write joins, serve's own write-back) invalidates the
@@ -626,7 +627,7 @@ class ServeApp:
     compression of an origin fetch before it can reach a cache tier or
     a client. Raw-stored objects carry no checkable redundancy here;
     they are covered by the manifest-digest audit instead."""
-    if method is None or not secrets.get_bool("IGNEOUS_INTEGRITY_SERVE_VERIFY"):
+    if method is None or not knobs.get_bool("IGNEOUS_INTEGRITY_SERVE_VERIFY"):
       return True
     try:
       decompress_bytes(data, method)

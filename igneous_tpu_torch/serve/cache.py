@@ -32,7 +32,7 @@ import threading
 from collections import OrderedDict
 from typing import Optional, Tuple
 
-from .. import secrets
+from ..analysis import knobs
 from ..observability import metrics
 from ..storage import (
   COMPRESSION_EXTS,
@@ -204,7 +204,7 @@ class SsdTier:
     entry carries nothing to check, so its ETag is recorded as it is."""
     if expected is not None:
       return etag == expected
-    if not secrets.get_bool("IGNEOUS_INTEGRITY_SSD_VERIFY"):
+    if not knobs.get_bool("IGNEOUS_INTEGRITY_SSD_VERIFY"):
       return True
     method = method_for_ext(ext)
     if method is None:

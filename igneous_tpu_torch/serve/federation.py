@@ -48,7 +48,7 @@ import time
 import urllib.parse
 from typing import Dict, List, Optional, Tuple
 
-from .. import secrets
+from ..analysis import knobs
 from ..observability import metrics
 
 PEER_FILL_HEADER = "X-Igneous-Peer-Fill"
@@ -167,11 +167,11 @@ class Federation:
                timeout_ms: Optional[float] = None,
                retry_sec: Optional[float] = None):
     if ttl_sec is None:
-      ttl_sec = secrets.get_float("IGNEOUS_SERVE_FLEET_TTL_SEC")
+      ttl_sec = knobs.get_float("IGNEOUS_SERVE_FLEET_TTL_SEC")
     if timeout_ms is None:
-      timeout_ms = secrets.get_float("IGNEOUS_SERVE_FLEET_TIMEOUT_MS")
+      timeout_ms = knobs.get_float("IGNEOUS_SERVE_FLEET_TIMEOUT_MS")
     if retry_sec is None:
-      retry_sec = secrets.get_float("IGNEOUS_SERVE_FLEET_RETRY_SEC")
+      retry_sec = knobs.get_float("IGNEOUS_SERVE_FLEET_RETRY_SEC")
     self.ttl_sec = float(ttl_sec)
     self.timeout = float(timeout_ms) / 1e3
     self.retry_sec = float(retry_sec)
@@ -192,9 +192,9 @@ class Federation:
   def from_env(cls, peers: Optional[str] = None,
                membership_dir: Optional[str] = None) -> "Federation":
     if peers is None:
-      peers = secrets.get_str("IGNEOUS_SERVE_FLEET_PEERS")
+      peers = knobs.get_str("IGNEOUS_SERVE_FLEET_PEERS")
     if membership_dir is None:
-      membership_dir = secrets.get_str("IGNEOUS_SERVE_FLEET_MEMBERSHIP") or None
+      membership_dir = knobs.get_str("IGNEOUS_SERVE_FLEET_MEMBERSHIP") or None
     peer_list = [p.strip().rstrip("/") for p in (peers or "").split(",")
                  if p.strip()]
     return cls(peers=peer_list, membership_dir=membership_dir)
@@ -380,11 +380,11 @@ class QosGate:
                burst_sec: Optional[float] = None,
                layer_names=(), now_fn=time.monotonic):
     if rps is None:
-      rps = secrets.get_float("IGNEOUS_SERVE_QOS_RPS")
+      rps = knobs.get_float("IGNEOUS_SERVE_QOS_RPS")
     if weights is None:
-      weights = self.parse_weights(secrets.get_str("IGNEOUS_SERVE_QOS_WEIGHTS"))
+      weights = self.parse_weights(knobs.get_str("IGNEOUS_SERVE_QOS_WEIGHTS"))
     if burst_sec is None:
-      burst_sec = secrets.get_float("IGNEOUS_SERVE_QOS_BURST_SEC")
+      burst_sec = knobs.get_float("IGNEOUS_SERVE_QOS_BURST_SEC")
     self.rps = float(rps)
     self.weights = dict(weights or {})
     self.burst_sec = float(burst_sec)
@@ -470,11 +470,11 @@ class Prewarmer:
   def __init__(self, app, interval_sec: Optional[float] = None,
                top: Optional[int] = None, budget: Optional[int] = None):
     if interval_sec is None:
-      interval_sec = secrets.get_float("IGNEOUS_SERVE_PREWARM_INTERVAL_SEC")
+      interval_sec = knobs.get_float("IGNEOUS_SERVE_PREWARM_INTERVAL_SEC")
     if top is None:
-      top = secrets.get_int("IGNEOUS_SERVE_PREWARM_TOP")
+      top = knobs.get_int("IGNEOUS_SERVE_PREWARM_TOP")
     if budget is None:
-      budget = secrets.get_int("IGNEOUS_SERVE_PREWARM_BUDGET")
+      budget = knobs.get_int("IGNEOUS_SERVE_PREWARM_BUDGET")
     self.app = app
     self.interval_sec = float(interval_sec)
     self.top = int(top)

@@ -33,6 +33,7 @@ except ImportError:  # zstd is readable and writable only where the codec is ins
   zstandard = None
 
 from . import integrity
+from .analysis import knobs
 from .observability import trace as _trace
 from .lib import jsonify
 
@@ -95,7 +96,7 @@ def scratch_compression(default="gzip"):
   gzip (level 6), gzip-1..gzip-9, zstd or none; unset keeps ``default``.
   zstd keeps ``default`` too where the ``zstandard`` package is missing, as
   in the JAX package."""
-  val = os.environ.get("IGNEOUS_SCRATCH_COMPRESS", "").strip().lower()
+  val = (knobs.get_str("IGNEOUS_SCRATCH_COMPRESS") or "").strip().lower()
   if not val:
     return default
   if val in ("none", "raw", "0", "off"):

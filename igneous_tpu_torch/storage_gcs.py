@@ -22,6 +22,7 @@ import time
 from typing import Iterator, Optional
 
 from . import secrets
+from .analysis import knobs
 from .retry import default_policy
 from .storage_http import HttpError, quote_path, request
 
@@ -29,11 +30,11 @@ _SCOPE = "https://www.googleapis.com/auth/devstorage.read_write"
 
 
 def _resumable_threshold() -> int:
-  return secrets.env_number("IGNEOUS_GCS_RESUMABLE_THRESHOLD", 8 * 1024 * 1024, int)
+  return knobs.get_int("IGNEOUS_GCS_RESUMABLE_THRESHOLD")
 
 
 def _upload_chunk() -> int:
-  return secrets.env_number("IGNEOUS_GCS_UPLOAD_CHUNK", 8 * 1024 * 1024, int)
+  return knobs.get_int("IGNEOUS_GCS_UPLOAD_CHUNK")
 
 
 def _b64url(data: bytes) -> bytes:

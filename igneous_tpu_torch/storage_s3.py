@@ -26,16 +26,17 @@ from typing import Iterator, List, Optional, Tuple
 from xml.sax.saxutils import unescape as xml_unescape
 
 from . import secrets
+from .analysis import knobs
 from .retry import default_policy
 from .storage_http import HttpError, request
 
 
 def _multipart_threshold() -> int:
-  return secrets.env_number("IGNEOUS_S3_MULTIPART_THRESHOLD", 64 * 1024 * 1024, int)
+  return knobs.get_int("IGNEOUS_S3_MULTIPART_THRESHOLD")
 
 
 def _multipart_chunk() -> int:
-  return secrets.env_number("IGNEOUS_S3_MULTIPART_CHUNK", 32 * 1024 * 1024, int)
+  return knobs.get_int("IGNEOUS_S3_MULTIPART_CHUNK")
 
 
 def _load_creds() -> Tuple[Optional[str], Optional[str]]:

@@ -19,12 +19,12 @@ mapped on the device in the compute stage (``Volume.map_ids``).
 
 from __future__ import annotations
 
-import os
 from typing import Optional, Sequence
 
 import numpy as np
 
 from .. import chunk_cache, telemetry
+from ..analysis import knobs
 from ..downsample_scales import DEFAULT_FACTOR, compute_factors, truncate_writable_factors
 from ..lib import Bbox, Vec, chunk_bboxes
 from ..ops import pooling
@@ -40,8 +40,7 @@ _NOOP_PLAN = StagePlan(lambda: None, lambda p: None, lambda o, s: None)
 def _passthrough_enabled() -> bool:
   """``IGNEOUS_TRANSFER_PASSTHROUGH=0|off|false|no`` sends eligible
   transfers down the decode and re-encode route."""
-  val = os.environ.get("IGNEOUS_TRANSFER_PASSTHROUGH", "")
-  return val == "" or val.strip().lower() not in ("0", "off", "false", "no")
+  return knobs.get_bool("IGNEOUS_TRANSFER_PASSTHROUGH")
 
 
 def _cutout_nbytes(vol: Volume, bounds: Bbox) -> int:

@@ -317,8 +317,8 @@ class MeshTask(RegisteredTask):
       mx = (np.asarray([g.stop for g in grow]) + np.asarray(origin)) * res_int
       return orig, mesh, Bbox(mn, mx)
 
-    telemetry.incr("labels", len(group))
-    telemetry.incr("faces", sum(len(faces) for _, faces in results))
+    telemetry.incr("mesh.labels", len(group))
+    telemetry.incr("mesh.faces", sum(len(faces) for _, faces in results))
     pairs = list(zip(group, results))
     if self.parallel > 1:
       if "pool" not in ctx:
@@ -332,7 +332,7 @@ class MeshTask(RegisteredTask):
       finished = [f.result() if isinstance(f, Future) else f for f in ctx["finished"]]
     finally:
       drop_pool(ctx)
-    telemetry.incr("faces_simplified", sum(len(m.faces) for _, m, _ in finished))
+    telemetry.incr("mesh.faces_simplified", sum(len(m.faces) for _, m, _ in finished))
     self._upload(
       {orig: mesh for orig, mesh, _ in finished}, ctx["core"], ctx["cutout"],
       ctx["vol"], {orig: bbx for orig, _, bbx in finished},

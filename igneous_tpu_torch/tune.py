@@ -29,12 +29,13 @@ on the CPU.
 from __future__ import annotations
 
 import json
-import os
 import re
 import time
 from typing import Callable, Dict, List, Optional
 
 import torch
+
+from .analysis import knobs
 
 CONFIG_ENV = "IGNEOUS_TUNE_CONFIG"
 TUNED_PREFIX = "tuned/"
@@ -53,8 +54,8 @@ def device_kind() -> str:
 
 
 def config_root() -> Optional[str]:
-  return (os.environ.get(CONFIG_ENV, "").strip()
-          or os.environ.get("IGNEOUS_COMPILE_CACHE", "").strip() or None)
+  return ((knobs.get_str(CONFIG_ENV) or "").strip()
+          or (knobs.get_str("IGNEOUS_COMPILE_CACHE") or "").strip() or None)
 
 
 # (root, device kind) -> the tuned config or None: read once, since the
@@ -92,7 +93,7 @@ def resolve(name: str) -> Optional[str]:
   """The string value of a tunable knob: the environment's, else the
   tuned file's, else None (the caller applies its default). Callers keep
   their own parsing and errors."""
-  val = os.environ.get(name, "").strip()
+  val = (knobs.raw(name) or "").strip()
   if val:
     return val
   cfg = tuned_config()
@@ -170,17 +171,17 @@ class _env_pin:
     self.name, self.value = name, value
 
   def __enter__(self):
-    self.prev = os.environ.get(self.name)
+    self.prev = knobs.raw(self.name)
     if self.value:
-      os.environ[self.name] = self.value
+      knobs.set_env(self.name, self.value)
     else:
-      os.environ.pop(self.name, None)
+      knobs.del_env(self.name)
 
   def __exit__(self, *exc):
     if self.prev is None:
-      os.environ.pop(self.name, None)
+      knobs.del_env(self.name)
     else:
-      os.environ[self.name] = self.prev
+      knobs.set_env(self.name, self.prev)
 
 
 def run(
@@ -208,10 +209,10 @@ def run(
 
   backend = get_device().type
   if repeats is None:
-    repeats = int(os.environ.get("IGNEOUS_TUNE_REPEATS") or _DEFAULT_REPEATS)
+    repeats = int(knobs.raw("IGNEOUS_TUNE_REPEATS") or _DEFAULT_REPEATS)
   repeats = max(int(repeats), 1)
-  if budget_sec is None and os.environ.get("IGNEOUS_TUNE_BUDGET_SEC"):
-    budget_sec = float(os.environ["IGNEOUS_TUNE_BUDGET_SEC"])
+  if budget_sec is None and knobs.raw("IGNEOUS_TUNE_BUDGET_SEC"):
+    budget_sec = float(knobs.raw("IGNEOUS_TUNE_BUDGET_SEC"))
   deadline = time.monotonic() + float(budget_sec) if budget_sec else None
   cand = candidates(backend)
   work = _workloads(size)

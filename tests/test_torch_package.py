@@ -82,6 +82,13 @@ import igneous_tpu_torch.chaos, igneous_tpu_torch.view, igneous_tpu_torch.serve
 import igneous_tpu_torch.serve.app, igneous_tpu_torch.serve.cache, igneous_tpu_torch.serve.server
 import igneous_tpu_torch.serve.federation, igneous_tpu_torch.tools.chaos_soak
 import igneous_tpu_torch.scripts.remap2npy, igneous_tpu_torch.scripts.validate_provenance
+import igneous_tpu_torch.parallel.multihost
+import igneous_tpu_torch.analysis, igneous_tpu_torch.analysis.knobs
+import igneous_tpu_torch.analysis.findings, igneous_tpu_torch.analysis.discovery
+import igneous_tpu_torch.analysis.env_knobs, igneous_tpu_torch.analysis.locks
+import igneous_tpu_torch.analysis.determinism, igneous_tpu_torch.analysis.telemetry_names
+import igneous_tpu_torch.analysis.racecheck, igneous_tpu_torch.analysis.recompile
+import igneous_tpu_torch.analysis.runner, igneous_tpu_torch.analysis.__main__
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'igneous_tpu')]
 assert not bad, bad
 from igneous_tpu_torch.ops import _build

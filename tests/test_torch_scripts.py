@@ -5,7 +5,7 @@ lines and exit code) on a root of layers written by both packages, with
 missing, malformed and incomplete provenance among them; ``remap2npy``
 writes the JAX script's ``.npy`` bytes (skipped only where h5py is
 absent). Every ``IGNEOUS_SERVE_*`` knob of the JAX registry, and the
-serve fill's verification knobs, are in ``secrets.KNOBS`` with the same
+serve fill's verification knobs, are in the port's registry with the same
 type and default, and ``ServeConfig.from_env`` reads them as the JAX
 package's does.
 """
@@ -21,7 +21,8 @@ from igneous_tpu.analysis import knobs as jax_knobs
 from igneous_tpu.scripts import remap2npy as jax_remap2npy
 from igneous_tpu.scripts import validate_provenance as jax_validate
 from igneous_tpu.serve import ServeConfig as JaxServeConfig
-from igneous_tpu_torch import Volume, device, secrets
+from igneous_tpu_torch import Volume, device
+from igneous_tpu_torch.analysis import knobs
 from igneous_tpu_torch.scripts import remap2npy, validate_provenance
 from igneous_tpu_torch.serve import ServeConfig
 
@@ -105,7 +106,7 @@ def test_serve_knobs_match_the_jax_registry():
   assert len(names) > 25
   for name in names:
     knob = jax_knobs._REGISTRY[name]
-    assert secrets.KNOBS[name] == (knob.type, knob.default), name
+    assert (knobs.KNOBS[name].type, knobs.KNOBS[name].default) == (knob.type, knob.default), name
 
 
 @pytest.mark.parametrize("env", [
@@ -114,7 +115,7 @@ def test_serve_knobs_match_the_jax_registry():
    "IGNEOUS_SERVE_WRITEBACK": "1", "IGNEOUS_SERVE_IO_THREADS": "3", "IGNEOUS_SERVE_DRAIN_SEC": "x"},
 ])
 def test_serve_config_from_env_as_jax(env, monkeypatch):
-  for name in list(secrets.KNOBS):
+  for name in list(knobs.KNOBS):
     if name.startswith("IGNEOUS_SERVE_"):
       monkeypatch.delenv(name, raising=False)
   for name, val in env.items():

@@ -501,27 +501,27 @@ def test_config_from_env_as_the_reference(monkeypatch):
 ])
 def test_knobs_parse_as_the_reference(name, value, monkeypatch):
   from igneous_tpu.analysis import knobs as jax_knobs
-  from igneous_tpu_torch import secrets
+  from igneous_tpu_torch.analysis import knobs
 
   monkeypatch.setenv(name, value)
-  kind = secrets.KNOBS[name][0]
+  kind = knobs.KNOBS[name].type
   get = {"int": "get_int", "float": "get_float", "bool": "get_bool", "str": "get_str"}[kind]
-  assert getattr(secrets, get)(name) == getattr(jax_knobs, get)(name)
+  assert getattr(knobs, get)(name) == getattr(jax_knobs, get)(name)
   assert kind == jax_knobs._lookup(name).type
 
 
 def test_every_campaign_knob_has_the_reference_default():
   from igneous_tpu.analysis import knobs as jax_knobs
-  from igneous_tpu_torch import secrets
+  from igneous_tpu_torch.analysis import knobs
 
-  names = [n for n in secrets.KNOBS
+  names = [n for n in knobs.KNOBS
            if n.startswith(("IGNEOUS_SPECULATE_", "IGNEOUS_STEAL", "IGNEOUS_CAMPAIGN_",
                             "IGNEOUS_SIM_", "IGNEOUS_AUTOSCALE_"))]
   assert set(names) == {k.name for k in jax_knobs._REGISTRY.values()
                         if k.section in ("campaign survival", "simulator", "autoscale")}
   for name in names:
     knob = jax_knobs._lookup(name)
-    assert secrets.KNOBS[name] == (knob.type, knob.default), name
+    assert (knobs.KNOBS[name].type, knobs.KNOBS[name].default) == (knob.type, knob.default), name
 
 
 def test_local_pool_spawns_the_port_worker(monkeypatch):
